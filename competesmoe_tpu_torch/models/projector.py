@@ -1,0 +1,78 @@
+"""Multimodal projector: MoE / linear / identity (port of
+competesmoe_tpu/models/projector.py; the mlpNx_gelu type waits)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from ..moe.config import MoEArgs
+from ..moe.layers import zero_aux
+from ..moe.registry import get_moe
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectorConfig:
+    projector_type: str = "moe"        # moe | linear | identity
+    mm_hidden_size: int = 1152
+    hidden_size: int = 3072
+    n_scales: int = 1
+    moe_name: str = "smoe"
+    num_experts: int = 4
+    num_selected: int = 2
+    moe_args: MoEArgs = MoEArgs()
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def mm_channels(self) -> int:
+        return self.mm_hidden_size * self.n_scales
+
+
+def _moe_layer(cfg: ProjectorConfig, device):
+    return get_moe(cfg.moe_name)(
+        cfg.mm_channels, cfg.hidden_size, n_experts=cfg.num_experts,
+        n_selected=cfg.num_selected, args=cfg.moe_args, device=device,
+        dtype=cfg.dtype)
+
+
+class MLPMoE(nn.Module):
+    """MoE projector: experts Linear(mm_channels, d) -> GELU -> Linear."""
+
+    def __init__(self, cfg: ProjectorConfig, device=None):
+        super().__init__()
+        self.moelayer = _moe_layer(cfg, device)
+
+    def forward(self, x, *, step=None, train=False, return_id_experts=False):
+        return self.moelayer(x, step=step, train=train,
+                             return_id_experts=return_id_experts)
+
+
+class VisionProjector(nn.Module):
+    """Dispatch on projector_type. Returns (y, MoEAux)."""
+
+    def __init__(self, cfg: ProjectorConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        t = cfg.projector_type
+        if t == "moe":
+            # named `moelayer` to match the released checkpoints' paths
+            self.moelayer = _moe_layer(cfg, device)
+        elif t == "linear":
+            self.fc = nn.Linear(cfg.mm_channels, cfg.hidden_size,
+                                device=device, dtype=cfg.dtype)
+        elif t != "identity":
+            raise NotImplementedError(
+                f"projector type {t!r} is not ported (mlpNx_gelu waits)")
+
+    def forward(self, x, *, step=None, train=False, return_id_experts=False):
+        t = self.cfg.projector_type
+        if t == "moe":
+            return self.moelayer(x, step=step, train=train,
+                                 return_id_experts=return_id_experts)
+        if t == "linear":
+            return self.fc(x), zero_aux(x)
+        return x, zero_aux(x)

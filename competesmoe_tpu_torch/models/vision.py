@@ -1,0 +1,187 @@
+"""SigLIP vision tower with MoE MLP blocks in PyTorch (port of the SigLIP
+part of competesmoe_tpu/models/vision.py).
+
+Pixel batches keep the JAX layout [B, H, W, C] at the public functions.
+The tower returns the hidden state ENTERING the last block (the
+reference's `encoder_states[-1]`), while the last block's aux losses
+still count. Linear weights use PyTorch's [out, in] layout; `convert`
+maps the flax kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from ..moe.config import MoEArgs
+from ..moe.layers import MoEAux, gelu_exact, gelu_tanh, quick_gelu, zero_aux
+from ..moe.registry import get_moe
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """SigLIP/CLIP vision-transformer geometry (HF config fields)."""
+
+    hidden_size: int = 1152            # siglip-so400m
+    intermediate_size: int = 4304
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    num_channels: int = 3
+    layer_norm_eps: float = 1e-6
+    hidden_act: str = "gelu_tanh"      # gelu_pytorch_tanh
+    use_cls_token: bool = False
+    tower_type: str = "siglip"
+    moe_name: Optional[str] = None     # None -> dense MLP blocks
+    num_experts: int = 4
+    num_selected: int = 2
+    moe_args: MoEArgs = MoEArgs()
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+
+def _act(name: str):
+    if name == "quick_gelu":
+        return quick_gelu
+    if name in ("gelu_tanh", "gelu_pytorch_tanh"):
+        return gelu_tanh
+    return gelu_exact
+
+
+def _expert_act(name: str) -> str:
+    if "tanh" in name:
+        return "gelu_tanh"
+    return "quick_gelu" if name == "quick_gelu" else "gelu"
+
+
+class VisionAttention(nn.Module):
+    """MHA with biased projections (HF SiglipAttention layout)."""
+
+    def __init__(self, cfg: VisionConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.q_proj = nn.Linear(d, d, **kw)
+        self.k_proj = nn.Linear(d, d, **kw)
+        self.v_proj = nn.Linear(d, d, **kw)
+        self.out_proj = nn.Linear(d, d, **kw)
+
+    def forward(self, x):
+        h = self.cfg.num_attention_heads
+        d = self.cfg.hidden_size
+        p = d // h
+        shape = (*x.shape[:-1], h, p)
+        q = self.q_proj(x).reshape(shape)
+        k = self.k_proj(x).reshape(shape)
+        v = self.v_proj(x).reshape(shape)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        probs = torch.softmax(scores * (p ** -0.5), dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
+                           v.float()).to(x.dtype)
+        return self.out_proj(out.reshape(*x.shape[:-1], d))
+
+
+class VisionMLP(nn.Module):
+    """fc1 -> act -> fc2 (HF SiglipMLP layout)."""
+
+    def __init__(self, cfg: VisionConfig, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.act = _act(cfg.hidden_act)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class VisionEncoderLayer(nn.Module):
+    """Pre-LN block; the MLP is dense or a registry MoE layer."""
+
+    def __init__(self, cfg: VisionConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.self_attn = VisionAttention(cfg, device)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size,
+                                        eps=cfg.layer_norm_eps, **kw)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size,
+                                        eps=cfg.layer_norm_eps, **kw)
+        if cfg.moe_name is not None:
+            self.moelayer = get_moe(cfg.moe_name)(
+                cfg.hidden_size, cfg.hidden_size,
+                n_experts=cfg.num_experts, n_selected=cfg.num_selected,
+                args=cfg.moe_args, expert_hidden_dim=cfg.intermediate_size,
+                expert_act=_expert_act(cfg.hidden_act), **kw)
+        else:
+            self.mlp = VisionMLP(cfg, device)
+
+    def forward(self, x, *, step=None, train=False, return_id_experts=False):
+        x = x + self.self_attn(self.layer_norm1(x))
+        h = self.layer_norm2(x)
+        if self.cfg.moe_name is not None:
+            out, aux = self.moelayer(h, step=step, train=train,
+                                     return_id_experts=return_id_experts)
+        else:
+            out, aux = self.mlp(h), zero_aux(h)
+        return x + out, aux
+
+
+class SiglipVisionEmbeddings(nn.Module):
+    """Conv patch embedding + learned positions, no CLS token."""
+
+    def __init__(self, cfg: VisionConfig, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=cfg.dtype)
+        self.patch_embedding = nn.Conv2d(
+            cfg.num_channels, cfg.hidden_size, kernel_size=cfg.patch_size,
+            stride=cfg.patch_size, **kw)
+        self.position_embedding = nn.Parameter(
+            torch.empty(cfg.num_patches, cfg.hidden_size, **kw))
+
+    def forward(self, pixel_values):
+        """pixel_values: [B, H, W, C] -> [B, P, D]."""
+        w = self.patch_embedding.weight
+        patches = self.patch_embedding(
+            pixel_values.to(w.dtype).permute(0, 3, 1, 2))
+        patches = patches.flatten(2).transpose(1, 2)
+        return patches + self.position_embedding[None].to(patches.dtype)
+
+
+class SiglipSMoEVisionTower(nn.Module):
+    """SigLIP ViT with MoE MLP blocks; returns (features, mean aux loss,
+    per-layer aux list)."""
+
+    def __init__(self, cfg: VisionConfig, device=None):
+        super().__init__()
+        if cfg.tower_type != "siglip" or cfg.use_cls_token:
+            raise NotImplementedError("only the SigLIP tower is ported "
+                                      "(the CLIP tower waits)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embeddings = SiglipVisionEmbeddings(cfg, device)
+        self.layers = nn.ModuleList(VisionEncoderLayer(cfg, device)
+                                    for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, pixel_values, *, step=None, train=False,
+                return_id_experts=False):
+        x = self.embeddings(pixel_values)
+        penultimate = x
+        auxes: List[MoEAux] = []
+        for layer in self.layers:
+            penultimate = x
+            x, aux = layer(x, step=step, train=train,
+                           return_id_experts=return_id_experts)
+            auxes.append(aux)
+        total = sum((a.aux_loss for a in auxes),
+                    torch.zeros((), dtype=torch.float32, device=x.device))
+        return penultimate, total / max(len(auxes), 1), auxes

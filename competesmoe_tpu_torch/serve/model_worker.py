@@ -1,0 +1,267 @@
+"""Model worker: serves streaming generation from a PyTorch LLaVA model
+(port of the solo path of competesmoe_tpu/serve/model_worker.py).
+
+Stdlib HTTP: semaphore-limited streaming `/worker_generate_stream` (JSON
+chunks terminated by \\0, FastChat protocol), `/worker_get_status`,
+optional controller registration with a heartbeat thread. The batched
+DecodeEngine, tensor- and expert-parallel serving wait for later slices.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Iterator, List, Optional
+from urllib import request as urlrequest
+
+import numpy as np
+
+from ..constants import WORKER_HEART_BEAT_INTERVAL
+from ..multimodal.mm_utils import load_image_from_base64, process_images
+
+
+class ModelWorker:
+    def __init__(self, controller_addr: Optional[str], worker_addr: str,
+                 model_names: List[str], generate_fn,
+                 limit_model_concurrency: int = 5,
+                 register: bool = True):
+        """generate_fn(params: dict) -> iterator of partial text strings."""
+        self.controller_addr = controller_addr
+        self.worker_addr = worker_addr
+        self.worker_id = str(uuid.uuid4())[:6]
+        self.model_names = model_names
+        self.generate_fn = generate_fn
+        self.semaphore = threading.Semaphore(limit_model_concurrency)
+        self._queue_lock = threading.Lock()
+        self.queue_length = 0
+        self._hb_thread = None
+        if register and controller_addr:
+            self.register_to_controller()
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True)
+            self._hb_thread.start()
+
+    def get_status(self) -> dict:
+        return {"model_names": self.model_names, "speed": 1,
+                "queue_length": self.queue_length}
+
+    def register_to_controller(self) -> None:
+        data = {"worker_name": self.worker_addr, "check_heart_beat": True,
+                "worker_status": self.get_status()}
+        req = urlrequest.Request(
+            self.controller_addr + "/register_worker",
+            data=json.dumps(data).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urlrequest.urlopen(req, timeout=10) as r:
+            if r.status != 200:
+                raise RuntimeError(f"controller registration failed: "
+                                   f"HTTP {r.status}")
+
+    def _heartbeat_loop(self) -> None:
+        while True:
+            time.sleep(WORKER_HEART_BEAT_INTERVAL)
+            try:
+                data = {"worker_name": self.worker_addr,
+                        "queue_length": self.queue_length}
+                req = urlrequest.Request(
+                    self.controller_addr + "/receive_heart_beat",
+                    data=json.dumps(data).encode(), method="POST",
+                    headers={"Content-Type": "application/json"})
+                with urlrequest.urlopen(req, timeout=5) as r:
+                    if not json.loads(r.read()).get("exist", False):
+                        self.register_to_controller()
+            except OSError:
+                # controller unreachable: keep beating, it may come back
+                pass
+
+    def _add_queue(self, n: int) -> None:
+        with self._queue_lock:
+            self.queue_length += n
+
+    def generate_stream(self, params: dict) -> Iterator[bytes]:
+        self._add_queue(1)
+        acquired = self.semaphore.acquire(timeout=60)
+        try:
+            if not acquired:
+                yield json.dumps({"text": "server overloaded",
+                                  "error_code": 1}).encode() + b"\0"
+                return
+            for text in self.generate_fn(params):
+                yield json.dumps({"text": text,
+                                  "error_code": 0}).encode() + b"\0"
+        except Exception as e:  # noqa: BLE001 — report errors to client
+            yield json.dumps({"text": f"error: {e}",
+                              "error_code": 1}).encode() + b"\0"
+        finally:
+            if acquired:
+                self.semaphore.release()
+            self._add_queue(-1)
+
+
+def _stop_list(stop) -> list:
+    """Normalize params['stop'] to a list of strings."""
+    if not stop:
+        return []
+    if isinstance(stop, str):
+        return [stop]
+    return [s for s in stop if s]
+
+
+def _cut_at_stops(text: str, stops: list):
+    """Truncate at the EARLIEST stop occurrence; (text, hit)."""
+    hit = False
+    for s in stops:
+        i = text.find(s)
+        if i >= 0:
+            text = text[:i]
+            hit = True
+    return text, hit
+
+
+def torch_llava_generate_fn(adapter):
+    """A worker generate_fn over an eval.TorchLlava adapter: prompt and
+    optional base64 images in, incremental text out. Tokens stream as
+    `stream_generate` produces them; a client that disconnects abandons
+    the generator, which cancels the remaining decode steps."""
+    from ..models.llava import stream_generate
+
+    def fn(params: dict) -> Iterator[str]:
+        prompt = params["prompt"]
+        images = params.get("images") or []
+        max_new = int(params.get("max_new_tokens", 128))
+        temperature = float(params.get("temperature", 0.0))
+        top_p = float(params.get("top_p", 1.0))
+        spec = int(params.get("speculative", 0))
+        stops = _stop_list(params.get("stop"))
+        ids = adapter.tokenizer_ids_for_prompt(prompt, bool(images))
+        px = None
+        if images:
+            pil = [load_image_from_base64(b) for b in images]
+            px = process_images(pil, adapter.image_processor)
+        arr = np.asarray([ids], np.int32)
+        tokens: list = []
+        for chunk in stream_generate(
+                adapter.model, arr, px, max_new_tokens=max_new,
+                temperature=temperature, top_p=top_p,
+                eos_token_id=getattr(adapter.tokenizer, "eos_token_id",
+                                     None),
+                stop_token_ids=adapter.stop_token_ids, speculative=spec):
+            tokens.extend(int(t) for t in chunk[0])
+            text = adapter.tokenizer.decode(tokens,
+                                            skip_special_tokens=True)
+            text = text.split("<|end|>")[0]
+            text, hit = _cut_at_stops(text, stops)
+            yield text
+            if hit:
+                return
+    return fn
+
+
+def make_handler(worker: ModelWorker):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _json(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            data = json.loads(self.rfile.read(n) or b"{}")
+            if self.path == "/worker_get_status":
+                self._json(200, worker.get_status())
+            elif self.path == "/worker_generate_stream":
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "application/octet-stream")
+                self.end_headers()
+                for chunk in worker.generate_stream(data):
+                    self.wfile.write(chunk)
+                    self.wfile.flush()
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
+
+    return Handler
+
+
+def serve_worker(worker: ModelWorker, host: str = "0.0.0.0",
+                 port: int = 21002, background: bool = False):
+    """Serve the worker over HTTP. background=True returns the running
+    server (stop it with .shutdown() and .server_close())."""
+    httpd = ThreadingHTTPServer((host, port), make_handler(worker))
+    if background:
+        t = threading.Thread(target=httpd.serve_forever, daemon=True)
+        t.start()
+        return httpd
+    httpd.serve_forever()
+
+
+def main(argv=None):
+    """Worker launch CLI: build the model on the GPU (random weights from
+    --seed until the checkpoint loader is ported), optionally register
+    with a controller, serve."""
+    import argparse
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from ..eval.llava_adapter import TorchLlava
+    from ..models.builder import (HF_5P1B, apply_load_4bit, build_llava,
+                                  llava_config_from_hf)
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model-path", default=None,
+                    help="directory with an HF-style config.json "
+                         "(geometry only); default: CompeteSMoE-5.1B")
+    ap.add_argument("--model-name", default="competesmoe-5.1b")
+    ap.add_argument("--tokenizer", required=True,
+                    help="HF tokenizer directory (needs `transformers`)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--controller-address",
+                    default="http://localhost:21001")
+    ap.add_argument("--worker-address", default=None)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=21002)
+    ap.add_argument("--conv-template", default="phi35")
+    ap.add_argument("--limit-model-concurrency", type=int, default=5)
+    ap.add_argument("--max-new-tokens", type=int, default=256)
+    ap.add_argument("--load-4bit", action="store_true")
+    ap.add_argument("--kv-quant", default="", choices=["", "int8"])
+    ap.add_argument("--no-register", action="store_true")
+    a = ap.parse_args(argv)
+
+    hf_cfg = (json.loads((Path(a.model_path) / "config.json").read_text())
+              if a.model_path else HF_5P1B)
+    cfg = llava_config_from_hf(hf_cfg, a.model_name, torch.bfloat16)
+    if a.kv_quant:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, kv_quant=a.kv_quant))
+    model = build_llava(cfg, seed=a.seed, device=a.device)
+    if a.load_4bit:
+        apply_load_4bit(model)
+    from transformers import AutoTokenizer
+    tokenizer = AutoTokenizer.from_pretrained(a.tokenizer)
+    adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
+                         max_new_tokens=a.max_new_tokens)
+    worker = ModelWorker(
+        None if a.no_register else a.controller_address,
+        a.worker_address or f"http://localhost:{a.port}", [a.model_name],
+        torch_llava_generate_fn(adapter),
+        limit_model_concurrency=a.limit_model_concurrency)
+    print(f"worker {worker.worker_id} serving {a.model_name} on "
+          f"{a.host}:{a.port}", flush=True)
+    serve_worker(worker, a.host, a.port)
+
+
+if __name__ == "__main__":
+    main()
