@@ -3,19 +3,22 @@
 `from_jax_params(tree)` takes a flax param tree as nested dicts of numpy
 arrays (with or without the outer {"params": ...}) and returns a
 `state_dict` for the port's module of the same shape (LlavaModel,
-DecoderLM, a vision tower, a MoE layer, ...):
+DecoderLM, a vision tower, a MoE layer, the pretraining LM
+MoELanguageModel, ...):
 
   * flax Dense `kernel` [in, out]         -> nn.Linear `weight` [out, in]
   * flax Conv `kernel` [kh, kw, in, out]  -> nn.Conv2d `weight`
                                              [out, in, kh, kw]
   * flax LayerNorm `scale`                -> nn.LayerNorm `weight`
   * flax Embed `embedding`                -> nn.Embedding `weight`
-  * `layers_<i>`                          -> `layers.<i>`
+  * `layers_<i>`, `blocks_<i>`            -> `layers.<i>`, `blocks.<i>`
 
 Everything a kernel reads keeps the JAX layout and passes through as is:
 QuantDense `kernel_q` (packed [K/2, N] in int4 mode) and `scale`, the
 stacked experts `experts_w1` [E, in, h] etc., the MoE `gate_kernel`
-[in, E], RMSNorm `weight` and the vision `position_embedding`.
+[in, E], RMSNorm `weight`, the vision `position_embedding`, and the
+pretrain MoE's `keys` [E, d, ES], `values` [E, ES, d] and `w_gate` [E, d]
+(the layouts K1 reads).
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ def _tensor(a) -> torch.Tensor:
 
 def _name(key: str) -> str:
     m = _LAYER.match(key)
-    if m and m.group(1) == "layers":
-        return f"layers.{m.group(2)}"
+    if m and m.group(1) in ("layers", "blocks"):
+        return f"{m.group(1)}.{m.group(2)}"
     return key
 
 

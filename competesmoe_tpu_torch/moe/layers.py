@@ -135,8 +135,9 @@ class SMoELayer(MoeLayerBase):
 @register_moe("competesmoe")
 class CompeteSMoELayer(MoeLayerBase):
     """CompeteSMoE. Serving (train=False) always takes the learned-router
-    branch, which is what this slice ports; the competition step on
-    scheduled flip steps comes with the training slice."""
+    branch, which is what is ported here; the multimodal tree's
+    competition step comes with multimodal training (the pretrain tree's
+    is in `pretrain_layers.PretrainCompeteSMoE`)."""
 
     def __init__(self, *args, flip_schedule=None, step_warm: int = 0,
                  **kwargs):
@@ -149,8 +150,8 @@ class CompeteSMoELayer(MoeLayerBase):
         schedule = flips if flips is not None else self.flip_schedule
         if train and step is not None and schedule is not None:
             raise NotImplementedError(
-                "CompeteSMoE's competition step is not ported yet "
-                "(ROADMAP: LM training slice, K1 forward+backward)")
+                "the multimodal CompeteSMoE competition step is not ported "
+                "yet (ROADMAP open item 1.1, multimodal training)")
         logits = self.gate_logits(x)
         gate_weights, gate_sel, gate_softmax = R.topk_softmax(
             logits, self.n_selected)

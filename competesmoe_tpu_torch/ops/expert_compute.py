@@ -1,17 +1,20 @@
-"""Expert computation for 2-layer Linear/act/Linear experts (port of the
-single-device part of competesmoe_tpu/ops/expert_compute.py).
+"""Expert computation (port of the single-device part of
+competesmoe_tpu/ops/expert_compute.py): 2-layer Linear/act/Linear experts
+(the multimodal tree) and MoEUT-style stacked keys/values experts (the
+pretrain tree).
 
-Two paths, picked exactly as in JAX: compute ALL experts densely and
-gather the top-k when E <= 2k (the multimodal tree: 4 experts, top-2), else
-sort the token slots by expert and run one GEMM per expert over its
-contiguous slice. Contractions accumulate in float32 and cast back to the
-input dtype, as JAX's `preferred_element_type=float32` does.
+Paths, picked exactly as in JAX: compute ALL experts densely and gather
+the top-k when E <= 2k, else sort the token slots by expert and run one
+GEMM per expert over its contiguous slice; for keys/values experts on
+CUDA tensors, `impl='fused'` takes the K1 pipeline of `gmm_fused.py` or
+raises where JAX's rule refuses the experts. Contractions accumulate in float32 and cast back to the input
+dtype, as JAX's `preferred_element_type=float32` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -129,3 +132,102 @@ def moe_ffn_mlp2(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
     raise NotImplementedError(
         f"impl={impl!r} is not ported (the expert-parallel 'ep' path waits "
         "for the parallelism slice)")
+
+
+# ---------------------------------------------------------------------------
+# Keys/values experts (the pretrain tree)
+# ---------------------------------------------------------------------------
+
+def dense_all_experts_kv(x: torch.Tensor, keys: torch.Tensor,
+                         values: torch.Tensor, activation: Activation,
+                         b1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run ALL experts on every token. x: [T, d]; keys: [E, d, e];
+    values: [E, e, v] -> [T, E, v]. h is rounded to x's dtype before the
+    bias and the activation, as in JAX."""
+    h = torch.einsum("td,edh->teh", x.float(), keys.float()).to(x.dtype)
+    if b1 is not None:
+        h = h + b1[None].to(h.dtype)
+    h = activation(h)
+    out = torch.einsum("teh,ehv->tev", h.float(), values.float())
+    return out.to(x.dtype)
+
+
+def grouped_ffn_kv(x: torch.Tensor, sel: torch.Tensor,
+                   weights: torch.Tensor, keys: torch.Tensor,
+                   values: torch.Tensor, activation: Activation,
+                   b1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparse MoE FFN with stacked keys/values: sort the slots by expert,
+    one GEMM pair per expert over its contiguous slice (h rounded to x's
+    dtype, as ragged_dot's output), then an inverse-permutation gather and
+    a weighted per-token reduce. x: [T, d]; sel/weights: [T, k] -> [T, v].
+    Differentiable."""
+    T, k = sel.shape
+    gs = sort_by_expert(sel, keys.shape[0])
+    sizes = gs.group_sizes.tolist()
+    # torch.split, not slicing: its backward is one concatenation, where
+    # each slice's backward would write a full-size zero gradient
+    parts = []
+    for e, xe in enumerate(x[gs.token_ids].split(sizes)):
+        if sizes[e]:
+            h = _mm_f32(xe, keys[e])
+            if b1 is not None:
+                h = h + b1[e].to(h.dtype)
+            parts.append(_mm_f32(activation(h), values[e]))
+    o = torch.cat(parts)[gs.inv_perm].reshape(T, k, -1)
+    out = torch.einsum("tkv,tk->tv", o.float(), weights.to(o.dtype).float())
+    return out.to(x.dtype)
+
+
+def moe_ffn_kv(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
+               keys: torch.Tensor, values: torch.Tensor,
+               activation: Activation, b1: Optional[torch.Tensor] = None,
+               impl: str = "auto") -> torch.Tensor:
+    """MoE FFN dispatcher (keys/values experts): impl 'auto' | 'dense' |
+    'grouped' | 'fused' (competesmoe_tpu/ops/expert_compute.py:275-311).
+    'fused' on CUDA tensors runs K1 (`gmm_fused.fused_grouped_ffn_kv`),
+    and raises NotImplementedError with the reason where JAX's rule
+    (`gmm_fused.fused_path_refusal`) refuses the experts; on CPU tensors
+    it takes 'grouped', as JAX does off the TPU. 'auto' is dense when
+    E <= 2k, else grouped."""
+    if impl == "ep":
+        raise NotImplementedError(
+            "impl='ep' (expert-parallel all-to-all) is not ported: ROADMAP "
+            "open item 1.7, parallelism")
+    if impl == "fused" and x.device.type == "cuda":
+        from .gmm_fused import fused_grouped_ffn_kv, fused_path_refusal
+        why = fused_path_refusal(x, keys, activation, b1)
+        if why is not None:
+            raise NotImplementedError(
+                f"impl='fused' cannot run K1 here: {why}; use impl "
+                f"'grouped' or 'dense'")
+        return fused_grouped_ffn_kv(x, sel, weights, keys, values)
+    if impl == "fused":
+        impl = "grouped"
+    if impl == "auto":
+        impl = "dense" if keys.shape[0] <= 2 * sel.shape[-1] else "grouped"
+    if impl == "dense":
+        outs = dense_all_experts_kv(x, keys, values, activation, b1=b1)
+        return combine_topk(outs, sel, weights)
+    if impl == "grouped":
+        return grouped_ffn_kv(x, sel, weights, keys, values, activation,
+                              b1=b1)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def competition_all_experts_kv(x: torch.Tensor, keys: torch.Tensor,
+                               values: torch.Tensor, activation: Activation,
+                               topk: int, b1: Optional[torch.Tensor] = None,
+                               impl: str = "auto"):
+    """CompeteSMoE competition step: x [T, d] -> (affinity [T, E],
+    topk_outputs [T, k, v], sel [T, k]). affinity = mean(softplus(expert
+    output)) per expert; sel = top-k of the affinity, ties toward the
+    lower index."""
+    if impl == "ep":
+        raise NotImplementedError(
+            "impl='ep' (expert-parallel competition) is not ported: "
+            "ROADMAP open item 1.7, parallelism")
+    from .routing import top_k
+    outs = dense_all_experts_kv(x, keys, values, activation, b1=b1)
+    affinity = F.softplus(outs).mean(dim=-1)
+    _, sel = top_k(affinity, topk)
+    return affinity, gather_topk_outputs(outs, sel), sel

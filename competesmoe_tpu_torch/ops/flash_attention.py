@@ -1,0 +1,195 @@
+"""Causal flash attention, forward and backward (kernel K2 of the port).
+
+Replaces the Pallas TPU flash attention that JAX's `FastRopeAttention`
+calls with attn_backend='flash' (`jax.experimental.pallas.ops.tpu.
+flash_attention`: `_flash_attention_impl`, `_flash_attention_bwd_dkv`,
+`_flash_attention_bwd_dq`). Layout [B, h, T, p], causal, with
+`sm_scale = 1/sqrt(p)` by default.
+
+Three wrappers, one per kernel of `csrc/flash_attn.cu` (built by
+`_kernels.py`), each with its own launch count:
+
+  flash_attention_fwd      (q, k, v)                  -> (o, lse)
+  flash_attention_bwd_dkv  (q, k, v, do, lse, delta)  -> (dk, dv)
+  flash_attention_bwd_dq   (q, k, v, do, lse, delta)  -> dq
+
+where lse is the row log-sum-exp of the scaled, masked scores and
+delta = rowsum(do * o) (plain PyTorch, as the TPU backward computes it
+outside its kernels). CUDA tensors (bf16) go to the kernels; CPU tensors
+take the plain versions below, which compute the same functions in
+float32. `flash_attention` is the differentiable entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _kernels
+
+
+def _causal_scores(q, k, sm_scale):
+    """float32 scaled scores with the positions above the diagonal at
+    -inf."""
+    T = q.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def flash_attention_fwd_reference(q, k, v, sm_scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward: softmax in float32, the probabilities rounded to
+    v's dtype before the product (as the einsum path rounds them), the
+    product summed in float32. Returns (o in q's dtype, lse float32)."""
+    s = _causal_scores(q, k, sm_scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]).to(v.dtype)
+    o = torch.matmul(p.float(), v.float()).to(q.dtype)
+    return o, lse
+
+
+def _bwd_reference(q, k, v, do, lse, delta, sm_scale):
+    """Plain backward from the saved lse, in float32:
+    P = exp(S - lse), dV = P^T dO, dS = P * (dO V^T - delta) * scale,
+    dQ = dS K, dK = dS^T Q."""
+    p = torch.exp(_causal_scores(q, k, sm_scale) - lse[..., None])
+    dof = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq, dk, dv
+
+
+def _bind(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, f, p]
+    lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f,
+                                         p]
+    lib.flash_bwd_dq_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
+    for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch,
+               lib.flash_bwd_dq_launch):
+        fn.restype = ctypes.c_int
+
+
+def _check(tensors, rows=()):
+    """CUDA operands: bf16 [B, h, T, p] of one shape (p <= 128) and
+    float32 [B, h, T] rows, all contiguous on one device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in
+                                 (*tensors, *rows)):
+        raise ValueError("flash attention operands must share one CUDA "
+                         "device")
+    if any(t.dtype != torch.bfloat16 for t in tensors) or any(
+            r.dtype != torch.float32 for r in rows):
+        raise TypeError(f"expected bf16 q/k/v/do and f32 lse/delta; got "
+                        f"{[t.dtype for t in (*tensors, *rows)]}")
+    shape = tensors[0].shape
+    if len(shape) != 4 or shape[-1] > 128 or any(
+            t.shape != shape for t in tensors) or any(
+            r.shape != shape[:3] for r in rows):
+        raise ValueError(f"expected [B, h, T, p] operands with p <= 128 "
+                         f"and [B, h, T] rows; got "
+                         f"{[tuple(t.shape) for t in (*tensors, *rows)]}")
+    if not all(t.is_contiguous() for t in (*tensors, *rows)):
+        raise ValueError("flash attention operands must be contiguous")
+    B, h, T, p = shape
+    return dev, B * h, T, p
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, h, T, p], lse [B, h, T] float32)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, sm_scale)
+    dev, bh, T, p = _check((q, k, v))
+    lib = _kernels.load("flash_attn", _bind)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              o.data_ptr(), lse.data_ptr(), bh, T, p,
+                              float(sm_scale),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(rc, "flash attention forward")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        _, dk, dv = _bwd_reference(q, k, v, do, lse, delta, sm_scale)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    dev, bh, T, p = _check((q, k, v, do), (lse, delta))
+    lib = _kernels.load("flash_attn", _bind)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = lib.flash_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+        T, p, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(rc, "flash attention dK/dV")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float
+                           ) -> torch.Tensor:
+    """dq in q's dtype."""
+    if q.device.type == "cpu":
+        dq, _, _ = _bwd_reference(q, k, v, do, lse, delta, sm_scale)
+        return dq.to(q.dtype)
+    dev, bh, T, p = _check((q, k, v, do), (lse, delta))
+    lib = _kernels.load("flash_attn", _bind)
+    dq = torch.empty_like(q)
+    rc = lib.flash_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, T, p,
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(rc, "flash attention dQ")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         ctx.sm_scale)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.sm_scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable causal attention on [B, h, T, p]."""
+    if not causal:
+        raise NotImplementedError("only causal flash attention is ported "
+                                  "(the LM's only use)")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), sm_scale)

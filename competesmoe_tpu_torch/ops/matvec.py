@@ -5,9 +5,10 @@ competesmoe_tpu/ops/matvec.py).
 [K//2, N] * scale[N] -> [M, N]: `x[:, :K/2] @ lo + x[:, K/2:] @ hi` with
 sign-extended nibbles, float32 accumulation and the per-output scale in
 the epilogue. On a CUDA tensor it launches the hand-written Hopper kernel
-in `csrc/matvec_int4.cu` (built with nvcc at first use, bound with
-ctypes); on a CPU tensor it runs `quant_small_m_matmul_int4_reference`,
-the plain PyTorch version of the same arithmetic.
+in `csrc/matvec_int4.cu` (built with nvcc at first use by `_kernels.py`,
+bound with ctypes); on a CPU tensor it runs
+`quant_small_m_matmul_int4_reference`, the plain PyTorch version of the
+same arithmetic.
 
 The viability rules (`MAX_QUANT_M`, `_BLOCK_K`, `_BLOCK_N`, `_m_ok`,
 `small_m_viable_int4`) are kept exactly as in JAX, so the same shapes
@@ -18,15 +19,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
+
+from .. import _kernels
 
 MAX_SMALL_M = 32
 MAX_QUANT_M = 128
@@ -77,78 +73,19 @@ def quant_small_m_matmul_int4_reference(x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Build and bind the CUDA kernel
+# Bind the CUDA kernel (built by competesmoe_tpu_torch/_kernels.py)
 # ---------------------------------------------------------------------------
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "matvec_int4.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-_LIB = None
-_LIB_LOCK = threading.Lock()
 # K-split geometry of csrc/matvec_int4.cu
 _KERNEL_BLOCK_N = 256
 _KERNEL_ROW_STEP = 16          # K-lanes * unroll
 _KERNEL_MAX_CHUNK = 256
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the int4 decode kernel is built "
-                       "from csrc/matvec_int4.cu at first use")
-
-
-def _library_path() -> Path:
-    """Where the built kernel lives: keyed by the hash of its source and
-    flags, so an edited source rebuilds."""
-    h = hashlib.sha256(_SOURCE.read_bytes()
-                       + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"libmatvec_int4_{h}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/matvec_int4.cu into a shared library (once per source
-    hash). The library is written to a temporary name and renamed into
-    place, so concurrent builders never load a partial file."""
-    out = _library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS]
-    if verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += ["-o", tmp, str(_SOURCE)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _lib():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p = ctypes.c_void_p
-            i = ctypes.c_int
-            lib.qmm4_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-            lib.qmm4_launch.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.qmm4_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.qmm4_launch.restype = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,7 +130,7 @@ def quant_small_m_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
             and scale.is_contiguous()) or w_packed.data_ptr() % 16:
         raise ValueError("x, w_packed and scale must be contiguous and "
                          "w_packed 16-byte aligned")
-    lib = _lib()
+    lib = _kernels.load("matvec_int4", _bind)
     splits, chunk = _split_k(k2, n, _sm_count(x.device.index))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
@@ -203,9 +140,7 @@ def quant_small_m_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
         partial.data_ptr() if partial is not None else None,
         out.data_ptr(), m, k2, n, splits, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int4 matvec kernel launch failed: CUDA error "
-                           f"{rc}")
+    _kernels.check(rc, "int4 matvec")
     quant_small_m_matmul_int4.launches += 1
     return out
 

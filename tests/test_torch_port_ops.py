@@ -322,7 +322,7 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "competesmoe_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "chip_faults.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
