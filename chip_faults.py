@@ -3,9 +3,10 @@
 
     python3 chip_faults.py
 
-Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2, or
-csrc/gmm2_fused.cu, K1), compiled from an edited copy in a temporary
-directory; the checkout's sources are not touched. The script
+Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
+csrc/gmm2_fused.cu, K1, or csrc/matvec_small_m.cu, K3 and K4), compiled
+from an edited copy in a temporary directory; the checkout's sources are
+not touched. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -18,7 +19,12 @@ directory; the checkout's sources are not touched. The script
        (2^-6 or 2^-5 x the largest |plain|);
      - the K1 fault: `k1_compare` at the 154M layer shape;
      - small-LM faults: `small_lm_gaps` of 3 steps (seed 0) against the
-       CPU.
+       CPU;
+     - K3 and K4 faults: `small_m_compare` at the four decode projection
+       shapes (M 1 and 8, and 40 for K4), and `small_engine_check`, the
+       small served model's card-vs-CPU logits and engine streams (bf16
+       for K3, int8 for K4); both checks also run on the honest kernels
+       first.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -74,7 +80,24 @@ FAULTS = {
           "vals[t] = __float2bfloat16_rn(e == 0 ? 0.0f : "
           "stage[r * 16 + c + t]);")],
         ("k1", "small_lm")),
+    "k3_skips_last_k_split": (
+        "matvec_small_m",
+        [("  const int kend = min(K, kbeg + chunk);\n\n"
+          "  float acc[MT][kOutPerWarp];",
+          "  const int kend = split > 0 && split == (int)gridDim.y - 1\n"
+          "                       ? kbeg : min(K, kbeg + chunk);\n\n"
+          "  float acc[MT][kOutPerWarp];")],
+        ("k3", "small_engine_bf16")),
+    "k4_scale_twice": (
+        "matvec_small_m",
+        [("out[row * N + n] = __float2bfloat16(s * scale[n]);",
+          "out[row * N + n] = __float2bfloat16(s * scale[n] * scale[n]);"),
+         ("if (scale != nullptr) s *= scale[i % N];",
+          "if (scale != nullptr) s *= scale[i % N] * scale[i % N];")],
+        ("k4", "small_engine_int8")),
 }
+# K3/K4 shapes of the kernel check: the decode projections at these M
+K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40)}
 SEEDS = range(5)
 
 
@@ -104,11 +127,13 @@ def use_library(src: str, path=None):
     from competesmoe_tpu_torch import _kernels
     from competesmoe_tpu_torch.ops import flash_attention as fa
     from competesmoe_tpu_torch.ops import gmm_fused as gf
+    from competesmoe_tpu_torch.ops import matvec as mv
 
     _kernels._LIBS.pop(src, None)
     if path is not None:
         lib = ctypes.CDLL(str(path))
-        {"flash_attn": fa._bind, "gmm2_fused": gf._bind}[src](lib)
+        {"flash_attn": fa._bind, "gmm2_fused": gf._bind,
+         "matvec_small_m": mv._bind_small_m}[src](lib)
         _kernels._LIBS[src] = lib
 
 
@@ -128,6 +153,29 @@ def k2_inputs():
         q, k, v, do = (torch.randn(B, h, T, p, generator=g, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
         yield (B, h, T, p), (q, k, v, do, p ** -0.5)
+
+
+def k34_rows(name: str):
+    """`small_m_compare` at the decode projection shapes: one row per shape
+    and M, with ok = (max_abs_err <= tol)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for label, k, n in cs.DECODE_SHAPES:
+        for m in K34_CHECK_M[name]:
+            err, tol, _, _ = cs.small_m_compare(name, g, m, k, n)
+            rows.append(dict(proj=label, m=m, max_abs_err=err, tol=tol,
+                             ok=err <= tol))
+    return rows
+
+
+def small_engine_ok(kind: str):
+    """(passed, message) of chip_smoke's small served-model check."""
+    try:
+        cs.small_engine_check(kind, 0)
+        return True, "passes"
+    except AssertionError as e:
+        return False, str(e)[:160]
 
 
 def main():
@@ -175,6 +223,17 @@ def main():
                f"{max(d['grad_gap'] for d in hs):.3g} (tol "
                f"{cs.SMALL_LM_GRAD_TOL})")
 
+        for name, kind in (("small_m_matmul", "bf16"),
+                           ("quant_small_m_matmul", "int8")):
+            rows = k34_rows(name)
+            ok, msg = small_engine_ok(kind)
+            report[f"honest_{name}"] = dict(rows=rows, small_engine=msg)
+            worst = max(r["max_abs_err"] / r["tol"] for r in rows)
+            cs.log(f"honest {name}: worst {worst:.3g} of its tolerance; "
+                   f"small {kind} engine check {msg}")
+            if not (ok and all(r["ok"] for r in rows)):
+                failures.append(f"honest {name}: {rows} {msg}")
+
         for name, (src, _, checks) in FAULTS.items():
             use_library(src, libs[name])
             failed, rows = {}, {}
@@ -204,6 +263,23 @@ def main():
                 cs.log(f"{name}: small LM loss gaps {_g(gaps, 'loss_gap')}, "
                        f"grad_norm gaps {_g(gaps, 'grad_gap')} -> "
                        f"{_verdict(not failed['small_lm'])}")
+            for check, kernel in (("k3", "small_m_matmul"),
+                                  ("k4", "quant_small_m_matmul")):
+                if check in checks:
+                    rows[check] = k34_rows(kernel)
+                    failed[check] = not all(r["ok"] for r in rows[check])
+                    worst = max(r["max_abs_err"] / r["tol"]
+                                for r in rows[check])
+                    cs.log(f"{name}: {kernel} worst {worst:.3g} of its "
+                           f"tolerance -> {_verdict(not failed[check])}")
+            for kind in ("bf16", "int8"):
+                check = f"small_engine_{kind}"
+                if check in checks:
+                    ok, msg = small_engine_ok(kind)
+                    rows[check] = msg
+                    failed[check] = not ok
+                    cs.log(f"{name}: small {kind} engine check -> "
+                           f"{_verdict(ok)} ({msg})")
             use_library(src, None)
             report["faults"][name] = dict(failed=failed, **rows)
             for check, f in failed.items():

@@ -11,10 +11,15 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      on the card, timed on the device (CUDA graphs of launches, median of
      replays) beside its bound (bytes at 3.35 TB/s or operations at 989
      TFLOP/s bf16, whichever is larger):
-     - K5, the packed-int4 decode matmul, at the four decode projection
-       shapes of the 5.1B decoder, M in {1, 8} (tolerance one bf16 ulp at
-       the largest output, 2^-7 * max|ref|; launches rotate through
-       256 MB of weight copies, as decode reads its weights);
+     - the small-M decode matmuls at the four decode projection shapes
+       of the 5.1B decoder: K5 (packed int4) with M in {1, 8}, K3 (bf16)
+       with M in {1, 8, 32}, K4 (int8) with M in {1, 8, 32, 40, 128}, and
+       at other row counts for correctness only (3, 40 and 128 for K5; 3
+       and 17 for K3 and K4); tolerance one bf16 ulp at the largest output,
+       2^-7 * max|ref|; launches rotate through 256 MB of weight copies,
+       as decode reads its weights; torch.matmul (K3) and
+       torch._weight_int8pack_mm where this torch implements it on CUDA
+       (K4) as library yardsticks;
      - K1, the fused grouped ReLU double GEMM, at the 154M layer shape
        (65,536 tokens x top-8 over 64 experts of 128, skewed groups with
        empty experts; tolerance 2^-6 * max|ref|: the kernel rounds the f32
@@ -49,9 +54,22 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      32 layers per decode step;
   7. server: the model worker over HTTP on 127.0.0.1 answers three text
      prompts;
-  8. with --profile: torch.profiler over two more training steps and over
-     decode steps of the served model (device busy share and the kernels
-     that take the time).
+  8. batched serving (main path of the engine slice): a small model of
+     each served kind (bf16 with matvec_kernel: K3; --load-8bit with an
+     int8 KV cache: K4) runs the same 6 greedy requests through
+     DecodeEngine(n_slots=4, spec_k=2) on the card and on the CPU; then
+     CompeteSMoE-5.1B at full depth, random weights from --seed, through
+     DecodeEngine as the worker builds it (make_engine): (1) --load-8bit,
+     int8 KV, 8 slots, --speculative 4 (K4 at every decode and verify
+     projection), then the worker over HTTP with --engine-slots 4
+     --speculative 4 answering 3 concurrent requests; (2) bf16, 8 slots,
+     pipeline depth 2 (K3). Each takes 8 concurrent requests (2 with a
+     224 px image) and 4 more once slots retire, 32 new tokens each; K3 or
+     K4 launches must equal 4 x 32 x the forwards whose rows the kernel
+     takes, every other kernel 0;
+  9. with --profile: torch.profiler over two more training steps, over
+     decode steps of the served model and over engine ticks (device busy
+     share and the kernels that take the time).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The last lines are the kernels JSON, the card line
 and the result JSON.
@@ -59,6 +77,7 @@ and the result JSON.
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import socket
@@ -109,6 +128,10 @@ SMALL_LM_GRAD_TOL = 2e-3
 KERNELS = {
     "quant_small_m_matmul_int4": ("competesmoe_tpu_torch/csrc/matvec_int4.cu",
                                   "competesmoe_tpu/ops/matvec.py:144"),
+    "small_m_matmul": ("competesmoe_tpu_torch/csrc/matvec_small_m.cu",
+                       "competesmoe_tpu/ops/matvec.py:75"),
+    "quant_small_m_matmul": ("competesmoe_tpu_torch/csrc/matvec_small_m.cu",
+                             "competesmoe_tpu/ops/matvec.py:90"),
     "gmm2_fused_aligned": ("competesmoe_tpu_torch/csrc/gmm2_fused.cu",
                            "competesmoe_tpu/ops/gmm_fused.py:67"),
     "flash_attention_fwd": ("competesmoe_tpu_torch/csrc/flash_attn.cu",
@@ -136,6 +159,8 @@ def wrappers():
     from competesmoe_tpu_torch.ops import flash_attention as fa
     from competesmoe_tpu_torch.ops import gmm_fused, matvec
     return {"quant_small_m_matmul_int4": matvec.quant_small_m_matmul_int4,
+            "small_m_matmul": matvec.small_m_matmul,
+            "quant_small_m_matmul": matvec.quant_small_m_matmul,
             "gmm2_fused_aligned": gmm_fused.gmm2_fused_aligned,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
@@ -197,65 +222,6 @@ def time_launches(fn, args_list, reps: int) -> float:
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs) \
         / len(args_list)
-
-
-def phase_kernel(reps: int = 60):
-    import torch
-
-    from competesmoe_tpu_torch.models.decoder import pack_int4
-    from competesmoe_tpu_torch.ops.matvec import (
-        quant_small_m_matmul_int4, quant_small_m_matmul_int4_reference)
-
-    g = torch.Generator(device="cuda").manual_seed(1234)
-    rows, max_err = [], 0.0
-
-    def check(m, k, n, label, timed):
-        nonlocal max_err
-        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-        q = torch.randint(-8, 8, (k, n), generator=g, device="cuda",
-                          dtype=torch.int32).to(torch.int8)
-        w = pack_int4(q)
-        scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
-        got = quant_small_m_matmul_int4(x, w, scale)
-        want = quant_small_m_matmul_int4_reference(x, w, scale)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = 2.0 ** -7 * float(want.float().abs().max())
-        if not (got.shape == want.shape and err <= tol
-                and torch.isfinite(got.float()).all()):
-            raise AssertionError(f"K5 {label} M={m}: max_abs_err {err} > "
-                                 f"tol {tol}")
-        max_err = max(max_err, err)
-        if not timed:
-            return
-        wbytes = w.numel()
-        copies = [w] + [w.clone() for _ in range(
-            max(0, -(-256 * 2 ** 20 // wbytes) - 1))]
-        ms = time_launches(quant_small_m_matmul_int4,
-                           [(x, c, scale) for c in copies], reps)
-        plain_ms = time_launches(quant_small_m_matmul_int4_reference,
-                                 [(x, c, scale) for c in copies], reps)
-        nbytes = m * k * 2 + wbytes + n * 4 + m * n * 2
-        ops = 2 * m * k * n
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                    >= ops / BF16_OPS_PER_S else "operations")
-        rows.append(dict(proj=label, m=m, k=k, n=n, bytes=nbytes,
-                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         roofline_share=bound_ms / ms))
-        log(f"K5 {label:13s} M={m:<3d} [{k}x{n}] err {err:.3g} (tol "
-            f"{tol:.3g})  kernel {ms * 1e3:.2f} us  plain "
-            f"{plain_ms * 1e3:.2f} us  bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by})  {bound_ms / ms:.1%} of bound")
-        del copies
-
-    for label, k, n in DECODE_SHAPES:
-        for m in (1, 8):
-            check(m, k, n, label, timed=True)
-    for m in (3, 40, 128):     # the other row groupings of the kernel
-        check(m, 3072, 3072, "o_proj", timed=False)
-    return rows, max_err
 
 
 def k1_inputs(seed: int):
@@ -559,7 +525,8 @@ def small_lm_check():
         raise AssertionError(f"small LM: flip counts {flips} != [0, 2, 1]")
     want = {"gmm2_fused_aligned": sum(2 - f for f in flips),
             "flash_attention_fwd": 6, "flash_attention_bwd_dkv": 6,
-            "flash_attention_bwd_dq": 6, "quant_small_m_matmul_int4": 0}
+            "flash_attention_bwd_dq": 6, "quant_small_m_matmul_int4": 0,
+            "small_m_matmul": 0, "quant_small_m_matmul": 0}
     if counts != want:
         raise AssertionError(f"small LM launches {counts} != {want}")
     log(f"small LM: card launches {counts}")
@@ -609,7 +576,8 @@ def phase_lm(seed: int, steps: int = LM_STEPS):
             "flash_attention_fwd": L * steps,
             "flash_attention_bwd_dkv": L * steps,
             "flash_attention_bwd_dq": L * steps,
-            "quant_small_m_matmul_int4": 0}
+            "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+            "quant_small_m_matmul": 0}
     if counts != want:
         raise AssertionError(f"lm launches {counts} != {want}")
     ms = [r["timing/ms_per_step_wall"] for r in recs]
@@ -700,6 +668,49 @@ class WordTok:
                         if not (skip_special_tokens and int(i) < 3))
 
 
+SMALL_HF = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=4, mm_hidden_size=64,
+                vision_config=dict(hidden_size=64, intermediate_size=128,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=28, patch_size=14))
+
+
+def card_vs_cpu_logits(card, cpu, seed: int):
+    """A 12-token prompt with a 28 px image, prefilled and decoded for 4
+    greedy steps (the card's tokens feed both) on the card and on the CPU
+    from the same weights: (max |card - cpu| over the 5 logit rows,
+    tolerance 3% of the CPU's largest magnitude); a non-finite card logit
+    counts as an infinite error."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import KVCache
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 512, (1, 12))
+    ids[0, 3] = -200
+    px = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
+    logits, fed = {}, None
+    with torch.no_grad():
+        for key, model in (("card", card), ("cpu", cpu)):
+            dev = model.device
+            cache = KVCache.create(model.language_model.cfg, 1, 64, dev)
+            out = model(torch.as_tensor(ids, device=dev),
+                        torch.as_tensor(px, device=dev), cache=cache)
+            rows, feed = [out.logits[:, -1].float().cpu()], []
+            for i in range(4):
+                t = rows[-1].argmax(-1) if fed is None else fed[i]
+                feed.append(t)
+                out = model(t.to(dev)[:, None], None, cache=out.cache)
+                rows.append(out.logits[:, -1].float().cpu())
+            fed = feed
+            logits[key] = torch.stack(rows)
+    err = float((logits["card"] - logits["cpu"]).abs().max())
+    if not torch.isfinite(logits["card"]).all():
+        err = float("inf")
+    return err, 0.03 * float(logits["cpu"].abs().max())
+
+
 def small_model_check(seed: int):
     """A small model of the served kind (int4 decoder whose projections
     tile the kernel, int8 KV) on the card against the same weights on the
@@ -711,50 +722,22 @@ def small_model_check(seed: int):
 
     from competesmoe_tpu_torch.models.builder import (
         HF_5P1B, apply_load_4bit, build_llava, llava_config_from_hf)
-    from competesmoe_tpu_torch.models.decoder import KVCache
     from competesmoe_tpu_torch.models.llava import LlavaModel
     from competesmoe_tpu_torch.ops.matvec import quant_small_m_matmul_int4
 
-    small = dict(HF_5P1B, vocab_size=512, hidden_size=256,
-                 intermediate_size=512, num_hidden_layers=2,
-                 num_attention_heads=4, num_key_value_heads=4,
-                 mm_hidden_size=64,
-                 vision_config=dict(hidden_size=64, intermediate_size=128,
-                                    num_hidden_layers=2,
-                                    num_attention_heads=2, image_size=28,
-                                    patch_size=14))
-    cfg = llava_config_from_hf(small, "llava_phi", torch.bfloat16)
+    cfg = llava_config_from_hf(dict(HF_5P1B, **SMALL_HF), "llava_phi",
+                               torch.bfloat16)
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, kv_quant="int8"))
     cpu = apply_load_4bit(build_llava(cfg, seed=seed, device="cpu"))
     gpu = LlavaModel(cpu.cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(1, 512, (1, 12))
-    ids[0, 3] = -200
-    px = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
-    logits, fed = {}, None
     launches0 = quant_small_m_matmul_int4.launches
-    with torch.no_grad():
-        for name, model in (("cuda", gpu), ("cpu", cpu)):
-            dev = torch.device(name)
-            cache = KVCache.create(model.language_model.cfg, 1, 64, dev)
-            out = model(torch.as_tensor(ids, device=dev),
-                        torch.as_tensor(px, device=dev), cache=cache)
-            rows, feed = [out.logits[:, -1].float().cpu()], []
-            for i in range(4):   # the card's greedy tokens feed both
-                t = rows[-1].argmax(-1) if fed is None else fed[i]
-                feed.append(t)
-                out = model(t.to(dev)[:, None], None, cache=out.cache)
-                rows.append(out.logits[:, -1].float().cpu())
-            fed = feed
-            logits[name] = torch.stack(rows)
+    err, tol = card_vs_cpu_logits(gpu, cpu, seed)
     kernel_launches = quant_small_m_matmul_int4.launches - launches0
-    err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    tol = 0.03 * float(logits["cpu"].abs().max())
     log(f"small model (card vs CPU, 5 logit rows): max_abs_err {err:.4g} "
         f"tol {tol:.4g}; K5 launches on the card {kernel_launches}")
-    if not (torch.isfinite(logits["cuda"]).all() and err <= tol):
+    if not err <= tol:
         raise AssertionError(f"small model disagrees: {err} > {tol}")
     # prefill (15 rows) and each of the 4 decode steps: 4 projections x 2
     if kernel_launches != 4 * 2 * 5:
@@ -851,34 +834,48 @@ def profile_decode(model, seed: int, steps: int = 8):
     return _busy(prof, wall, steps, "decode")
 
 
-def phase_server(model):
-    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
-    from competesmoe_tpu_torch.ops.matvec import quant_small_m_matmul_int4
-    from competesmoe_tpu_torch.serve.model_worker import (
-        ModelWorker, serve_worker, torch_llava_generate_fn)
-
-    adapter = TorchLlava(model, WordTok(model.cfg.decoder.vocab_size),
-                         max_new_tokens=16)
+def start_worker(generate_fn, extra_status_fn=None):
+    """The model worker on a free port of 127.0.0.1, serving in the
+    background: (HTTP server, port)."""
+    from competesmoe_tpu_torch.serve.model_worker import (ModelWorker,
+                                                          serve_worker)
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
     worker = ModelWorker(None, f"http://127.0.0.1:{port}", ["smoke"],
-                         torch_llava_generate_fn(adapter), register=False)
-    httpd = serve_worker(worker, "127.0.0.1", port, background=True)
+                         generate_fn, register=False,
+                         extra_status_fn=extra_status_fn)
+    return serve_worker(worker, "127.0.0.1", port, background=True), port
+
+
+def post_stream(port: int, prompt: str, max_new_tokens: int = 16):
+    """One /worker_generate_stream request: its JSON chunks."""
+    req = urlrequest.Request(
+        f"http://127.0.0.1:{port}/worker_generate_stream",
+        data=json.dumps({"prompt": prompt,
+                         "max_new_tokens": max_new_tokens}).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    with urlrequest.urlopen(req, timeout=300) as r:
+        body = r.read()
+    return [json.loads(p) for p in body.split(b"\0") if p]
+
+
+def phase_server(model):
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    from competesmoe_tpu_torch.ops.matvec import quant_small_m_matmul_int4
+    from competesmoe_tpu_torch.serve.model_worker import (
+        torch_llava_generate_fn)
+
+    adapter = TorchLlava(model, WordTok(model.cfg.decoder.vocab_size),
+                         max_new_tokens=16)
+    httpd, port = start_worker(torch_llava_generate_fn(adapter))
     launches0 = quant_small_m_matmul_int4.launches
     try:
         for prompt in ("what color is the cat", "describe the image please",
                        "hello there how are you"):
-            req = urlrequest.Request(
-                f"http://127.0.0.1:{port}/worker_generate_stream",
-                data=json.dumps({"prompt": prompt,
-                                 "max_new_tokens": 16}).encode(),
-                method="POST", headers={"Content-Type": "application/json"})
             t0 = time.perf_counter()
-            with urlrequest.urlopen(req, timeout=300) as r:
-                body = r.read()
-            chunks = [json.loads(p) for p in body.split(b"\0") if p]
+            chunks = post_stream(port, prompt)
             if not chunks or any(c["error_code"] != 0 for c in chunks):
                 raise AssertionError(f"server error for {prompt!r}: "
                                      f"{chunks[-1:]}")
@@ -894,11 +891,507 @@ def phase_server(model):
         raise AssertionError("the worker's requests never launched K5")
 
 
+# the small-M decode matmuls: tag, the rows of x at which each is timed
+# at the four decode projections, and the rows checked for correctness
+# only at o_proj (other groupings of the kernels' 8-row blocks)
+SMALL_M = {"quant_small_m_matmul_int4": ("K5", (1, 8), (3, 40, 128)),
+           "small_m_matmul": ("K3", (1, 8, 32), (3, 17)),
+           "quant_small_m_matmul": ("K4", (1, 8, 32, 40, 128), (3, 17))}
+
+
+def _small_m_operands(name, g, m, k, n):
+    """x and the weight arguments of K5 (nibble-packed int4 [K/2, N] and
+    an f32 scale), K3 (the [K, N] view of a contiguous [N, K] bf16 matrix,
+    as the decoder passes weight.t()) or K4 (int8 [K, N] and an f32
+    scale)."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import pack_int4
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    if name == "small_m_matmul":
+        wt = torch.randn(n, k, generator=g, device="cuda").to(torch.bfloat16)
+        return x, (wt.t(),)
+    int4 = name == "quant_small_m_matmul_int4"
+    q = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n),
+                      generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
+    return x, (pack_int4(q) if int4 else q, scale)
+
+
+def _int8pack_mm():
+    """torch._weight_int8pack_mm as a K4 yardstick (x, int8 [N, K], bf16
+    scale [N]), or (None, why) where this torch lacks it on CUDA."""
+    import torch
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch has no _weight_int8pack_mm"
+    try:
+        fn(torch.zeros(8, 256, device="cuda", dtype=torch.bfloat16),
+           torch.zeros(256, 256, device="cuda", dtype=torch.int8),
+           torch.ones(256, device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"_weight_int8pack_mm on CUDA: {str(e).splitlines()[0]}"
+    return fn, ""
+
+
+def small_m_compare(name: str, g, m: int, k: int, n: int):
+    """K5, K3 or K4 against its plain version on fresh operands:
+    (max_abs_err, tol = 2^-7 * max|plain|, x, weight arguments); a wrong
+    shape counts as an infinite error."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import matvec
+    x, w = _small_m_operands(name, g, m, k, n)
+    got = getattr(matvec, name)(x, *w)
+    want = getattr(matvec, name + "_reference")(x, *w)
+    torch.cuda.synchronize()
+    err, top = rel_err(got, want)
+    if got.shape != want.shape:
+        err = float("inf")
+    return err, 2.0 ** -7 * top, x, w
+
+
+def phase_small_m(reps: int = 60):
+    """K5, K3 and K4 against their plain versions at the decode projection
+    shapes, timed beside their bounds, plain versions and library calls
+    (torch.matmul for K3, torch._weight_int8pack_mm for K4, none computes
+    K5's packed int4); the launches rotate through 256 MB of weight
+    copies, as decode reads its weights."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import matvec
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    int8pack, int8pack_why = _int8pack_mm()
+    if int8pack is None:
+        log(f"K4 library yardstick: n/a ({int8pack_why})")
+    rows, max_err = [], {name: 0.0 for name in SMALL_M}
+
+    def check(name, m, k, n, label, timed):
+        fn = getattr(matvec, name)
+        ref = getattr(matvec, name + "_reference")
+        err, tol, x, w = small_m_compare(name, g, m, k, n)
+        tag = SMALL_M[name][0]
+        if not err <= tol:
+            raise AssertionError(f"{tag} {label} M={m}: max_abs_err {err} > "
+                                 f"tol {tol}")
+        max_err[name] = max(max_err[name], err)
+        if not timed:
+            log(f"{tag} {label:13s} M={m:<3d} [{k}x{n}] err {err:.3g} "
+                f"(tol {tol:.3g}), correctness only")
+            return
+        store = w[0].t() if tag == "K3" else w[0]    # the weight's storage
+        copies = [store] + [store.clone() for _ in range(
+            max(0, -(-256 * 2 ** 20 // (store.numel() * store.element_size()))
+                - 1))]
+        args = [(x, c.t()) if tag == "K3" else (x, c, w[1]) for c in copies]
+        ms = time_launches(fn, args, reps)
+        plain_ms = time_launches(ref, args, reps)
+        lib_ms = None
+        if tag == "K3":
+            lib_ms = time_launches(torch.matmul, args, reps)
+        elif tag == "K4" and int8pack is not None:
+            s16 = w[1].to(torch.bfloat16)
+            lib_ms = time_launches(int8pack, [(x, c.t().contiguous(), s16)
+                                              for c in copies], reps)
+        wbytes = sum(t.numel() * t.element_size() for t in (store, *w[1:]))
+        nbytes = m * k * 2 + wbytes + m * n * 2
+        bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
+        rows.append(dict(kernel=name, proj=label, m=m, k=k, n=n,
+                         bytes=nbytes, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         roofline_share=bound_ms / ms))
+        lib = f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else "n/a"
+        log(f"{tag} {label:13s} M={m:<3d} [{k}x{n}] err {err:.3g} (tol "
+            f"{tol:.3g})  kernel {ms * 1e3:.2f} us  plain "
+            f"{plain_ms * 1e3:.2f} us  library {lib}  bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})  {bound_ms / ms:.1%} of "
+            f"bound")
+        del copies, args
+
+    for name, (_, timed_m, check_m) in SMALL_M.items():
+        for label, k, n in DECODE_SHAPES:
+            for m in timed_m:
+                check(name, m, k, n, label, timed=True)
+        for m in check_m:
+            check(name, m, 3072, 3072, "o_proj", timed=False)
+    return rows, max_err, int8pack_why
+
+
+def small_m_summary(rows, name, launches, max_err, m):
+    """One kernels-line row: one decoder layer's four projections at `m`
+    rows (1 for the solo decode step, 8 for the engine tick)."""
+    sel = [r for r in rows if r["kernel"] == name and r["m"] == m]
+    lib = [r["library_ms"] for r in sel]
+    return dict(name=name, launches=launches, max_abs_err=max_err,
+                ms=sum(r["ms"] for r in sel),
+                plain_ms=sum(r["plain_ms"] for r in sel),
+                bound_ms=sum(r["bound_ms"] for r in sel), bound_by="bytes",
+                library_ms=None if None in lib else sum(lib))
+
+
+class ForwardRows:
+    """Records (batch, length) of every forward of a decoder, from a
+    forward pre-hook: the forwards a phase must account for."""
+
+    def __init__(self, decoder):
+        self.rows = []
+        self._h = decoder.register_forward_pre_hook(self._hook,
+                                                    with_kwargs=True)
+
+    def _hook(self, module, args, kwargs):
+        x = args[0] if args and args[0] is not None else (
+            kwargs.get("input_ids") if kwargs.get("input_ids") is not None
+            else kwargs["inputs_embeds"])
+        self.rows.append((int(x.shape[0]), int(x.shape[1])))
+
+    def remove(self):
+        self._h.remove()
+
+
+def matvec_launches(decoder, rows) -> int:
+    """The K3/K4 launches the forwards `rows` [(B, T)] must make: one per
+    matvec projection and forward whose M = B*T its kernel takes."""
+    from competesmoe_tpu_torch.models.decoder import PallasDense, QuantDense
+    from competesmoe_tpu_torch.ops.matvec import (MAX_QUANT_M, MAX_SMALL_M,
+                                                  small_m_viable)
+    n = 0
+    for mod in decoder.modules():
+        if isinstance(mod, PallasDense):
+            k, out, cap = mod.in_features, mod.out_features, MAX_SMALL_M
+        elif (isinstance(mod, QuantDense) and mod.matvec_kernel
+              and mod.mode == "int8"):
+            k, out, cap = mod.in_features, mod.features, MAX_QUANT_M
+        else:
+            continue
+        n += sum(small_m_viable(b * t, k, out, max_m=cap) for b, t in rows)
+    return n
+
+
+def served_config(kind: str, small: bool):
+    """The 5.1B configuration (or its small geometry) with matvec_kernel:
+    'bf16' (K3) or 'int8' (--load-8bit semantics with an int8 KV cache:
+    K4)."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B,
+                                                      llava_config_from_hf)
+    cfg = llava_config_from_hf(dict(HF_5P1B, **SMALL_HF) if small
+                               else HF_5P1B, "llava_phi", torch.bfloat16)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, matvec_kernel=True,
+        kv_quant="int8" if kind == "int8" else None))
+
+
+def build_served(kind: str, seed: int, device: str, small: bool = False):
+    from competesmoe_tpu_torch.models.builder import (apply_load_8bit,
+                                                      build_llava)
+    model = build_llava(served_config(kind, small), seed=seed, device=device)
+    return apply_load_8bit(model) if kind == "int8" else model
+
+
+def engine_requests(rng, vocab: int, n_text: int, n_image: int,
+                    px_size: int, lengths=(20, 150)):
+    """Prompts whose n-grams repeat (so drafts hit): a random phrase of
+    3-6 tokens tiled to a length in `lengths`; image prompts are 48
+    tokens with the sentinel at position 8."""
+    out = []
+    for _ in range(n_image):
+        ids = rng.integers(3, vocab, 48).astype(np.int32)
+        ids[8] = -200
+        out.append((ids, rng.uniform(-1, 1, (1, px_size, px_size, 3))
+                    .astype(np.float32)))
+    for _ in range(n_text):
+        phrase = rng.integers(3, vocab, int(rng.integers(3, 7)))
+        out.append((np.resize(phrase, int(rng.integers(*lengths)))
+                    .astype(np.int32), None))
+    return out
+
+
+def drive_ticks(engine, reqs, max_new: int):
+    """Submit `reqs` to an engine with run_thread=False and tick until all
+    are done; returns each request's tokens."""
+    made = [engine._make_request(ids, px, max_new_tokens=max_new)
+            for ids, px in reqs]
+    for _ in range(100 * max_new):
+        if all(r.done for r in made):
+            break
+        engine._tick()
+    engine._tick()                     # deliver what a pipeline still holds
+    if not all(r.done for r in made):
+        raise AssertionError("engine did not finish its requests")
+    return [list(r.emitted) for r in made]
+
+
+def small_engine_check(kind: str, seed: int):
+    """A small model of the served kind (matvec_kernel; 'bf16' runs K3,
+    'int8' K4) on the card against the same weights on the CPU: decode
+    logits of a teacher-forced stream within 3% of their largest
+    magnitude; the same 6 greedy requests through DecodeEngine(n_slots=4,
+    spec_k=2) give equal streams, or, where they part, the CPU's top-2
+    margin at that step lies within that tolerance; the card's K3/K4
+    launches equal the count its forwards' shapes call for."""
+    import torch
+
+    from competesmoe_tpu_torch.models.llava import LlavaModel
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    name = "small_m_matmul" if kind == "bf16" else "quant_small_m_matmul"
+    cpu = build_served(kind, seed, "cpu", small=True)
+    gpu = LlavaModel(cpu.cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    counts0 = read_counts()
+    fw = ForwardRows(gpu.language_model)
+    err, tol = card_vs_cpu_logits(gpu, cpu, seed)
+    if not err <= tol:
+        raise AssertionError(f"small {kind} model disagrees: {err} > {tol}")
+
+    rng = np.random.default_rng(seed + 1)
+    reqs = engine_requests(rng, 512, 5, 1, 28, lengths=(10, 40))
+    streams = {}
+    for key, model in (("card", gpu), ("cpu", cpu)):
+        engine = DecodeEngine(model, n_slots=4, max_len=128, spec_k=2,
+                              run_thread=False)
+        streams[key] = drive_ticks(engine, reqs, 12)
+    parted = []
+    for (rids, rpx), a, b in zip(reqs, streams["card"], streams["cpu"]):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                raise AssertionError(f"stream lengths {len(a)} != {len(b)}")
+            continue
+        full = np.concatenate([rids, np.asarray(b[:j], np.int32)])[None]
+        with torch.no_grad():
+            last = cpu(torch.as_tensor(full), None if rpx is None
+                       else torch.as_tensor(rpx)).logits[0, -1].float()
+        top2 = last.topk(2).values
+        margin = float(top2[0] - top2[1])
+        parted.append(dict(step=j, margin=margin))
+        if margin > tol:
+            raise AssertionError(f"small {kind} engine streams part at step "
+                                 f"{j} where the CPU's top-2 margin {margin}"
+                                 f" exceeds the logit tolerance {tol}")
+    fw.remove()
+    counts = {k: v - counts0[k] for k, v in read_counts().items()}
+    want = matvec_launches(gpu.language_model, fw.rows)
+    if counts[name] != want or sum(counts.values()) != want:
+        raise AssertionError(f"small {kind} model launches {counts}, "
+                             f"{name} must be {want}, the others 0")
+    log(f"small {kind} model (card vs CPU): logits max_abs_err {err:.4g} "
+        f"tol {tol:.4g}; engine (4 slots, spec_k 2, 6 requests): "
+        f"{sum(a == b for a, b in zip(streams['card'], streams['cpu']))}/6 "
+        f"streams equal, parted {parted}; {name} launches {want} over "
+        f"{len(fw.rows)} forwards")
+    return dict(kind=kind, max_abs_err=err, tol=tol, parted=parted,
+                launches=want)
+
+
+def phase_engine(kind: str, seed: int, new_tokens: int = 32):
+    """The engine slice's main path at full width: CompeteSMoE-5.1B
+    through DecodeEngine as the worker builds it. 'int8': --load-8bit,
+    int8 KV, 8 slots, --speculative 4 (pipeline 1); 'bf16': 8 slots,
+    pipeline 2. 8 requests from threads at once (2 with an image; 6
+    greedy, one at temperature 0.7, one at 0.7 with top_p 0.9), then 4
+    more once a slot retires; `new_tokens` each."""
+    import threading
+
+    import torch
+
+    from competesmoe_tpu_torch.serve.model_worker import make_engine
+
+    name = "small_m_matmul" if kind == "bf16" else "quant_small_m_matmul"
+    spec = 4 if kind == "int8" else 0
+    t0 = time.perf_counter()
+    model = build_served(kind, seed, "cuda")
+    torch.cuda.synchronize()
+    L = model.cfg.decoder.num_hidden_layers
+    log(f"engine {kind}: 5.1B built in {time.perf_counter() - t0:.1f} s; "
+        f"device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    vocab = model.cfg.decoder.vocab_size
+    rng = np.random.default_rng(seed + 7)
+    reqs = engine_requests(rng, vocab, 6, 2, 224)
+    reqs += engine_requests(rng, vocab, 4, 0, 224)
+    sampling = [(0.0, 1.0)] * 6 + [(0.7, 1.0), (0.7, 0.9)] + [(0.0, 1.0)] * 4
+    order = [2, 0, 3, 1, 4, 5, 6, 7, 8, 9, 10, 11]  # images among the first
+
+    engine = make_engine(model, 8, 512, speculative=spec, engine_pipeline=2)
+    # warm-up: one short request (lazy inits, the first kernel loads)
+    list(engine.submit(reqs[2][0][:24], max_new_tokens=4))
+    fw = ForwardRows(model.language_model)
+    results, first_done = {}, threading.Event()
+
+    def client(i):
+        ids, px = reqs[i]
+        temp, topp = sampling[i]
+        t_sub = time.perf_counter()
+        toks, t_first = [], None
+        for tok in engine.submit(ids, px, max_new_tokens=new_tokens,
+                                 temperature=temp, top_p=topp, eos_ids=[2]):
+            if t_first is None:
+                t_first = time.perf_counter()
+            toks.append(tok)
+        results[i] = dict(tokens=toks, ttft=t_first - t_sub,
+                          end=time.perf_counter())
+        first_done.set()
+
+    reset_counts()                           # main path starts here
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in order[:8]]
+    for th in threads:
+        th.start()
+    first_done.wait(timeout=600)
+    later = [threading.Thread(target=client, args=(i,)) for i in order[8:]]
+    for th in later:
+        th.start()
+    for th in threads + later:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    counts = read_counts()                   # main path ends here
+    fw.remove()
+    wall = max(r["end"] for r in results.values()) - t_start
+    stats = engine.stats()
+    engine.shutdown()
+    if engine.error is not None or len(results) != 12:
+        raise AssertionError(f"engine {kind}: error {engine.error!r}, "
+                             f"{len(results)} of 12 requests finished")
+    for i, r in results.items():
+        toks = r["tokens"]
+        if not toks or min(toks) < 0 or max(toks) >= vocab or not (
+                len(toks) == new_tokens
+                or (toks[-1] == 2 and len(toks) <= new_tokens)):
+            raise AssertionError(f"engine {kind}: request {i} bad stream "
+                                 f"{toks}")
+    want = matvec_launches(model.language_model, fw.rows)
+    if counts[name] != want or sum(counts.values()) != want:
+        raise AssertionError(f"engine {kind} launches {counts}: {name} must "
+                             f"be {want} (4 x {L} x viable forwards), the "
+                             f"others 0")
+    ticks = [(b, t) for b, t in fw.rows if b == 8]
+    n_tok = sum(len(r["tokens"]) for r in results.values())
+    ttft = sorted(r["ttft"] for r in results.values())
+    summary = dict(
+        kind=kind, slots=8, spec_k=spec, pipeline=engine._pipeline_depth,
+        requests=12, tokens=n_tok, wall_s=wall, tok_s=n_tok / wall,
+        ttft_p50_ms=statistics.median(ttft) * 1e3, ttft_max_ms=ttft[-1] * 1e3,
+        forwards=len(fw.rows), ticks=len(ticks),
+        verify_ticks=sum(t > 1 for _, t in ticks),
+        launches=counts[name],
+        launches_per_tick=matvec_launches(model.language_model, ticks)
+        / max(len(ticks), 1),
+        prefill_rows=sorted({b * t for b, t in fw.rows if b != 8}),
+        stats=stats)
+    log(f"engine {kind}: 12 requests, {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tok/s aggregate; TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
+        f"{len(ticks)} ticks ({summary['verify_ticks']} verify), "
+        f"{stats.get('engine_spec_tokens_per_step', 'n/a')} tokens per "
+        f"verify tick; {name} launches {counts[name]} = 4 x {L} x "
+        f"{want // (4 * L)} viable forwards "
+        f"({summary['launches_per_tick']:.1f} per tick); prefill rows "
+        f"{summary['prefill_rows']}")
+    return model, summary
+
+
+def profile_engine(model, kind: str, seed: int, ticks: int = 8):
+    """torch.profiler over `ticks` engine ticks of 8 live slots (driven in
+    this thread): host wall time per tick, device kernel time per tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    spec = 4 if kind == "int8" else 0
+    engine = DecodeEngine(model, n_slots=8, max_len=512, spec_k=spec,
+                          pipeline_depth=1 if spec else 2, run_thread=False)
+    rng = np.random.default_rng(seed + 9)
+    for ids, px in engine_requests(rng, model.cfg.decoder.vocab_size, 8, 0,
+                                   224, lengths=(20, 40)):
+        engine._make_request(ids, px, max_new_tokens=64)
+    with torch.no_grad():
+        for _ in range(3):
+            engine._tick()                    # admission and warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                engine._tick()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    engine.shutdown()
+    return _busy(prof, wall, ticks, f"engine {kind}")
+
+
+def phase_engine_server(model):
+    """The worker with --engine-slots 4 --speculative 4 over the
+    --load-8bit model, over HTTP: 3 concurrent requests."""
+    import threading
+
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    from competesmoe_tpu_torch.ops.matvec import quant_small_m_matmul
+    from competesmoe_tpu_torch.serve.model_worker import (engine_generate_fn,
+                                                          make_engine)
+
+    adapter = TorchLlava(model, WordTok(model.cfg.decoder.vocab_size),
+                         max_new_tokens=16, speculative=4)
+    engine = make_engine(model, 4, 512, speculative=4, engine_pipeline=2)
+    httpd, port = start_worker(engine_generate_fn(adapter, engine),
+                               engine.stats)
+    launches0 = quant_small_m_matmul.launches
+    prompts = ("what color is the cat what color is the cat",
+               "describe the image please describe the image",
+               "hello there how are you hello there how are you")
+    out = {}
+
+    def client(i):
+        t0 = time.perf_counter()
+        out[i] = (post_stream(port, prompts[i]), time.perf_counter() - t0)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.shutdown()
+    stats = engine.stats()
+    for i in range(3):
+        chunks, dt = out.get(i, ([], 0.0))
+        if not chunks or any(c["error_code"] != 0 for c in chunks):
+            raise AssertionError(f"engine server error for {prompts[i]!r}: "
+                                 f"{chunks[-1:]}")
+        log(f"engine server: {prompts[i][:24]!r}... -> {len(chunks)} chunks "
+            f"in {dt:.2f} s")
+    launches = quant_small_m_matmul.launches - launches0
+    log(f"engine server: K4 launches over the three requests {launches}; "
+        f"{stats}")
+    if launches == 0 or engine.error is not None:
+        raise AssertionError("the engine worker's requests never launched "
+                             "K4")
+
+
+def free_card():
+    """Return the memory of the models just deleted to the card: a model
+    still reachable from a reference cycle (the HTTP server's handler
+    closures) lives until the collector runs."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile training and decode steps")
+                    help="also profile training steps, decode steps and "
+                         "engine ticks")
     a = ap.parse_args()
 
     import torch
@@ -917,9 +1410,11 @@ def main():
     _kernels.build(verbose=True)
     log(f"build: {', '.join(_kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    k5_rows, k5_err = phase_kernel()
-    print("kernel_shapes " + json.dumps({"card": card, "rows": k5_rows}),
-          flush=True)
+    small_rows, small_err, int8pack_why = phase_small_m()
+    print("kernel_shapes " + json.dumps({
+        "card": card, "rows": small_rows,
+        "k4_library": int8pack_why or "torch._weight_int8pack_mm"}),
+        flush=True)
     k1 = phase_k1(a.seed)
     k2 = phase_k2(a.seed)
     small_lm_check()
@@ -927,7 +1422,7 @@ def main():
     if a.profile:
         lm["profile"] = profile_train(task)
     del task
-    torch.cuda.empty_cache()
+    free_card()
     print("lm_summary " + json.dumps(dict(lm, card=card)), flush=True)
     small_model_check(a.seed)
     model, k5_launches, summary = phase_model(a.seed)
@@ -936,14 +1431,25 @@ def main():
         summary["profile"] = profile_decode(model, a.seed)
     print("model_summary " + json.dumps(dict(summary, card=card)),
           flush=True)
-    m1 = [r for r in k5_rows if r["m"] == 1]
-    rows = [dict(
-        name="quant_small_m_matmul_int4", launches=k5_launches,
-        max_abs_err=k5_err,
-        # one decoder layer's four decode projections at M = 1
-        ms=sum(r["ms"] for r in m1), plain_ms=sum(r["plain_ms"] for r in m1),
-        bound_ms=sum(r["bound_ms"] for r in m1), bound_by="bytes",
-        library_ms=None)]
+    del model
+    free_card()
+    small = [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
+    engines = {}
+    for kind in ("int8", "bf16"):
+        model, engines[kind] = phase_engine(kind, a.seed)
+        if kind == "int8":
+            phase_engine_server(model)
+        if a.profile:
+            engines[kind]["profile"] = profile_engine(model, kind, a.seed)
+        del model
+        free_card()
+    print("engine_summary " + json.dumps(dict(small=small, card=card,
+                                              **engines)), flush=True)
+    rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
+            for name, launches, m in (
+                ("quant_small_m_matmul_int4", k5_launches, 1),
+                ("small_m_matmul", engines["bf16"]["launches"], 8),
+                ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
     for row in [k1] + [k2[n] for n in ("flash_attention_fwd",
                                        "flash_attention_bwd_dkv",
                                        "flash_attention_bwd_dq")]:

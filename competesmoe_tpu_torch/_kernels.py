@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("matvec_int4", "gmm2_fused", "flash_attn")
+SOURCES = ("matvec_int4", "matvec_small_m", "gmm2_fused", "flash_attn")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

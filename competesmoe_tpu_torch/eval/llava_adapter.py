@@ -15,8 +15,12 @@ class TorchLlava:
                  image_processor: Optional[ImageProcessorConfig] = None,
                  conv_template: str = "phi35", batch_size: int = 1,
                  max_new_tokens: int = 128,
-                 stop_token_ids: Optional[List[int]] = None):
+                 stop_token_ids: Optional[List[int]] = None,
+                 speculative: int = 0):
+        """speculative=K: generation verifies K prompt-lookup drafts per
+        forward (B == 1), as JAX's adapter does."""
         self.model = model
+        self.speculative = speculative
         self.tokenizer = tokenizer
         self.image_processor = image_processor or ImageProcessorConfig(
             size=model.cfg.vision.image_size)

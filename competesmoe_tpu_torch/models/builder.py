@@ -9,9 +9,13 @@ param trees:
   * `quantize_decoder_to_int8(decoder, bits)` swaps every decoder
     projection for a `QuantDense` (per-output-channel int8, or int4
     nibble-packed in the split-half layout; the lm_head stays int8);
+  * `quantize_int8_weight_only(module)` rounds every large 2-D weight onto
+    the per-output-channel int8 grid, storage dtype unchanged;
   * `quantize_nf4_weight_only(module)` rounds every large 2-D weight onto
     the NF4 grid with per-64-value absmax scales, in the flax [in, out]
     element order, storage dtype unchanged.
+`apply_load_8bit` and `apply_load_4bit` are the worker's `--load-8bit` and
+`--load-4bit`.
 """
 
 from __future__ import annotations
@@ -197,11 +201,15 @@ _DECODER_QUANT_MODULES = ("qkv_proj", "q_proj", "k_proj", "v_proj",
 @torch.no_grad()
 def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
                              ) -> nn.Module:
-    """Replace the decoder's projections (nn.Linear) by QuantDense in
-    place: per-output-channel symmetric int8, or with bits=4 int4 values
-    in [-7, 7] nibble-packed in the split-half layout (the lm_head stays
-    int8). Updates `decoder.cfg.quant`."""
+    """Replace the decoder's projections (nn.Linear, PallasDense among
+    them) by QuantDense in place: per-output-channel symmetric int8, or
+    with bits=4 int4 values in [-7, 7] nibble-packed in the split-half
+    layout (the lm_head stays int8). Every projection but the lm_head
+    keeps the decoder's `matvec_kernel`, as JAX's `_make_dense` passes it.
+    Updates `decoder.cfg.quant`."""
     qmax = 7 if bits == 4 else 127
+    matvec = bool(getattr(getattr(decoder, "cfg", None), "matvec_kernel",
+                          False))
     for parent in list(decoder.modules()):
         for name, child in list(parent.named_children()):
             if name not in _DECODER_QUANT_MODULES or \
@@ -215,7 +223,8 @@ def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
             qd = QuantDense(child.in_features, child.out_features,
                             mode="int4" if int4 else "int8",
                             use_bias=child.bias is not None,
-                            device=w.device, dtype=child.weight.dtype)
+                            device=w.device, dtype=child.weight.dtype,
+                            matvec_kernel=matvec and name != "lm_head")
             qd.kernel_q.copy_(pack_int4(q) if int4 else q)
             qd.scale.copy_(scale)
             if child.bias is not None:
@@ -225,6 +234,26 @@ def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
         decoder.cfg = dataclasses.replace(
             decoder.cfg, quant="int4" if bits == 4 else "int8")
     return decoder
+
+
+@torch.no_grad()
+def quantize_int8_weight_only(module: nn.Module, min_size: int = 1024
+                              ) -> nn.Module:
+    """Round every nn.Linear / nn.Embedding weight with at least
+    `min_size` values onto the per-output-channel symmetric int8 grid in
+    place (scale = max|w| over each flax [in, out] column / 127), storage
+    dtype unchanged, as the JAX builder's `quantize_int8_weight_only`."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)) and \
+                mod.weight.numel() >= min_size:
+            w = mod.weight.float()
+            # flax columns: a Linear's outputs (rows of weight [out, in]),
+            # an Embedding's features (columns of weight [vocab, dim])
+            dim = 1 if isinstance(mod, nn.Linear) else 0
+            scale = torch.clamp(w.abs().amax(dim=dim, keepdim=True) / 127.0,
+                                min=1e-12)
+            mod.weight.copy_(torch.round(w / scale).clamp(-127, 127) * scale)
+    return module
 
 
 _NF4_GRID = (-1.0, -0.6961928009986877, -0.5250730514526367,
@@ -269,6 +298,18 @@ def apply_load_4bit(model: LlavaModel) -> LlavaModel:
     quantize_decoder_to_int8(model.language_model, bits=4)
     quantize_nf4_weight_only(model.vision_tower)
     quantize_nf4_weight_only(model.mm_projector)
+    model.cfg = dataclasses.replace(model.cfg,
+                                    decoder=model.language_model.cfg)
+    return model
+
+
+def apply_load_8bit(model: LlavaModel) -> LlavaModel:
+    """The worker's `--load-8bit`: decoder to int8 QuantDense (lm_head
+    included), vision tower and projector int8 value-quantized. In
+    place."""
+    quantize_decoder_to_int8(model.language_model, bits=8)
+    quantize_int8_weight_only(model.vision_tower)
+    quantize_int8_weight_only(model.mm_projector)
     model.cfg = dataclasses.replace(model.cfg,
                                     decoder=model.language_model.cfg)
     return model

@@ -7,16 +7,19 @@ exact 1/sqrt, plain and Phi-3 longrope rotary tables, MHA/GQA with fused
 stacked KV cache (bf16 or int8 with per-(slot, head) scales) and
 weight-quantized projections (`QuantDense` int8 / packed int4).
 
-Every int4 projection at a decode shape goes through the Hopper kernel of
-`ops/matvec.py`; all other contractions are plain tensor code with float32
-accumulation, as JAX leaves them to XLA. The KV cache is updated in place
-(the JAX version returns a new buffer; here the in-place write saves a
-copy of the cache per step).
+Every int4 projection at a decode shape goes through K5 of
+`ops/matvec.py`. With `matvec_kernel`, the bf16 projections (`PallasDense`)
+go through K3 and the int8 ones (`QuantDense`) through K4 at the shapes
+the kernels take, on CUDA tensors. All other contractions are plain tensor
+code with float32 accumulation, as JAX leaves them to XLA. The KV cache
+is updated in place (the JAX version returns a new buffer; here the
+in-place write saves a copy of the cache per step).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -28,7 +31,9 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..moe.config import MoEArgs
 from ..moe.layers import MoEAux, zero_aux
-from ..ops.matvec import (quant_small_m_matmul_int4, small_m_viable_int4,
+from ..ops.matvec import (MAX_QUANT_M, quant_small_m_matmul,
+                          quant_small_m_matmul_int4, small_m_matmul,
+                          small_m_viable, small_m_viable_int4,
                           unpack_int4_halves)
 
 
@@ -115,7 +120,6 @@ def check_supported(cfg: DecoderConfig) -> None:
         "cache_layout='per_layer'": cfg.cache_layout != "stacked",
         "norm_folded": cfg.norm_folded, "quant='w8a8'": cfg.quant == "w8a8",
         "remat": cfg.remat, "moe_name (MoE decoder)": cfg.moe_name,
-        "matvec_kernel": cfg.matvec_kernel,
         "norm_type": cfg.norm_type != "rmsnorm",
         "mlp_type": cfg.mlp_type != "silu_glu",
     }
@@ -146,20 +150,18 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(x.dtype)
 
 
-def rope_tables(cfg: DecoderConfig, positions: torch.Tensor,
-                seq_len_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (float32) for positions [..., T]: plain RoPE or
-    Phi-3 longrope (short/long per-dim factors chosen by the runtime
-    context, times the sqrt(1 + log(s)/log(orig)) attention factor)."""
+@functools.lru_cache(maxsize=None)
+def _inv_freq(cfg: DecoderConfig, long: bool, device: torch.device):
+    """(inverse frequencies as a float32 tensor on `device`, attention
+    factor), built once: a host-to-device copy in every forward would
+    synchronise the stream and stall the engine's pipelined ticks."""
     rot = int(cfg.head_dim * cfg.partial_rotary_factor)
     inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, rot, 2,
                                                    dtype=np.float64) / rot))
     attn_factor = 1.0
     if cfg.rope_scaling_type in ("longrope", "su"):
-        if seq_len_cap > cfg.original_max_position_embeddings:
-            factors = np.asarray(cfg.rope_long_factor, np.float64)
-        else:
-            factors = np.asarray(cfg.rope_short_factor, np.float64)
+        factors = np.asarray(cfg.rope_long_factor if long
+                             else cfg.rope_short_factor, np.float64)
         inv_freq = inv_freq / factors
         scale = (cfg.max_position_embeddings
                  / cfg.original_max_position_embeddings)
@@ -167,8 +169,18 @@ def rope_tables(cfg: DecoderConfig, positions: torch.Tensor,
             attn_factor = math.sqrt(
                 1.0 + math.log(scale)
                 / math.log(cfg.original_max_position_embeddings))
-    inv = torch.as_tensor(inv_freq.astype(np.float32),
-                          device=positions.device)
+    return (torch.as_tensor(inv_freq.astype(np.float32), device=device),
+            attn_factor)
+
+
+def rope_tables(cfg: DecoderConfig, positions: torch.Tensor,
+                seq_len_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (float32) for positions [..., T]: plain RoPE or
+    Phi-3 longrope (short/long per-dim factors chosen by the runtime
+    context, times the sqrt(1 + log(s)/log(orig)) attention factor)."""
+    inv, attn_factor = _inv_freq(
+        cfg, seq_len_cap > cfg.original_max_position_embeddings,
+        positions.device)
     freqs = positions[..., None].float() * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * attn_factor, torch.sin(emb) * attn_factor
@@ -246,13 +258,19 @@ class QuantDense(nn.Module):
     Buffers keep the JAX layout: `kernel_q` int8 [in, out] ('int8') or
     nibble-packed [in/2, out] ('int4'), and a per-output-channel f32
     `scale` [out]. In int4 mode a CUDA input at a `small_m_viable_int4`
-    shape (every decode-step projection) runs the Hopper kernel; any other
-    input computes JAX's non-kernel halves contraction."""
+    shape (every decode-step projection) runs K5; any other input computes
+    JAX's non-kernel halves contraction. In int8 mode with
+    `matvec_kernel`, a CUDA input at a `small_m_viable(..., MAX_QUANT_M)`
+    shape (decode steps and speculative verify steps) runs K4; any other
+    input dequantizes the weight in its dtype before the dot, as JAX
+    does."""
 
     def __init__(self, in_features: int, features: int, mode: str = "int8",
                  use_bias: bool = False, *, device=None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 matvec_kernel: bool = False):
         super().__init__()
+        self.matvec_kernel = matvec_kernel
         if mode not in ("int8", "int4"):
             raise NotImplementedError(f"QuantDense mode {mode!r} is not "
                                       "ported")
@@ -284,6 +302,12 @@ class QuantDense(nn.Module):
                 sc = self.scale[None, :].to(x.dtype)
                 y = (x[..., :h].float() @ (lo.to(x.dtype) * sc).float()
                      + x[..., h:].float() @ (hi.to(x.dtype) * sc).float())
+        elif (self.matvec_kernel and x.is_cuda
+              and small_m_viable(m, self.in_features, self.features,
+                                 max_m=MAX_QUANT_M)):
+            y = quant_small_m_matmul(
+                x.reshape(m, self.in_features).contiguous(), self.kernel_q,
+                self.scale).reshape(*lead, self.features)
         else:
             wd = self.kernel_q.to(x.dtype) * self.scale[None, :].to(x.dtype)
             y = x.float() @ wd.float()
@@ -293,11 +317,39 @@ class QuantDense(nn.Module):
         return y
 
 
+class PallasDense(nn.Linear):
+    """nn.Linear that sends small-M (decode-step) products on CUDA tensors
+    to K3 (port of JAX's `PallasDense`; the parameters are nn.Linear's, so
+    weights load and quantize as for any nn.Linear). K3 reads the [N, K]
+    weight in place through its [K, N] view `weight.t()`. Any other input
+    computes JAX's non-kernel formula: the weight cast to x's dtype, a
+    float32 product, the result cast back."""
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        m = int(np.prod(lead)) if lead else 1
+        if x.is_cuda and small_m_viable(m, self.in_features,
+                                        self.out_features):
+            y = small_m_matmul(x.reshape(m, self.in_features).contiguous(),
+                               self.weight.t()).reshape(*lead,
+                                                        self.out_features)
+        else:
+            y = F.linear(x.float(),
+                         self.weight.to(x.dtype).float()).to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
 def _make_dense(cfg: DecoderConfig, in_features: int, features: int,
                 use_bias: bool = False, device=None) -> nn.Module:
     if cfg.quant:
         return QuantDense(in_features, features, mode=cfg.quant,
-                          use_bias=use_bias, device=device, dtype=cfg.dtype)
+                          use_bias=use_bias, device=device, dtype=cfg.dtype,
+                          matvec_kernel=cfg.matvec_kernel)
+    if cfg.matvec_kernel:
+        return PallasDense(in_features, features, bias=use_bias,
+                           device=device, dtype=cfg.dtype)
     return nn.Linear(in_features, features, bias=use_bias, device=device,
                      dtype=cfg.dtype)
 

@@ -4,8 +4,11 @@ competesmoe_tpu/models/llava.py).
 Vision tower -> projector -> decoder with the static-shape image-token
 splice, and eager KV-cache generation: `stream_generate` yields token
 chunks on the 1, 1, 2, 4, ..., chunk_max schedule with the prompt padded
-to a power-of-two bucket, as the JAX version does. Speculative decoding
-and training losses come with later slices.
+to a power-of-two bucket, as the JAX version does. `speculative=K`
+verifies K prompt-lookup drafts per forward (`speculative_accept`): greedy
+tokens equal sequential greedy decoding, sampled ones follow the
+step-by-step distribution. Random draws come from explicit
+`torch.Generator`s. Training losses come with a later slice.
 """
 
 from __future__ import annotations
@@ -220,6 +223,43 @@ def _pad_prompt_bucket(input_ids, attention_mask, enabled: bool,
     return ids, mask, Lb
 
 
+def _nucleus(scaled: torch.Tensor, top_p) -> torch.Tensor:
+    """Mask to -inf the logits outside the top-p nucleus over the last
+    axis; `top_p` is a float or a tensor broadcasting against
+    scaled[..., :1] (one value per row)."""
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(srt, dim=-1), dim=-1)
+    ci = torch.clamp((cum < top_p).sum(dim=-1, keepdim=True),
+                     max=scaled.shape[-1] - 1)
+    cutoff = torch.gather(srt, -1, ci)
+    return torch.where(scaled < cutoff, float("-inf"), scaled)
+
+
+def _categorical(logits: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """One draw per row from softmax(logits) over the last axis
+    (Gumbel-max, as jax.random.categorical; -inf logits are never drawn
+    unless a whole row is -inf). No host synchronisation."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() + gumbel, dim=-1)
+
+
+def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
+                topps: torch.Tensor, generator: Optional[torch.Generator],
+                nucleus: bool) -> torch.Tensor:
+    """Per-row sampling on the device: greedy where temps <= 0, else a
+    draw at the row's temperature, restricted to its top-p nucleus when
+    `nucleus` (the engine's step and insert)."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+    if nucleus:
+        scaled = _nucleus(scaled, topps[:, None])
+    drawn = _categorical(scaled, generator)
+    return torch.where(temps > 0, drawn, greedy)
+
+
 def sample_token(logits: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  temperature: float = 0.0, top_p: float = 1.0
@@ -229,14 +269,8 @@ def sample_token(logits: torch.Tensor,
         return torch.argmax(logits, dim=-1)
     logits = logits.float() / temperature
     if top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        cutoff_idx = torch.clamp((cum < top_p).sum(dim=-1, keepdim=True),
-                                 max=logits.shape[-1] - 1)
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        logits = _nucleus(logits, top_p)
+    return _categorical(logits, generator)
 
 
 @torch.no_grad()
@@ -247,8 +281,7 @@ def _prefill(model: LlavaModel, input_ids, pixel_values, attention_mask,
     cache = KVCache.create(model.language_model.cfg, B, max_len, dev)
     ids = torch.as_tensor(input_ids, dtype=torch.long, device=dev)
     mask = torch.as_tensor(attention_mask, device=dev)
-    px = (torch.as_tensor(np.asarray(pixel_values), dtype=torch.float32,
-                          device=dev)
+    px = (torch.as_tensor(pixel_values, dtype=torch.float32, device=dev)
           if pixel_values is not None else None)
     out = model(ids, px, attention_mask=mask, cache=cache,
                 return_id_experts=px is not None)
@@ -267,16 +300,128 @@ def _host(tokens: torch.Tensor) -> np.ndarray:
     return tokens.cpu().numpy().astype(np.int32)
 
 
+def make_scan_decode(model: LlavaModel, n_tokens: int,
+                     temperature: float = 0.0, top_p: float = 1.0):
+    """fn(first_token [B], cache, generator) -> (tokens [B, n_tokens],
+    cache): n_tokens decode steps with sampling on the device, a plain
+    loop where JAX scans on the device."""
+
+    @torch.no_grad()
+    def decode(first_token, cache, generator=None):
+        token, toks = first_token, []
+        for _ in range(n_tokens):
+            logits, cache = _decode_step(model, token, cache)
+            token = sample_token(logits, generator, temperature, top_p)
+            toks.append(token)
+        return torch.stack(toks, dim=1), cache
+    return decode
+
+
+def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
+                       temps: torch.Tensor, topps: torch.Tensor,
+                       generator: Optional[torch.Generator] = None, *,
+                       nucleus: bool):
+    """Speculative accept / resample over a batch of rows.
+
+    logits [S, 1+k, V] from one forward over [cur, k drafts]; returns
+    (toks [S, 1+k], n_acc [S]) where toks[s, :n_acc[s]+1] are the emitted
+    tokens. Rows with temps <= 0 verify greedily (the longest draft prefix
+    equal to the argmax: the same tokens as sequential greedy decoding);
+    rows with temps > 0 run speculative sampling with the point-mass
+    drafter (accept d_j with probability p_j(d_j); on the first rejection
+    draw from p_j with d_j removed; a bonus draw from p_k when all k
+    accept), so the emitted tokens follow step-by-step sampling, the
+    nucleus filter applied per position when `nucleus`."""
+    S, k = drafts.shape
+    drafts = drafts.long()
+    greedy = torch.argmax(logits, dim=-1)
+    match = (drafts == greedy[:, :-1]).long()
+    n_acc_g = torch.cumprod(match, dim=-1).sum(dim=-1)
+
+    scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None, None]
+    if nucleus:
+        scaled = _nucleus(scaled, topps[:, None, None])
+    p = torch.softmax(scaled, dim=-1)
+    p_d = torch.gather(p[:, :-1], -1, drafts[..., None])[..., 0]
+    u = torch.rand((S, k), generator=generator, device=logits.device)
+    n_acc_s = torch.cumprod((u < p_d).long(), dim=-1).sum(dim=-1)
+    masked = scaled[:, :-1].scatter(-1, drafts[..., None], float("-inf"))
+    resid = _categorical(masked, generator)
+    bonus = _categorical(scaled[:, -1], generator)
+    idx = torch.arange(k + 1, device=logits.device)[None]
+    drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    repl = torch.cat([resid, bonus[:, None]], dim=1)
+    out_s = torch.where(idx < n_acc_s[:, None], drafts_pad, repl)
+
+    is_sampled = temps > 0
+    n_acc = torch.where(is_sampled, n_acc_s, n_acc_g)
+    toks = torch.where(is_sampled[:, None], out_s, greedy)
+    return toks, n_acc
+
+
+@torch.no_grad()
+def verify_step(model: LlavaModel, tokens: torch.Tensor, cache: KVCache,
+                temps: torch.Tensor, topps: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                nucleus: bool = False):
+    """Speculative verification, greedy and sampled (JAX's
+    make_verify_step and make_sampled_verify_step in one):
+    (toks [B, 1+k], n_acc [B], cache'). `tokens` is each row's current
+    token followed by k drafts; one forward writes all 1+k positions' K/V,
+    `speculative_accept` decides per row by its temperature, and the
+    returned cache advances pos by 1 + n_acc only: the rejected tail sits
+    beyond pos, is never attended, and is overwritten by the next step."""
+    pos0 = cache.pos
+    out = model(tokens, None, cache=cache)
+    toks, n_acc = speculative_accept(out.logits, tokens[:, 1:], temps, topps,
+                                     generator, nucleus=nucleus)
+    return toks, n_acc, dataclasses.replace(out.cache, pos=pos0 + 1 + n_acc)
+
+
+def _spec_chunks(model: LlavaModel, input_ids: np.ndarray,
+                 cur: torch.Tensor, cache: KVCache, max_new: int, spec: int,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+    """Speculative decode loop (B == 1): yields np [1, n] chunks of new
+    tokens after the first. Prompt-lookup drafts come from
+    serve/speculative.py; an iteration with no recurring n-gram takes a
+    plain decode step."""
+    from ..serve.speculative import ngram_draft
+
+    dev = model.device
+    temps1 = torch.full((1,), temperature, device=dev)
+    topps1 = torch.full((1,), top_p, device=dev)
+    hist = [int(t) for t in input_ids[0].tolist() if int(t) >= 0]
+    cur_i = int(cur[0])
+    hist.append(cur_i)
+    produced = 1
+    while produced < max_new:
+        draft = ngram_draft(hist, spec)
+        if draft is None:
+            logits, cache = _decode_step(
+                model, torch.tensor([cur_i], device=dev), cache)
+            emit = _host(sample_token(logits, generator, temperature, top_p))
+        else:
+            toks = torch.as_tensor(np.concatenate([[cur_i], draft])[None],
+                                   dtype=torch.long, device=dev)
+            got, n_acc, cache = verify_step(
+                model, toks, cache, temps1, topps1, generator,
+                nucleus=temperature > 0.0 and top_p < 1.0)
+            emit = _host(got)[0, : int(n_acc[0]) + 1]
+        emit = emit[: max_new - produced]
+        produced += len(emit)
+        cur_i = int(emit[-1])
+        hist.extend(int(t) for t in emit)
+        yield emit[None].astype(np.int32).copy()
+
+
 def _setup(model, input_ids, pixel_values, attention_mask, max_new_tokens,
-           speculative, pad_to_bucket):
-    if speculative:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP: serving engine slice)")
+           spec, pad_to_bucket):
     input_ids, attention_mask, L = _pad_prompt_bucket(
         input_ids, attention_mask, pad_to_bucket)
     P = model.cfg.num_image_tokens if pixel_values is not None else 0
     prompt_len = L - 1 + P if pixel_values is not None else L
-    max_len = prompt_len + max_new_tokens
+    max_len = prompt_len + max_new_tokens + spec
     if pad_to_bucket:
         max_len = -(-max_len // 128) * 128
     return _prefill(model, input_ids, pixel_values, attention_mask, max_len)
@@ -295,10 +440,16 @@ def stream_generate(model: LlavaModel, input_ids: np.ndarray,
     they are produced (first chunk right after prefill). Chunk sizes
     follow 1, 1, 2, 4, ..., chunk_max. Rows stop after a stop/eos token;
     later positions of a finished row repeat its stop id, and the
-    generator returns once every row has stopped."""
+    generator returns once every row has stopped.
+
+    speculative=K > 0 (B == 1 only; ignored otherwise) verifies K
+    prompt-lookup drafts per forward and yields 1..K+1 tokens per chunk
+    after the first."""
     B = input_ids.shape[0]
+    spec = int(speculative) if (speculative and B == 1) else 0
+    orig_ids = np.asarray(input_ids)      # unpadded: the drafts' history
     last_logits, out = _setup(model, input_ids, pixel_values,
-                              attention_mask, max_new_tokens, speculative,
+                              attention_mask, max_new_tokens, spec,
                               pad_to_bucket)
     cache = out.cache
     stops = set(stop_token_ids or [])
@@ -327,17 +478,23 @@ def stream_generate(model: LlavaModel, input_ids: np.ndarray,
     yield chunk_np
     if done:
         return
+    if spec:
+        for emit in _spec_chunks(model, orig_ids, cur, cache,
+                                 max_new_tokens, spec, temperature, top_p,
+                                 generator):
+            chunk_np, finished, done = cut(emit, finished)
+            yield chunk_np
+            if done:
+                return
+        return
     size = 1
     while produced < max_new_tokens:
         n = min(size, max_new_tokens - produced)
-        toks = []
-        for _ in range(n):
-            logits, cache = _decode_step(model, cur, cache)
-            cur = sample_token(logits, generator, temperature, top_p)
-            toks.append(cur)
+        toks, cache = make_scan_decode(model, n, temperature, top_p)(
+            cur, cache, generator)
+        cur = toks[:, -1]
         produced += n
-        chunk_np, finished, done = cut(_host(torch.stack(toks, dim=1)),
-                                       finished)
+        chunk_np, finished, done = cut(_host(toks), finished)
         yield chunk_np
         if done:
             return
@@ -355,15 +512,37 @@ def generate(model: LlavaModel, input_ids: np.ndarray,
              ) -> Tuple[np.ndarray, LlavaOutput]:
     """Prefill + decode; returns (generated ids [B, <= max_new_tokens],
     the prefill output with routing telemetry). Decoding stops once every
-    row has produced a stop/eos token."""
+    row has produced a stop/eos token. speculative=K (B == 1 and more than
+    one new token only) verifies K prompt-lookup drafts per forward."""
+    B = input_ids.shape[0]
+    spec = int(speculative) if (speculative and B == 1
+                                and max_new_tokens > 1) else 0
+    orig_ids = np.asarray(input_ids)
     last_logits, out = _setup(model, input_ids, pixel_values,
-                              attention_mask, max_new_tokens, speculative,
+                              attention_mask, max_new_tokens, spec,
                               pad_to_bucket)
     cache = out.cache
     stops = set(stop_token_ids or [])
     if eos_token_id is not None:
         stops.add(int(eos_token_id))
     cur = sample_token(last_logits, generator, temperature, top_p)
+    if spec:
+        parts = [_host(cur[:, None])]
+        if not (stops and int(parts[0][0, 0]) in stops):
+            for emit in _spec_chunks(model, orig_ids, cur, cache,
+                                     max_new_tokens, spec, temperature,
+                                     top_p, generator):
+                parts.append(emit)
+                if stops and np.isin(emit, list(stops)).any():
+                    break
+        all_toks = np.concatenate(parts, axis=1)
+        if stops:
+            stop_mask = np.isin(all_toks, list(stops))
+            first_stop = np.where(stop_mask.any(1), stop_mask.argmax(1),
+                                  all_toks.shape[1])
+            all_toks = all_toks[:, :min(int(first_stop.max()) + 1,
+                                        all_toks.shape[1])]
+        return all_toks, out
     tokens = []
     finished = np.zeros(input_ids.shape[0], bool)
     for _ in range(max_new_tokens):

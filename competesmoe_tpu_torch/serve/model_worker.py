@@ -3,8 +3,10 @@
 
 Stdlib HTTP: semaphore-limited streaming `/worker_generate_stream` (JSON
 chunks terminated by \\0, FastChat protocol), `/worker_get_status`,
-optional controller registration with a heartbeat thread. The batched
-DecodeEngine, tensor- and expert-parallel serving wait for later slices.
+optional controller registration with a heartbeat thread. Requests stream
+through `stream_generate` one at a time, or, with `--engine-slots`, share
+the batched steps of a `DecodeEngine`. Tensor- and expert-parallel serving
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -27,13 +29,16 @@ class ModelWorker:
     def __init__(self, controller_addr: Optional[str], worker_addr: str,
                  model_names: List[str], generate_fn,
                  limit_model_concurrency: int = 5,
-                 register: bool = True):
-        """generate_fn(params: dict) -> iterator of partial text strings."""
+                 register: bool = True, extra_status_fn=None):
+        """generate_fn(params: dict) -> iterator of partial text strings.
+        extra_status_fn() -> dict is merged into /worker_get_status (the
+        DecodeEngine's slot and throughput telemetry)."""
         self.controller_addr = controller_addr
         self.worker_addr = worker_addr
         self.worker_id = str(uuid.uuid4())[:6]
         self.model_names = model_names
         self.generate_fn = generate_fn
+        self.extra_status_fn = extra_status_fn
         self.semaphore = threading.Semaphore(limit_model_concurrency)
         self._queue_lock = threading.Lock()
         self.queue_length = 0
@@ -45,8 +50,11 @@ class ModelWorker:
             self._hb_thread.start()
 
     def get_status(self) -> dict:
-        return {"model_names": self.model_names, "speed": 1,
-                "queue_length": self.queue_length}
+        status = {"model_names": self.model_names, "speed": 1,
+                  "queue_length": self.queue_length}
+        if self.extra_status_fn is not None:
+            status.update(self.extra_status_fn())
+        return status
 
     def register_to_controller(self) -> None:
         data = {"worker_name": self.worker_addr, "check_heart_beat": True,
@@ -121,12 +129,18 @@ def _cut_at_stops(text: str, stops: list):
     return text, hit
 
 
-def torch_llava_generate_fn(adapter):
+def torch_llava_generate_fn(adapter,
+                            default_speculative: Optional[int] = None):
     """A worker generate_fn over an eval.TorchLlava adapter: prompt and
     optional base64 images in, incremental text out. Tokens stream as
     `stream_generate` produces them; a client that disconnects abandons
-    the generator, which cancels the remaining decode steps."""
+    the generator, which cancels the remaining decode steps. A request's
+    `speculative` (else `default_speculative`, else the adapter's)
+    verifies that many prompt-lookup drafts per forward."""
     from ..models.llava import stream_generate
+
+    if default_speculative is None:
+        default_speculative = adapter.speculative
 
     def fn(params: dict) -> Iterator[str]:
         prompt = params["prompt"]
@@ -134,7 +148,7 @@ def torch_llava_generate_fn(adapter):
         max_new = int(params.get("max_new_tokens", 128))
         temperature = float(params.get("temperature", 0.0))
         top_p = float(params.get("top_p", 1.0))
-        spec = int(params.get("speculative", 0))
+        spec = int(params.get("speculative", default_speculative))
         stops = _stop_list(params.get("stop"))
         ids = adapter.tokenizer_ids_for_prompt(prompt, bool(images))
         px = None
@@ -158,6 +172,52 @@ def torch_llava_generate_fn(adapter):
             if hit:
                 return
     return fn
+
+
+def engine_generate_fn(adapter, engine):
+    """A worker generate_fn backed by the continuous-batching DecodeEngine
+    (serve/engine.py): concurrent requests share one batched decode step;
+    temperature and top_p ride per slot on the engine's sampler."""
+
+    def fn(params: dict) -> Iterator[str]:
+        prompt = params["prompt"]
+        images = params.get("images") or []
+        ids = adapter.tokenizer_ids_for_prompt(prompt, bool(images))
+        px = None
+        if images:
+            pil = [load_image_from_base64(b) for b in images]
+            px = np.asarray(process_images(pil, adapter.image_processor))
+        eos = set(adapter.stop_token_ids or [])
+        if getattr(adapter.tokenizer, "eos_token_id", None) is not None:
+            eos.add(int(adapter.tokenizer.eos_token_id))
+        stops = _stop_list(params.get("stop"))
+        tokens: list = []
+        for tok in engine.submit(
+                np.asarray(ids, np.int32), pixel_values=px,
+                max_new_tokens=int(params.get("max_new_tokens", 128)),
+                temperature=float(params.get("temperature", 0.0)),
+                top_p=float(params.get("top_p", 1.0)),
+                eos_ids=sorted(eos)):
+            tokens.append(tok)
+            text = adapter.tokenizer.decode(tokens,
+                                            skip_special_tokens=True)
+            text = text.split("<|end|>")[0]
+            text, hit = _cut_at_stops(text, stops)
+            yield text
+            if hit:
+                return
+    return fn
+
+
+def make_engine(model, engine_slots: int, engine_max_len: int = 2048,
+                speculative: int = 0, engine_pipeline: int = 2):
+    """The DecodeEngine the worker's --engine-slots builds: spec_k =
+    --speculative, pipeline depth --engine-pipeline, forced to 1 under
+    speculation (drafts need the freshest emitted history)."""
+    from .engine import DecodeEngine
+    return DecodeEngine(model, n_slots=engine_slots, max_len=engine_max_len,
+                        spec_k=speculative,
+                        pipeline_depth=1 if speculative else engine_pipeline)
 
 
 def make_handler(worker: ModelWorker):
@@ -215,8 +275,8 @@ def main(argv=None):
     import torch
 
     from ..eval.llava_adapter import TorchLlava
-    from ..models.builder import (HF_5P1B, apply_load_4bit, build_llava,
-                                  llava_config_from_hf)
+    from ..models.builder import (HF_5P1B, apply_load_4bit, apply_load_8bit,
+                                  build_llava, llava_config_from_hf)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-path", default=None,
@@ -235,10 +295,39 @@ def main(argv=None):
     ap.add_argument("--conv-template", default="phi35")
     ap.add_argument("--limit-model-concurrency", type=int, default=5)
     ap.add_argument("--max-new-tokens", type=int, default=256)
+    ap.add_argument("--load-8bit", action="store_true",
+                    help="int8 decoder (lm_head included), tower and "
+                         "projector int8 value-quantized")
     ap.add_argument("--load-4bit", action="store_true")
     ap.add_argument("--kv-quant", default="", choices=["", "int8"])
+    ap.add_argument("--engine-slots", type=int, default=0,
+                    help="serve through the continuous-batching "
+                         "DecodeEngine with this many sequence slots; "
+                         "0 = one stream_generate per request")
+    ap.add_argument("--engine-max-len", type=int, default=2048)
+    ap.add_argument("--speculative", type=int, default=0,
+                    help="prompt-lookup speculative decoding: verify K "
+                         "drafts per forward (solo path and engine)")
+    ap.add_argument("--engine-pipeline", type=int, default=2,
+                    help="with --engine-slots: issue tick N+1 before "
+                         "reading tick N's tokens; forced to 1 under "
+                         "--speculative")
+    unported = ("--engine-prefill-chunk", "--engine-prefix-cache",
+                "--engine-warmup", "--mesh", "--ep-shards")
+    for flag in unported:
+        ap.add_argument(flag, default="", help="not ported yet")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="not ported yet")
     ap.add_argument("--no-register", action="store_true")
     a = ap.parse_args(argv)
+    refused = [f for f in unported
+               if getattr(a, f[2:].replace("-", "_")) not in ("", "0")]
+    refused += ["--spec-adaptive"] if a.spec_adaptive else []
+    if refused:
+        raise SystemExit(f"{', '.join(refused)}: not ported (ROADMAP §1 "
+                         "item 5: serving)")
+    if a.load_8bit and a.load_4bit:
+        raise SystemExit("--load-8bit and --load-4bit exclude each other")
 
     hf_cfg = (json.loads((Path(a.model_path) / "config.json").read_text())
               if a.model_path else HF_5P1B)
@@ -247,17 +336,30 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
             cfg.decoder, kv_quant=a.kv_quant))
     model = build_llava(cfg, seed=a.seed, device=a.device)
-    if a.load_4bit:
+    if a.load_8bit:
+        apply_load_8bit(model)
+    elif a.load_4bit:
         apply_load_4bit(model)
     from transformers import AutoTokenizer
     tokenizer = AutoTokenizer.from_pretrained(a.tokenizer)
     adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
-                         max_new_tokens=a.max_new_tokens)
+                         max_new_tokens=a.max_new_tokens,
+                         speculative=a.speculative)
+    if a.engine_slots > 0:
+        engine = make_engine(model, a.engine_slots, a.engine_max_len,
+                             a.speculative, a.engine_pipeline)
+        gen_fn = engine_generate_fn(adapter, engine)
+        concurrency = max(a.limit_model_concurrency, a.engine_slots)
+        extra_status = engine.stats
+    else:
+        gen_fn = torch_llava_generate_fn(adapter)
+        concurrency = a.limit_model_concurrency
+        extra_status = None
     worker = ModelWorker(
         None if a.no_register else a.controller_address,
         a.worker_address or f"http://localhost:{a.port}", [a.model_name],
-        torch_llava_generate_fn(adapter),
-        limit_model_concurrency=a.limit_model_concurrency)
+        gen_fn, limit_model_concurrency=concurrency,
+        extra_status_fn=extra_status)
     print(f"worker {worker.worker_id} serving {a.model_name} on "
           f"{a.host}:{a.port}", flush=True)
     serve_worker(worker, a.host, a.port)

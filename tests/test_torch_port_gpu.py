@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, with the wrappers' input checks: K5 (packed-int4 decode matmul)
-and the decode-shape routing of the int4 `QuantDense`; K1 (fused grouped
-ReLU double GEMM) and its pipeline's gradients; K2 (causal flash
-attention, forward, dK/dV and dQ) at small shapes and the 154M shape.
+and the decode-shape routing of the int4 `QuantDense`; K3 and K4 (bf16
+and int8 small-M matmuls) and the routing of `PallasDense` and the int8
+`QuantDense` with `matvec_kernel`; K1 (fused grouped ReLU double GEMM) and
+its pipeline's gradients; K2 (causal flash attention, forward, dK/dV and
+dQ) at small shapes and the 154M shape.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -10,9 +12,10 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py
 
-K5 tolerance: one bf16 ulp at the largest output, 2^-7 * max|plain|.
-Both sides sum exact bf16 x int4 products in float32, in different
-orders. K1's and K2's tolerances are stated with their tests.
+K5, K3 and K4 tolerance: one bf16 ulp at the largest output,
+2^-7 * max|plain|. Both sides sum exact products of bf16 and bf16, int8
+or int4 values in float32, in different orders. K1's and K2's tolerances
+are stated with their tests.
 """
 
 import pytest
@@ -96,6 +99,105 @@ def test_quant_dense_sends_decode_shapes_to_the_kernel(gen):
         assert (tmatvec.quant_small_m_matmul_int4.launches - before
                 == launched)
         _assert_close(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: bf16 and int8 small-M matmuls (csrc/matvec_small_m.cu)
+# ---------------------------------------------------------------------------
+
+def _k3_operands(g, m, k, n):
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    wt = torch.randn(n, k, generator=g, device="cuda").to(torch.bfloat16)
+    return x, wt.t()              # the decoder passes weight.t()
+
+
+def _k4_operands(g, m, k, n):
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
+    return x, q, scale
+
+
+_DECODE_KN = [(3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072)]
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 32)
+                                   for k, n in _DECODE_KN]
+                         + [(3, 1024, 256), (17, 128, 384)])
+def test_k3_kernel_matches_plain(gen, m, k, n):
+    x, w = _k3_operands(gen, m, k, n)
+    before = tmatvec.small_m_matmul.launches
+    got = tmatvec.small_m_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tmatvec.small_m_matmul.launches == before + 1
+    _assert_close(got, tmatvec.small_m_matmul_reference(x, w))
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 40)
+                                   for k, n in _DECODE_KN]
+                         + [(3, 1024, 256), (128, 3072, 512),
+                            (32, 128, 384)])
+def test_k4_kernel_matches_plain(gen, m, k, n):
+    x, q, scale = _k4_operands(gen, m, k, n)
+    before = tmatvec.quant_small_m_matmul.launches
+    got = tmatvec.quant_small_m_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert tmatvec.quant_small_m_matmul.launches == before + 1
+    _assert_close(got, tmatvec.quant_small_m_matmul_reference(x, q, scale))
+
+
+def test_k3_k4_reject_what_they_do_not_take(gen):
+    x, w = _k3_operands(gen, 2, 1024, 256)
+    with pytest.raises(TypeError):
+        tmatvec.small_m_matmul(x.float(), w)
+    with pytest.raises(ValueError):       # a contiguous [K, N] copy
+        tmatvec.small_m_matmul(x, w.contiguous())
+    with pytest.raises(ValueError):
+        tmatvec.small_m_matmul(x[:, :512], w)
+    with pytest.raises(ValueError):
+        tmatvec.small_m_matmul(x, w.cpu())
+    x, q, scale = _k4_operands(gen, 2, 1024, 256)
+    with pytest.raises(TypeError):
+        tmatvec.quant_small_m_matmul(x, q.float(), scale)
+    with pytest.raises(ValueError):
+        tmatvec.quant_small_m_matmul(x, q.t().contiguous().t(), scale)
+    with pytest.raises(ValueError):
+        tmatvec.quant_small_m_matmul(x, q[:, :250], scale[:250])
+    with pytest.raises(ValueError):
+        tmatvec.quant_small_m_matmul(x, q, scale.cpu())
+
+
+def test_matvec_layers_send_decode_shapes_to_the_kernels(gen):
+    """PallasDense (bf16) and the int8 QuantDense with matvec_kernel on
+    the card: rows the kernels take launch K3 (M <= 32) or K4 (M <= 32 or
+    a multiple of 8 up to 128), other rows take the plain formula; both
+    agree with the same layer on the CPU."""
+    dense = tdec.PallasDense(1024, 512, device="cuda", dtype=torch.bfloat16)
+    quant = tdec.QuantDense(1024, 512, mode="int8", device="cuda",
+                            matvec_kernel=True)
+    _, q, scale = _k4_operands(gen, 1, 1024, 512)
+    with torch.no_grad():
+        dense.weight.copy_(_k3_operands(gen, 1, 1024, 512)[1].t())
+        quant.kernel_q.copy_(q)
+        quant.scale.copy_(scale)
+    for layer, fn, cases in (
+            (dense, tmatvec.small_m_matmul, ((1, 1), (8, 1), (32, 1),
+                                             (40, 0), (319, 0))),
+            (quant, tmatvec.quant_small_m_matmul, ((1, 1), (8, 1), (40, 1),
+                                                   (41, 0), (319, 0)))):
+        cpu = type(layer)(1024, 512, device="cpu", dtype=torch.bfloat16)
+        cpu.load_state_dict(layer.state_dict())
+        for rows, launched in cases:
+            x = torch.randn(1, rows, 1024, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            before = fn.launches
+            with torch.no_grad():
+                got = layer(x)
+                want = cpu(x.cpu())
+            torch.cuda.synchronize()
+            assert fn.launches - before == launched, (type(layer), rows)
+            _assert_close(got.cpu(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -294,3 +396,52 @@ def test_k2_rejects_what_it_does_not_take(gen):
     o, lse = tfa.flash_attention_fwd(q, k, v, 0.1)
     with pytest.raises(ValueError):
         tfa.flash_attention_bwd_dq(q, k, v, o, lse.cpu(), lse, 0.1)
+
+
+# ---------------------------------------------------------------------------
+# The batched engine on the card
+# ---------------------------------------------------------------------------
+
+def test_pipelined_engine_ticks_do_not_synchronise(gen):
+    """DecodeEngine(pipeline_depth=2) on a small bf16 model with
+    matvec_kernel: once admitted, a tick issues its K3 forward and starts
+    the tokens' copy to the host without a synchronising call (a .cpu()
+    or .item() there would make the pipeline a no-op); the tokens are read
+    one tick later, after an event."""
+    import dataclasses
+
+    import numpy as np
+
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B, build_llava,
+                                                      llava_config_from_hf)
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+    small = dict(HF_5P1B, vocab_size=512, hidden_size=256,
+                 intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=4,
+                 mm_hidden_size=64,
+                 vision_config=dict(hidden_size=64, intermediate_size=128,
+                                    num_hidden_layers=2,
+                                    num_attention_heads=2, image_size=28,
+                                    patch_size=14))
+    cfg = llava_config_from_hf(small, "llava_phi", torch.bfloat16)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, matvec_kernel=True))
+    engine = DecodeEngine(build_llava(cfg, device="cuda"), n_slots=4,
+                          max_len=64, pipeline_depth=2, run_thread=False)
+    reqs = [engine._make_request(np.arange(3, 3 + n, dtype=np.int32),
+                                 max_new_tokens=12) for n in (5, 9, 17)]
+    engine._tick()                           # admission and a first step
+    engine._tick()
+    before = tmatvec.small_m_matmul.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            engine._tick()
+        with pytest.raises(RuntimeError):   # the detector itself works
+            engine._cur.sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tmatvec.small_m_matmul.launches - before == 4 * 4 * 2
+    for _ in range(20):
+        engine._tick()
+    assert all(r.done and len(r.emitted) == 12 for r in reqs)

@@ -138,12 +138,40 @@ def test_sampling():
     assert 0.65 < float((draws == 9).float().mean()) < 0.85
 
 
+def _repetitive_prompt(seed=18, B=1):
+    """A prompt whose n-grams recur, so that drafts exist, with an
+    image."""
+    rng = np.random.default_rng(seed)
+    ids = np.tile(rng.integers(1, 64, (B, 4)), 3).astype(np.int32)
+    ids[:, 2] = IMG
+    px = rng.uniform(-1, 1, (B, 28, 28, 3)).astype(np.float32)
+    return ids, px
+
+
 def test_speculative_is_not_ported_yet(jax_model):
+    """Speculative greedy decoding (formerly refused here) is ported:
+    stream_generate(speculative=2) and generate(speculative=2) are
+    token-exact against JAX's and against the port's sequential greedy
+    decoding, with chunks of 1..3 tokens after the first."""
     cfg, params = jax_model
-    ids, px = _prompt()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(tllava.stream_generate(port_model(cfg, params), ids, px,
-                                    speculative=2))
+    ids, px = _repetitive_prompt()
+    model = port_model(cfg, params)
+    jm = jllava.LlavaModel(cfg)
+    want = np.concatenate(list(jllava.stream_generate(
+        jm, params, ids, px, max_new_tokens=12, speculative=2)), 1)
+    chunks = list(tllava.stream_generate(model, ids, px, max_new_tokens=12,
+                                         speculative=2))
+    assert all(1 <= c.shape[1] <= 3 for c in chunks)
+    got = np.concatenate(chunks, 1)
+    np.testing.assert_array_equal(got, want)
+    plain = np.concatenate(list(tllava.stream_generate(
+        model, ids, px, max_new_tokens=12)), 1)
+    np.testing.assert_array_equal(got, plain)
+    toks, _ = tllava.generate(model, ids, px, max_new_tokens=12,
+                              speculative=2)
+    jtoks, _ = jllava.generate(jm, params, ids, px, max_new_tokens=12,
+                               speculative=2)
+    np.testing.assert_array_equal(toks, np.asarray(jtoks))
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +270,15 @@ def test_worker_http_on_cpu(jax_model):
                      "images": [_png_base64(7)]})
         chunks = [json.loads(p) for p in body.split(b"\0") if p]
         assert chunks and all(c["error_code"] == 0 for c in chunks)
-        body = post("/worker_generate_stream",
-                    {"prompt": "x", "speculative": 2})
-        err = json.loads(body.split(b"\0")[0])
-        assert err["error_code"] == 1 and "not ported" in err["text"]
+        plain = post("/worker_generate_stream",
+                     {"prompt": "a b a b a b", "max_new_tokens": 6})
+        spec = post("/worker_generate_stream",
+                    {"prompt": "a b a b a b", "max_new_tokens": 6,
+                     "speculative": 2})
+        last = [[json.loads(p) for p in b.split(b"\0") if p][-1]
+                for b in (plain, spec)]
+        assert all(c["error_code"] == 0 for c in last)
+        assert last[1]["text"] == last[0]["text"]
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -1,7 +1,8 @@
 """Parity of the PyTorch port's LLaVA pieces with the JAX package: image
 splice, vision tower, projector, and decoder logits in float32 (KV cache
 plain and int8, int4 and int8 projections), the Phi-3.5 geometry and
-longrope tables, and the decoder options that are not ported yet.
+longrope tables, and the decoder options that are not ported yet
+(`matvec_kernel` is ported: tests/test_torch_port_serving.py).
 
 Weights come from the JAX module's init and cross through
 `convert.from_jax_params`; inputs are numpy from a seed. Tolerance:
@@ -192,7 +193,7 @@ def test_phi35_geometry_and_longrope_match_jax():
 def test_unported_decoder_options_raise():
     cfg = port_config(jax_llava_cfg().decoder, tdec.DecoderConfig)
     for change in (dict(use_alibi=True), dict(sliding_window=8),
-                   dict(deferred_decode=True), dict(matvec_kernel=True),
+                   dict(deferred_decode=True),
                    dict(cache_layout="per_layer"), dict(quant="w8a8"),
                    dict(remat=True), dict(norm_folded=True),
                    dict(moe_name="mixtral")):

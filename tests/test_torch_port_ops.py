@@ -194,10 +194,24 @@ def test_pack_int4_roundtrip_matches_jax():
 
 
 def test_split_k_covers_decode_shapes():
-    for k2, n in ((1536, 9216), (1536, 3072), (1536, 16384), (4096, 3072)):
-        splits, chunk = tmatvec._split_k(k2, n, 132)
-        assert chunk % 16 == 0 and 0 < chunk <= 256
-        assert splits * chunk >= k2 > (splits - 1) * chunk
+    """K5's, K3's and K4's K splits at the decode shapes: each split a
+    whole number of the kernel's K steps, within its staging buffer, and
+    the splits cover K once (no empty last split)."""
+    mv = tmatvec
+    for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072)):
+        for m in (1, 8, 40, 128):
+            groups = -(-m // mv._ROWS_PER_BLOCK)
+            for rows, blocks, step, least, most in (
+                    (k // 2, -(-n // mv._KERNEL_BLOCK_N),
+                     mv._KERNEL_ROW_STEP, 64, mv._KERNEL_MAX_CHUNK),
+                    (k, -(-n // mv._K3_BLOCK_N) * groups, mv._K3_K_STEP,
+                     mv._K3_K_STEP, None),
+                    (k, -(-n // mv._K4_BLOCK_N) * groups, mv._K4_ROW_STEP,
+                     64, mv._K4_MAX_CHUNK)):
+                splits, chunk = mv._split_k(rows, blocks, 132, step, least,
+                                            most)
+                assert chunk % step == 0 and 0 < chunk <= (most or rows)
+                assert splits * chunk >= rows > (splits - 1) * chunk
 
 
 def test_small_m_viability_matches_jax():
