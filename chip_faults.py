@@ -5,8 +5,12 @@
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, or csrc/matvec_small_m.cu, K3 and K4), compiled
-from an edited copy in a temporary directory; the checkout's sources are
-not touched. The script
+from an edited copy in a temporary directory (csrc/'s headers are found
+through the build's include path); the checkout's sources are not
+touched. K2's backward faults: the last key tile's block adds nothing to
+its dK and dV, the causal comparison off by one, dQ's dS without its scale, the path without the comparison
+taken on the diagonal tile (dK/dV, dQ), and lse and delta read by key
+instead of by query in the transposed dK/dV kernel. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -14,7 +18,7 @@ not touched. The script
      SMALL_LM_GRAD_TOL);
   2. loads each faulty library in place of the honest one and runs the
      checks of chip_smoke.py that should catch it:
-     - K2 faults: `k2_compare` at both K2 shapes, each tensor judged by
+     - K2 faults: `k2_compare` at every K2 shape, each tensor judged by
        the element-wise tile rule and, for comparison, by the old bound
        (2^-6 or 2^-5 x the largest |plain|);
      - the K1 fault: `k1_compare` at the 154M layer shape;
@@ -46,8 +50,9 @@ import chip_smoke as cs
 FAULTS = {
     "dkv_skips_last_key_tile": (
         "flash_attn",
-        [("  for (int it = kt; it < n_qt; ++it) {",
-          "  for (int it = kt; it < n_qt && kt < n_qt - 1; ++it) {")],
+        [("    tiles::as_a(pa, st);\n",
+          "    if (kt == n_qt - 1) tiles::zero(st);\n"
+          "    tiles::as_a(pa, st);\n")],
         ("k2",)),
     "fwd_mask_off_by_one": (
         "flash_attn",
@@ -56,14 +61,31 @@ FAULTS = {
         ("k2",)),
     "bwd_mask_off_by_one": (
         "flash_attn",
-        [("const bool valid = kv <= qi && qi < T && kv < T;",
-          "const bool valid = kv < qi && qi < T && kv < T;")],
+        [("  return kv <= qi && qi < T && kv < T;",
+          "  return kv < qi && qi < T && kv < T;")],
         ("k2",)),
     "dq_missing_scale": (
         "flash_attn",
-        [("const float ds = pv * (dp_w[r * kSLd + c] - dl) * scale;",
-          "const float ds = pv * (dp_w[r * kSLd + c] - dl) * "
-          "(p_rows ? scale : 1.0f);")],
+        [("dp[n][e] = ds_of(s[n][e], dp[n][e], dl[e >> 1], scale);",
+          "dp[n][e] = ds_of(s[n][e], dp[n][e], dl[e >> 1], 1.0f);")],
+        ("k2",)),
+    "dkv_fast_path_on_diagonal": (
+        "flash_attn",
+        [("    const bool edge = it == kt || q0 + kB > T;",
+          "    const bool edge = q0 + kB > T;")],
+        ("k2",)),
+    "dq_fast_path_on_diagonal": (
+        "flash_attn",
+        [("    const bool edge = j == qt; ",
+          "    const bool edge = j == qt && q0 + kB > T; ")],
+        ("k2",)),
+    "dkv_stats_by_key": (
+        "flash_attn",
+        [("lse_s[col] * kLog2e);",
+          "lse_s[warp * 16 + g + 8 * (e >> 1)] * kLog2e);"),
+         ("                          delta_s[8 * n + 2 * t + (e & 1)], scale);",
+          "                          delta_s[warp * 16 + g + 8 * ((e >> 1) & 1)],"
+          " scale);")],
         ("k2",)),
     "fwd_not_causal": (
         "flash_attn",

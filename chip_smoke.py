@@ -25,12 +25,16 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        empty experts; tolerance 2^-6 * max|ref|: the kernel rounds the f32
        expert weights to bf16 for the tensor cores);
      - K2, causal flash attention forward, dK/dV and dQ, at B 64, h 4,
-       T 1024, p 82 (the 154M shape) and at B 8, h 4, T 256, p 64, element
-       by element: |kernel - plain| <= 2^-6 |plain| + 2^-5 rms(plain over
-       the element's (b, h, 64-row tile)) for o, dQ, dK and dV (the
-       kernels round P and dS to bf16), and |lse - plain| <= 1e-3; beside
+       T 1024, p 82 (the 154M shape), at B 8, h 4, T 256, p 64, and at the
+       shapes that take the kernels' other paths (a ragged last tile, odd
+       p, p 128, T below one tile), element by element: |kernel - plain|
+       <= 2^-6 |plain| + 2^-5 rms(plain over the element's (b, h, 64-row
+       tile)) for o, dQ, dK and dV (the kernels round P and dS to bf16),
+       and |lse - plain| <= 1e-3; each backward kernel run twice gives the
+       same bytes; timed at the 154M shape beside
        `scaled_dot_product_attention` forward and forward + backward
-       (CUDA graphs, as the kernels) as the library yardstick;
+       (CUDA graphs, as the kernels) as the library yardstick, and beside
+       the plain `delta = rowsum(dO * o)` that precedes the two kernels;
   4. small LM: a CompeteSMoE LM with d_model 128, 2 layers, 8 experts of
      128, top-2 and head size 82 takes 3 optimizer steps from the same
      weights on the card (K1, K2) and on the CPU (plain versions), with
@@ -67,9 +71,10 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      224 px image) and 4 more once slots retire, 32 new tokens each; K3 or
      K4 launches must equal 4 x 32 x the forwards whose rows the kernel
      takes, every other kernel 0;
-  9. with --profile: torch.profiler over two more training steps, over
-     decode steps of the served model and over engine ticks (device busy
-     share and the kernels that take the time).
+  9. with --profile: torch.profiler over two more training steps (with
+     K2's backward and forward shares of a step by name), over decode
+     steps of the served model and over engine ticks (device busy share
+     and the kernels that take the time).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The last lines are the kernels JSON, the card line
 and the result JSON.
@@ -116,7 +121,10 @@ SWEEP_154M = (
 ).split()
 # K1 at the 154M layer: 64 x 1024 tokens, top-8 of 64 experts of 128
 K1_SHAPE = dict(T=65536, D=512, E=64, ES=128, k=8)
-K2_SHAPES = ((64, 4, 1024, 82), (8, 4, 256, 64))    # (B, h, T, p)
+# (B, h, T, p): the 154M shape (timed), then correctness only: 16-byte
+# copies; a ragged last tile; odd p (plain loads); p 128; T below one tile
+K2_SHAPES = ((64, 4, 1024, 82), (8, 4, 256, 64), (2, 2, 200, 82),
+             (2, 1, 130, 33), (1, 2, 320, 128), (1, 1, 40, 82))
 LM_STEPS = 8                       # 154M training steps of the main path
 # small LM, card against CPU per step: |loss gap| (absolute) and
 # |grad_norm gap| / grad_norm; a few times the largest honest gaps that
@@ -339,27 +347,34 @@ def tile_tolerance(want, rel: float = 2.0 ** -6, frac: float = 2.0 ** -5):
 def k2_compare(q, k, v, do, scale):
     """K2's three kernels against the plain forward and backward on the
     same bf16 inputs. Returns one row per compared tensor: kernel,
-    tensor, max_abs_err, worst (largest |err| / tolerance), ok, and
-    old_rule_ok (whether the bound 2^-6 (o) or 2^-5 (gradients) x the
-    largest |plain| would have passed it)."""
+    tensor, max_abs_err, worst (largest |err| / tolerance), repeats (a
+    second run of a backward kernel gave the same bytes), ok (within the
+    tolerance, and repeats), and old_rule_ok (whether the bound 2^-6 (o)
+    or 2^-5 (gradients) x the largest |plain| would have passed it)."""
     import torch
 
     from competesmoe_tpu_torch.ops import flash_attention as fa
 
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = fa.rowsum_delta(do, o)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     dq_ref, dk_ref, dv_ref = fa._bwd_reference(q, k, v, do, lse, delta,
                                                scale)
+    # each gradient is summed in a fixed order: a second run, same bytes
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
+    same = {"dk": torch.equal(dk.view(torch.int16), dk2.view(torch.int16)),
+            "dv": torch.equal(dv.view(torch.int16), dv2.view(torch.int16)),
+            "dq": torch.equal(dq.view(torch.int16), dq2.view(torch.int16))}
     out = []
     lse_err = float((lse - lse_ref).abs().max())
     if not math.isfinite(lse_err):
         lse_err = float("inf")
     out.append(dict(kernel="flash_attention_fwd", tensor="lse",
-                    max_abs_err=lse_err, worst=lse_err / 1e-3,
+                    max_abs_err=lse_err, worst=lse_err / 1e-3, repeats=True,
                     ok=lse_err <= 1e-3, old_rule_ok=lse_err <= 1e-3))
     for kernel, tensor, got, want, old in (
             ("flash_attention_fwd", "o", o, o_ref, 2.0 ** -6),
@@ -373,17 +388,20 @@ def k2_compare(q, k, v, do, scale):
         ratio = torch.where(diff == 0, torch.zeros_like(diff),
                             diff / tile_tolerance(want))
         worst = float(ratio.max())
+        repeats = same.get(tensor, True)
         out.append(dict(kernel=kernel, tensor=tensor, max_abs_err=err,
-                        worst=worst, ok=worst <= 1.0,
+                        worst=worst, repeats=repeats,
+                        ok=worst <= 1.0 and repeats,
                         old_rule_ok=err <= old * float(
                             want.float().abs().max())))
     return out
 
 
 def phase_k2(seed: int, reps: int = 20):
-    """K2's three kernels against the plain forward and backward at the
-    154M attention shape and one other; rows keyed by kernel name, timed
-    at the first (154M) shape."""
+    """K2's three kernels against the plain forward and backward at every
+    shape of K2_SHAPES; rows keyed by kernel name, timed at the first
+    (154M) shape, where the plain delta = rowsum(dO * o) that the backward
+    computes before its two kernels is timed too (`delta_ms`)."""
     import torch
 
     from competesmoe_tpu_torch.ops import flash_attention as fa
@@ -397,7 +415,8 @@ def phase_k2(seed: int, reps: int = 20):
         for c in k2_compare(q, k, v, do, scale):
             log(f"K2 {c['kernel']:24s} {c['tensor']:3s} [B={B} h={h} T={T} "
                 f"p={p}] max_abs_err {c['max_abs_err']:.4g}, worst "
-                f"{c['worst']:.3f} of its tolerance")
+                f"{c['worst']:.3f} of its tolerance"
+                + ("" if c["repeats"] else "; a second run DIFFERS"))
             if not c["ok"]:
                 raise AssertionError(
                     f"{c['kernel']} ({c['tensor']}) at {(B, h, T, p)} "
@@ -409,7 +428,7 @@ def phase_k2(seed: int, reps: int = 20):
         if si:
             continue
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
-        delta = (do.float() * o.float()).sum(-1)
+        delta = fa.rowsum_delta(do, o)
         BH, pairs_ = B * h, T * (T + 1) / 2
         fwd_args = [(q, k, v, scale)]
         bwd_args = [(q, k, v, do, lse, delta, scale)]
@@ -437,6 +456,15 @@ def phase_k2(seed: int, reps: int = 20):
                 f"{plain * 1e3:.1f} us  sdpa {lib * 1e3:.1f} us  bound "
                 f"{bound_ms * 1e3:.1f} us ({bound_by})  "
                 f"{bound_ms / ms:.1%} of bound")
+        delta_ms = time_launches(fa.rowsum_delta, [(do, o)] * 4, reps)
+        bwd_ms = sum(rows[n]["ms"] for n in ("flash_attention_bwd_dkv",
+                                             "flash_attention_bwd_dq"))
+        for n in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+            rows[n]["delta_ms"] = delta_ms
+        log(f"K2 delta = rowsum(dO * o), plain PyTorch: "
+            f"{delta_ms * 1e3:.1f} us = {delta_ms / (bwd_ms + delta_ms):.1%}"
+            f" of the backward (dK/dV + dQ {bwd_ms * 1e3:.1f} us; sdpa's "
+            f"backward {lib_bwd * 1e3:.1f} us, {bwd_ms / lib_bwd:.2f}x)")
     log("K2 plain times: the plain backward computes dQ, dK and dV "
         "together, and sdpa's backward all three gradients; both stand in "
         "the dK/dV and the dQ rows")
@@ -615,10 +643,20 @@ def profile_train(task, steps: int = 2):
         task.train(n_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, steps, "train")
+    return _busy(prof, wall, steps, "train", K2_GROUPS)
 
 
-def _busy(prof, wall, steps, what):
+# kernel-name fragments whose device time a training profile sums by label
+K2_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
+                                          "flash_bwd_dq_kernel"),
+             "K2 forward": ("flash_fwd_kernel",)}
+
+
+def _busy(prof, wall, steps, what, groups=None):
+    """Wall and device-kernel ms per step of a profiled window, the busy
+    share, the 12 kernels that take the most device time, and, for each
+    label of `groups`, the device time of the kernels whose names hold
+    one of its fragments (ms per step and share of the step's wall time)."""
     import torch
     kernels = []
     for ev in prof.key_averages():
@@ -635,8 +673,16 @@ def _busy(prof, wall, steps, what):
     for dev_us, count, name in kernels[:12]:
         log(f"  {dev_us / 1e3 / steps:8.3f} ms/step  {count // steps:5d} "
             f"launches/step  {name[:90]}")
+    named = {}
+    for label, fragments in (groups or {}).items():
+        ms = sum(d for d, _, n in kernels
+                 if any(f in n for f in fragments)) / 1e3 / steps
+        named[label] = dict(ms_per_step=ms, share_of_wall=ms / wall_ms,
+                            share_of_device=ms / busy_ms)
+        log(f"  {label}: {ms:.3f} ms/step = {ms / wall_ms:.1%} of the step, "
+            f"{ms / busy_ms:.1%} of its device time")
     return dict(wall_ms_per_step=wall_ms, device_ms_per_step=busy_ms,
-                busy_share=busy_ms / wall_ms,
+                busy_share=busy_ms / wall_ms, groups=named,
                 top=[dict(ms_per_step=d / 1e3 / steps,
                           launches_per_step=c // steps, kernel=n[:120])
                      for d, c, n in kernels[:12]])

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every kernel source is a `csrc/<name>.cu` file with a plain C interface.
-`build()` compiles each one with nvcc into its own shared library under
+Every kernel source is a `csrc/<name>.cu` file with a plain C interface;
+device helpers that sources share are headers beside them (`csrc/*.cuh`).
+`build()` compiles each source with nvcc into its own shared library under
 the package's `_build/` directory (listed in .gitignore), named by the
-hash of its source and the nvcc flags, so an edited source rebuilds and
-an unchanged one is reused. All missing libraries are compiled at once,
-one nvcc process per source. `load(name, bind)` opens a library with
+hash of its source, the headers and the nvcc flags, so an edited source or
+header rebuilds and an unchanged one is reused. All missing libraries are
+compiled at once, one nvcc process per source. `load(name, bind)` opens a library with
 ctypes (building it first if needed) and lets the caller declare its
 entry points once.
 
@@ -30,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("matvec_int4", "matvec_small_m", "gmm2_fused", "flash_attn")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", f"-I{CSRC}")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -48,10 +49,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from csrc/<name>.cu lives: keyed by the
-    hash of the source and the flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    hash of the source, of every header in csrc/ (any source may include
+    any of them) and of the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
 
@@ -72,8 +76,9 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False
 
 
 def compile_sources(jobs: Iterable[tuple], verbose: bool = False) -> None:
-    """Compile each (source .cu, library .so) pair with nvcc, all at once;
-    every library is written to a temporary name beside it and renamed
+    """Compile each (source .cu, library .so) pair with nvcc, all at once
+    (a source outside csrc/ still finds csrc's headers: -I); every library
+    is written to a temporary name beside it and renamed
     into place. Raises if any build fails."""
     nvcc = _nvcc()
     procs = []

@@ -1,0 +1,381 @@
+// Warpgroup-level building blocks for Hopper kernels that issue their own
+// tensor-core instructions (wgmma, sm_90a) on bf16 tiles in shared memory:
+//   * copies from global to shared memory: 4-byte cp.async in groups, and
+//     bulk copies by the copy engine counted on an mbarrier;
+//   * the swizzled tile layout that wgmma reads without bank conflicts and
+//     that a warp fills, a row at a time, without bank conflicts either;
+//   * wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulation), its
+//     descriptors, fences and the two products a warpgroup that owns 64
+//     rows needs: C = A X^T (both from shared memory) and C += A X (A from
+//     registers).
+//
+// Register layouts of m64nNk16 for the warpgroup's thread 32 w + lane,
+// lane = 4 g + t: warp w holds rows 16 w .. 16 w + 15 of the 64.
+//   C, 8-column tile n: c[n][0] (row g, col 8n + 2t)   c[n][1] (col 8n + 2t + 1)
+//                       c[n][2] (row g + 8, col 8n + 2t) c[n][3] (col 8n + 2t + 1)
+//   A, 16 columns (one k-step): a0 (row g, cols 2t, 2t+1)  a1 (row g + 8, same)
+//                               a2 (row g, cols 2t+8, 2t+9) a3 (row g + 8, same)
+// so two neighbouring C tiles (16 columns), rounded to bf16 pairs, are one A
+// k-step: a0 = (c0, c1) and a1 = (c2, c3) of the first tile, a2 and a3 the
+// same of the second. A product's result feeds the next product from
+// registers.
+//
+// A tile of 64 rows and P columns (P = 32, 64, 96 or 128) is stored as
+// column blocks: 64 columns wide with 128-byte rows and the 128-byte
+// swizzle, then, for what is left, 32 columns with 64-byte rows and the
+// 64-byte swizzle. Within a block a row is contiguous, and the swizzle
+// exchanges its 16-byte chunks by the row's number (chunk ^= row & 7, or
+// chunk ^= (row / 2) & 3 for 64-byte rows; tile bases are 1024-byte aligned,
+// so the row's number is in the address bits the hardware reads). One stored
+// block serves both ways a product can take it:
+//   K-major  (its rows are the operand's M or N, its columns the
+//             contraction: C = A X^T): a k-step is 32 bytes on in the row;
+//   MN-major (its rows are the contraction, its columns the output's:
+//             C += A X): a k-step is 16 rows on.
+// In both, the descriptor's stride offset is 8 rows of the block.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace tiles {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One asynchronous 4-byte copy from global to shared memory; both addresses
+// 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bulk copies (the copy engine) and their barrier ---------------------------
+//
+// One thread asks for a run of bytes to be copied from global to shared
+// memory (both 16-byte aligned, a multiple of 16 bytes); the copy engine
+// moves it without further instructions and counts the bytes on an mbarrier
+// in shared memory, on which the block's threads wait.
+
+// Initialise the barrier for one arriving thread; call from one thread,
+// then synchronise the block.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive and announce `bytes` of copies that will complete on the barrier.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait for the barrier's phase of the given parity to complete; traps
+// rather than spinning for ever if the bytes never arrive.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
+// A word of shared memory at a 32-bit shared-space address.
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// Store a word to shared memory where `pred` is not 0 (a predicated store,
+// no branch).
+__device__ __forceinline__ void sts32_if(uint32_t addr, uint32_t v, int pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p st.shared.b32 [%0], %1;\n"
+      "}\n" ::"r"(addr),
+      "r"(v), "r"(pred)
+      : "memory");
+}
+
+// Two floats rounded to bf16 (nearest even), `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special function unit.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+}
+
+// 64 x 16 KS accumulators (KS pairs of n-tiles) rounded to bf16 as the A
+// registers of the next product's KS k-steps.
+template <int KS>
+__device__ __forceinline__ void as_a(uint32_t (&a)[KS][4],
+                                     const float (&c)[2 * KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// ---- the tile layout ---------------------------------------------------------
+
+constexpr int kTileRows = 64;
+
+// Width of column block B (0 or 1) of a tile with P columns; 0 if absent.
+template <int P, int B>
+__host__ __device__ constexpr int block_cols() {
+  static_assert(P == 32 || P == 64 || P == 96 || P == 128, "tile width");
+  return B == 0 ? (P >= 64 ? 64 : 32) : P - (P >= 64 ? 64 : P);
+}
+
+// Element offset of (r, c) inside a block of W columns (64 or 32).
+template <int W>
+__device__ __forceinline__ int block_offset(int r, int c) {
+  static_assert(W == 64 || W == 32, "block width");
+  const int row = W == 64 ? r & 7 : (r >> 1) & 3;
+  return r * W + ((((c >> 3) ^ row) << 3) | (c & 7));
+}
+
+// Element offset of (r, c) in a tile of 64 rows and P columns.
+template <int P>
+__device__ __forceinline__ int tile_offset(int r, int c) {
+  constexpr int W0 = block_cols<P, 0>(), W1 = block_cols<P, 1>();
+  if constexpr (W1 > 0) {
+    if (c >= W0) return kTileRows * W0 + block_offset<W1>(r, c - W0);
+  }
+  return block_offset<W0>(r, c);
+}
+
+// ---- wgmma ---------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a block of W columns: address and
+// stride offset (8 rows) in units of 16 bytes, the leading offset unused
+// (one swizzle atom wide), the swizzle mode 1 (128 bytes) or 2 (64 bytes).
+template <int W>
+__device__ __forceinline__ uint64_t block_desc(const bf16* block) {
+  return static_cast<uint64_t>((smem_u32(block) & 0x3FFFF) >> 4) |
+         (uint64_t(1) << 16) | (static_cast<uint64_t>(W) << 32) |
+         (static_cast<uint64_t>(W == 64 ? 1 : 2) << 62);
+}
+
+// Writes to shared memory by this thread (stores, cp.async) become visible
+// to wgmma's reads; call before the barrier that publishes them.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of the committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving uses of registers that an asynchronous
+// wgmma reads or writes across its fence or its wait.
+template <int NT>
+__device__ __forceinline__ void pin(float (&c)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(c[n][e])::"memory");
+}
+
+template <int KS>
+__device__ __forceinline__ void pin(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e])::"memory");
+}
+
+// d[64 x N] (+)= a[64 x 16] b[16 x N], both operands K-major in shared
+// memory; `accumulate` 0 overwrites d.
+template <int N>
+struct WgmmaSS;
+
+// d[64 x N] += a[64 x 16] b[16 x N] on the n-tiles OFF .. OFF + N / 8 of d, a
+// from registers, b MN-major in shared memory (stored [k][n]).
+template <int N>
+struct WgmmaRST;
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[8][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRST<32> {
+  template <int OFF, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 4 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRST<64> {
+  template <int OFF, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 8 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// c[64 x 64] = a x^T over P columns; a and x tiles of 64 rows, P columns.
+template <int P>
+__device__ __forceinline__ void wgmma_nt(float (&c)[8][4], const bf16* a,
+                                         const bf16* x) {
+  constexpr int W0 = block_cols<P, 0>(), W1 = block_cols<P, 1>();
+  const uint64_t a0 = block_desc<W0>(a), x0 = block_desc<W0>(x);
+#pragma unroll
+  for (int kk = 0; kk < W0 / 16; ++kk)        // 16 columns on: 32 bytes
+    WgmmaSS<64>::run(c, a0 + kk * 2, x0 + kk * 2, kk > 0);
+  if constexpr (W1 > 0) {
+    const uint64_t a1 = block_desc<W1>(a + kTileRows * W0);
+    const uint64_t x1 = block_desc<W1>(x + kTileRows * W0);
+#pragma unroll
+    for (int kk = 0; kk < W1 / 16; ++kk)
+      WgmmaSS<64>::run(c, a1 + kk * 2, x1 + kk * 2, 1);
+  }
+}
+
+// c[64 x P] += a[64 x 64] x; a from registers (four k-steps), x a tile of
+// 64 rows (the contraction) and P columns: one instruction per column
+// block and k-step.
+template <int P>
+__device__ __forceinline__ void wgmma_nn(float (&c)[P / 8][4],
+                                         const uint32_t (&a)[4][4],
+                                         const bf16* x) {
+  constexpr int W0 = block_cols<P, 0>(), W1 = block_cols<P, 1>();
+  const uint64_t x0 = block_desc<W0>(x);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)              // 16 rows on: W * 32 bytes
+    WgmmaRST<W0>::template run<0>(c, a[kk], x0 + kk * (W0 * 2));
+  if constexpr (W1 > 0) {
+    const uint64_t x1 = block_desc<W1>(x + kTileRows * W0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRST<W1>::template run<W0 / 8>(c, a[kk], x1 + kk * (W1 * 2));
+  }
+}
+
+}  // namespace tiles

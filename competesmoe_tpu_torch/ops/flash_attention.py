@@ -18,6 +18,8 @@ delta = rowsum(do * o) (plain PyTorch, as the TPU backward computes it
 outside its kernels). CUDA tensors (bf16) go to the kernels; CPU tensors
 take the plain versions below, which compute the same functions in
 float32. `flash_attention` is the differentiable entry point.
+`_bwd_tiled_model` repeats the backward kernels' arithmetic tile by tile
+(their rounding and masking plan) for the CPU tests.
 """
 
 from __future__ import annotations
@@ -64,6 +66,71 @@ def _bwd_reference(q, k, v, do, lse, delta, sm_scale):
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dq, dk, dv
+
+
+def _bwd_tiled_model(q, k, v, do, lse, delta, sm_scale, tile: int = 64):
+    """The backward kernels' arithmetic in plain PyTorch, tile by tile
+    (for tests; no wrapper takes it). As `csrc/flash_attn.cu` does it:
+    rows padded with zeros to whole tiles of 64; dK/dV per key tile from
+    the transposed scores S^T = K Q^T and dP^T = V dO^T over the query
+    tiles at and below the diagonal, dQ per query tile over the key tiles
+    up to it; P = 2^(S scale log2e - lse log2e); the causal comparison
+    only on a diagonal tile or a last tile with rows beyond T; P and dS
+    rounded to the inputs' dtype before dV += P^T dO, dK += dS^T Q and
+    dQ += dS K; float32 sums in tile order; results rounded to the
+    inputs' dtype. Returns (dq, dk, dv)."""
+    T = q.shape[-2]
+    nt = -(-T // tile)
+    pad = nt * tile - T
+    qf, kf, vf, dof = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                       for t in (q, k, v, do))
+    lse2 = torch.nn.functional.pad(lse.float(), (0, pad)) * math.log2(math.e)
+    dl = torch.nn.functional.pad(delta.float(), (0, pad))
+    scale_log2 = sm_scale * math.log2(math.e)
+    pos = torch.arange(nt * tile, device=q.device)
+
+    def rows(t, i):
+        return t[..., i * tile:(i + 1) * tile, :]
+
+    def stats(t, i):
+        return t[..., i * tile:(i + 1) * tile]
+
+    def attends(kt, it):
+        """[keys, queries] of key tile kt and query tile it."""
+        kv, qi = stats(pos, kt)[:, None], stats(pos, it)[None, :]
+        return (kv <= qi) & (qi < T) & (kv < T)
+
+    def rounded(t):
+        return t.to(q.dtype).float()
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for kt in range(nt):                       # the dK/dV kernel's blocks
+        for it in range(kt, nt):
+            st = rows(kf, kt) @ rows(qf, it).transpose(-1, -2)
+            dpt = rows(vf, kt) @ rows(dof, it).transpose(-1, -2)
+            pt = torch.exp2(st * scale_log2 - stats(lse2, it)[..., None, :])
+            dst = pt * (dpt - stats(dl, it)[..., None, :]) * sm_scale
+            if it == kt or (it + 1) * tile > T:
+                keep = attends(kt, it)
+                pt, dst = pt.where(keep, 0.0), dst.where(keep, 0.0)
+            rows(dv, kt).add_(rounded(pt) @ rows(dof, it))
+            rows(dk, kt).add_(rounded(dst) @ rows(qf, it))
+    for it in range(nt):                       # the dQ kernel's blocks
+        for j in range(it + 1):
+            s = rows(qf, it) @ rows(kf, j).transpose(-1, -2)
+            dp = rows(dof, it) @ rows(vf, j).transpose(-1, -2)
+            pv = torch.exp2(s * scale_log2 - stats(lse2, it)[..., None])
+            ds = pv * (dp - stats(dl, it)[..., None]) * sm_scale
+            if j == it:
+                ds = ds.where(attends(j, it).transpose(-1, -2), 0.0)
+            rows(dq, it).add_(rounded(ds) @ rows(kf, j))
+    return tuple(t[..., :T, :].to(q.dtype) for t in (dq, dk, dv))
+
+
+def rowsum_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * o) in float32, [B, h, T]: plain PyTorch, as the
+    TPU backward computes it outside its kernels."""
+    return (do.float() * o.float()).sum(-1)
 
 
 def _bind(lib) -> None:
@@ -175,7 +242,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = (do.float() * o.float()).sum(-1)
+        delta = rowsum_delta(do, o)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                          ctx.sm_scale)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.sm_scale)

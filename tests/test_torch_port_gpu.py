@@ -338,8 +338,14 @@ def _qkv(g, B, h, T, p):
         torch.bfloat16) for _ in range(3)]
 
 
-@pytest.mark.parametrize("B,h,T,p", [(2, 2, 200, 82), (1, 2, 256, 64),
-                                     (2, 1, 130, 33), (64, 4, 1024, 82)])
+# a ragged last tile; 16-byte copies; odd p (plain loads); the widest
+# head; T below one tile; one tile exactly; the 154M shape
+K2_SHAPES = [(2, 2, 200, 82), (1, 2, 256, 64), (2, 1, 130, 33),
+             (1, 2, 320, 128), (1, 1, 40, 82), (1, 3, 64, 16),
+             (64, 4, 1024, 82)]
+
+
+@pytest.mark.parametrize("B,h,T,p", K2_SHAPES)
 def test_k2_kernels_match_plain(gen, B, h, T, p):
     q, k, v = _qkv(gen, B, h, T, p)
     scale = p ** -0.5
@@ -352,7 +358,7 @@ def test_k2_kernels_match_plain(gen, B, h, T, p):
     _close_tiles(o, o_ref)
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = tfa.rowsum_delta(do, o)
     dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
     dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
@@ -364,6 +370,55 @@ def test_k2_kernels_match_plain(gen, B, h, T, p):
                                  tfa.flash_attention_bwd_dkv,
                                  tfa.flash_attention_bwd_dq)] == [
         c + 1 for c in counts]
+
+
+@pytest.mark.parametrize("B,h,T,p", [(2, 2, 200, 82), (2, 1, 130, 33),
+                                     (16, 4, 1024, 82)])
+def test_k2_backward_kernels_repeat_bit_for_bit(gen, B, h, T, p):
+    """Each gradient is summed by one warp in a fixed order (no atomics):
+    two runs on the same inputs give the same bytes, and so does a run
+    that follows other work on the card."""
+    q, k, v = _qkv(gen, B, h, T, p)
+    scale = p ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    delta = tfa.rowsum_delta(do, o)
+    args = (q, k, v, do, lse, delta, scale)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args)
+    dq = tfa.flash_attention_bwd_dq(*args)
+    tfa.flash_attention_fwd(v, q, k, scale)          # other work between
+    dq2 = tfa.flash_attention_bwd_dq(*args)
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_k2_backward_takes_pointers_that_are_only_2_byte_aligned(gen):
+    """Operands that start 2 bytes into their storage (p even) take the
+    kernels' plain-load path and agree with the aligned run bit for bit."""
+    B, h, T, p = 1, 2, 150, 82
+    q, k, v = _qkv(gen, B, h, T, p)
+    scale = p ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    delta = tfa.rowsum_delta(do, o)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda", dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 4 == 2 and out.is_contiguous()
+        return out
+
+    want_dkv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    want_dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    sq, sk, sv, sdo = (shifted(t) for t in (q, k, v, do))
+    got_dkv = tfa.flash_attention_bwd_dkv(sq, sk, sv, sdo, lse, delta, scale)
+    got_dq = tfa.flash_attention_bwd_dq(sq, sk, sv, sdo, lse, delta, scale)
+    torch.cuda.synchronize()
+    for a, b in zip((*got_dkv, got_dq), (*want_dkv, want_dq)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_k2_autograd_matches_the_cpu(gen):
