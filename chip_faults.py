@@ -7,10 +7,15 @@ Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, or csrc/matvec_small_m.cu, K3 and K4), compiled
 from an edited copy in a temporary directory (csrc/'s headers are found
 through the build's include path); the checkout's sources are not
-touched. K2's backward faults: the last key tile's block adds nothing to
-its dK and dV, the causal comparison off by one, dQ's dS without its scale, the path without the comparison
-taken on the diagonal tile (dK/dV, dQ), and lse and delta read by key
-instead of by query in the transposed dK/dV kernel. The script
+touched. K2's forward faults: the causal comparison off by one, O not
+rescaled when a row's max grows, and a forward that is not causal at all
+(for the small-LM check). K2's backward faults: the last key tile's block
+adds nothing to its dK and dV, the causal comparison off by one, dQ's dS
+without its scale, the path without the comparison taken on the diagonal
+tile (dK/dV, dQ), and lse and delta read by key instead of by query in
+the transposed dK/dV kernel. K3's faults: the last K split of a cluster
+adds nothing, and the cluster's reduction leaves out rank 0's partial
+sums. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -56,8 +61,13 @@ FAULTS = {
         ("k2",)),
     "fwd_mask_off_by_one": (
         "flash_attn",
-        [("(kv <= qi && kv < T) ? srow[c] * scale",
-          "(kv <= qi + 1 && kv < T) ? srow[c] * scale")],
+        [("          if (!attends(j * kB + 8 * n + 2 * t + (e & 1), qi0 + 8 * (e >> 1), T))",
+          "          if (!attends(j * kB + 8 * n + 2 * t + (e & 1), qi0 + 8 * (e >> 1) + 1, T))")],
+        ("k2",)),
+    "fwd_skips_alpha_rescale": (
+        "flash_attn",
+        [("for (int e = 0; e < 4; ++e) o_acc[n][e] *= alpha[e >> 1];",
+          "for (int e = 0; e < 4; ++e) o_acc[n][e] *= 1.0f;")],
         ("k2",)),
     "bwd_mask_off_by_one": (
         "flash_attn",
@@ -89,12 +99,14 @@ FAULTS = {
         ("k2",)),
     "fwd_not_causal": (
         "flash_attn",
-        [("  float m = -INFINITY, l = 0.0f;\n\n"
-          "  for (int j = 0; j <= qt; ++j) {",
-          "  float m = -INFINITY, l = 0.0f;\n\n"
-          "  for (int j = 0; j < (int)gridDim.x; ++j) {"),
-         ("(kv <= qi && kv < T) ? srow[c] * scale",
-          "(kv < T) ? srow[c] * scale")],
+        [("  const int last = min(2 * qp + 1, n_tiles - 1);",
+          "  const int last = n_tiles - 1;"),
+         ("    const bool active = j <= qt;",
+          "    const bool active = true;"),
+         ("    if (j == qt) {                         // the diagonal tile",
+          "    if (j == last) {                       // the diagonal tile"),
+         ("          if (!attends(j * kB + 8 * n + 2 * t + (e & 1), qi0 + 8 * (e >> 1), T))",
+          "          if (j * kB + 8 * n + 2 * t + (e & 1) >= T)")],
         ("small_lm",)),
     "k1_drops_expert_0": (
         "gmm2_fused",
@@ -104,11 +116,14 @@ FAULTS = {
         ("k1", "small_lm")),
     "k3_skips_last_k_split": (
         "matvec_small_m",
-        [("  const int kend = min(K, kbeg + chunk);\n\n"
-          "  float acc[MT][kOutPerWarp];",
-          "  const int kend = split > 0 && split == (int)gridDim.y - 1\n"
-          "                       ? kbeg : min(K, kbeg + chunk);\n\n"
-          "  float acc[MT][kOutPerWarp];")],
+        [("  const int k_end = min(K, k_begin + chunk);",
+          "  const int k_end = split > 0 && split == splits - 1\n"
+          "                        ? k_begin : min(K, k_begin + chunk);")],
+        ("k3", "small_engine_bf16")),
+    "k3_cluster_drops_a_rank": (
+        "matvec_small_m",
+        [("      if (rank < splits) sum += parts[rank];",
+          "      if (rank > 0 && rank < splits) sum += parts[rank];")],
         ("k3", "small_engine_bf16")),
     "k4_scale_twice": (
         "matvec_small_m",
@@ -123,12 +138,13 @@ K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40)}
 SEEDS = range(5)
 
 
-def build_faults(tmp: Path):
-    """Compile every faulty source at once; returns fault -> library."""
+def build_faults(tmp: Path, faults=None):
+    """Compile every edited source of `faults` (name -> (source, edits,
+    ...); default FAULTS) at once; returns name -> library."""
     from competesmoe_tpu_torch import _kernels
 
     jobs, libs = [], {}
-    for name, (src, edits, _) in FAULTS.items():
+    for name, (src, edits, *_) in (faults or FAULTS).items():
         text = (_kernels.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
             if text.count(old) != 1:
@@ -179,15 +195,15 @@ def k2_inputs():
 
 def k34_rows(name: str):
     """`small_m_compare` at the decode projection shapes: one row per shape
-    and M, with ok = (max_abs_err <= tol)."""
+    and M, with ok = (max_abs_err <= tol and a second run repeats)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(99)
     rows = []
     for label, k, n in cs.DECODE_SHAPES:
         for m in K34_CHECK_M[name]:
-            err, tol, _, _ = cs.small_m_compare(name, g, m, k, n)
+            err, tol, repeats, _, _ = cs.small_m_compare(name, g, m, k, n)
             rows.append(dict(proj=label, m=m, max_abs_err=err, tol=tol,
-                             ok=err <= tol))
+                             repeats=repeats, ok=err <= tol and repeats))
     return rows
 
 

@@ -14,9 +14,10 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      - the small-M decode matmuls at the four decode projection shapes
        of the 5.1B decoder: K5 (packed int4) with M in {1, 8}, K3 (bf16)
        with M in {1, 8, 32}, K4 (int8) with M in {1, 8, 32, 40, 128}, and
-       at other row counts for correctness only (3, 40 and 128 for K5; 3
-       and 17 for K3 and K4); tolerance one bf16 ulp at the largest output,
-       2^-7 * max|ref|; launches rotate through 256 MB of weight copies,
+       at other row counts for correctness only (3, 40 and 128 for K5; 2,
+       3 and 17 for K3; 3 and 17 for K4); tolerance one bf16 ulp at the
+       largest output, 2^-7 * max|ref|; each kernel run twice gives the
+       same bytes; launches rotate through 256 MB of weight copies,
        as decode reads its weights; torch.matmul (K3) and
        torch._weight_int8pack_mm where this torch implements it on CUDA
        (K4) as library yardsticks;
@@ -30,8 +31,8 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        p, p 128, T below one tile), element by element: |kernel - plain|
        <= 2^-6 |plain| + 2^-5 rms(plain over the element's (b, h, 64-row
        tile)) for o, dQ, dK and dV (the kernels round P and dS to bf16),
-       and |lse - plain| <= 1e-3; each backward kernel run twice gives the
-       same bytes; timed at the 154M shape beside
+       and |lse - plain| <= 1e-3; each kernel run twice gives the same
+       bytes; timed at the 154M shape beside
        `scaled_dot_product_attention` forward and forward + backward
        (CUDA graphs, as the kernels) as the library yardstick, and beside
        the plain `delta = rowsum(dO * o)` that precedes the two kernels;
@@ -348,7 +349,7 @@ def k2_compare(q, k, v, do, scale):
     """K2's three kernels against the plain forward and backward on the
     same bf16 inputs. Returns one row per compared tensor: kernel,
     tensor, max_abs_err, worst (largest |err| / tolerance), repeats (a
-    second run of a backward kernel gave the same bytes), ok (within the
+    second run of the kernel gave the same bytes), ok (within the
     tolerance, and repeats), and old_rule_ok (whether the bound 2^-6 (o)
     or 2^-5 (gradients) x the largest |plain| would have passed it)."""
     import torch
@@ -362,11 +363,14 @@ def k2_compare(q, k, v, do, scale):
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     dq_ref, dk_ref, dv_ref = fa._bwd_reference(q, k, v, do, lse, delta,
                                                scale)
-    # each gradient is summed in a fixed order: a second run, same bytes
+    # every sum is taken in a fixed order: a second run, same bytes
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, scale)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
     dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    same = {"dk": torch.equal(dk.view(torch.int16), dk2.view(torch.int16)),
+    same = {"o": torch.equal(o.view(torch.int16), o2.view(torch.int16)),
+            "lse": torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
+            "dk": torch.equal(dk.view(torch.int16), dk2.view(torch.int16)),
             "dv": torch.equal(dv.view(torch.int16), dv2.view(torch.int16)),
             "dq": torch.equal(dq.view(torch.int16), dq2.view(torch.int16))}
     out = []
@@ -374,8 +378,9 @@ def k2_compare(q, k, v, do, scale):
     if not math.isfinite(lse_err):
         lse_err = float("inf")
     out.append(dict(kernel="flash_attention_fwd", tensor="lse",
-                    max_abs_err=lse_err, worst=lse_err / 1e-3, repeats=True,
-                    ok=lse_err <= 1e-3, old_rule_ok=lse_err <= 1e-3))
+                    max_abs_err=lse_err, worst=lse_err / 1e-3,
+                    repeats=same["lse"], ok=lse_err <= 1e-3 and same["lse"],
+                    old_rule_ok=lse_err <= 1e-3))
     for kernel, tensor, got, want, old in (
             ("flash_attention_fwd", "o", o, o_ref, 2.0 ** -6),
             ("flash_attention_bwd_dkv", "dk", dk, dk_ref, 2.0 ** -5),
@@ -941,7 +946,7 @@ def phase_server(model):
 # at the four decode projections, and the rows checked for correctness
 # only at o_proj (other groupings of the kernels' 8-row blocks)
 SMALL_M = {"quant_small_m_matmul_int4": ("K5", (1, 8), (3, 40, 128)),
-           "small_m_matmul": ("K3", (1, 8, 32), (3, 17)),
+           "small_m_matmul": ("K3", (1, 8, 32), (2, 3, 17)),
            "quant_small_m_matmul": ("K4", (1, 8, 32, 40, 128), (3, 17))}
 
 
@@ -984,19 +989,22 @@ def _int8pack_mm():
 
 def small_m_compare(name: str, g, m: int, k: int, n: int):
     """K5, K3 or K4 against its plain version on fresh operands:
-    (max_abs_err, tol = 2^-7 * max|plain|, x, weight arguments); a wrong
-    shape counts as an infinite error."""
+    (max_abs_err, tol = 2^-7 * max|plain|, repeats, x, weight arguments);
+    a wrong shape counts as an infinite error; `repeats`: a second run of
+    the kernel gave the same bytes."""
     import torch
 
     from competesmoe_tpu_torch.ops import matvec
     x, w = _small_m_operands(name, g, m, k, n)
     got = getattr(matvec, name)(x, *w)
+    again = getattr(matvec, name)(x, *w)
     want = getattr(matvec, name + "_reference")(x, *w)
     torch.cuda.synchronize()
     err, top = rel_err(got, want)
     if got.shape != want.shape:
         err = float("inf")
-    return err, 2.0 ** -7 * top, x, w
+    repeats = torch.equal(got.view(torch.int16), again.view(torch.int16))
+    return err, 2.0 ** -7 * top, repeats, x, w
 
 
 def phase_small_m(reps: int = 60):
@@ -1018,11 +1026,14 @@ def phase_small_m(reps: int = 60):
     def check(name, m, k, n, label, timed):
         fn = getattr(matvec, name)
         ref = getattr(matvec, name + "_reference")
-        err, tol, x, w = small_m_compare(name, g, m, k, n)
+        err, tol, repeats, x, w = small_m_compare(name, g, m, k, n)
         tag = SMALL_M[name][0]
         if not err <= tol:
             raise AssertionError(f"{tag} {label} M={m}: max_abs_err {err} > "
                                  f"tol {tol}")
+        if not repeats:
+            raise AssertionError(f"{tag} {label} M={m}: a second run gave "
+                                 "other bytes")
         max_err[name] = max(max_err[name], err)
         if not timed:
             log(f"{tag} {label:13s} M={m:<3d} [{k}x{n}] err {err:.3g} "

@@ -14,38 +14,48 @@
 // both backward kernels are bound by operations (89 and 67 us). All three
 // keep the [T, T] scores out of device memory, which is what the TPU
 // kernels do too, and skip every key tile above the diagonal. Tiles are 64
-// rows; one block of 4 warps owns one tile of one (batch, head), each warp
+// rows; a warpgroup (4 warps) owns one tile of one (batch, head), each warp
 // 16 of its rows, and walks the tiles it meets: blocks carry nothing
-// between them, so the TPU's sequential grid axis becomes this loop. Head
-// size 82 is no multiple of the tensor cores' 16: tiles sit in shared
-// memory padded with zeros to P = 32, 64, 96 or 128 columns (by template);
-// copies and stores keep to the true p, so device memory is never padded.
+// between them, so the TPU's sequential grid axis becomes this loop. Head size 82 is no multiple of the tensor cores' 16: tiles sit
+// in shared memory padded with zeros to P = 32, 64, 96 or 128 columns (by
+// template); copies and stores keep to the true p, so device memory is
+// never padded.
 //
-// Forward (one block per query tile, online softmax in f32 over the key
-// tiles up to the diagonal): WMMA bf16 16x16x16 with the scores and the
-// output accumulator in shared memory, tiles staged with plain loads. The
-// probabilities are rounded to bf16 before the P v product, as the einsum
-// path rounds `probs.astype(v.dtype)`.
+// Forward (one block per pair of query tiles, two warpgroups, one per
+// tile; the key tiles up to the diagonal in order, each staged once for
+// both): S = Q K^T comes out of the tensor cores as registers; the online
+// softmax runs there in base 2 (running max of S scale log2e per row, over
+// the lane's quad; each lane sums its own columns, the quad's sums are
+// added once at the end); P = 2^(S scale log2e - max) is rounded to bf16
+// pairs that are the A operand of O += P V, as the einsum path rounds
+// `probs.astype(v.dtype)`; the O accumulator (48 f32 a thread at P 96)
+// stays in registers for the whole loop and is rescaled there. V is the
+// MN-major operand of its stored tile. At the end o = O / l and the
+// natural-log lse = (max + log2 l) ln 2, which the backward reads. Sharing
+// the key tiles between two query tiles halves the moves and the L2 reads
+// per product; it beat one query tile a block at the 154M shape, but only
+// at two blocks an SM (128 registers a thread; at one block it is much
+// slower: chip_variants.py, PERF.md).
 //
 // Backward, as the TPU splits it: delta = rowsum(dO * o) in plain PyTorch;
 // `flash_bwd_dkv` (one block per key tile, looping over the query tiles at
 // and below the diagonal) and `flash_bwd_dq` (one block per query tile,
 // looping over the key tiles up to the diagonal). Each gradient is summed
-// by one warp in a fixed order: no atomics, so results repeat bit for bit.
-// P is rounded to bf16 before dV += P^T dO and dS before its two products
-// (the usual flash-attention choice). A block's work is small, so what
-// counts is what it wastes between tensor-core instructions. The design
-// (helpers in mma_tiles.cuh):
-//   * wgmma m64nNk16 issued by the kernel; the block is one warpgroup. The
+// by one warp in a fixed order: no atomics, so results repeat bit for bit
+// (the forward's too). P is rounded to bf16 before dV += P^T dO and dS
+// before its two products (the usual flash-attention choice). A block's
+// work is small, so what counts is what it wastes between tensor-core
+// instructions. The design of all three (helpers in mma_tiles.cuh):
+//   * wgmma m64nNk16 issued by the kernel; the backward's block is one
+//     warpgroup, the forward's two. The
 //     tensor cores read both operands of S and dP from shared memory, once
-//     for all 64 rows (mma.sync made every warp read the whole streamed
-//     tile for its 16 rows, which bound that version by shared memory).
-//     The accumulator layout is documented, so the gradient accumulators
-//     (dK and dV, or dQ: 48 registers each a thread at P 96) stay in
-//     registers for the whole loop, and so do the scores: S and dP come
-//     out of the tensor cores as registers, become P and dS there (exp2
-//     against the saved lse), are rounded to bf16 pairs that already are
-//     the A operand of the next product, and never touch shared memory.
+//     for all 64 rows (mma.sync or WMMA make every warp read the whole
+//     streamed tile for its 16 rows, which bound those versions by shared
+//     memory). The accumulator layout is documented, so the accumulators
+//     (O; dK and dV; dQ) stay in registers for the whole loop, and so do
+//     the scores: S and dP come out of the tensor cores as registers,
+//     become P and dS there (exp2), are rounded to bf16 pairs that already
+//     are the A operand of the next product, and never touch shared memory.
 //   * dK/dV computes the transposes, S^T = K Q^T and dP^T = V dO^T, so
 //     that the warp's rows are its keys: P^T and dS^T are then the A
 //     operands of dV += P^T dO and dK += dS^T Q, and lse and delta index
@@ -68,22 +78,25 @@
 //     same staging area, odd p plain 2-byte loads. The pad columns are
 //     zeroed once, the rows beyond T of a last tile when it is moved.
 //   * The causal comparison runs on the diagonal tile and on a last tile
-//     with rows beyond T; every other tile takes a path without it.
-//   * 75,792 bytes of shared memory at P 96; dK/dV needs 249 registers a
-//     thread (two blocks an SM), dQ the 168 that three blocks allow, so
+//     with rows beyond T (in the forward and in dQ, the diagonal tile is
+//     the only such tile); every other tile takes a path without it.
+//   * Shared memory at P 96: 74,768 bytes (forward: four tiles, two
+//     staging areas), 75,792 (backward). dK/dV needs 249 registers a
+//     thread (two blocks an SM); dQ fits the 168 that three blocks allow
+//     and the forward the 128 that two blocks of two warpgroups allow, so
 //     one block's loads and exponentials hide behind another's products.
-//     Heaviest blocks first in the grid.
-// What bounds the backward now (cycle counts of one block, PERF.md): moving
-// the staged rows into the tiles (a quarter of a tile's time), the tensor
+//     Heaviest blocks first in the grid (the forward puts its pairs of
+//     query tiles on the grid's slow axis, so every head's longest rows
+//     start before any short ones).
+// What bounds them now (cycle counts of one block, PERF.md): moving the
+// staged rows into the tiles (a quarter of a tile's time), the tensor
 // cores waiting on a single warpgroup's serial phases, and the
 // exponentials. 128-row tiles would halve the moves per product; a second
-// warpgroup that loads while the first multiplies would hide them. The
-// forward still stands on WMMA; moving it onto these helpers is later work.
+// warpgroup that loads while the first multiplies would hide them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <initializer_list>
@@ -92,194 +105,36 @@
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kB = 64;              // query / key rows per tile
 constexpr int kWarps = 4;           // 16 tile rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kSLd = kB + 4;        // f32 score rows (forward)
-constexpr int kPLd = kB + 8;        // bf16 probability rows (forward)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__host__ __device__ constexpr int align128(int b) { return (b + 127) & ~127; }
-
-// Shared-memory geometry. Forward: bf16 tiles of [64][LD], f32 scores, bf16
-// probabilities and an f32 accumulator. Backward: four swizzled tiles and
-// two staging areas of 64 x P bf16 each, buffers of 64 lse and 64 delta
-// values, and the copies' barrier.
+// Shared-memory geometry: swizzled tiles and staging areas of 64 x P bf16
+// each, buffers of 64 lse and 64 delta values (backward), the copies'
+// barrier and room to start the tiles 1024-byte aligned.
 template <int P> struct Geo {
-  static constexpr int LD = P + 8;          // bf16 tile rows, 16-byte aligned
-  static constexpr int OLD = P + 4;         // f32 accumulator rows
-  static constexpr int TILE = align128(kB * LD * 2);
-  static constexpr int ACC = align128(kB * OLD * 4);
-  static constexpr int SCORES = align128(kWarps * 16 * kSLd * 4);
-  static constexpr int PROBS = align128(kB * kPLd * 2);
-  static constexpr int FWD = 3 * TILE + SCORES + PROBS + ACC;
   static constexpr int SWZ = kB * P * 2;    // a swizzled tile (mma_tiles.cuh)
   static constexpr int STATS = 2 * kB * 4;  // lse and delta of one tile
-  // six tiles, the stats (two buffers in dK/dV, one in dQ), the copies'
-  // barrier and room to start the tiles 1024-byte aligned
+  // forward: two Q tiles, K and V tiles and two staging areas
+  static constexpr int FWD = 6 * SWZ + 16 + 1024;
+  // backward: four tiles, two staging areas, the stats (two buffers in
+  // dK/dV, one in dQ)
   static constexpr int DKV = 6 * SWZ + 2 * STATS + 16 + 1024;
   static constexpr int DQ = 6 * SWZ + STATS + 16 + 1024;
   static constexpr int NT = P / 8;          // 8-column output tiles
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
+// ---- shared pieces -------------------------------------------------------
 
-// Rows [row0, row0 + 64) of a contiguous [T, p] matrix into a [64][LD]
-// shared tile, zero-filled beyond p columns and beyond T rows. The source
-// rows are contiguous, so consecutive threads read consecutive addresses.
-template <int P>
-__device__ void load_tile(bf16* dst, const bf16* src, int row0, int T, int p) {
-  constexpr int LD = Geo<P>::LD;
-  const int rows = max(0, min(kB, T - row0));
-  const bf16* s = src + (size_t)row0 * p;
-  if ((p & 1) == 0) {
-    const int words = rows * p / 2;
-    const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(s);
-    for (int i = threadIdx.x; i < words; i += kThreads) {
-      const int r = (2 * i) / p, c = (2 * i) % p;
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * LD + c) = s2[i];
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * p; i += kThreads)
-      dst[(i / p) * LD + i % p] = s[i];
-  }
-  const bf16 zero = __float2bfloat16_rn(0.0f);
-  if (P > p)
-    for (int i = threadIdx.x; i < rows * (P - p); i += kThreads)
-      dst[(i / (P - p)) * LD + p + i % (P - p)] = zero;
-  for (int i = threadIdx.x; i < (kB - rows) * P; i += kThreads)
-    dst[(rows + i / P) * LD + i % P] = zero;
-}
-
-// out[16 x 64] (f32, ld kSLd) = A_rows[16 x P] @ B_rows[64 x P]^T
-template <int P>
-__device__ __forceinline__ void qk_t(float* out, const bf16* a, const bf16* b) {
-  constexpr int LD = Geo<P>::LD;
-#pragma unroll
-  for (int n = 0; n < kB / 16; ++n) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < P; kk += 16) {
-      ARow fa;
-      BCol fb;
-      wmma::load_matrix_sync(fa, a + kk, LD);
-      wmma::load_matrix_sync(fb, b + n * 16 * LD + kk, LD);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, kSLd, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x P] (f32 in shared memory, ld OLD) += A[16 x 64] @ B[64 x P];
-// A is bf16 with leading dim kPLd, B with leading dim LD, both row-major.
-template <int P>
-__device__ __forceinline__ void acc_av(float* acc_s, const bf16* a,
-                                       const bf16* b) {
-  constexpr int LD = Geo<P>::LD;
-  constexpr int OLD = Geo<P>::OLD;
-#pragma unroll
-  for (int n = 0; n < P / 16; ++n) {
-    Acc acc;
-    wmma::load_matrix_sync(acc, acc_s + n * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kB; kk += 16) {
-      ARow fa;
-      BRow fb;
-      wmma::load_matrix_sync(fa, a + kk, kPLd);
-      wmma::load_matrix_sync(fb, b + kk * LD + n * 16, LD);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(acc_s + n * 16, acc, OLD, wmma::mem_row_major);
-  }
-}
-
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int p, float scale) {
-  typedef Geo<P> G;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(smem + G::TILE);
-  bf16* vs = reinterpret_cast<bf16*>(smem + 2 * G::TILE);
-  float* scores = reinterpret_cast<float*>(smem + 3 * G::TILE);
-  bf16* probs = reinterpret_cast<bf16*>(smem + 3 * G::TILE + G::SCORES);
-  float* oacc = reinterpret_cast<float*>(smem + 3 * G::TILE + G::SCORES + G::PROBS);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane / 2, half = lane % 2;
-  const int bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x;     // longest rows first
-  const int q0 = qt * kB;
-  const size_t base = (size_t)bh * T * p;
-  const int qi = q0 + warp * 16 + r;
-
-  float* s_w = scores + warp * 16 * kSLd;
-  bf16* p_w = probs + warp * 16 * kPLd;
-  float* o_w = oacc + warp * 16 * G::OLD;
-
-  load_tile<P>(qs, q + base, q0, T, p);
-  for (int c = half * (P / 2); c < (half + 1) * (P / 2); ++c) o_w[r * G::OLD + c] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  for (int j = 0; j <= qt; ++j) {
-    __syncthreads();
-    load_tile<P>(ks, k + base, j * kB, T, p);
-    load_tile<P>(vs, v + base, j * kB, T, p);
-    __syncthreads();
-    qk_t<P>(s_w, qs + warp * 16 * G::LD, ks);
-    __syncwarp();
-    float* srow = s_w + r * kSLd + half * 32;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int kv = j * kB + half * 32 + c;
-      const float s = (kv <= qi && kv < T) ? srow[c] * scale : -INFINITY;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = __expf(m - m_new);
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float pv = __expf(srow[c] - m_new);
-      sum += pv;
-      p_w[r * kPLd + half * 32 + c] = __float2bfloat16_rn(pv);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    for (int c = half * (P / 2); c < (half + 1) * (P / 2); ++c) o_w[r * G::OLD + c] *= alpha;
-    __syncwarp();
-    acc_av<P>(o_w, p_w, vs);
-    __syncwarp();
-  }
-
-  if (qi < T) {
-    const float inv = 1.0f / l;
-    for (int c = half * (P / 2); c < (half + 1) * (P / 2) && c < p; ++c)
-      o[base + (size_t)qi * p + c] = __float2bfloat16_rn(o_w[r * G::OLD + c] * inv);
-    if (half == 0) lse[(size_t)bh * T + qi] = m + logf(l);
-  }
-}
-
-// ---- backward: shared pieces -------------------------------------------
-
-// The backward kernels' dynamic shared memory, from its first 1024-byte
-// boundary (the swizzled tiles need it).
+// The kernels' dynamic shared memory, from its first 1024-byte boundary
+// (the swizzled tiles need it).
 __device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ unsigned char bwd_smem[];
-  return bwd_smem + ((1024u - tiles::smem_u32(bwd_smem)) & 1023u);
+  extern __shared__ unsigned char tile_smem[];
+  return tile_smem + ((1024u - tiles::smem_u32(tile_smem)) & 1023u);
 }
 
 // What a thread needs to fill its share of a swizzled tile of P columns a
@@ -294,7 +149,7 @@ struct RowCopy {
   int off0[2], off1[2];      // element offsets of (w, 2l), (w + 4, 2l): block 0, 1
 
   __device__ __forceinline__ RowCopy()
-      : warp(threadIdx.x / 32), lane(threadIdx.x % 32) {
+      : warp(threadIdx.x / 32 % kWarps), lane(threadIdx.x % 32) {
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
       off0[par] = tiles::tile_offset<P>(warp + 4 * par, (2 * lane) % W0);
@@ -313,19 +168,23 @@ struct RowCopy {
   }
 };
 
+// This thread's index in its warpgroup: the moves below are a
+// warpgroup's work.
+__device__ __forceinline__ int wg_thread() { return threadIdx.x % kThreads; }
+
 // Rows [row0, row0 + 64) of a contiguous [T, p] matrix, as they lie in
-// device memory, into a staging area of 64 p elements, by the block's own
-// threads: 4-byte cp.async where p is even and the pointers are 4-byte
-// aligned (`width` >= 4), else plain 2-byte loads.
+// device memory, into a staging area of 64 p elements, by a warpgroup:
+// 4-byte cp.async where p is even and the pointers are 4-byte aligned
+// (`width` >= 4), else plain 2-byte loads.
 __device__ __forceinline__ void stage_rows(unsigned char* stage, const bf16* mat,
                                            int row0, int T, int p, int width) {
   const int elems = max(0, min(kB, T - row0)) * p;
   const bf16* src = mat + (size_t)row0 * p;
   if (width >= 4) {
-    for (int i = threadIdx.x; i < elems / 2; i += kThreads)
+    for (int i = wg_thread(); i < elems / 2; i += kThreads)
       tiles::cp_async4(stage + 4 * i, src + 2 * i);
   } else {
-    for (int i = threadIdx.x; i < elems; i += kThreads)
+    for (int i = wg_thread(); i < elems; i += kThreads)
       reinterpret_cast<bf16*>(stage)[i] = src[i];
   }
 }
@@ -411,7 +270,7 @@ __device__ __forceinline__ void unstage(const RowCopy<P>& rc, bf16* tile,
     }
   } else {
     const bf16* e = reinterpret_cast<const bf16*>(stage);
-    for (int i = threadIdx.x; i < kB * p; i += kThreads)
+    for (int i = wg_thread(); i < kB * p; i += kThreads)
       tile[tiles::tile_offset<P>(i / p, i % p)] =
           i < rows * p ? e[i] : __float2bfloat16_rn(0.0f);
   }
@@ -433,7 +292,7 @@ __device__ __forceinline__ void zero_pad(const RowCopy<P>& rc, bf16* tile,
     }
   } else {
     const int pad = P - p;
-    for (int i = threadIdx.x; i < kB * pad; i += kThreads)
+    for (int i = wg_thread(); i < kB * pad; i += kThreads)
       tile[tiles::tile_offset<P>(i / pad, p + i % pad)] =
           __float2bfloat16_rn(0.0f);
   }
@@ -492,6 +351,168 @@ __device__ __forceinline__ void store_acc(bf16* out,
       }
     }
   }
+}
+
+// ---- forward --------------------------------------------------------------
+
+// Two consumer warpgroups, one per 64-row query tile of the block's 128
+// rows, share every staged K and V tile (warpgroup 0 moves K into its tile,
+// warpgroup 1 V); each runs its own online softmax and O. 128 registers a
+// thread: two blocks an SM.
+template <int P>
+__global__ void __launch_bounds__(2 * kThreads, 2)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int T, int p, float scale,
+                 int width) {
+  typedef Geo<P> G;
+  constexpr int NT = G::NT, TILE = G::SWZ / 2;
+  unsigned char* smem = aligned_smem();
+  bf16* qs = reinterpret_cast<bf16*>(smem);      // two Q tiles
+  bf16* ks = qs + 2 * TILE;
+  bf16* vs = qs + 3 * TILE;
+  unsigned char* stage0 = smem + 4 * G::SWZ;     // staging: Q0, then K tiles
+  unsigned char* stage1 = smem + 5 * G::SWZ;     // staging: Q1, then V tiles
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 6 * G::SWZ);
+  uint32_t phase = 0;
+  const RowCopy<P> rc;
+
+  const int wg = threadIdx.x / kThreads;
+  const int warp = threadIdx.x / 32 % kWarps, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qp = gridDim.y - 1 - blockIdx.y;     // longest rows first
+  const int qt = 2 * qp + wg;                    // this warpgroup's tile
+  // key tiles 0..last: the diagonal of the block's second tile, or the
+  // sequence's last tile
+  const int n_tiles = (T + kB - 1) / kB;
+  const int last = min(2 * qp + 1, n_tiles - 1);
+  const size_t base = (size_t)bh * T * p;
+  const float scale_log2 = scale * kLog2e;
+  bf16* my_q = qs + wg * TILE;
+  unsigned char* my_stage = wg == 0 ? stage0 : stage1;
+
+  auto fetch = [&](int j) {       // key tile j: K by warpgroup 0, V by 1
+    if (bulk_tile(j * kB, T, width)) {
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = kB * p * 2;
+        tiles::mbar_expect(bar, 2 * bytes);
+        tiles::bulk_copy(stage0, k + base + (size_t)j * kB * p, bytes, bar);
+        tiles::bulk_copy(stage1, v + base + (size_t)j * kB * p, bytes, bar);
+      }
+    } else {
+      stage_rows(my_stage, (wg == 0 ? k : v) + base, j * kB, T, p, width);
+    }
+    tiles::cp_async_commit();
+  };
+
+  // each warpgroup's Q tile through its staging area, once, by cp.async
+  // (or plain loads)
+  if (threadIdx.x == 0) tiles::mbar_init(bar);
+  stage_rows(my_stage, q + base, qt * kB, T, p, width);
+  tiles::cp_async_commit();
+  if (p < P) {
+    zero_pad<P>(rc, my_q, p);
+    zero_pad<P>(rc, wg == 0 ? ks : vs, p);
+  }
+  tiles::cp_async_wait<0>();
+  __syncthreads();
+  unstage<P>(rc, my_q, my_stage, T - qt * kB, p);
+  __syncthreads();                         // the staging is free again
+  fetch(0);
+
+  // per row of the lane (g, g + 8): the running max of S scale log2e and
+  // the lane's share of the running sum (its 16 columns of each tile)
+  const int qi0 = qt * kB + warp * 16 + g;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o_acc[NT][4];                      // the warp's 16 queries x P, f32
+  tiles::zero(o_acc);
+
+  for (int j = 0; j <= last; ++j) {
+    await_pair(j * kB, T, width, bar, phase);
+    __syncthreads();     // tile j is staged; everyone is done with j - 1
+    unstage<P>(rc, wg == 0 ? ks : vs, my_stage, T - j * kB, p);
+    tiles::fence_async_proxy();
+    __syncthreads();     // the tiles are whole; the staging is free again
+
+    // warpgroup 0 has no work on the block's last tile, 2 qp + 1: it is
+    // above that warpgroup's diagonal
+    const bool active = j <= qt;
+    float s[kB / 8][4];                    // S: 16 queries x 64 keys
+    if (active) {
+      tiles::wgmma_fence();
+      tiles::wgmma_nt<P>(s, my_q, ks);           // S = Q K^T
+      tiles::wgmma_commit();
+    }
+    // asked for while the tensor cores work; lands under this tile's work
+    if (j < last) fetch(j + 1);
+    if (!active) continue;
+    tiles::wgmma_wait<0>();
+    tiles::pin(s);
+    if (j == qt) {                         // the diagonal tile, also the last
+#pragma unroll
+      for (int n = 0; n < kB / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!attends(j * kB + 8 * n + 2 * t + (e & 1), qi0 + 8 * (e >> 1), T))
+            s[n][e] = -INFINITY;
+    }
+    // online softmax in base 2: the rows' new max (over the lane's quad),
+    // the rescale of what came before, P = 2^(S scale log2e - max)
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kB / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * scale_log2);
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;    // a row with no key yet
+      alpha[h] = tiles::ex2(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < kB / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = tiles::ex2(fmaf(s[n][e], scale_log2, -mu[e >> 1]));
+        l[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][e] *= alpha[e >> 1];
+    uint32_t pa[kB / 16][4];
+    tiles::as_a(pa, s);                    // P rounded to bf16 pairs
+    tiles::pin(pa);
+    tiles::pin(o_acc);
+    tiles::wgmma_fence();
+    tiles::wgmma_nn<P>(o_acc, pa, vs);           // O += P V
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::pin(o_acc);
+  }
+  // the rows' sums over the quad; o = O / l; lse = (max + log2 l) ln 2
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.0f / l[h];
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] *= inv[e >> 1];
+  store_acc<P>(o + base, o_acc, qt * kB + warp * 16, T, p, width >= 4, lane);
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qi0 + 8 * h < T)
+        lse[(size_t)bh * T + qi0 + 8 * h] = (m[h] + log2f(l[h])) * kLn2;
 }
 
 // ---- backward: dK and dV -------------------------------------------------
@@ -748,11 +769,14 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int BH, int T, int p, float scale, cudaStream_t stream) {
   int err = prepare<flash_fwd_kernel<P>>(Geo<P>::FWD);
   if (err) return err;
-  const dim3 grid((T + kB - 1) / kB, BH);
-  flash_fwd_kernel<P><<<grid, kThreads, Geo<P>::FWD, stream>>>(
+  // pairs of query tiles on y, heaviest first, so that every (batch,
+  // head)'s longest rows start before any short ones
+  const dim3 grid(BH, ((T + kB - 1) / kB + 1) / 2);
+  flash_fwd_kernel<P><<<grid, 2 * kThreads, Geo<P>::FWD, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), T, p, scale);
+      static_cast<float*>(lse), T, p, scale,
+      copy_width({q, k, v, o}, T, p));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,6 +2,7 @@
 // tensor-core instructions (wgmma, sm_90a) on bf16 tiles in shared memory:
 //   * copies from global to shared memory: 4-byte cp.async in groups, and
 //     bulk copies by the copy engine counted on an mbarrier;
+//   * a cluster's barrier and reads of another block's shared memory;
 //   * the swizzled tile layout that wgmma reads without bank conflicts and
 //     that a warp fills, a row at a time, without bank conflicts either;
 //   * wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulation), its
@@ -73,11 +74,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // moves it without further instructions and counts the bytes on an mbarrier
 // in shared memory, on which the block's threads wait.
 
-// Initialise the barrier for one arriving thread; call from one thread,
-// then synchronise the block.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+// Initialise the barrier for `count` arriving threads (one by default);
+// call from one thread, then synchronise the block.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive (with release semantics: this thread's earlier reads and writes of
+// shared memory are done before the phase can complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // Arrive and announce `bytes` of copies that will complete on the barrier.
@@ -115,6 +125,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (spins > (1u << 26)) __trap();
   }
+}
+
+// ---- thread-block clusters ------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all
+// (release / acquire: shared-memory writes before it are visible to the
+// cluster's reads after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// A float in the shared memory of block `rank` of the cluster, at the
+// address `p` has in this block's shared memory.
+__device__ __forceinline__ float ld_cluster_f32(const void* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // A word of shared memory at a 32-bit shared-space address.
@@ -252,7 +287,7 @@ __device__ __forceinline__ void pin(uint32_t (&a)[KS][4]) {
 }
 
 // d[64 x N] (+)= a[64 x 16] b[16 x N], both operands K-major in shared
-// memory; `accumulate` 0 overwrites d.
+// memory (N = 8, 16, 24, 32 or 64); `accumulate` 0 overwrites d.
 template <int N>
 struct WgmmaSS;
 
@@ -283,6 +318,79 @@ struct WgmmaSS<64> {
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+// The narrow products, N = 8, 16, 24 and 32 (a matrix times a few rows).
+template <>
+struct WgmmaSS<8> {
+  static __device__ __forceinline__ void run(float (&d)[1][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSS<16> {
+  static __device__ __forceinline__ void run(float (&d)[2][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSS<24> {
+  static __device__ __forceinline__ void run(float (&d)[3][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, "
+        "1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
         : "l"(a), "l"(b), "r"(accumulate));
   }
 };

@@ -18,8 +18,8 @@ delta = rowsum(do * o) (plain PyTorch, as the TPU backward computes it
 outside its kernels). CUDA tensors (bf16) go to the kernels; CPU tensors
 take the plain versions below, which compute the same functions in
 float32. `flash_attention` is the differentiable entry point.
-`_bwd_tiled_model` repeats the backward kernels' arithmetic tile by tile
-(their rounding and masking plan) for the CPU tests.
+`_fwd_tiled_model` and `_bwd_tiled_model` repeat the kernels' arithmetic
+tile by tile (their rounding and masking plans) for the CPU tests.
 """
 
 from __future__ import annotations
@@ -125,6 +125,52 @@ def _bwd_tiled_model(q, k, v, do, lse, delta, sm_scale, tile: int = 64):
                 ds = ds.where(attends(j, it).transpose(-1, -2), 0.0)
             rows(dq, it).add_(rounded(ds) @ rows(kf, j))
     return tuple(t[..., :T, :].to(q.dtype) for t in (dq, dk, dv))
+
+
+def _fwd_tiled_model(q, k, v, sm_scale, tile: int = 64):
+    """The forward kernel's arithmetic in plain PyTorch, tile by tile (for
+    tests; no wrapper takes it). As `csrc/flash_attn.cu` does it: rows
+    padded with zeros to whole tiles of 64; per query tile, the key tiles
+    up to the diagonal in order; S = Q K^T in float32; the causal
+    comparison only on the diagonal tile (in the forward the only tile
+    that can be ragged as well), masked scores -inf; an online softmax in
+    base 2: the running max m of S scale log2e per row (a row with no key
+    yet subtracts 0), alpha = 2^(m_old - m_new), P = 2^(S scale log2e -
+    m_new), l = l alpha + rowsum(P), O = O alpha + bf16(P) V summed in
+    float32; at the end o = O / l rounded to the inputs' dtype and the
+    natural-log lse = (m + log2 l) ln 2. Returns (o, lse float32)."""
+    T = q.shape[-2]
+    nt = -(-T // tile)
+    pad = nt * tile - T
+    qf, kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                  for t in (q, k, v))
+    scale_log2 = sm_scale * math.log2(math.e)
+    pos = torch.arange(nt * tile, device=q.device)
+    o = torch.zeros_like(qf)
+    lse = torch.zeros(qf.shape[:-1], dtype=torch.float32, device=q.device)
+    for it in range(nt):                       # the forward kernel's blocks
+        rows = slice(it * tile, (it + 1) * tile)
+        m = torch.full(qf.shape[:-2] + (tile,), -math.inf,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf[..., rows, :])
+        for j in range(it + 1):
+            cols = slice(j * tile, (j + 1) * tile)
+            s = qf[..., rows, :] @ kf[..., cols, :].transpose(-1, -2)
+            if j == it:
+                qi, kv = pos[rows][:, None], pos[cols][None, :]
+                s = s.where((kv <= qi) & (qi < T) & (kv < T), -math.inf)
+            m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+            mu = m_new.where(m_new > -math.inf, 0.0)
+            alpha = torch.exp2(m - mu)
+            pv = torch.exp2(s * scale_log2 - mu[..., None])
+            l = l * alpha + pv.sum(-1)
+            acc = acc * alpha[..., None] + (
+                pv.to(v.dtype).float() @ vf[..., cols, :])
+            m = m_new
+        o[..., rows, :] = acc / l[..., None]
+        lse[..., rows] = (m + torch.log2(l)) * math.log(2.0)
+    return o[..., :T, :].to(q.dtype), lse[..., :T]
 
 
 def rowsum_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:

@@ -118,7 +118,7 @@ def _bind(lib) -> None:
 
 def _bind_small_m(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mm_bf16_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.mm_bf16_launch.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.mm_bf16_launch.restype = ctypes.c_int
     lib.qmm8_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.qmm8_launch.restype = ctypes.c_int
@@ -194,12 +194,13 @@ quant_small_m_matmul_int4.launches = 0
 # ---------------------------------------------------------------------------
 
 # geometry of csrc/matvec_small_m.cu
-_K3_BLOCK_N = 16               # outputs per block: 4 warps x 4 weight rows
-_K3_K_STEP = 256               # K elements a warp covers per iteration
+_K3_BLOCK_N = 64               # weight rows (outputs) per block
+_K3_STAGE_K = 128              # K columns per stage of the block's ring
+_K3_MAX_SPLITS = 8             # the K splits of a block: one cluster
 _K4_BLOCK_N = 512              # 32 threads x 16 int8 columns
 _K4_ROW_STEP = 16              # K-lanes * unroll
 _K4_MAX_CHUNK = 256            # the kernel's x staging buffer, in rows
-_ROWS_PER_BLOCK = 8            # rows of x per block (grid.z groups)
+_ROWS_PER_BLOCK = 8            # rows of x per K4 block (grid.z groups)
 
 
 def _check_x(x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -212,6 +213,23 @@ def _check_x(x: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"x must be a contiguous [M, K] with K % 8 == 0 "
                          f"and 16-byte aligned; got {tuple(x.shape)} "
                          f"strides {x.stride()}")
+
+
+def _k3_splits(k: int, n: int, n_sms: int):
+    """(splits, chunk) of K3: the blocks that share 64 output rows split K
+    and form one thread-block cluster, which reduces their sums inside the
+    launch. Double the splits (at most 8, the portable cluster size)
+    until the blocks cover every SM once, keeping at least two stages of
+    128 columns per split; each split is a whole number of stages and the
+    last one is not empty."""
+    blocks = -(-n // _K3_BLOCK_N)
+    splits = 1
+    while (splits < _K3_MAX_SPLITS and blocks * splits < n_sms
+           and k >= 4 * splits * _K3_STAGE_K):
+        splits *= 2
+    chunk = -(-k // splits)
+    chunk = -(-chunk // _K3_STAGE_K) * _K3_STAGE_K
+    return -(-k // chunk), chunk
 
 
 def small_m_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -236,17 +254,13 @@ def small_m_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"w must be the [K, N] view of a contiguous [N, K] "
                          f"matrix (strides (1, {k}), 16-byte aligned); got "
                          f"strides {w.stride()}")
+    if m > MAX_SMALL_M:
+        raise ValueError(f"K3 takes at most {MAX_SMALL_M} rows of x; got {m}")
     lib = _kernels.load("matvec_small_m", _bind_small_m)
-    splits, chunk = _split_k(
-        k, -(-n // _K3_BLOCK_N) * -(-m // _ROWS_PER_BLOCK),
-        _sm_count(x.device.index), _K3_K_STEP, _K3_K_STEP)
+    splits, chunk = _k3_splits(k, n, _sm_count(x.device.index))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     rc = lib.mm_bf16_launch(
-        x.data_ptr(), w.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        out.data_ptr(), m, k, n, splits, chunk,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, splits, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check(rc, "bf16 small-M matmul")
     small_m_matmul.launches += 1

@@ -264,10 +264,27 @@ def serve_worker(worker: ModelWorker, host: str = "0.0.0.0",
     httpd.serve_forever()
 
 
+# what a checkpoint directory holds beside config.json: weight shards and
+# the index files of sharded checkpoints
+_WEIGHT_PATTERNS = ("*.safetensors", "*.bin", "*.pt",
+                    "*.safetensors.index.json", "*.bin.index.json")
+
+
+def weight_files(model_path) -> List[str]:
+    """Names of the weight files (or shard index files) in a
+    --model-path directory, sorted; empty for a geometry-only directory."""
+    from pathlib import Path
+    root = Path(model_path)
+    return sorted({f.name for pat in _WEIGHT_PATTERNS
+                   for f in root.glob(pat)})
+
+
 def main(argv=None):
     """Worker launch CLI: build the model on the GPU (random weights from
     --seed until the checkpoint loader is ported), optionally register
-    with a controller, serve."""
+    with a controller, serve. A --model-path that holds weights is
+    refused: they cannot be loaded yet, and random weights in their place
+    would answer every request wrongly."""
     import argparse
     import dataclasses
     from pathlib import Path
@@ -280,8 +297,11 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-path", default=None,
-                    help="directory with an HF-style config.json "
-                         "(geometry only); default: CompeteSMoE-5.1B")
+                    help="directory with only an HF-style config.json: "
+                         "its geometry, with random weights from --seed "
+                         "(a directory that holds weights is refused; "
+                         "the checkpoint loader is not ported yet); "
+                         "default: CompeteSMoE-5.1B's geometry")
     ap.add_argument("--model-name", default="competesmoe-5.1b")
     ap.add_argument("--tokenizer", required=True,
                     help="HF tokenizer directory (needs `transformers`)")
@@ -328,6 +348,14 @@ def main(argv=None):
                          "item 5: serving)")
     if a.load_8bit and a.load_4bit:
         raise SystemExit("--load-8bit and --load-4bit exclude each other")
+    weights = weight_files(a.model_path) if a.model_path else []
+    if weights:
+        raise SystemExit(
+            f"--model-path {a.model_path} holds weights "
+            f"({', '.join(weights)}): the checkpoint loader is not ported "
+            "yet (ROADMAP §1 item 1.4), and serving random weights in "
+            "their place would answer wrongly. Give a directory with only "
+            "config.json to serve its geometry with random weights.")
 
     hf_cfg = (json.loads((Path(a.model_path) / "config.json").read_text())
               if a.model_path else HF_5P1B)

@@ -13,7 +13,13 @@
     inputs, judged by the rule the card check applies to the kernels
     (`chip_smoke.tile_tolerance`): the rounding scheme and the masking
     plan meet that tolerance before any card is involved.
+(c) `_fwd_tiled_model`, the forward kernel's arithmetic tile by tile
+    (online softmax in base 2, P rounded to bf16 before P V, the causal
+    comparison on the diagonal tile only, the natural-log lse), against
+    JAX's einsum attention on the same bf16 values under the same rule.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -113,6 +119,59 @@ def test_tiled_model_needs_its_diagonal_mask(monkeypatch):
         diff = (got.float() - want).abs()
         worst = float((diff / chip_smoke.tile_tolerance(want)).max())
         assert not worst <= 1.0
+
+
+def _jax_bf16_forward(q, k, v):
+    """JAX's einsum attention on bf16 inputs, as the LM runs it under
+    -amp (float32 scores, probabilities rounded to bf16, output bf16),
+    with the lse of its scaled, masked scores in float32."""
+    qj, kj, vj = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (q, k, v))
+    T, p = q.shape[-2:]
+    scores = jnp.einsum("bhqd,bhkd->bhqk", qj, kj,
+                        preferred_element_type=jnp.float32) / np.sqrt(p)
+    causal = jnp.arange(T)[None, :] <= jnp.arange(T)[:, None]
+    scores = jnp.where(causal[None, None], scores, -jnp.inf)
+    o = _jax_einsum_attention(qj, kj, vj)
+    return (torch.from_numpy(np.array(o.astype(jnp.float32))),
+            torch.from_numpy(np.array(jax.nn.logsumexp(scores, axis=-1))))
+
+
+@pytest.mark.parametrize("T,p", SHAPES + [(256, 64)])
+def test_tiled_model_of_the_forward_kernel_matches_jax_einsum(T, p):
+    """The forward kernel's scheme (`_fwd_tiled_model`: online softmax in
+    base 2 over 64-row tiles, P rounded to bf16 before P V, the causal
+    comparison on the diagonal tile only) on bf16 inputs against JAX's
+    einsum attention on the same values: o within the card check's tile
+    rule, |model - JAX| <= 2^-6 |JAX| + 2^-5 rms(JAX over the element's
+    64-row tile) (both round P, at different points, and o to bf16); lse
+    within 1e-3 (absolute, the card check's bound; float32 on both
+    sides)."""
+    q, k, v, _, _, _, scale = _bf16_case(T, p)
+    o, lse = tfa._fwd_tiled_model(q, k, v, scale)
+    want_o, want_lse = _jax_bf16_forward(q, k, v)
+    assert o.dtype == torch.bfloat16 and o.shape == want_o.shape
+    assert lse.dtype == torch.float32 and lse.shape == want_lse.shape
+    diff = (o.float() - want_o).abs()
+    worst = float((diff / chip_smoke.tile_tolerance(want_o)).max())
+    assert worst <= 1.0, worst
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+
+
+def test_tiled_forward_model_needs_its_diagonal_mask(monkeypatch):
+    """With the comparison dropped on the diagonal tile the forward model
+    attends to later keys and leaves the tolerance, so the test above
+    would see a masking plan that skips a tile it must not."""
+    q, k, v, _, _, _, scale = _bf16_case(200, 82)
+    where = torch.Tensor.where
+    monkeypatch.setattr(torch.Tensor, "where", lambda self, keep, other:
+                        self if other == -math.inf else where(self, keep,
+                                                              other))
+    o, _ = tfa._fwd_tiled_model(q, k, v, scale)
+    monkeypatch.undo()
+    want_o, _ = _jax_bf16_forward(q, k, v)
+    diff = (o.float() - want_o).abs()
+    assert not float((diff / chip_smoke.tile_tolerance(want_o)).max()) <= 1.0
 
 
 def test_rowsum_delta_is_float32_rowsum():

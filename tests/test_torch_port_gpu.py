@@ -122,9 +122,14 @@ def _k4_operands(g, m, k, n):
 _DECODE_KN = [(3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072)]
 
 
+# the decode projections at M 1, 8 and 32, other row counts at o_proj,
+# and shapes with a ragged last stage (K % 128 == 8: a half k-step) and
+# a ragged last block of weight rows
 @pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 32)
                                    for k, n in _DECODE_KN]
-                         + [(3, 1024, 256), (17, 128, 384)])
+                         + [(m, 3072, 3072) for m in (2, 3, 17)]
+                         + [(3, 1024, 256), (17, 128, 384), (5, 1000, 200),
+                            (32, 2056, 100)])
 def test_k3_kernel_matches_plain(gen, m, k, n):
     x, w = _k3_operands(gen, m, k, n)
     before = tmatvec.small_m_matmul.launches
@@ -132,6 +137,19 @@ def test_k3_kernel_matches_plain(gen, m, k, n):
     torch.cuda.synchronize()
     assert tmatvec.small_m_matmul.launches == before + 1
     _assert_close(got, tmatvec.small_m_matmul_reference(x, w))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 17, 32])
+def test_k3_repeats_bit_for_bit(gen, m):
+    """K3's splits are summed across the cluster in rank order (no
+    atomics): two runs give the same bytes, at o_proj and down_proj,
+    which both take clusters of 4."""
+    for k, n in ((3072, 3072), (8192, 3072)):
+        x, w = _k3_operands(gen, m, k, n)
+        a = tmatvec.small_m_matmul(x, w)
+        b = tmatvec.small_m_matmul(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 40)
@@ -157,6 +175,8 @@ def test_k3_k4_reject_what_they_do_not_take(gen):
         tmatvec.small_m_matmul(x[:, :512], w)
     with pytest.raises(ValueError):
         tmatvec.small_m_matmul(x, w.cpu())
+    with pytest.raises(ValueError):       # more rows than K3 takes
+        tmatvec.small_m_matmul(_k3_operands(gen, 40, 1024, 256)[0], w)
     x, q, scale = _k4_operands(gen, 2, 1024, 256)
     with pytest.raises(TypeError):
         tmatvec.quant_small_m_matmul(x, q.float(), scale)
@@ -392,6 +412,42 @@ def test_k2_backward_kernels_repeat_bit_for_bit(gen, B, h, T, p):
     torch.cuda.synchronize()
     for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("B,h,T,p", [(2, 2, 200, 82), (2, 1, 130, 33),
+                                     (16, 4, 1024, 82)])
+def test_k2_forward_repeats_bit_for_bit(gen, B, h, T, p):
+    """One block per query tile walks its key tiles in a fixed order: two
+    runs of the forward give the same o and lse bytes, also after other
+    work on the card."""
+    q, k, v = _qkv(gen, B, h, T, p)
+    o, lse = tfa.flash_attention_fwd(q, k, v, p ** -0.5)
+    tfa.flash_attention_fwd(v, q, k, p ** -0.5)      # other work between
+    o2, lse2 = tfa.flash_attention_fwd(q, k, v, p ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+
+
+def test_k2_forward_takes_pointers_that_are_only_2_byte_aligned(gen):
+    """Operands that start 2 bytes into their storage (p even) take the
+    forward's plain-load path and agree with the aligned run bit for
+    bit."""
+    q, k, v = _qkv(gen, 1, 2, 150, 82)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda", dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 4 == 2 and out.is_contiguous()
+        return out
+
+    o, lse = tfa.flash_attention_fwd(q, k, v, 82 ** -0.5)
+    o2, lse2 = tfa.flash_attention_fwd(*(shifted(t) for t in (q, k, v)),
+                                       82 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
 
 
 def test_k2_backward_takes_pointers_that_are_only_2_byte_aligned(gen):

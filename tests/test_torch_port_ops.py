@@ -196,22 +196,35 @@ def test_pack_int4_roundtrip_matches_jax():
 def test_split_k_covers_decode_shapes():
     """K5's, K3's and K4's K splits at the decode shapes: each split a
     whole number of the kernel's K steps, within its staging buffer, and
-    the splits cover K once (no empty last split)."""
+    the splits cover K once (no empty last split). K3's splits are one
+    thread-block cluster: at most 8, and enough blocks for 132 SMs where
+    K allows two stages a split."""
     mv = tmatvec
-    for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072)):
+    for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072),
+                 (256, 768), (512, 256), (128, 384), (1024, 256)):
         for m in (1, 8, 40, 128):
             groups = -(-m // mv._ROWS_PER_BLOCK)
             for rows, blocks, step, least, most in (
                     (k // 2, -(-n // mv._KERNEL_BLOCK_N),
                      mv._KERNEL_ROW_STEP, 64, mv._KERNEL_MAX_CHUNK),
-                    (k, -(-n // mv._K3_BLOCK_N) * groups, mv._K3_K_STEP,
-                     mv._K3_K_STEP, None),
                     (k, -(-n // mv._K4_BLOCK_N) * groups, mv._K4_ROW_STEP,
                      64, mv._K4_MAX_CHUNK)):
                 splits, chunk = mv._split_k(rows, blocks, 132, step, least,
                                             most)
                 assert chunk % step == 0 and 0 < chunk <= (most or rows)
                 assert splits * chunk >= rows > (splits - 1) * chunk
+        splits, chunk = mv._k3_splits(k, n, 132)
+        blocks = -(-n // mv._K3_BLOCK_N)
+        assert 1 <= splits <= mv._K3_MAX_SPLITS
+        assert chunk % mv._K3_STAGE_K == 0
+        assert splits * chunk >= k > (splits - 1) * chunk
+        assert (blocks * splits >= 132 or splits == mv._K3_MAX_SPLITS
+                or k < 4 * splits * mv._K3_STAGE_K)
+    # the 5.1B decoder's projections: qkv and gate_up fill the card
+    # unsplit; o_proj and down_proj take clusters of 4
+    assert [mv._k3_splits(k, n, 132) for k, n in (
+        (3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072))] == [
+        (1, 3072), (4, 768), (1, 3072), (4, 2048)]
 
 
 def test_small_m_viability_matches_jax():

@@ -14,6 +14,7 @@ import dataclasses
 import json
 import socket
 import threading
+from pathlib import Path
 from urllib import request as urlrequest
 
 import jax
@@ -523,6 +524,45 @@ def test_unported_engine_options_raise(tiny_engine_model):
                  ["--engine-warmup", "64"]):
         with pytest.raises(SystemExit, match="not ported"):
             main(["--tokenizer", "unused", "--device", "cpu"] + flag)
+
+
+def test_worker_refuses_a_model_path_that_holds_weights(tmp_path,
+                                                       monkeypatch):
+    """The worker cannot load a checkpoint yet: a --model-path with
+    weights exits naming them and the ROADMAP item, before any model or
+    tokenizer is built; the same config.json alone still serves as
+    geometry and reaches the tokenizer load."""
+    import shutil
+    import sys
+    import types
+
+    from competesmoe_tpu_torch.serve import model_worker
+    ckpt = Path(__file__).parent / "fixtures" / "golden_tiny_ckpt"
+    assert model_worker.weight_files(ckpt) == ["model.safetensors"]
+    with pytest.raises(SystemExit, match=r"model\.safetensors.*not ported"
+                       r".*item 1\.4"):
+        model_worker.main(["--tokenizer", "unused", "--model-path",
+                           str(ckpt), "--device", "cpu"])
+    shutil.copy(ckpt / "config.json", tmp_path / "config.json")
+    assert model_worker.weight_files(tmp_path) == []
+
+    class ReachedTokenizer(Exception):
+        pass
+
+    def from_pretrained(path):
+        raise ReachedTokenizer(path)
+
+    fake = types.ModuleType("transformers")
+    fake.AutoTokenizer = types.SimpleNamespace(
+        from_pretrained=from_pretrained)
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    with pytest.raises(ReachedTokenizer, match="tok-dir"):
+        model_worker.main(["--tokenizer", "tok-dir", "--model-path",
+                           str(tmp_path), "--device", "cpu"])
+    for name in ("shard.bin", "w.pt", "model.safetensors.index.json"):
+        (tmp_path / name).write_text("{}")
+    assert model_worker.weight_files(tmp_path) == [
+        "model.safetensors.index.json", "shard.bin", "w.pt"]
 
 
 # ---------------------------------------------------------------------------
