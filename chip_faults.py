@@ -15,7 +15,13 @@ without its scale, the path without the comparison taken on the diagonal
 tile (dK/dV, dQ), and lse and delta read by key instead of by query in
 the transposed dK/dV kernel. K3's faults: the last K split of a cluster
 adds nothing, and the cluster's reduction leaves out rank 0's partial
-sums. The script
+sums. K4's faults: the scale applied twice, -128 converted as -127 (as if
+the weights were symmetric; every other byte right), the last 64-K stage
+of each split dropped, and the cluster's reduction leaving out the last
+rank (the reduction is the code K3 and K4 share). K1's faults: the tiles
+of expert 0 written as zeros, the relu skipped on the second 64 columns
+of h, and the expert of the next tile taken for the second half of a
+256-row tile (a block takes half a tile). The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -26,7 +32,8 @@ sums. The script
      - K2 faults: `k2_compare` at every K2 shape, each tensor judged by
        the element-wise tile rule and, for comparison, by the old bound
        (2^-6 or 2^-5 x the largest |plain|);
-     - the K1 fault: `k1_compare` at the 154M layer shape;
+     - K1 faults: `k1_compare` at the 154M layer shape and at
+       chip_smoke's K1 check shapes (ES 256, 384, 512);
      - small-LM faults: `small_lm_gaps` of 3 steps (seed 0) against the
        CPU;
      - K3 and K4 faults: `small_m_compare` at the four decode projection
@@ -110,10 +117,22 @@ FAULTS = {
         ("small_lm",)),
     "k1_drops_expert_0": (
         "gmm2_fused",
-        [("vals[t] = __float2bfloat16_rn(stage[r * 16 + c + t]);",
-          "vals[t] = __float2bfloat16_rn(e == 0 ? 0.0f : "
-          "stage[r * 16 + c + t]);")],
+        [("              make_uint4(v[0], v[1], v[2], v[3]);",
+          "              tile_expert[u * G::ROWS / kTile] == 0\n"
+          "                  ? make_uint4(0u, 0u, 0u, 0u)\n"
+          "                  : make_uint4(v[0], v[1], v[2], v[3]);")],
         ("k1", "small_lm")),
+    "k1_skips_relu_on_a_chunk": (
+        "gmm2_fused",
+        [("for (int e = 0; e < 4; ++e) acc[n][e] = fmaxf(acc[n][e], 0.0f);",
+          "for (int e = 0; e < 4; ++e)\n"
+          "          acc[n][e] = n < 8 ? fmaxf(acc[n][e], 0.0f) : acc[n][e];")],
+        ("k1",)),
+    "k1_second_half_takes_next_expert": (
+        "gmm2_fused",
+        [("        const int e = tile_expert[row0 / kTile];",
+          "        const int e = tile_expert[(row0 + kTile / 2) / kTile];")],
+        ("k1",)),
     "k3_skips_last_k_split": (
         "matvec_small_m",
         [("  const int k_end = min(K, k_begin + chunk);",
@@ -127,10 +146,29 @@ FAULTS = {
         ("k3", "small_engine_bf16")),
     "k4_scale_twice": (
         "matvec_small_m",
-        [("out[row * N + n] = __float2bfloat16(s * scale[n]);",
-          "out[row * N + n] = __float2bfloat16(s * scale[n] * scale[n]);"),
-         ("if (scale != nullptr) s *= scale[i % N];",
-          "if (scale != nullptr) s *= scale[i % N] * scale[i % N];")],
+        [("if (row[h] < rows) s[h] = scale[n0 + row[h]];",
+          "if (row[h] < rows) s[h] = scale[n0 + row[h]] * scale[n0 + row[h]];"),
+         ("if constexpr (kInt8) sum *= scale[n0 + i];",
+          "if constexpr (kInt8) sum *= scale[n0 + i] * scale[n0 + i];")],
+        ("k4", "small_engine_int8")),
+    "k4_converts_minus_128_as_minus_127": (
+        "matvec_small_m",
+        [("0x43004300u), \"r\"((hi & 0x00800080u) | 0x43004300u));\n"
+          "  return r;",
+          "0x43004300u), \"r\"((hi & 0x00800080u) | 0x43004300u));\n"
+          "  asm(\"max.bf16x2 %0, %0, %1;\\n\" : \"+r\"(r.x) : \"r\"(0xC2FEC2FEu));\n"
+          "  asm(\"max.bf16x2 %0, %0, %1;\\n\" : \"+r\"(r.y) : \"r\"(0xC2FEC2FEu));\n"
+          "  return r;")],
+        ("k4",)),
+    "k4_drops_last_k_stage": (
+        "matvec_small_m",
+        [("(k_stop - k_first + kStageK4 - 1) / kStageK4 : 0;",
+          "(k_stop - k_first + kStageK4 - 1) / kStageK4 - 1 : 0;")],
+        ("k4", "small_engine_int8")),
+    "k4_cluster_drops_a_rank": (
+        "matvec_small_m",
+        [("      if (rank < splits) sum += parts[rank];",
+          "      if (rank + 1 < splits) sum += parts[rank];")],
         ("k4", "small_engine_int8")),
 }
 # K3/K4 shapes of the kernel check: the decode projections at these M
@@ -204,6 +242,20 @@ def k34_rows(name: str):
             err, tol, repeats, _, _ = cs.small_m_compare(name, g, m, k, n)
             rows.append(dict(proj=label, m=m, max_abs_err=err, tol=tol,
                              repeats=repeats, ok=err <= tol and repeats))
+    return rows
+
+
+def k1_rows():
+    """`k1_compare` at the 154M layer shape and at every K1 check shape:
+    one row each, with ok = (max_abs_err <= tol and a second run
+    repeats)."""
+    rows = []
+    xs, keys, values, te, _ = cs.k1_inputs(0)
+    checks = [(cs.K1_SHAPE, *cs.k1_compare(xs, keys, values, te))]
+    del xs, keys, values, te
+    for shape, err, tol, repeats in checks + cs.k1_checks(0):
+        rows.append(dict(shape=shape, max_abs_err=err, tol=tol,
+                         repeats=repeats, ok=err <= tol and repeats))
     return rows
 
 
@@ -286,13 +338,12 @@ def main():
                                f"{_verdict(c['old_rule_ok'])})")
                 failed["k2"] = not all(c["ok"] for c in rows["k2"])
             if "k1" in checks:
-                xs, keys, values, te, _ = cs.k1_inputs(0)
-                err, tol = cs.k1_compare(xs, keys, values, te)
-                rows["k1"] = dict(max_abs_err=err, tol=tol, ok=err <= tol)
-                failed["k1"] = not err <= tol
-                cs.log(f"{name}: K1 max_abs_err {err:.4g}, tol {tol:.4g} "
-                       f"-> {_verdict(err <= tol)}")
-                del xs, keys, values, te
+                rows["k1"] = k1_rows()
+                failed["k1"] = not all(r["ok"] for r in rows["k1"])
+                for r in rows["k1"]:
+                    cs.log(f"{name}: K1 at {r['shape']} max_abs_err "
+                           f"{r['max_abs_err']:.4g}, tol {r['tol']:.4g}, "
+                           f"repeats {r['repeats']} -> {_verdict(r['ok'])}")
             if "small_lm" in checks:
                 gaps = cs.small_lm_gaps(ref0, cs.small_lm_steps(
                     cs.small_lm_task(0, "cuda", init0)))

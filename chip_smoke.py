@@ -15,16 +15,19 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        of the 5.1B decoder: K5 (packed int4) with M in {1, 8}, K3 (bf16)
        with M in {1, 8, 32}, K4 (int8) with M in {1, 8, 32, 40, 128}, and
        at other row counts for correctness only (3, 40 and 128 for K5; 2,
-       3 and 17 for K3; 3 and 17 for K4); tolerance one bf16 ulp at the
-       largest output, 2^-7 * max|ref|; each kernel run twice gives the
-       same bytes; launches rotate through 256 MB of weight copies,
+       3 and 17 for K3; 3, 9, 17, 33 and 64 for K4: every wgmma width);
+       K4's int8 weights hold every value, -128 too; tolerance one bf16
+       ulp at the largest output, 2^-7 * max|ref|; each kernel run twice
+       gives the same bytes; launches rotate through 256 MB of weight copies,
        as decode reads its weights; torch.matmul (K3) and
        torch._weight_int8pack_mm where this torch implements it on CUDA
        (K4) as library yardsticks;
      - K1, the fused grouped ReLU double GEMM, at the 154M layer shape
        (65,536 tokens x top-8 over 64 experts of 128, skewed groups with
-       empty experts; tolerance 2^-6 * max|ref|: the kernel rounds the f32
-       expert weights to bf16 for the tensor cores);
+       empty experts; tolerance 2^-6 * max|ref|: the kernel reads the f32
+       expert weights rounded to bf16, a cast inside its timed call), and
+       for correctness only at ES 256, 384 and 512 (K1_CHECK_SHAPES: h
+       in 64 to 128 registers); run twice it gives the same bytes;
      - K2, causal flash attention forward, dK/dV and dQ, at B 64, h 4,
        T 1024, p 82 (the 154M shape), at B 8, h 4, T 256, p 64, and at the
        shapes that take the kernels' other paths (a ragged last tile, odd
@@ -73,9 +76,9 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      K4 launches must equal 4 x 32 x the forwards whose rows the kernel
      takes, every other kernel 0;
   9. with --profile: torch.profiler over two more training steps (with
-     K2's backward and forward shares of a step by name), over decode
-     steps of the served model and over engine ticks (device busy share
-     and the kernels that take the time).
+     K1's and K2's shares of a step by name), over decode steps of the
+     served model and over engine ticks (with K3's or K4's share; device
+     busy share and the kernels that take the time).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The last lines are the kernels JSON, the card line
 and the result JSON.
@@ -121,7 +124,12 @@ SWEEP_154M = (
     "-lm.eval.enabled 0 -moe.impl fused -transformer.attn_backend flash"
 ).split()
 # K1 at the 154M layer: 64 x 1024 tokens, top-8 of 64 experts of 128
+# (timed), then correctness only: the kernel's other instantiations (ES
+# 256, 384 and 512)
 K1_SHAPE = dict(T=65536, D=512, E=64, ES=128, k=8)
+K1_CHECK_SHAPES = (dict(T=1024, D=256, E=8, ES=256, k=2),
+                   dict(T=1024, D=128, E=8, ES=384, k=2),
+                   dict(T=768, D=256, E=8, ES=512, k=2))
 # (B, h, T, p): the 154M shape (timed), then correctness only: 16-byte
 # copies; a ragged last tile; odd p (plain loads); p 128; T below one tile
 K2_SHAPES = ((64, 4, 1024, 82), (8, 4, 256, 64), (2, 2, 200, 82),
@@ -233,15 +241,15 @@ def time_launches(fn, args_list, reps: int) -> float:
         / len(args_list)
 
 
-def k1_inputs(seed: int):
-    """K1's operands at the 154M layer shape with skewed groups (a
-    decreasing boost on the gate logits) and 4 empty experts:
+def k1_inputs(seed: int, shape=K1_SHAPE):
+    """K1's operands (default: at the 154M layer shape) with skewed groups
+    (a decreasing boost on the gate logits) and 4 empty experts:
     (xs, keys, values, tile_expert, group sizes)."""
     import torch
 
     from competesmoe_tpu_torch.ops import gmm_fused as gf
 
-    T, D, E, ES, k = (K1_SHAPE[n] for n in ("T", "D", "E", "ES", "k"))
+    T, D, E, ES, k = (shape[n] for n in ("T", "D", "E", "ES", "k"))
     g = torch.Generator(device="cuda").manual_seed(seed + 101)
     scale = (2.0 / 16) ** 0.5            # the LM's MoE weight_scale
     x = torch.randn(T, D, generator=g, device="cuda").to(torch.bfloat16)
@@ -259,16 +267,29 @@ def k1_inputs(seed: int):
 
 
 def k1_compare(xs, keys, values, tile_expert):
-    """K1 against its plain version: (max_abs_err, tol), tolerance
-    2^-6 * max|plain| (the kernel rounds the f32 weights to bf16)."""
+    """K1 against its plain version: (max_abs_err, tol, repeats), tolerance
+    2^-6 * max|plain| (the kernel rounds the f32 weights to bf16);
+    `repeats`: a second run gave the same bytes."""
     import torch
 
     from competesmoe_tpu_torch.ops import gmm_fused as gf
     got = gf.gmm2_fused_aligned(xs, keys, values, tile_expert)
+    again = gf.gmm2_fused_aligned(xs, keys, values, tile_expert)
     want = gf.gmm2_fused_aligned_reference(xs, keys, values, tile_expert)
     torch.cuda.synchronize()
     err, top = rel_err(got, want)
-    return err, 2.0 ** -6 * top
+    repeats = torch.equal(got.view(torch.int16), again.view(torch.int16))
+    return err, 2.0 ** -6 * top, repeats
+
+
+def k1_checks(seed: int):
+    """`k1_compare` at every K1 check shape: (shape, max_abs_err, tol,
+    repeats) rows."""
+    rows = []
+    for shape in K1_CHECK_SHAPES:
+        xs, keys, values, tile_expert, _ = k1_inputs(seed, shape)
+        rows.append((shape, *k1_compare(xs, keys, values, tile_expert)))
+    return rows
 
 
 def phase_k1(seed: int, reps: int = 20):
@@ -276,22 +297,29 @@ def phase_k1(seed: int, reps: int = 20):
     from competesmoe_tpu_torch.ops import gmm_fused as gf
 
     D, E, ES, k = (K1_SHAPE[n] for n in ("D", "E", "ES", "k"))
+    for shape, err, tol, repeats in k1_checks(seed):
+        log(f"K1 {shape}: max_abs_err {err:.4g} (tol {tol:.4g}), repeats "
+            f"{repeats}, correctness only")
+        if not (err <= tol and repeats):
+            raise AssertionError(f"K1 at {shape}: max_abs_err {err} (tol "
+                                 f"{tol}), repeats {repeats}")
     xs, keys, values, tile_expert, sizes = k1_inputs(seed)
-    err, tol = k1_compare(xs, keys, values, tile_expert)
+    err, tol, repeats = k1_compare(xs, keys, values, tile_expert)
     log(f"K1 gmm2_fused_aligned [S'={xs.shape[0]}, D={D}] E={E} ES={ES}: "
         f"groups {int(sizes.min())}..{int(sizes.max())} rows, "
         f"{int((sizes == 0).sum())} empty; max_abs_err {err:.4g} "
-        f"(tol {tol:.4g})")
-    if not err <= tol:
+        f"(tol {tol:.4g}), repeats {repeats}")
+    if not (err <= tol and repeats):
         raise AssertionError(f"K1 disagrees with its plain version: {err} "
-                             f"> {tol}")
+                             f"> {tol}, or a second run gave other bytes")
     args = (xs, keys, values, tile_expert)
     ms = time_launches(gf.gmm2_fused_aligned, [args] * 4, reps)
     plain_ms = time_launches(gf.gmm2_fused_aligned_reference, [args], 5)
     nbytes = 2 * xs.numel() * 2 + (keys.numel() + values.numel()) * 4 \
         + tile_expert.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4.0 * xs.shape[0] * D * ES)
-    log(f"K1 kernel {ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f} us  "
+    log(f"K1 kernel {ms * 1e3:.1f} us (the bf16 cast of the weights "
+        f"included)  plain {plain_ms * 1e3:.1f} us  "
         f"bound {bound_ms * 1e3:.1f} us ({bound_by})  "
         f"{bound_ms / ms:.1%} of bound")
     return dict(name="gmm2_fused_aligned", rows=int(xs.shape[0]), D=D,
@@ -648,13 +676,15 @@ def profile_train(task, steps: int = 2):
         task.train(n_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, steps, "train", K2_GROUPS)
+    return _busy(prof, wall, steps, "train", TRAIN_GROUPS)
 
 
-# kernel-name fragments whose device time a training profile sums by label
-K2_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
-                                          "flash_bwd_dq_kernel"),
-             "K2 forward": ("flash_fwd_kernel",)}
+# kernel-name fragments whose device time a profile sums by label
+TRAIN_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
+                                             "flash_bwd_dq_kernel"),
+                "K2 forward": ("flash_fwd_kernel",),
+                "K1 (without its weight casts)": ("gmm2_kernel",)}
+ENGINE_GROUPS = {"K3": ("mm_bf16_kernel",), "K4": ("qmm8_kernel",)}
 
 
 def _busy(prof, wall, steps, what, groups=None):
@@ -947,14 +977,15 @@ def phase_server(model):
 # only at o_proj (other groupings of the kernels' 8-row blocks)
 SMALL_M = {"quant_small_m_matmul_int4": ("K5", (1, 8), (3, 40, 128)),
            "small_m_matmul": ("K3", (1, 8, 32), (2, 3, 17)),
-           "quant_small_m_matmul": ("K4", (1, 8, 32, 40, 128), (3, 17))}
+           "quant_small_m_matmul": ("K4", (1, 8, 32, 40, 128),
+                                    (3, 9, 17, 33, 64))}
 
 
 def _small_m_operands(name, g, m, k, n):
     """x and the weight arguments of K5 (nibble-packed int4 [K/2, N] and
     an f32 scale), K3 (the [K, N] view of a contiguous [N, K] bf16 matrix,
-    as the decoder passes weight.t()) or K4 (int8 [K, N] and an f32
-    scale)."""
+    as the decoder passes weight.t()) or K4 (int8 [K, N] holding every
+    int8 value, -128 too, and an f32 scale)."""
     import torch
 
     from competesmoe_tpu_torch.models.decoder import pack_int4
@@ -963,11 +994,26 @@ def _small_m_operands(name, g, m, k, n):
         wt = torch.randn(n, k, generator=g, device="cuda").to(torch.bfloat16)
         return x, (wt.t(),)
     int4 = name == "quant_small_m_matmul_int4"
-    q = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n),
+    q = torch.randint(-8 if int4 else -128, 8 if int4 else 128, (k, n),
                       generator=g, device="cuda",
                       dtype=torch.int32).to(torch.int8)
+    if not int4:
+        q.view(-1)[:256] = torch.arange(-128, 128, device="cuda").to(
+            torch.int8)
+        q[:, -1] = minus_128_column(x[0])
     scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
     return x, (pack_int4(q) if int4 else q, scale)
+
+
+def minus_128_column(x0):
+    """An int8 weight column that makes -128 count for x's row `x0`: -128
+    where x0 > 0, -127 elsewhere. Its product with x0 mostly cancels,
+    while the -128 entries alone carry about 0.4 K x0's weight, so a
+    kernel that reads -128 as anything else is off by many times the
+    one-ulp tolerance there (read as -127: 2^-7 of its own output
+    elsewhere, never more)."""
+    import torch
+    return torch.where(x0 > 0, -128, -127).to(torch.int8)
 
 
 def _int8pack_mm():
@@ -1379,7 +1425,7 @@ def profile_engine(model, kind: str, seed: int, ticks: int = 8):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     engine.shutdown()
-    return _busy(prof, wall, ticks, f"engine {kind}")
+    return _busy(prof, wall, ticks, f"engine {kind}", ENGINE_GROUPS)
 
 
 def phase_engine_server(model):

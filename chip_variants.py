@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""Design variants of K2's forward and K3 against the kernels as built
-(one CUDA GPU).
+"""Design variants of K4 and K1 against the kernels as built (one CUDA
+GPU).
 
     python3 chip_variants.py
 
-Each variant is a small edit of a kernel source, compiled from an edited
-copy in a temporary directory as chip_faults.py compiles its faults; the
-checkout's sources are not touched. Every variant is first held to the
-checks of chip_smoke.py (K3: `small_m_compare` at the decode shapes;
-K2: `k2_compare` at every K2 shape), then timed beside the kernel as
-built and the library call, in turns (as built, variant, variant, as
-built), from CUDA-graph replays as chip_smoke.py times kernels:
+A variant is either a small edit of a kernel source, compiled from an
+edited copy in a temporary directory as chip_faults.py compiles its
+faults (the checkout's sources are not touched), or a changed attribute
+of a wrapper's module (a geometry the wrapper passes to the kernel). Every
+variant is first held to the checks of chip_smoke.py (K4: `small_m_compare`
+at the decode shapes and M 1, 8, 40 and 128; K1: `k1_compare` at the 154M
+layer shape and the K1 check shapes), then timed beside the kernel as
+built, in turns (as built, variant, variant, as built), from CUDA-graph
+replays as chip_smoke.py times kernels:
 
-- K3, one decoder layer's four projections at M 1, 8 and 32 beside
-  torch.matmul: a ring of 3 or 6 stages instead of 4; no L2 policies on
-  the copies; an unsplit K that still sums through shared memory and
-  the cluster's barriers, as the splits do;
-- K2's forward at the 154M shape beside scaled_dot_product_attention:
-  one block of two warpgroups an SM instead of two.
+- K4, one decoder layer's four projections at M 8 and 40: the ring of
+  72 KB (two blocks an SM) at every M instead of 40 KB (three) up to M 40;
+  K splits that aim for one block an SM instead of one and a half;
+- K1 at the 154M layer shape, its bf16 weight cast included: blocks of
+  a whole tile (four consumer warpgroups, the weights from L2 half as
+  often) instead of half a tile (two); a ring of 4 stages instead of 6.
 
-It prints one line per variant and a `variants` JSON line, and exits
-non-zero if a variant or the kernel as built fails its check.
+K3, for reference, is timed at M 8 beside K4 in the same call. It prints
+one line per variant and a `variants` JSON line, and exits non-zero if a
+variant or the kernel as built fails its check.
 """
 
 import json
@@ -32,62 +35,73 @@ from pathlib import Path
 import chip_faults as cf
 import chip_smoke as cs
 
-_HINT = ('"::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\\n"',
-         '"::bytes [%0], [%1, {%2, %3}], [%4];\\n"')
-# name -> (kernel source, [(text, replacement), ...])
+# name -> (kernel source, [(text, replacement), ...]) or
+# (kernel source, {module attribute: value}) for ops/matvec.py or
+# ops/gmm_fused.py
 VARIANTS = {
-    "k3_ring_3": ("matvec_small_m", [("constexpr int kStages = 4;",
-                                      "constexpr int kStages = 3;")]),
-    "k3_ring_6": ("matvec_small_m", [("constexpr int kStages = 4;",
-                                      "constexpr int kStages = 6;")]),
-    "k3_no_l2_policy": ("matvec_small_m", [_HINT]),
-    "k3_one_split_through_cluster": ("matvec_small_m", [
-        ("  if (splits == 1) {", "  if (false) {")]),
-    "k2_fwd_one_block_an_sm": (
-        "flash_attn", [("__launch_bounds__(2 * kThreads, 2)",
-                        "__launch_bounds__(2 * kThreads, 1)")]),
+    "k4_ring_72k_at_every_m": ("matvec_small_m", [(
+        "(NT <= 5 ? 40 : 72) * 1024 / STAGE", "72 * 1024 / STAGE")]),
+    "k4_splits_for_one_block_an_sm": ("matvec_small_m", {
+        "_K4_GEOMETRY": (128, 64, 1.0)}),
+    "k1_blocks_of_a_whole_tile": ("gmm2_fused", [(
+        "static constexpr int GROUPS = 2;",
+        "static constexpr int GROUPS = HC == 1 ? 4 : 2;")]),
+    "k1_ring_of_4": ("gmm2_fused", [(
+        "constexpr int kRingBytes = 192 * 1024;",
+        "constexpr int kRingBytes = 128 * 1024;")]),
 }
-K3_M = (1, 8, 32)
+K4_M = (8, 40)
 
 
-def k3_operands(g):
+def k4_operands(g):
     """x and the rotating weight copies at the four decode projections
-    for every M of K3_M, as chip_smoke.phase_small_m times them."""
-    import torch
+    for every M of K4_M, as chip_smoke.phase_small_m times them."""
     ops = {}
-    for m in K3_M:
+    for m in K4_M:
         for _, k, n in cs.DECODE_SHAPES:
-            x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-            wt = torch.randn(n, k, generator=g,
-                             device="cuda").to(torch.bfloat16)
-            copies = [wt] + [wt.clone() for _ in range(max(
-                0, -(-256 * 2 ** 20 // (wt.numel() * 2)) - 1))]
-            ops[(m, k, n)] = [(x, c.t()) for c in copies]
+            x, (q, scale) = cs._small_m_operands("quant_small_m_matmul", g, m,
+                                                 k, n)
+            copies = [q] + [q.clone() for _ in range(max(
+                0, -(-256 * 2 ** 20 // q.numel()) - 1))]
+            ops[(m, k, n)] = [(x, c, scale) for c in copies]
     return ops
 
 
-def k3_times(fn, ops):
+def four_projections(fn, ops):
     """Four-projection µs per M."""
     return {m: sum(cs.time_launches(fn, args, 40)
                    for (mm, _, _), args in ops.items() if mm == m) * 1e3
-            for m in K3_M}
+            for m in sorted({m for m, _, _ in ops})}
 
 
-def k3_ok():
+def k4_ok():
     import torch
     g = torch.Generator(device="cuda").manual_seed(99)
     for _, k, n in cs.DECODE_SHAPES:
-        for m in (1, 2, 3, 8, 17, 32):
-            err, tol, repeats, _, _ = cs.small_m_compare("small_m_matmul", g,
-                                                         m, k, n)
+        for m in (1, 8, 40, 128):
+            err, tol, repeats, _, _ = cs.small_m_compare(
+                "quant_small_m_matmul", g, m, k, n)
             if not (err <= tol and repeats):
                 return False
     return True
 
 
-def k2_ok():
-    return all(c["ok"] for _, args in cf.k2_inputs()
-               for c in cs.k2_compare(*args))
+def k1_ok():
+    return all(r["ok"] for r in cf.k1_rows())
+
+
+def apply(src, change):
+    """Route `src`'s wrapper to a variant: an edited library (a path) or
+    module attributes (a dict); returns what undoes it."""
+    from competesmoe_tpu_torch.ops import gmm_fused, matvec
+    if isinstance(change, dict):
+        module = matvec if src == "matvec_small_m" else gmm_fused
+        old = {a: getattr(module, a) for a in change}
+        for a, v in change.items():
+            setattr(module, a, v)
+        return lambda: [setattr(module, a, v) for a, v in old.items()]
+    cf.use_library(src, change)
+    return lambda: cf.use_library(src, None)
 
 
 def main():
@@ -96,41 +110,46 @@ def main():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
     from competesmoe_tpu_torch import _kernels
-    from competesmoe_tpu_torch.ops import flash_attention as fa
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
     from competesmoe_tpu_torch.ops import matvec
 
     card = cs.card_line()
     cs.log(f"device: {card}")
-    _kernels.build(["matvec_small_m", "flash_attn"])
+    _kernels.build(["matvec_small_m", "gmm2_fused"])
     g = torch.Generator(device="cuda").manual_seed(5)
-    ops = k3_operands(g)
-    B, h, T, p = cs.K2_SHAPES[0]
-    qkv = [torch.randn(B, h, T, p, generator=g, device="cuda")
-           .to(torch.bfloat16) for _ in range(3)]
-    k2_args = [(*qkv, p ** -0.5)] * 4
+    ops = k4_operands(g)
+    xs, keys, values, te, _ = cs.k1_inputs(0)
+    k1_args = [(xs, keys, values, te)] * 4
 
     def times(src):
         if src == "matvec_small_m":
-            return k3_times(matvec.small_m_matmul, ops)
-        return cs.time_launches(fa.flash_attention_fwd, k2_args, 20) * 1e3
+            return four_projections(matvec.quant_small_m_matmul, ops)
+        return cs.time_launches(gf.gmm2_fused_aligned, k1_args, 20) * 1e3
 
-    report = dict(card=card, library=dict(
-        torch_matmul=k3_times(torch.matmul, ops),
-        sdpa_fwd=cs.time_launches(
-            lambda q, k, v, s: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True), k2_args, 20) * 1e3), variants={})
+    k3_ops = {}
+    for _, k, n in cs.DECODE_SHAPES:
+        x, (w,) = cs._small_m_operands("small_m_matmul", g, 8, k, n)
+        store = w.t()
+        copies = [store] + [store.clone() for _ in range(max(
+            0, -(-256 * 2 ** 20 // (store.numel() * 2)) - 1))]
+        k3_ops[(8, k, n)] = [(x, c.t()) for c in copies]
+    report = dict(card=card, reference=dict(
+        k3_m8=four_projections(matvec.small_m_matmul, k3_ops)[8]),
+        variants={})
     failures = []
-    if not (k3_ok() and k2_ok()):
+    if not (k4_ok() and k1_ok()):
         failures.append("the kernels as built fail their checks")
     tmp = Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
-        libs = cf.build_faults(tmp, VARIANTS)
-        for name, (src, _) in VARIANTS.items():
+        libs = cf.build_faults(tmp, {
+            name: (src, change) for name, (src, change) in VARIANTS.items()
+            if not isinstance(change, dict)})
+        for name, (src, change) in VARIANTS.items():
             built = [times(src)]
-            cf.use_library(src, libs[name])
-            ok = k3_ok() if src == "matvec_small_m" else k2_ok()
+            undo = apply(src, libs.get(name, change))
+            ok = k4_ok() if src == "matvec_small_m" else k1_ok()
             variant = [times(src), times(src)]
-            cf.use_library(src, None)
+            undo()
             built.append(times(src))
             report["variants"][name] = dict(ok=ok, variant_us=variant,
                                             as_built_us=built)
@@ -140,7 +159,7 @@ def main():
                 failures.append(f"variant {name} fails its check")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    cs.log(f"library: {report['library']}")
+    cs.log(f"reference: {report['reference']}")
     print("variants " + json.dumps(report), flush=True)
     for f in failures:
         print(f"chip_variants: {f}", file=sys.stderr)

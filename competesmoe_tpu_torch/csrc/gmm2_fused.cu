@@ -8,241 +8,299 @@
 // `gmm2_fused_aligned` / `_gmm2_kernel`.
 //
 // What bounds it: at the 154M shape (S' = 540,672 rows, D 512, ES 128)
-// the kernel moves 1.14 GB (xs in, out back, the f32 weights) against
+// the kernel must move 1.14 GB (xs in, out back, the f32 weights) against
 // 1.42e11 FLOP, so the card's floor is the bytes (about 0.34 ms at
-// 3.35 TB/s). What keeps it off device memory is the hidden activation:
-// h [rows, ES] is never written out. The design:
-//   * One block takes 128 rows (half a tile, so 2 blocks per tile and
-//     4,224 blocks at the 154M shape, enough to fill 132 SMs) and all D
-//     output columns. It computes h = relu(xs_tile @ keys[e]) for the
-//     whole ES width first, keeps it in shared memory as bf16 (34 KB at
-//     ES 128), then h @ values[e] in column chunks of 128. Splitting D
-//     across blocks instead would recompute h once per split; keeping all
-//     of D in the block reads every xs row once.
-//   * The TPU keeps an expert's weights in VMEM across neighbouring tiles.
-//     Here each block reads its expert's keys and values again (256 KB in
-//     f32); neighbouring blocks of one expert find them in the 50 MB L2,
-//     so device memory sees them about once per expert.
-//   * Tensor cores (WMMA bf16 16x16x16, f32 accumulation). The weights
-//     arrive as f32 (flax params) and are rounded to bf16 when staged into
-//     shared memory. The TPU kernel promotes xs to f32 against f32
-//     weights instead, so the two differ by the weights' bf16 rounding:
-//     a relative error of about 2^-9 per product, which the checks bound
-//     by 2^-6 * max|plain| on the output.
-//   * h is rounded to xs's dtype (bf16) before the second product, as
-//     `_gmm2_kernel` does with `.astype(xs_ref.dtype)`.
-// Operands are staged with plain synchronous loads; cp.async/TMA
-// pipelining and wgmma are later speed work.
+// 3.35 TB/s; the tensor cores need 0.14 ms). What keeps it off device
+// memory is the hidden activation: h [rows, ES] is never written out. The
+// weights arrive as f32 flax parameters; the wrapper rounds them to bf16
+// once per call (round to nearest even, as the kernel did on the fly
+// before), which the kernel's time includes. The TPU kernel promotes xs to
+// f32 against f32 weights instead, so the two differ by the weights' bf16
+// rounding: a relative error of about 2^-9 per product, which the checks
+// bound by 2^-6 * max|plain| on the output. h is rounded to xs's dtype
+// (bf16) before the second product, as `_gmm2_kernel` does with
+// `.astype(xs_ref.dtype)`.
+//
+// The design (helpers in mma_tiles.cuh and tensor_maps.cuh):
+//   * A block takes half a 256-row tile with two consumer warpgroups of 64
+//     rows each, which share every staged weight tile; a producer warp
+//     keeps the copies in flight. (A whole tile with four warpgroups reads
+//     the weights from L2 half as often, but was 3% slower:
+//     chip_variants.py, PERF.md.) Blocks are persistent, one an SM: block
+//     b takes units b, b + grid, ..., so neighbouring blocks work on
+//     neighbouring rows and find the expert's weights in L2, and the ring
+//     runs on from one unit into the next with no launch or ramp between
+//     them.
+//   * Everything arrives by 2D tensor-map copies (one request a box) into
+//     a ring of 32 KB stages (6 at ES 128) on full / empty mbarriers:
+//     first, for each 64 columns of D, the unit's xs box [128][64] and
+//     keys[e]'s box [64 D][128 ES]; then, for each 64 output columns,
+//     values[e]'s box [ES][64]. All land in the 128-byte swizzle that
+//     wgmma reads. A warpgroup releases a stage once its products are
+//     done (keeping one stage's products in flight while it issued the
+//     next stage's gained nothing, PERF.md).
+//   * h = relu(xs keys[e]) on wgmma m64n64k16 (xs K-major, keys MN-major
+//     through the transpose bit), its f32 accumulator (64 registers) in
+//     registers; relu and the bf16 rounding there, and the rounded pairs
+//     are already the A operand of the second product (`tiles::as_a`):
+//     h never touches shared memory.
+//   * out = h values[e] in output chunks of 64 columns (32 accumulator
+//     registers, values MN-major), a register-A wgmma per 16 ES rows;
+//     each chunk is rounded to bf16 and goes out as 16-byte stores after
+//     a transpose within each quad of lanes (no staging in shared
+//     memory).
+//   * ES of 256 to 512 keep h in 64 to 128 registers a thread (at four
+//     warpgroups a block, ES 256 spilled; the 154M shape has ES 128). h is
+//     computed 128 ES columns at a time, xs streamed once for each.
+// Padding rows compute harmless values, as in JAX. No atomics: a second
+// run gives the same bytes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
+#include "tensor_maps.cuh"
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 256;          // rows per expert-aligned tile
-constexpr int kBM = 128;            // rows per block
-constexpr int kBN = 128;            // columns per output chunk (h and out)
-constexpr int kKC = 64;             // contraction chunk of the first GEMM
-constexpr int kWarps = 8;           // 4 x 2 warp grid over a 128 x 128 chunk
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;             // bf16 row padding (keeps WMMA ldm % 8)
+constexpr int kChunk = 64;          // D columns of a stage (both products)
+constexpr int kHC = 128;            // ES columns of h computed at once
 constexpr int kMaxES = 512;
+constexpr int kRingBytes = 192 * 1024;
 
-constexpr int kXsLd = kKC + kPad;   // xs chunk [kBM][kXsLd]
-constexpr int kWLd = kBN + kPad;    // weight chunk [rows][kWLd]
+// Geometry for ES = 128 HC: GROUPS consumer warpgroups of 64 rows, a unit
+// of ROWS rows (half a tile); the ring's stages: the xs box [ROWS][64] and the keys box
+// [64][128] of the first product, or the values box(es) [ES][64] of the
+// second, in a slot of SLOT bytes, STAGES of them.
+template <int HC>
+struct Geo {
+  static constexpr int GROUPS = 2;
+  static constexpr int ROWS = 64 * GROUPS;
+  static constexpr int THREADS = 128 * GROUPS + 32;
+  static constexpr int XS = ROWS * kChunk * 2;
+  static constexpr int KEYS = kChunk * kHC * 2;
+  static constexpr int VALUES = 128 * HC * kChunk * 2;
+  static constexpr int SLOT = XS + KEYS > VALUES ? XS + KEYS : VALUES;
+  static constexpr int STAGES = kRingBytes / SLOT;
+  static constexpr int BARS = STAGES * SLOT;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+};
 
-__host__ __device__ constexpr int align128(int b) { return (b + 127) & ~127; }
-
-__host__ __device__ constexpr int smem_bytes(int es) {
-  // h [kBM][es + kPad] bf16 | union{ xs chunk + keys chunk, values chunk }
-  // | per-warp f32 staging [16][16]
-  return align128(kBM * (es + kPad) * 2)
-       + align128(kBM * kXsLd * 2 + kKC * kWLd * 2 > kBN * kWLd * 2
-                      ? kBM * kXsLd * 2 + kKC * kWLd * 2
-                      : kBN * kWLd * 2)
-       + kWarps * 16 * 16 * 4;
+// Four 32-bit words across a quad of lanes (t = lane & 3), transposed:
+// before, lane t holds word t of the quad's four 8-column n-tiles, v[i]
+// from n-tile i; after, lane t holds the four words of n-tile t, in order.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool b0 = t & 1, b1 = t & 2;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? v[0] : v[1], 1);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? v[2] : v[3], 1);
+  if (b0) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
+  r0 = __shfl_xor_sync(0xffffffffu, b1 ? v[0] : v[2], 2);
+  r1 = __shfl_xor_sync(0xffffffffu, b1 ? v[1] : v[3], 2);
+  if (b1) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
 }
 
-__device__ __forceinline__ uint2 f4_to_bf16x4(float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 r;
-  r.x = *reinterpret_cast<uint32_t*>(&a);
-  r.y = *reinterpret_cast<uint32_t*>(&b);
-  return r;
-}
-
-// Stage a [rows x 128] f32 block of a row-major matrix (leading dim ld)
-// into shared memory as bf16 with leading dim kWLd.
-__device__ __forceinline__ void stage_weights(bf16* dst, const float* src,
-                                              int rows, int ld) {
-  const int vecs = rows * (kBN / 4);
-  for (int i = threadIdx.x; i < vecs; i += kThreads) {
-    const int r = i / (kBN / 4);
-    const int c = (i % (kBN / 4)) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(src + (size_t)r * ld + c);
-    *reinterpret_cast<uint2*>(dst + r * kWLd + c) = f4_to_bf16x4(v);
-  }
-}
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-__global__ void __launch_bounds__(kThreads)
-gmm2_kernel(const bf16* __restrict__ xs, const float* __restrict__ keys,
-            const float* __restrict__ values,
+template <int HC>
+__global__ void __launch_bounds__(Geo<HC>::THREADS, 1)
+gmm2_kernel(const __grid_constant__ CUtensorMap xmap,   // xs [S, D]
+            const __grid_constant__ CUtensorMap kmap,   // keys [E D, ES] bf16
+            const __grid_constant__ CUtensorMap vmap,   // values [E ES, D] bf16
             const int* __restrict__ tile_expert, bf16* __restrict__ out,
-            int D, int ES) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  unsigned char* region = smem + align128(kBM * (ES + kPad) * 2);
-  bf16* xs_c = reinterpret_cast<bf16*>(region);
-  bf16* k_c = reinterpret_cast<bf16*>(region + kBM * kXsLd * 2);
-  bf16* v_c = reinterpret_cast<bf16*>(region);
-  float* stage_all = reinterpret_cast<float*>(
-      region + align128(kBM * kXsLd * 2 + kKC * kWLd * 2 > kBN * kWLd * 2
-                            ? kBM * kXsLd * 2 + kKC * kWLd * 2
-                            : kBN * kWLd * 2));
+            int units, int D, int vbox_rows) {
+  typedef Geo<HC> G;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - tiles::smem_u32(smem_raw)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BARS);
+  uint64_t* empty = full + G::STAGES;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / 2;            // 32-row band of the 128-row block
-  const int wn = warp % 2;            // 64-column band of a 128-col chunk
-  float* stage = stage_all + warp * 256;
-  const int hld = ES + kPad;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = D / kChunk;
 
-  const size_t row0 = (size_t)blockIdx.x * kBM;
-  const int e = tile_expert[row0 / kTile];
-  const float* keys_e = keys + (size_t)e * D * ES;
-  const float* values_e = values + (size_t)e * ES * D;
-  const bf16* xs_b = xs + row0 * D;
-  bf16* out_b = out + row0 * D;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      tiles::mbar_init(&full[s]);
+      tiles::mbar_init(&empty[s], 4 * G::GROUPS);
+    }
+  }
+  __syncthreads();
 
-  Acc acc[2][4];
-
-  // ---- h = relu(xs @ keys[e]) -> bf16, kept in shared memory ----
-  for (int n0 = 0; n0 < ES; n0 += kBN) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < D; k0 += kKC) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kBM * (kKC / 8); i += kThreads) {
-        const int r = i / (kKC / 8);
-        const int c = (i % (kKC / 8)) * 8;
-        *reinterpret_cast<uint4*>(xs_c + r * kXsLd + c) =
-            *reinterpret_cast<const uint4*>(xs_b + (size_t)r * D + k0 + c);
-      }
-      stage_weights(k_c, keys_e + (size_t)k0 * ES + n0, kKC, ES);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-        FragA a[2];
-        FragB b;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], xs_c + (wm * 32 + i * 16) * kXsLd + kk,
-                                 kXsLd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::load_matrix_sync(b, k_c + kk * kWLd + wn * 64 + j * 16, kWLd);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+  if (warp == 4 * G::GROUPS) {
+    // producer: every unit's stages in the consumers' order, each into
+    // slot it % STAGES once the consumers are done with stage it - STAGES
+    if (lane == 0) {
+      tma::prefetch(&xmap);
+      tma::prefetch(&kmap);
+      tma::prefetch(&vmap);
+      const uint64_t once = tma::evict_first(), shared = tma::evict_last();
+      int it = 0;
+      auto slot_for = [&](uint32_t bytes) {
+        const int slot = it % G::STAGES;
+        if (it >= G::STAGES) tiles::mbar_wait(&empty[slot], (it / G::STAGES - 1) & 1);
+        tiles::mbar_expect(&full[slot], bytes);
+        ++it;
+        return slot;
+      };
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int row0 = u * G::ROWS;
+        const int e = tile_expert[row0 / kTile];
+        for (int c = 0; c < HC; ++c)
+          for (int k = 0; k < chunks; ++k) {
+            const int slot = slot_for(G::XS + G::KEYS);
+            unsigned char* stage = smem + slot * G::SLOT;
+            tma::box(stage, &xmap, k * kChunk, row0, &full[slot], once);
+            for (int b = 0; b < 2; ++b)
+              tma::box(stage + G::XS + b * (G::KEYS / 2), &kmap,
+                       c * kHC + b * 64, e * D + k * kChunk, &full[slot],
+                       shared);
+          }
+        for (int d = 0; d < chunks; ++d) {
+          const int slot = slot_for(G::VALUES);
+          unsigned char* stage = smem + slot * G::SLOT;
+          for (int b = 0; b * vbox_rows < 128 * HC; ++b)
+            tma::box(stage + b * vbox_rows * kChunk * 2, &vmap, d * kChunk,
+                     e * 128 * HC + b * vbox_rows, &full[slot], shared);
         }
       }
     }
-    // relu + round to bf16 into h (per fragment through the warp's staging)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int r = lane / 2, c = (lane % 2) * 8;
-        bf16* dst = h + (wm * 32 + i * 16 + r) * hld + n0 + wn * 64 + j * 16 + c;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          dst[t] = __float2bfloat16_rn(fmaxf(stage[r * 16 + c + t], 0.0f));
-        __syncwarp();
-      }
+    return;
   }
 
-  // ---- out = h @ values[e], 128 output columns at a time ----
-  for (int c0 = 0; c0 < D; c0 += kBN) {
+  // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each unit; warp
+  // w's rows 16 (w % 4) + g (+ 8) of those
+  int it = 0;
+  auto take = [&]() {           // the next stage, once it has landed
+    const int slot = it % G::STAGES;
+    tiles::mbar_wait(&full[slot], (it / G::STAGES) & 1);
+    ++it;
+    return slot;
+  };
+  auto give = [&](int slot) {   // its products are done: release it
+    __syncwarp();
+    if (lane == 0) tiles::mbar_arrive(&empty[slot]);
+  };
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    uint32_t ha[HC][kHC / 16][4];          // h, bf16 pairs: the A operand
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int c = 0; c < HC; ++c) {
+      float acc[kHC / 8][4];               // 64 rows x 128 ES columns
+      tiles::zero(acc);
+      for (int k = 0; k < chunks; ++k) {
+        const int slot = take();
+        const bf16* stage = reinterpret_cast<const bf16*>(smem + slot * G::SLOT);
+        const uint64_t a = tiles::block_desc<64>(stage + wg * 64 * kChunk);
+        const uint64_t b0 = tiles::block_desc<64>(stage + G::XS / 2);
+        const uint64_t b1 = tiles::block_desc<64>(stage + (G::XS + G::KEYS / 2) / 2);
+        tiles::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int k0 = 0; k0 < ES; k0 += kBN) {
-      __syncthreads();    // h complete / previous chunk consumed
-      stage_weights(v_c, values_e + (size_t)k0 * D + c0, kBN, D);
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < kBN; kk += 16) {
-        FragA a[2];
-        FragB b;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], h + (wm * 32 + i * 16) * hld + k0 + kk,
-                                 hld);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::load_matrix_sync(b, v_c + kk * kWLd + wn * 64 + j * 16, kWLd);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+        for (int kk = 0; kk < kChunk / 16; ++kk) {   // 16 D columns: 32 bytes of xs, 16 keys rows
+          tiles::WgmmaSS<64>::template run<0, 1, 0>(acc, a + 2 * kk, b0 + 128 * kk, 1);
+          tiles::WgmmaSS<64>::template run<0, 1, 8>(acc, a + 2 * kk, b1 + 128 * kk, 1);
         }
+        tiles::wgmma_commit();
+        tiles::wgmma_wait<0>();
+        tiles::pin(acc);
+        give(slot);
       }
+      // relu, then bf16 pairs that are the next product's A registers
+#pragma unroll
+      for (int n = 0; n < kHC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = fmaxf(acc[n][e], 0.0f);
+      tiles::as_a(ha[c], acc);
+      tiles::pin(ha[c]);
     }
+    bf16* out_rows = out + ((size_t)u * G::ROWS + 64 * wg + 16 * (warp % 4) + g) * D;
+    for (int d = 0; d < chunks; ++d) {
+      const int slot = take();
+      const bf16* stage = reinterpret_cast<const bf16*>(smem + slot * G::SLOT);
+      const uint64_t b = tiles::block_desc<64>(stage);
+      float acc[kChunk / 8][4];            // 64 rows x 64 output columns
+      tiles::zero(acc);
+      tiles::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int c = 0; c < HC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int r = lane / 2, c = (lane % 2) * 8;
-        __align__(16) bf16 vals[8];
+        for (int kk = 0; kk < kHC / 16; ++kk)        // 16 ES rows: 2048 bytes of values
+          tiles::WgmmaRST<64>::template run<0>(acc, ha[c][kk],
+                                               b + 128 * (kHC / 16 * c + kk));
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::pin(acc);
+      give(slot);
+      // rows g and g + 8: bf16 pairs, transposed within the quad so that
+      // lane t holds 8 consecutive columns of n-tile 4 j + t
 #pragma unroll
-        for (int t = 0; t < 8; ++t) vals[t] = __float2bfloat16_rn(stage[r * 16 + c + t]);
-        *reinterpret_cast<uint4*>(
-            out_b + (size_t)(wm * 32 + i * 16 + r) * D + c0 + wn * 64 + j * 16 + c) =
-            *reinterpret_cast<const uint4*>(vals);
-        __syncwarp();
-      }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = tiles::pack_bf16(acc[4 * j + i][2 * h], acc[4 * j + i][2 * h + 1]);
+          quad_transpose(v, t);
+          *reinterpret_cast<uint4*>(out_rows + (size_t)8 * h * D + d * kChunk +
+                                    8 * (4 * j + t)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
+    }
   }
+}
+
+template <int HC>
+int launch(const void* xs, const void* keys, const void* values,
+           const void* tile_expert, void* out, int S, int D, int E,
+           cudaStream_t stream) {
+  typedef Geo<HC> G;
+  // raise the shared-memory limit once, on the first launch (outside any
+  // CUDA-graph capture)
+  static const cudaError_t set = cudaFuncSetAttribute(
+      gmm2_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int ES = 128 * HC;
+  const int vbox_rows = ES <= 256 ? ES : ES / 2;   // a box has at most 256 rows
+  CUtensorMap xmap, kmap, vmap;
+  if (!tma::bf16_map(&xmap, xs, S, D, G::ROWS) ||
+      !tma::bf16_map(&kmap, keys, E * D, ES, kChunk) ||
+      !tma::bf16_map(&vmap, values, E * ES, D, vbox_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int units = S / G::ROWS;
+  const int grid = units < sms ? units : sms;
+  gmm2_kernel<HC><<<grid, G::THREADS, G::SMEM, stream>>>(
+      xmap, kmap, vmap, static_cast<const int*>(tile_expert),
+      static_cast<bf16*>(out), units, D, vbox_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). xs: bf16 [S, D]; keys: f32 [E, D, ES];
-// values: f32 [E, ES, D]; tile_expert: int32 [S / 256] with entries in
-// [0, E); out: bf16 [S, D]. Requires S % 256 == 0, D % 128 == 0,
-// ES % 128 == 0, ES <= 512 and 16-byte aligned pointers.
-// Returns cudaGetLastError().
+// C entry point (bound with ctypes). xs: bf16 [S, D]; keys: bf16 [E, D,
+// ES]; values: bf16 [E, ES, D]; tile_expert: int32 [S / 256] with entries
+// in [0, E); out: bf16 [S, D]. Requires S % 256 == 0, D % 128 == 0,
+// ES % 128 == 0, ES <= 512 and 16-byte aligned pointers. Returns the
+// launch's error.
 extern "C" int gmm2_launch(const void* xs, const void* keys,
                            const void* values, const void* tile_expert,
-                           void* out, int S, int D, int ES,
+                           void* out, int S, int D, int ES, int E,
                            void* stream_ptr) {
-  if (S % kTile != 0 || D % kBN != 0 || ES % kBN != 0 || ES > kMaxES || S < 0)
+  if (S % kTile != 0 || D % 128 != 0 || ES % kHC != 0 || ES > kMaxES ||
+      S < 0 || E < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  // raise the shared-memory limit once, to what the largest ES needs, on
-  // the first launch (outside any CUDA-graph capture)
-  static const cudaError_t err = cudaFuncSetAttribute(
-      gmm2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(kMaxES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = smem_bytes(ES);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  gmm2_kernel<<<S / kBM, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(xs), static_cast<const float*>(keys),
-      static_cast<const float*>(values), static_cast<const int*>(tile_expert),
-      static_cast<bf16*>(out), D, ES);
-  return static_cast<int>(cudaGetLastError());
+  switch (ES / kHC) {
+    case 1: return launch<1>(xs, keys, values, tile_expert, out, S, D, E, stream);
+    case 2: return launch<2>(xs, keys, values, tile_expert, out, S, D, E, stream);
+    case 3: return launch<3>(xs, keys, values, tile_expert, out, S, D, E, stream);
+    default: return launch<4>(xs, keys, values, tile_expert, out, S, D, E, stream);
+  }
 }

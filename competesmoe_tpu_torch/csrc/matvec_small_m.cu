@@ -17,59 +17,90 @@
 // and where the output alone gives too few blocks to fill 132 SMs, K is
 // split across blocks. Neither uses atomics: results repeat bit for bit.
 //
-// K3 (the port's bf16 decoder stores nn.Linear.weight as [N, K] and passes
-// its transposed view, so each output's K values are contiguous; the
-// kernel reads that storage in place) computes out^T[N, M] = W[N, K] x^T on
-// the tensor cores, the weight rows as the row operand:
+// Both compute out^T[N, M] = W^T[N, K] x^T on the tensor cores, the weight
+// rows as the row operand:
 //   * wgmma m64nNk16 (bf16, f32 accumulation), one warpgroup a block for
-//     its 64 weight rows, with x^T the narrow operand: N = 8, 16, 24 or 32
+//     its 64 weight rows (outputs), with x^T the narrow operand: N = 8 NT
 //     columns cover every row of x at once, so every weight byte is read
-//     once whatever M. Both operands are K-major boxes in shared memory
-//     that the tensor cores read themselves: nothing is loaded into
-//     registers but the accumulator (4 NT floats a thread). (mma.sync
-//     m16n8k16 fed by ldmatrix was slower at every M: every warp loaded
-//     the same x fragments, and at M 32 the loads held the ring back.)
-//   * A ring of 4 shared-memory stages of 128 K columns: one producer
-//     thread asks the copy engine for each stage as four boxes of 2D
-//     tensor maps (64 columns, 128-byte rows, the 128-byte swizzle that
-//     wgmma reads; two of 64 weight rows, two of the 8 NT rows of x) on
-//     the stage's full barrier, as soon as the consumers release it (its
-//     empty barrier, once the products that read it are done), so up to 4
-//     stages of loads are in flight per block. Rows beyond N or M and
-//     columns beyond K arrive as zeros. One box is one request: copies of
-//     single 256-byte rows left the kernel bound by the copy engine's
-//     request rate (time grew with the number of copies, not bytes). The
-//     weights are read under an evict-first L2 policy and x under
-//     evict-last: x is staged with every stage, from L2 (every block
+//     once whatever M. Nothing is loaded into registers but the
+//     accumulator (4 NT floats a thread). (mma.sync m16n8k16 fed by
+//     ldmatrix was slower for K3 at every M: every warp loaded the same x
+//     fragments, and at M 32 the loads held the ring back.)
+//   * A ring of shared-memory stages of 128 K: one producer thread asks the
+//     copy engine for each stage as boxes of 2D tensor maps
+//     (tensor_maps.cuh) on the stage's full barrier, as soon as the
+//     consumers release it (its empty barrier, once the products that read
+//     it are done), so several stages of loads are in flight per block.
+//     Rows beyond N or M and columns beyond K arrive as zeros. One box is
+//     one request: copies of single 256-byte rows left K3 bound by the copy
+//     engine's request rate (time grew with the number of copies, not
+//     bytes). The weights are read under an evict-first L2 policy and x
+//     under evict-last: x is staged with every stage, from L2 (every block
 //     reads it), because the whole of it does not fit (512 KB at M 32,
 //     K 8192).
-//   * Split K inside one launch: the S <= 8 blocks that share a block of
-//     output rows and split K are one thread-block cluster. Each writes its
-//     f32 partial tile into its drained ring; after a cluster barrier,
-//     rank r sums rows [64 r / S, 64 (r + 1) / S) of every rank's tile
-//     through distributed shared memory in rank order 0..S-1 (the ranks'
-//     values loaded together, then added), rounds to bf16 and stores. No
-//     second launch and no f32 partials in device memory. An unsplit K
-//     (qkv and gate_up at the 5.1B shapes) stores its accumulators
-//     straight from registers: the round trip through shared memory and
-//     the cluster's barriers took time that grew with M.
-// What bounds it now (PERF.md): device memory, as for torch.matmul; the
-// smallest projection (o_proj) least close to it, where launch and ramp
-// weigh most.
-
-// K4's weight layout is JAX's [K, N] int8, N contiguous. As in K5
-// (csrc/matvec_int4.cu), each thread owns 16 consecutive output columns
-// and reads them with one 16-byte load per K row; 4 K-lanes per block
-// split the block's K range and are summed in shared memory in a fixed
-// order. x rows for the block's K range are staged once in shared memory
-// as f32; rows of x come in groups of 8 per block (grid.z), a larger M
-// re-reads the weights once per group. Where K is split across blocks
-// (grid.y), each split writes f32 partial sums and a second, deterministic
-// pass adds them in order. Bytes become floats without int->float
-// conversions: (b ^ 0x80) is the offset-binary code of the signed byte,
-// OR-ed into the mantissa of 2^23; subtracting 2^23 + 128 gives the value
-// exactly. The scale is applied once per output in the epilogue, as in the
-// TPU kernel.
+//   * Split K inside one launch (`finish`): the S <= 8 blocks that share a
+//     block of output rows and split K are one thread-block cluster. Each
+//     writes its f32 partial tile into its drained ring; after a cluster
+//     barrier, rank r sums rows [64 r / S, 64 (r + 1) / S) of every rank's
+//     tile through distributed shared memory in rank order 0..S-1 (the
+//     ranks' values loaded together, then added), rounds to bf16 and
+//     stores. No second launch and no f32 partials in device memory. An
+//     unsplit K (qkv and gate_up at the 5.1B shapes) stores its
+//     accumulators straight from registers: the round trip through shared
+//     memory and the cluster's barriers took time that grew with M.
+//
+// K3 (the port's bf16 decoder stores nn.Linear.weight as [N, K] and passes
+// its transposed view, so each output's K values are contiguous; the
+// kernel reads that storage in place): both operands are K-major boxes
+// (64 columns, 128-byte rows, the 128-byte swizzle that wgmma reads) that
+// the tensor cores read themselves, a ring of 4 stages of 128 K, 4 boxes a
+// stage (two of 64 weight rows, two of the 8 NT rows of x); NT = 1..4 by
+// M = 1..32 in steps of 8. What bounds it now (PERF.md): device memory, as
+// for torch.matmul; the smallest projection (o_proj) least close to it,
+// where launch and ramp weigh most.
+//
+// K4 keeps JAX's weight layout, int8 w_q [K, N] with N contiguous (the
+// decoder, `from_jax_params` and the non-kernel path all read it; no
+// second, transposed copy), and JAX's arithmetic: each int8 weight is
+// converted to bf16, which holds every value of [-128, 127] exactly, and
+// multiplied with the exact bf16 x on the tensor cores; the scale is
+// applied once per output in the f32 epilogue. x is not quantized. The
+// design on top of the above:
+//   * A block takes 128 outputs: a stage is one int8 box of 64 K rows x
+//     128 columns (128-byte rows in the 128-byte swizzle) and one x box of
+//     64 K. Two consumer warpgroups, one for each 64 outputs, each convert
+//     their half of the box and multiply it. (64 outputs a block, 64-byte
+//     rows, one warpgroup, streamed no faster and converted half as fast.)
+//   * A warpgroup converts its int8 half into a bf16 tile [64 K][64 n] in
+//     the 128-byte swizzle, each thread 16 bytes at a time with masks and
+//     one bf16x2 subtraction per pair (`int8x4_to_bf16`: 7 instructions
+//     per 4 bytes, no int->float conversions, no byte permutes), stored
+//     with 16-byte vector stores (`tiles::sts128`: nvcc split the uint4
+//     stores into 4-byte ones, 4-way bank conflicts that made the
+//     conversion take most of a stage), once per byte per call; then
+//     `fence.proxy.async` and the warpgroup's barrier. That tile is
+//     wgmma's A operand read MN-major (stored [k][n], the transpose bit),
+//     so the conversion keeps the bytes' order and needs no transpose; it
+//     writes a word's bytes 0, 2 | 1, 3 as pairs, so tile column i holds
+//     output sigma(i) (bits 0 and 1 exchanged), which the epilogue undoes.
+//     Building the A fragments straight in registers (WgmmaRST) would need
+//     single bytes of 16 different K rows per thread, one load each; the
+//     shared-memory tile takes 16-byte loads and stores, conflict-free.
+//   * Two converted tiles alternate: stage s is converted while the
+//     products of stage s - 1 run on the tensor cores; the wait for those
+//     products and the warpgroup's barrier come after the conversion, so
+//     one barrier a stage guards both tiles.
+//   * NT 8-row tiles of x cover every row of x in one pass, one launch
+//     per call, whatever M up to 128: M 1-8 pads to the wgmma width 8,
+//     9-16 to 16, 17-24 to 24, 25-32 to 32, 33-40 to 40 (the verify tick
+//     of 8 slots x (1 + 4) tokens), 41-64 to 64 and 65-128 to 128 (the
+//     prefill groups of 64 and 128 rows).
+// What bounds it now (PERF.md): each warpgroup's serial chain a stage
+// (wait for the box, convert, fence and barrier, issue), about 900 cycles
+// for 8 KB of weights, so the stream needs several blocks an SM: a
+// shallow ring up to M 40 (three blocks an SM) and K splits for 1.5
+// blocks an SM. Even the copies alone, with no conversion or product,
+// reach only about 60% of the card's memory rate with these boxes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,19 +108,103 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "tensor_maps.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// ------------------------------------------------------------------ K3
 constexpr int kRows3 = 64;                     // weight rows per block
 constexpr int kConsumers = 4;                  // one warpgroup
 constexpr int kThreads3 = 32 * (kConsumers + 1);   // and a producer warp
 constexpr int kBoxK = 64;                      // K columns of a copy's box
 constexpr int kStageK = 2 * kBoxK;             // K columns per stage
-constexpr int kStages = 4;                     // the ring's depth
 constexpr int kMaxSplits = 8;                  // portable cluster size
+
+// ------------------------------------------------- the end of K3 and K4
+
+// Column `i` of a K4 tile holds output n0 + sigma(i): the conversion
+// writes the bf16 of a word's bytes 0, 2, 1, 3 in that order (bits 0 and 1
+// of the column exchanged).
+__device__ __forceinline__ int sigma(int i) {
+  return (i & ~3) | ((i & 1) << 1) | ((i >> 1) & 1);
+}
+
+// The block's accumulators, OUT rows of out^T from n0 (consumer warp w:
+// rows 16 w + g (+ 8), through `sigma` for K4; x rows 8 nt + 2 t (+ 1)),
+// times the per-output scale (K4) and rounded to bf16: stored straight
+// from registers for an unsplit K, otherwise summed across the cluster's
+// ranks through the drained ring `red` ([8 NT][OUT] f32). Every thread of
+// the block calls it; the consumers are its first OUT / 16 warps.
+template <int NT, int OUT, bool kInt8>
+__device__ __forceinline__ void finish(const float (&acc)[NT][4], float* red,
+                                       const float* __restrict__ scale,
+                                       bf16* __restrict__ out, int n0,
+                                       int rows, int M, int N, int split,
+                                       int splits) {
+  constexpr int kWarps = OUT / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  int row[2];                        // the outputs of the thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    row[h] = kInt8 ? sigma(16 * warp + g + 8 * h) : 16 * warp + g + 8 * h;
+  if (splits == 1) {
+    // no other split: the accumulators go straight out
+    if (warp < kWarps) {
+      float s[2] = {1.0f, 1.0f};
+      if constexpr (kInt8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row[h] < rows) s[h] = scale[n0 + row[h]];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = row[e >> 1];
+          const int m = 8 * nt + 2 * t + (e & 1);
+          if (i < rows && m < M)
+            out[(size_t)m * N + n0 + i] =
+                __float2bfloat16_rn(kInt8 ? acc[nt][e] * s[e >> 1] : acc[nt][e]);
+        }
+    }
+    return;
+  }
+  __syncthreads();          // the ring is drained: it takes the partials
+  if (warp < kWarps) {
+    // red[m][i] for x row m, output n0 + i
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(8 * nt + 2 * t + (e & 1)) * OUT + row[e >> 1]] = acc[nt][e];
+  }
+
+  // rank `split` sums its rows of every rank's partial tile, in rank
+  // order; the ranks' values are loaded together, then added
+  tiles::cluster_sync();
+  const int i0 = OUT * split / splits, i1 = OUT * (split + 1) / splits;
+  const int span = i1 - i0;
+  for (int e = threadIdx.x; e < span * M; e += blockDim.x) {
+    const int i = i0 + e % span, m = e / span;
+    if (i >= rows) continue;
+    const float* part = red + m * OUT + i;
+    float parts[kMaxSplits];
+#pragma unroll
+    for (int rank = 0; rank < kMaxSplits; ++rank)
+      if (rank < splits) parts[rank] = tiles::ld_cluster_f32(part, rank);
+    float sum = 0.0f;
+#pragma unroll
+    for (int rank = 0; rank < kMaxSplits; ++rank)
+      if (rank < splits) sum += parts[rank];
+    if constexpr (kInt8) sum *= scale[n0 + i];
+    out[(size_t)m * N + n0 + i] = __float2bfloat16_rn(sum);
+  }
+  tiles::cluster_sync();    // no block leaves while another reads its tile
+}
+
+// ------------------------------------------------------------------ K3
+constexpr int kStages = 4;                     // the ring's depth
 constexpr int kMaxM3 = 32;
 
 // Shared memory of K3 for NT 8-row tiles of x, from its first 1024-byte
@@ -107,42 +222,6 @@ struct Geo3 {
   static constexpr int SMEM = BARS + 2 * kStages * 8 + 1024;
 };
 
-// L2 policies: the weights are read once and go first; x is read by
-// every block and stays.
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ uint64_t evict_last() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-// One box of a 2D tensor map (coordinates: column, row) into shared
-// memory by the copy engine, counted on `bar`, under an L2 policy.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int col, int row, uint64_t* bar,
-                                        uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-          tiles::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(tiles::smem_u32(bar)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
 template <int NT>
 __global__ void __launch_bounds__(kThreads3)
 mm_bf16_kernel(const __grid_constant__ CUtensorMap wmap,   // w's [N, K]
@@ -153,7 +232,6 @@ mm_bf16_kernel(const __grid_constant__ CUtensorMap wmap,   // w's [N, K]
   extern __shared__ unsigned char smem3_raw[];
   unsigned char* smem3 =
       smem3_raw + ((1024u - tiles::smem_u32(smem3_raw)) & 1023u);
-  float* red = reinterpret_cast<float*>(smem3);   // after the ring drains
   uint64_t* full = reinterpret_cast<uint64_t*>(smem3 + G::BARS);
   uint64_t* empty = full + kStages;
 
@@ -180,9 +258,9 @@ mm_bf16_kernel(const __grid_constant__ CUtensorMap wmap,   // w's [N, K]
     // done with stage it - kStages. Rows beyond N or M and columns beyond
     // K arrive as zeros (the tensor maps' bounds).
     if (lane == 0) {
-      prefetch_map(&wmap);
-      prefetch_map(&xmap);
-      const uint64_t once = evict_first(), shared = evict_last();
+      tma::prefetch(&wmap);
+      tma::prefetch(&xmap);
+      const uint64_t once = tma::evict_first(), shared = tma::evict_last();
       for (int it = 0; it < stages; ++it) {
         const int slot = it % kStages;
         if (it >= kStages) tiles::mbar_wait(&empty[slot], (it / kStages - 1) & 1);
@@ -190,10 +268,10 @@ mm_bf16_kernel(const __grid_constant__ CUtensorMap wmap,   // w's [N, K]
         unsigned char* stage = smem3 + slot * G::STAGE;
         tiles::mbar_expect(&full[slot], G::STAGE);
         for (int b = 0; b < 2; ++b) {
-          tma_box(stage + b * G::WBOX, &wmap, k0 + b * kBoxK, n0, &full[slot],
-                  once);
-          tma_box(stage + 2 * G::WBOX + b * G::XBOX, &xmap, k0 + b * kBoxK, 0,
-                  &full[slot], shared);
+          tma::box(stage + b * G::WBOX, &wmap, k0 + b * kBoxK, n0, &full[slot],
+                   once);
+          tma::box(stage + 2 * G::WBOX + b * G::XBOX, &xmap, k0 + b * kBoxK, 0,
+                   &full[slot], shared);
         }
       }
     }
@@ -225,230 +303,170 @@ mm_bf16_kernel(const __grid_constant__ CUtensorMap wmap,   // w's [N, K]
     tiles::wgmma_wait<0>();
     tiles::pin(acc);
   }
-  const int g = lane >> 2, t = lane & 3;
-  if (splits == 1) {
-    // no other split: the accumulators go straight out
-    if (warp < kConsumers)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 16 * warp + g + 8 * (e >> 1);
-          const int m = 8 * nt + 2 * t + (e & 1);
-          if (i < rows && m < M)
-            out[(size_t)m * N + n0 + i] = __float2bfloat16_rn(acc[nt][e]);
-        }
-    return;
-  }
-  __syncthreads();          // the ring is drained: it takes the partials
-  if (warp < kConsumers) {
-    // red[m][i] for x row m, weight row i
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(8 * nt + 2 * t + (e & 1)) * kRows3 + 16 * warp + g + 8 * (e >> 1)] =
-            acc[nt][e];
-  }
-
-  // rank `split` sums its rows of every rank's partial tile, in rank
-  // order; the ranks' values are loaded together, then added
-  tiles::cluster_sync();
-  const int i0 = kRows3 * split / splits, i1 = kRows3 * (split + 1) / splits;
-  const int span = i1 - i0;
-  for (int e = threadIdx.x; e < span * M; e += kThreads3) {
-    const int i = i0 + e % span, m = e / span;
-    if (i >= rows) continue;
-    const float* part = red + m * kRows3 + i;
-    float parts[kMaxSplits];
-#pragma unroll
-    for (int rank = 0; rank < kMaxSplits; ++rank)
-      if (rank < splits) parts[rank] = tiles::ld_cluster_f32(part, rank);
-    float sum = 0.0f;
-#pragma unroll
-    for (int rank = 0; rank < kMaxSplits; ++rank)
-      if (rank < splits) sum += parts[rank];
-    out[(size_t)m * N + n0 + i] = __float2bfloat16_rn(sum);
-  }
-  tiles::cluster_sync();    // no block leaves while another reads its tile
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda); null where the driver lacks it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The tensor map of a contiguous bf16 [rows, cols] matrix read in boxes
-// of `box_rows` rows x 64 columns, 128-byte swizzled, zeros beyond its
-// bounds. False if the driver refuses it.
-bool box_map(CUtensorMap* map, const void* base, int rows, int cols,
-             int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBoxK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  finish<NT, kRows3, false>(acc, reinterpret_cast<float*>(smem3), nullptr,
+                            out, n0, rows, M, N, split, splits);
 }
 
 // ------------------------------------------------------------------ K4
-constexpr int kMaxRows = 8;                         // rows of x (grid.z)
-constexpr int kThreadsN = 32;                       // threads along N
-constexpr int kLanesK = 4;                          // K-lanes per block
-constexpr int kColsPerThread = 16;                  // one 16-byte load
-constexpr int kBlockN4 = kThreadsN * kColsPerThread;   // 512 columns
-constexpr int kUnroll = 4;                          // rows in flight a lane
-constexpr int kMaxChunk = 256;                      // K rows per split
+constexpr int kOut4 = 128;                     // outputs per block
+constexpr int kGroups4 = kOut4 / 64;           // consumer warpgroups, 64 outputs each
+constexpr int kThreads4 = 128 * kGroups4 + 32; // and a producer warp
+constexpr int kStageK4 = 64;                   // K rows per stage
+constexpr int kMaxM4 = 128;
 
-__device__ __forceinline__ float byte_to_float(uint32_t bits) {
-  // bits holds a signed byte in its low 8 bits (higher bits ignored)
-  const uint32_t code = (bits & 0xFFu) ^ 0x4B000080u;  // 2^23 + (b ^ 0x80)
-  return __uint_as_float(code) - 8388736.0f;           // - (2^23 + 128)
+// Shared memory of K4 for NT 8-row tiles of x, from its first 1024-byte
+// boundary: the ring, each stage one int8 box [64 K][128 n] (128-byte
+// rows, 128-byte swizzle) and one x box [8 NT][64 K] (likewise), as many
+// stages as fit 40 KB up to M 40 (4 at M 1-8, 3 at M 33-40: three blocks
+// an SM, which beat a deeper ring at two) and 72 KB above (4 at M 41-64,
+// 3 at M 65-128: two blocks an SM); then each warpgroup's two converted
+// bf16 tiles [64 K][64 n] (128-byte swizzle); then the barriers.
+// Once the ring is drained, it and the tiles hold the partial tile
+// [8 NT][128] f32.
+template <int NT>
+struct Geo4 {
+  static_assert(kStageK4 == kBoxK, "a stage takes one x box");
+  static constexpr int WBOX = kStageK4 * kOut4;
+  static constexpr int XBOX = 8 * NT * kBoxK * 2;
+  static constexpr int STAGE = WBOX + XBOX;
+  static constexpr int FIT = (NT <= 5 ? 40 : 72) * 1024 / STAGE;
+  static constexpr int STAGES = FIT < 2 ? 2 : FIT > 8 ? 8 : FIT;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int TILE = kStageK4 * 64 * 2;
+  static constexpr int BARS = RING + 2 * kGroups4 * TILE;
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+  static_assert(8 * NT * kOut4 * 4 <= BARS, "the partial tile fits");
+};
+
+// Four signed bytes b0..b3 (w's bytes, low first) as two bf16 pairs,
+// exactly: (b0, b2) in `r.x` and (b1, b3) in `r.y`, the first of each in
+// the lower half. For a byte b with sign bit h and low bits l, the bf16
+// 0x4300 | l is 128 + l and 0x4300 | h << 7 is 128 + 128 h, and their
+// difference l - 128 h = b is an integer of [-128, 127], which bf16 holds
+// exactly: two masks and one bf16x2 subtraction a pair, no int->float
+// conversions and no byte permutes.
+__device__ __forceinline__ uint2 int8x4_to_bf16(uint32_t w) {
+  uint2 r;
+  const uint32_t hi = w >> 8;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(r.x)
+      : "r"((w & 0x007F007Fu) | 0x43004300u), "r"((w & 0x00800080u) | 0x43004300u));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(r.y)
+      : "r"((hi & 0x007F007Fu) | 0x43004300u), "r"((hi & 0x00800080u) | 0x43004300u));
+  return r;
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kThreadsN * kLanesK)
-qmm8_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
-            const int8_t* __restrict__ w,           // [K, N]
-            const float* __restrict__ scale,        // [N]
-            float* __restrict__ partial,            // [splits, M, N] or null
-            __nv_bfloat16* __restrict__ out,        // [M, N]
+// Warpgroup `wg`'s barrier (the other warpgroup and the producer warp do
+// not take part); named barriers 1 and 2.
+__device__ __forceinline__ void group_sync(int wg) {
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads4)
+qmm8_kernel(const __grid_constant__ CUtensorMap wmap,   // int8 w [K, N]
+            const __grid_constant__ CUtensorMap xmap,   // bf16 x [M, K]
+            const float* __restrict__ scale,            // [N]
+            bf16* __restrict__ out,                     // [M, N]
             int M, int K, int N, int chunk) {
-  __shared__ __align__(16) float xs[kMaxChunk * MT];
-  __shared__ __align__(16) float red[kLanesK * kBlockN4];
+  typedef Geo4<NT> G;
+  extern __shared__ unsigned char smem4_raw[];
+  unsigned char* smem4 =
+      smem4_raw + ((1024u - tiles::smem_u32(smem4_raw)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4 + G::BARS);
+  uint64_t* empty = full + G::STAGES;
 
-  const int tx = threadIdx.x;                       // 0..31 along N
-  const int ty = threadIdx.y;                       // K-lane
-  const int tid = ty * kThreadsN + tx;
-  const int nthreads = kThreadsN * kLanesK;
-  const int n0 = blockIdx.x * kBlockN4 + tx * kColsPerThread;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
-  const int rows = min(MT, M - m0);
-  const int kbeg = split * chunk;
-  const int kend = min(K, kbeg + chunk);
-  const int klen = kend - kbeg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;                       // consumer warpgroup
+  const int n0 = blockIdx.x * kOut4;
+  const int rows = min(kOut4, N - n0);
+  // the cluster is the grid's y extent: this block's rank is its split
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int k_first = split * chunk;
+  const int k_stop = min(K, k_first + chunk);
+  const int n_stages = k_stop > k_first ? (k_stop - k_first + kStageK4 - 1) / kStageK4 : 0;
 
-  // x[m0:m0+MT, kbeg:kend] as f32: xs[kk*MT + m]
-  for (int i = tid; i < klen * MT; i += nthreads) {
-    const int kk = i / MT;
-    const int m = i - kk * MT;
-    xs[i] = m < rows ? __bfloat162float(
-                           x[static_cast<size_t>(m0 + m) * K + kbeg + kk])
-                     : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      tiles::mbar_init(&full[s]);
+      tiles::mbar_init(&empty[s], 4 * kGroups4);
+    }
   }
   __syncthreads();
 
-  float acc[MT][kColsPerThread];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[m][c] = 0.f;
-
-  if (n0 < N) {
-    for (int k = kbeg + ty; k < kend; k += kLanesK * kUnroll) {
-      uint4 wv[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int kr = k + u * kLanesK;
-        wv[u] = kr < kend ? __ldg(reinterpret_cast<const uint4*>(
-                                w + static_cast<size_t>(kr) * N + n0))
-                          : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int kr = k + u * kLanesK;
-        if (kr < kend) {          // uniform across the warp (same ty)
-          const float* xrow = xs + (kr - kbeg) * MT;
-          float xv[MT];
-#pragma unroll
-          for (int m = 0; m < MT; ++m) xv[m] = xrow[m];
-          const uint32_t words[4] = {wv[u].x, wv[u].y, wv[u].z, wv[u].w};
-#pragma unroll
-          for (int c = 0; c < kColsPerThread; ++c) {
-            const float wf = byte_to_float(words[c >> 2] >> (8 * (c & 3)));
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-              acc[m][c] = fmaf(xv[m], wf, acc[m][c]);
-          }
-        }
+  float acc[NT][4];      // warp w: tile columns 16 (w % 4) + g (+ 8) of its warpgroup, x rows 8 nt + 2 t (+ 1)
+  if (warp == 4 * kGroups4) {
+    // producer: stage `it` into slot it % STAGES once the consumers are
+    // done with stage it - STAGES
+    if (lane == 0) {
+      tma::prefetch(&wmap);
+      tma::prefetch(&xmap);
+      const uint64_t w_policy = tma::evict_first();
+      const uint64_t x_policy = tma::evict_last();
+      for (int it = 0; it < n_stages; ++it) {
+        const int slot = it % G::STAGES;
+        if (it >= G::STAGES)
+          tiles::mbar_wait(&empty[slot], (it / G::STAGES - 1) & 1);
+        const int k0 = k_first + it * kStageK4;
+        unsigned char* stage = smem4 + slot * G::STAGE;
+        tiles::mbar_expect(&full[slot], G::STAGE);
+        tma::box(stage, &wmap, n0, k0, &full[slot], w_policy);
+        tma::box(stage + G::WBOX, &xmap, k0, 0, &full[slot], x_policy);
       }
     }
-  }
-
-  // sum the K-lanes row by row in shared memory, in lane order
+  } else {
+    // consumers, a warpgroup for each 64 outputs: per stage, convert its
+    // half of the int8 box into its bf16 tile (it & 1) while the products
+    // of stage it - 1 run, wait for those, publish the tile, release stage
+    // it - 1's slot and issue 4 products m64 x (8 NT) x k16 (A the
+    // converted tile, MN-major; B x's box, K-major)
+    const int tid = threadIdx.x % 128;
+    bf16* tiles_wg = reinterpret_cast<bf16*>(smem4 + G::RING + wg * 2 * G::TILE);
+    tiles::zero(acc);
+    for (int it = 0; it < n_stages; ++it) {
+      const int slot = it % G::STAGES;
+      tiles::mbar_wait(&full[slot], (it / G::STAGES) & 1);
+      const unsigned char* stage = smem4 + slot * G::STAGE;
+      bf16* wb = tiles_wg + (it & 1) * (G::TILE / 2);
+      // 64 rows x the warpgroup's 4 chunks of 16 bytes, 2 a thread; a
+      // quarter warp takes one chunk of 8 rows in a row: 8 distinct
+      // 16-byte columns of the swizzled box and of the tile
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    __syncthreads();
+      for (int r = 0; r < kStageK4 * 4 / 128; ++r) {
+        const int u = tid + 128 * r;
+        const int k = (u & 7) + 8 * (u >> 5), c = (u >> 3) & 3;
+        const uint4 q = *reinterpret_cast<const uint4*>(
+            stage + k * kOut4 + 16 * ((4 * wg + c) ^ (k & 7)));
+        const uint2 b0 = int8x4_to_bf16(q.x), b1 = int8x4_to_bf16(q.y);
+        const uint2 b2 = int8x4_to_bf16(q.z), b3 = int8x4_to_bf16(q.w);
+        tiles::sts128(wb + tiles::block_offset<64>(k, 16 * c), b0.x, b0.y, b1.x,
+                      b1.y);
+        tiles::sts128(wb + tiles::block_offset<64>(k, 16 * c + 8), b2.x, b2.y,
+                      b3.x, b3.y);
+      }
+      tiles::wgmma_wait<0>();              // stage it - 1's products are done
+      tiles::pin(acc);
+      tiles::fence_async_proxy();
+      group_sync(wg);                      // the tile is whole; tile it - 1 is free
+      if (it > 0 && lane == 0) tiles::mbar_arrive(&empty[(it - 1) % G::STAGES]);
+      tiles::wgmma_fence();
+      const uint64_t a = tiles::block_desc<64>(wb);
+      const uint64_t b = tiles::block_desc<64>(
+          reinterpret_cast<const bf16*>(stage + G::WBOX));
 #pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c)
-      red[ty * kBlockN4 + tx * kColsPerThread + c] = acc[m][c];
-    __syncthreads();
-    if (m >= rows) continue;      // uniform across the block
-    const size_t row = static_cast<size_t>(m0 + m);
-    for (int col = tid; col < kBlockN4; col += nthreads) {
-      const int n = blockIdx.x * kBlockN4 + col;
-      if (n >= N) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int l = 0; l < kLanesK; ++l) s += red[l * kBlockN4 + col];
-      if (partial != nullptr)
-        partial[(static_cast<size_t>(split) * M + row) * N + n] = s;
-      else
-        out[row * N + n] = __float2bfloat16(s * scale[n]);
+      for (int kk = 0; kk < kStageK4 / 16; ++kk)   // 16 K rows: 2048 bytes of A
+        tiles::WgmmaSS<8 * NT>::template run<1>(acc, a + 128 * kk, b + 2 * kk, 1);
+      tiles::wgmma_commit();
     }
+    tiles::wgmma_wait<0>();
+    tiles::pin(acc);
   }
-}
-
-// K4's second pass: add the splits in order, apply the scale and round to
-// bf16
-__global__ void splitk_reduce(const float* __restrict__ partial,
-                              const float* __restrict__ scale,   // or null
-                              __nv_bfloat16* __restrict__ out, int splits,
-                              int M, int N) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(M) * N;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int j = 0; j < splits; ++j) s += partial[j * total + i];
-  if (scale != nullptr) s *= scale[i % N];
-  out[i] = __float2bfloat16(s);
-}
-
-int reduce(const void* partial, const void* scale, void* out, int splits,
-           int M, int N, cudaStream_t stream) {
-  const size_t total = static_cast<size_t>(M) * N;
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((total + threads - 1) / threads);
-  splitk_reduce<<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), splits, M, N);
-  return static_cast<int>(cudaGetLastError());
+  finish<NT, kOut4, true>(acc, reinterpret_cast<float*>(smem4), scale, out, n0,
+                          rows, M, N, split, splits);
 }
 
 // Raise a kernel's dynamic shared-memory limit once, on its first launch
@@ -460,20 +478,15 @@ int prepare(int smem) {
   return err;
 }
 
-// K3's grid: a block per 64 weight rows (x) and K split (y); the splits of
-// a block of rows are one cluster.
-template <int NT>
-int launch_mm(const void* x, const void* w, void* out, int M, int K, int N,
-              int splits, int chunk, cudaStream_t stream) {
-  int err = prepare<mm_bf16_kernel<NT>>(Geo3<NT>::SMEM);
-  if (err) return err;
-  CUtensorMap wmap, xmap;
-  if (!box_map(&wmap, w, N, K, kRows3) || !box_map(&xmap, x, M, K, 8 * NT))
-    return static_cast<int>(cudaErrorInvalidValue);
+// A kernel on a grid of a block per `out` outputs (x) and K split (y);
+// the splits of a block of outputs are one cluster.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int out, int threads, int smem,
+                    int N, int splits, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kRows3 - 1) / kRows3, splits, 1);
-  cfg.blockDim = dim3(kThreads3, 1, 1);
-  cfg.dynamicSmemBytes = Geo3<NT>::SMEM;
+  cfg.gridDim = dim3((N + out - 1) / out, splits, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -482,22 +495,45 @@ int launch_mm(const void* x, const void* w, void* out, int M, int K, int N,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, mm_bf16_kernel<NT>, wmap, xmap, static_cast<bf16*>(out), M, K,
-      N, chunk));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
-template <int MT>
-void launch_qmm(const void* x, const void* w, const void* scale,
-                void* partial, void* out, int M, int K, int N, int splits,
-                int chunk, cudaStream_t stream) {
-  const dim3 grid((N + kBlockN4 - 1) / kBlockN4, splits, (M + MT - 1) / MT);
-  const dim3 block(kThreadsN, kLanesK);
-  qmm8_kernel<MT><<<grid, block, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale),
-      splits > 1 ? static_cast<float*>(partial) : nullptr,
-      static_cast<__nv_bfloat16*>(out), M, K, N, chunk);
+template <int NT>
+int launch_mm(const void* x, const void* w, void* out, int M, int K, int N,
+              int splits, int chunk, cudaStream_t stream) {
+  int err = prepare<mm_bf16_kernel<NT>>(Geo3<NT>::SMEM);
+  if (err) return err;
+  CUtensorMap wmap, xmap;
+  if (!tma::bf16_map(&wmap, w, N, K, kRows3) ||
+      !tma::bf16_map(&xmap, x, M, K, 8 * NT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(mm_bf16_kernel<NT>, kRows3, kThreads3, Geo3<NT>::SMEM,
+                         N, splits, stream, wmap, xmap,
+                         static_cast<bf16*>(out), M, K, N, chunk);
+}
+
+template <int NT>
+int launch_qmm(const void* x, const void* w, const void* scale, void* out,
+               int M, int K, int N, int splits, int chunk,
+               cudaStream_t stream) {
+  int err = prepare<qmm8_kernel<NT>>(Geo4<NT>::SMEM);
+  if (err) return err;
+  CUtensorMap wmap, xmap;
+  if (!tma::matrix_map(&wmap, w, K, N, kStageK4, kOut4, 1,
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tma::bf16_map(&xmap, x, M, K, 8 * NT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(qmm8_kernel<NT>, kOut4, kThreads4, Geo4<NT>::SMEM, N,
+                         splits, stream, wmap, xmap,
+                         static_cast<const float*>(scale),
+                         static_cast<bf16*>(out), M, K, N, chunk);
+}
+
+// Shared checks of both entry points: a chunk of whole stages, at most 8
+// splits (one cluster), and the splits cover K.
+bool splits_ok(int K, int splits, int chunk, int stage) {
+  return chunk >= 1 && chunk % stage == 0 && splits >= 1 &&
+         splits <= kMaxSplits && static_cast<long long>(splits) * chunk >= K;
 }
 
 }  // namespace
@@ -510,9 +546,8 @@ void launch_qmm(const void* x, const void* w, const void* scale,
 extern "C" int mm_bf16_launch(const void* x, const void* w, void* out, int M,
                               int K, int N, int splits, int chunk,
                               void* stream_ptr) {
-  if (M < 1 || M > kMaxM3 || N < 1 || K % 8 != 0 || chunk < 1 ||
-      chunk % kStageK != 0 || splits < 1 || splits > kMaxSplits ||
-      static_cast<long long>(splits) * chunk < K)
+  if (M < 1 || M > kMaxM3 || N < 1 || K % 8 != 0 ||
+      !splits_ok(K, splits, chunk, kStageK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch ((M + 7) / 8) {
@@ -523,28 +558,24 @@ extern "C" int mm_bf16_launch(const void* x, const void* w, void* out, int M,
   }
 }
 
-// C entry point of K4. x: bf16 [M, K]; w: int8 [K, N]; scale: f32 [N];
-// partial: f32 [splits, M, N] scratch (unused when splits == 1); out: bf16
-// [M, N]. Requires N % 16 == 0, 16-byte aligned w, 1 <= chunk <= 256 and
-// splits * chunk >= K. Returns cudaGetLastError().
+// C entry point of K4. x: bf16 [M, K]; w: int8 [K, N], N contiguous;
+// scale: f32 [N]; out: bf16 [M, N]. Requires 1 <= M <= 128, K % 8 == 0,
+// N % 16 == 0, 16-byte aligned x and w, chunk a multiple of 64,
+// 1 <= splits <= 8 and splits * chunk >= K. One launch; returns the
+// launch's error.
 extern "C" int qmm8_launch(const void* x, const void* w, const void* scale,
-                           void* partial, void* out, int M, int K, int N,
-                           int splits, int chunk, void* stream_ptr) {
-  if (M < 1 || N % kColsPerThread != 0 || chunk < 1 || chunk > kMaxChunk ||
-      static_cast<long long>(splits) * chunk < K)
+                           void* out, int M, int K, int N, int splits,
+                           int chunk, void* stream_ptr) {
+  if (M < 1 || M > kMaxM4 || N < 16 || N % 16 != 0 || K % 8 != 0 ||
+      !splits_ok(K, splits, chunk, kStageK4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (M == 1) {
-    launch_qmm<1>(x, w, scale, partial, out, M, K, N, splits, chunk, stream);
-  } else if (M == 2) {
-    launch_qmm<2>(x, w, scale, partial, out, M, K, N, splits, chunk, stream);
-  } else if (M <= 4) {
-    launch_qmm<4>(x, w, scale, partial, out, M, K, N, splits, chunk, stream);
-  } else {
-    launch_qmm<kMaxRows>(x, w, scale, partial, out, M, K, N, splits, chunk,
-                         stream);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return reduce(partial, scale, out, splits, M, N, stream);
+  const int nt = (M + 7) / 8;
+  if (nt <= 1) return launch_qmm<1>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  if (nt <= 2) return launch_qmm<2>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  if (nt <= 3) return launch_qmm<3>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  if (nt <= 4) return launch_qmm<4>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  if (nt <= 5) return launch_qmm<5>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  if (nt <= 8) return launch_qmm<8>(x, w, scale, out, M, K, N, splits, chunk, stream);
+  return launch_qmm<16>(x, w, scale, out, M, K, N, splits, chunk, stream);
 }

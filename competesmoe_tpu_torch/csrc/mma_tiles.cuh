@@ -7,7 +7,8 @@
 //     that a warp fills, a row at a time, without bank conflicts either;
 //   * wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulation), its
 //     descriptors, fences and the two products a warpgroup that owns 64
-//     rows needs: C = A X^T (both from shared memory) and C += A X (A from
+//     rows needs: C = A X^T (both from shared memory, either of them
+//     MN-major through wgmma's transpose bits) and C += A X (A from
 //     registers).
 //
 // Register layouts of m64nNk16 for the warpgroup's thread 32 w + lane,
@@ -159,6 +160,16 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   return v;
 }
 
+// Store 16 bytes to shared memory at a 16-byte aligned address as one
+// vector store (nvcc may otherwise split a uint4 store into four 4-byte
+// ones, which the swizzled layouts turn into bank conflicts).
+__device__ __forceinline__ void sts128(void* p, uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(p)),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
 // Store a word to shared memory where `pred` is not 0 (a predicated store,
 // no branch).
 __device__ __forceinline__ void sts32_if(uint32_t addr, uint32_t v, int pred) {
@@ -286,8 +297,11 @@ __device__ __forceinline__ void pin(uint32_t (&a)[KS][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e])::"memory");
 }
 
-// d[64 x N] (+)= a[64 x 16] b[16 x N], both operands K-major in shared
-// memory (N = 8, 16, 24, 32 or 64); `accumulate` 0 overwrites d.
+// d[64 x N] (+)= a[64 x 16] b[16 x N] on the n-tiles OFF .. OFF + N / 8 of
+// d, both operands in shared memory; `accumulate` 0 overwrites those
+// n-tiles. An operand is K-major by default; TA (TB) 1 reads A (B) as
+// MN-major, stored [k][m] ([k][n]): wgmma's transpose bits, which bf16
+// operands allow. N = 8, 16, 24, 32, 40, 64 or 128.
 template <int N>
 struct WgmmaSS;
 
@@ -297,103 +311,179 @@ template <int N>
 struct WgmmaRST;
 
 template <>
-struct WgmmaSS<64> {
-  static __device__ __forceinline__ void run(float (&d)[8][4], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-// The narrow products, N = 8, 16, 24 and 32 (a matrix times a few rows).
-template <>
 struct WgmmaSS<8> {
-  static __device__ __forceinline__ void run(float (&d)[1][4], uint64_t a,
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
                                              uint64_t b, int accumulate) {
+    static_assert(OFF + 1 <= NT, "n-tiles out of range");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
         "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n"
         "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
 template <>
 struct WgmmaSS<16> {
-  static __device__ __forceinline__ void run(float (&d)[2][4], uint64_t a,
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
                                              uint64_t b, int accumulate) {
+    static_assert(OFF + 2 <= NT, "n-tiles out of range");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
         "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n"
         "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
 template <>
 struct WgmmaSS<24> {
-  static __device__ __forceinline__ void run(float (&d)[3][4], uint64_t a,
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
                                              uint64_t b, int accumulate) {
+    static_assert(OFF + 3 <= NT, "n-tiles out of range");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
         "setp.ne.b32 p, %14, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, "
-        "1, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %15, %16;\n"
         "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
 template <>
 struct WgmmaSS<32> {
-  static __device__ __forceinline__ void run(float (&d)[4][4], uint64_t a,
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
                                              uint64_t b, int accumulate) {
+    static_assert(OFF + 4 <= NT, "n-tiles out of range");
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
         "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n"
         "}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
+
+template <>
+struct WgmmaSS<40> {
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    static_assert(OFF + 5 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %23, %24;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    static_assert(OFF + 8 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  template <int TA = 0, int TB = 0, int OFF = 0, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    static_assert(OFF + 16 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3]),
+          "+f"(d[OFF + 8][0]), "+f"(d[OFF + 8][1]), "+f"(d[OFF + 8][2]), "+f"(d[OFF + 8][3]),
+          "+f"(d[OFF + 9][0]), "+f"(d[OFF + 9][1]), "+f"(d[OFF + 9][2]), "+f"(d[OFF + 9][3]),
+          "+f"(d[OFF + 10][0]), "+f"(d[OFF + 10][1]), "+f"(d[OFF + 10][2]), "+f"(d[OFF + 10][3]),
+          "+f"(d[OFF + 11][0]), "+f"(d[OFF + 11][1]), "+f"(d[OFF + 11][2]), "+f"(d[OFF + 11][3]),
+          "+f"(d[OFF + 12][0]), "+f"(d[OFF + 12][1]), "+f"(d[OFF + 12][2]), "+f"(d[OFF + 12][3]),
+          "+f"(d[OFF + 13][0]), "+f"(d[OFF + 13][1]), "+f"(d[OFF + 13][2]), "+f"(d[OFF + 13][3]),
+          "+f"(d[OFF + 14][0]), "+f"(d[OFF + 14][1]), "+f"(d[OFF + 14][2]), "+f"(d[OFF + 14][3]),
+          "+f"(d[OFF + 15][0]), "+f"(d[OFF + 15][1]), "+f"(d[OFF + 15][2]), "+f"(d[OFF + 15][3])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
 
 template <>
 struct WgmmaRST<32> {

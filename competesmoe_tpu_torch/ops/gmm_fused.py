@@ -9,7 +9,8 @@ activation kept on chip; the combine gathers each slot's row back and
 sums the k rows of a token with their routing weights.
 
 `gmm2_fused_aligned` launches the Hopper kernel of `csrc/gmm2_fused.cu`
-for CUDA tensors (built by `_kernels.py`) and runs its plain PyTorch
+for CUDA tensors (built by `_kernels.py`; the f32 weights are rounded to
+bf16 once per call, inside the wrapper) and runs its plain PyTorch
 version, `gmm2_fused_aligned_reference`, for CPU tensors.
 `fused_grouped_ffn_kv` is the differentiable pipeline; its backward
 recomputes through `expert_compute.grouped_ffn_kv` in plain PyTorch, as
@@ -46,7 +47,7 @@ def gmm2_fused_aligned_reference(xs: torch.Tensor, keys: torch.Tensor,
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gmm2_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.gmm2_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.gmm2_launch.restype = ctypes.c_int
 
 
@@ -58,7 +59,9 @@ def gmm2_fused_aligned(xs: torch.Tensor, keys: torch.Tensor,
     xs: [S', D] with rows [t*TILE, (t+1)*TILE) all belonging to expert
     tile_expert[t]; keys: [E, D, ES]; values: [E, ES, D]; tile_expert:
     [S'/TILE] int32. Returns [S', D] in xs's dtype. On CUDA: bf16 xs,
-    float32 keys/values, D and ES multiples of 128, ES <= 512."""
+    float32 keys/values, D and ES multiples of 128, ES <= 512; the
+    kernel reads the weights rounded to bf16 (nearest even), cast here
+    once per call."""
     if xs.device.type == "cpu":
         return gmm2_fused_aligned_reference(xs, keys, values, tile_expert)
     if xs.device.type != "cuda" or any(
@@ -88,9 +91,12 @@ def gmm2_fused_aligned(xs: torch.Tensor, keys: torch.Tensor,
         raise ValueError("xs, keys, values and tile_expert must be "
                          "contiguous and 16-byte aligned")
     lib = _kernels.load("gmm2_fused", _bind)
+    keys16 = keys.to(torch.bfloat16)
+    values16 = values.to(torch.bfloat16)
     out = torch.empty_like(xs)
-    rc = lib.gmm2_launch(xs.data_ptr(), keys.data_ptr(), values.data_ptr(),
-                         tile_expert.data_ptr(), out.data_ptr(), S, D, ES,
+    rc = lib.gmm2_launch(xs.data_ptr(), keys16.data_ptr(),
+                         values16.data_ptr(), tile_expert.data_ptr(),
+                         out.data_ptr(), S, D, ES, E,
                          torch.cuda.current_stream(xs.device).cuda_stream)
     _kernels.check(rc, "gmm2 fused")
     gmm2_fused_aligned.launches += 1

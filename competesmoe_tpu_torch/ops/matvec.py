@@ -120,7 +120,7 @@ def _bind_small_m(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mm_bf16_launch.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.mm_bf16_launch.restype = ctypes.c_int
-    lib.qmm8_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.qmm8_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.qmm8_launch.restype = ctypes.c_int
 
 
@@ -193,14 +193,13 @@ quant_small_m_matmul_int4.launches = 0
 # K3 and K4 (csrc/matvec_small_m.cu)
 # ---------------------------------------------------------------------------
 
-# geometry of csrc/matvec_small_m.cu
-_K3_BLOCK_N = 64               # weight rows (outputs) per block
-_K3_STAGE_K = 128              # K columns per stage of the block's ring
-_K3_MAX_SPLITS = 8             # the K splits of a block: one cluster
-_K4_BLOCK_N = 512              # 32 threads x 16 int8 columns
-_K4_ROW_STEP = 16              # K-lanes * unroll
-_K4_MAX_CHUNK = 256            # the kernel's x staging buffer, in rows
-_ROWS_PER_BLOCK = 8            # rows of x per K4 block (grid.z groups)
+# geometry of csrc/matvec_small_m.cu: (outputs per block, K per stage of
+# the block's ring, blocks an SM the splits aim for) of K3 and K4; the K
+# splits of a block are one cluster. K4 fits two or three blocks an SM
+# and is faster with half again as many blocks as SMs (PERF.md)
+_K3_GEOMETRY = (64, 128, 1.0)
+_K4_GEOMETRY = (128, 64, 1.5)
+_MAX_SPLITS = 8
 
 
 def _check_x(x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -215,20 +214,23 @@ def _check_x(x: torch.Tensor, *others: torch.Tensor) -> None:
                          f"strides {x.stride()}")
 
 
-def _k3_splits(k: int, n: int, n_sms: int):
-    """(splits, chunk) of K3: the blocks that share 64 output rows split K
-    and form one thread-block cluster, which reduces their sums inside the
-    launch. Double the splits (at most 8, the portable cluster size)
-    until the blocks cover every SM once, keeping at least two stages of
-    128 columns per split; each split is a whole number of stages and the
-    last one is not empty."""
-    blocks = -(-n // _K3_BLOCK_N)
+def _cluster_splits(k: int, n: int, n_sms: int, geometry):
+    """(splits, chunk) of K3 or K4 (`geometry`: outputs per block, K per
+    stage, blocks an SM): the blocks that share a block of outputs split
+    K and form one thread-block cluster, which reduces their sums inside
+    the launch. Double the splits (at most 8, the portable cluster size)
+    until the blocks cover every SM `fill` times, keeping at least two
+    stages per split; each split is a whole number of stages and the last
+    one is not empty. Every row of x goes through one block in one pass,
+    so the rule does not depend on M."""
+    block_out, stage_k, fill = geometry
+    blocks = -(-n // block_out)
     splits = 1
-    while (splits < _K3_MAX_SPLITS and blocks * splits < n_sms
-           and k >= 4 * splits * _K3_STAGE_K):
+    while (splits < _MAX_SPLITS and blocks * splits < fill * n_sms
+           and k >= 4 * splits * stage_k):
         splits *= 2
     chunk = -(-k // splits)
-    chunk = -(-chunk // _K3_STAGE_K) * _K3_STAGE_K
+    chunk = -(-chunk // stage_k) * stage_k
     return -(-k // chunk), chunk
 
 
@@ -257,7 +259,8 @@ def small_m_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m > MAX_SMALL_M:
         raise ValueError(f"K3 takes at most {MAX_SMALL_M} rows of x; got {m}")
     lib = _kernels.load("matvec_small_m", _bind_small_m)
-    splits, chunk = _k3_splits(k, n, _sm_count(x.device.index))
+    splits, chunk = _cluster_splits(k, n, _sm_count(x.device.index),
+                                    _K3_GEOMETRY)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = lib.mm_bf16_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, splits, chunk,
@@ -271,8 +274,9 @@ def quant_small_m_matmul(x: torch.Tensor, w_q: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
     """K4: bf16 [M, K] x int8 [K, N] * scale f32 [N] -> [M, N] bf16, the
     scale applied once per output in a float32 epilogue. CUDA tensors
-    launch the Hopper kernel (raising on anything it does not take); CPU
-    tensors run the plain version."""
+    launch the Hopper kernel, one launch for any M up to MAX_QUANT_M
+    (raising on anything it does not take); CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return quant_small_m_matmul_reference(x, w_q, scale)
     _check_x(x, w_q, scale)
@@ -289,18 +293,15 @@ def quant_small_m_matmul(x: torch.Tensor, w_q: torch.Tensor,
             or w_q.data_ptr() % 16:
         raise ValueError("w_q and scale must be contiguous and w_q 16-byte "
                          "aligned")
+    if m > MAX_QUANT_M:
+        raise ValueError(f"K4 takes at most {MAX_QUANT_M} rows of x; got {m}")
     lib = _kernels.load("matvec_small_m", _bind_small_m)
-    splits, chunk = _split_k(
-        k, -(-n // _K4_BLOCK_N) * -(-m // _ROWS_PER_BLOCK),
-        _sm_count(x.device.index), _K4_ROW_STEP, 64, _K4_MAX_CHUNK)
+    splits, chunk = _cluster_splits(k, n, _sm_count(x.device.index),
+                                    _K4_GEOMETRY)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
     rc = lib.qmm8_launch(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        out.data_ptr(), m, k, n, splits, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
+        n, splits, chunk, torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check(rc, "int8 small-M matmul")
     quant_small_m_matmul.launches += 1
     return out

@@ -112,9 +112,16 @@ def _k3_operands(g, m, k, n):
 
 
 def _k4_operands(g, m, k, n):
+    """x, int8 weights holding every int8 value (-128 too: `kernel_q` may
+    hold any byte, and K4 converts each one to bf16), with a last column
+    on which -128 counts beyond the tolerance (-128 where x's first row is
+    positive, -127 elsewhere: the product mostly cancels), and a
+    scale."""
     x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-    q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+    q = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
                       dtype=torch.int32).to(torch.int8)
+    q.view(-1)[:256] = torch.arange(-128, 128, device="cuda").to(torch.int8)
+    q[:, -1] = torch.where(x[0] > 0, -128, -127).to(torch.int8)
     scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
     return x, q, scale
 
@@ -152,10 +159,16 @@ def test_k3_repeats_bit_for_bit(gen, m):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
-@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 8, 40)
+# the decode projections at every M that pads to another wgmma width
+# (8, 16, 40, 64, 128; 9 and 33 pad up) or takes the kernel's edge
+# (M 1, 8), then a ragged last block of outputs (N 208), a ragged last
+# stage (K 1000), and both with K split across a cluster (K 2056)
+@pytest.mark.parametrize("m,k,n", [(m, k, n)
+                                   for m in (1, 8, 9, 16, 33, 40, 64, 128)
                                    for k, n in _DECODE_KN]
                          + [(3, 1024, 256), (128, 3072, 512),
-                            (32, 128, 384)])
+                            (32, 128, 384), (24, 3072, 208),
+                            (40, 1000, 3072), (17, 2056, 3088)])
 def test_k4_kernel_matches_plain(gen, m, k, n):
     x, q, scale = _k4_operands(gen, m, k, n)
     before = tmatvec.quant_small_m_matmul.launches
@@ -163,6 +176,19 @@ def test_k4_kernel_matches_plain(gen, m, k, n):
     torch.cuda.synchronize()
     assert tmatvec.quant_small_m_matmul.launches == before + 1
     _assert_close(got, tmatvec.quant_small_m_matmul_reference(x, q, scale))
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 128])
+def test_k4_repeats_bit_for_bit(gen, m):
+    """K4's splits are summed across the cluster in rank order (no
+    atomics): two runs give the same bytes, at o_proj and down_proj,
+    which both take clusters of 4, and at qkv, unsplit."""
+    for k, n in ((3072, 3072), (8192, 3072), (3072, 9216)):
+        x, q, scale = _k4_operands(gen, m, k, n)
+        a = tmatvec.quant_small_m_matmul(x, q, scale)
+        b = tmatvec.quant_small_m_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_k3_k4_reject_what_they_do_not_take(gen):
@@ -186,6 +212,9 @@ def test_k3_k4_reject_what_they_do_not_take(gen):
         tmatvec.quant_small_m_matmul(x, q[:, :250], scale[:250])
     with pytest.raises(ValueError):
         tmatvec.quant_small_m_matmul(x, q, scale.cpu())
+    with pytest.raises(ValueError):       # more rows than K4 takes
+        tmatvec.quant_small_m_matmul(_k4_operands(gen, 129, 1024, 256)[0],
+                                     q, scale)
 
 
 def test_matvec_layers_send_decode_shapes_to_the_kernels(gen):
@@ -253,9 +282,12 @@ def _k1_case(g, T, D, E, ES, k, skew):
     return x, sel, w, keys, values
 
 
+# each instantiation of the kernel (ES 128, 256, 384, 512), the 154M
+# layer shape
 @pytest.mark.parametrize("T,D,E,ES,k,skew", [
     (300, 128, 8, 128, 2, False), (512, 256, 8, 256, 2, True),
-    (65536, 512, 64, 128, 8, False)])          # the 154M layer shape
+    (256, 128, 8, 384, 2, False), (768, 256, 8, 512, 2, True),
+    (65536, 512, 64, 128, 8, False)])
 def test_k1_kernel_matches_plain(gen, T, D, E, ES, k, skew):
     x, sel, w, keys, values = _k1_case(gen, T, D, E, ES, k, skew)
     _, tok, tile_expert, _ = tgmm.aligned_layout(sel, E)
@@ -266,6 +298,20 @@ def test_k1_kernel_matches_plain(gen, T, D, E, ES, k, skew):
     assert tgmm.gmm2_fused_aligned.launches == before + 1
     _close_rel(got, tgmm.gmm2_fused_aligned_reference(
         xs, keys, values, tile_expert), 2.0 ** -6)
+
+
+@pytest.mark.parametrize("T,D,E,ES,k,skew", [
+    (512, 256, 8, 256, 2, True), (65536, 512, 64, 128, 8, False)])
+def test_k1_repeats_bit_for_bit(gen, T, D, E, ES, k, skew):
+    """K1 sums in a fixed order (no atomics): two runs give the same
+    bytes, in the skewed case (ES 256) and at the 154M layer shape."""
+    x, sel, w, keys, values = _k1_case(gen, T, D, E, ES, k, skew)
+    _, tok, tile_expert, _ = tgmm.aligned_layout(sel, E)
+    xs = x[tok]
+    a = tgmm.gmm2_fused_aligned(xs, keys, values, tile_expert)
+    b = tgmm.gmm2_fused_aligned(xs, keys, values, tile_expert)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_k1_pipeline_and_gradients_match_the_cpu(gen):

@@ -194,37 +194,49 @@ def test_pack_int4_roundtrip_matches_jax():
 
 
 def test_split_k_covers_decode_shapes():
-    """K5's, K3's and K4's K splits at the decode shapes: each split a
-    whole number of the kernel's K steps, within its staging buffer, and
-    the splits cover K once (no empty last split). K3's splits are one
-    thread-block cluster: at most 8, and enough blocks for 132 SMs where
-    K allows two stages a split."""
+    """K5's K splits, and the cluster splits of K3 and K4, at the decode
+    shapes. K5: each split a whole number of the kernel's K steps, within
+    its staging buffer, and the splits cover K once (no empty last
+    split). K3 (64 outputs a block, 128-K stages, one block an SM) and K4
+    (128 outputs, 64-K stages, 1.5 blocks an SM) share one rule: the
+    splits of a block of outputs are one thread-block cluster (at most
+    8), each a whole number of stages, covering K once, with enough
+    blocks for their share of 132 SMs where K allows two stages a
+    split. K4 takes every row of x in one pass, so its splits
+    are the same at M 1, 8, 40 and 128 (the old rule grew the grid by one
+    block per 8 rows)."""
     mv = tmatvec
     for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072),
                  (256, 768), (512, 256), (128, 384), (1024, 256)):
-        for m in (1, 8, 40, 128):
-            groups = -(-m // mv._ROWS_PER_BLOCK)
-            for rows, blocks, step, least, most in (
-                    (k // 2, -(-n // mv._KERNEL_BLOCK_N),
-                     mv._KERNEL_ROW_STEP, 64, mv._KERNEL_MAX_CHUNK),
-                    (k, -(-n // mv._K4_BLOCK_N) * groups, mv._K4_ROW_STEP,
-                     64, mv._K4_MAX_CHUNK)):
-                splits, chunk = mv._split_k(rows, blocks, 132, step, least,
-                                            most)
-                assert chunk % step == 0 and 0 < chunk <= (most or rows)
-                assert splits * chunk >= rows > (splits - 1) * chunk
-        splits, chunk = mv._k3_splits(k, n, 132)
-        blocks = -(-n // mv._K3_BLOCK_N)
-        assert 1 <= splits <= mv._K3_MAX_SPLITS
-        assert chunk % mv._K3_STAGE_K == 0
-        assert splits * chunk >= k > (splits - 1) * chunk
-        assert (blocks * splits >= 132 or splits == mv._K3_MAX_SPLITS
-                or k < 4 * splits * mv._K3_STAGE_K)
-    # the 5.1B decoder's projections: qkv and gate_up fill the card
-    # unsplit; o_proj and down_proj take clusters of 4
-    assert [mv._k3_splits(k, n, 132) for k, n in (
-        (3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072))] == [
-        (1, 3072), (4, 768), (1, 3072), (4, 2048)]
+        splits, chunk = mv._split_k(k // 2, -(-n // mv._KERNEL_BLOCK_N), 132,
+                                    mv._KERNEL_ROW_STEP, 64,
+                                    mv._KERNEL_MAX_CHUNK)
+        assert chunk % mv._KERNEL_ROW_STEP == 0
+        assert 0 < chunk <= mv._KERNEL_MAX_CHUNK
+        assert splits * chunk >= k // 2 > (splits - 1) * chunk
+        for geometry in (mv._K3_GEOMETRY, mv._K4_GEOMETRY):
+            block_out, stage_k, fill = geometry
+            splits, chunk = mv._cluster_splits(k, n, 132, geometry)
+            blocks = -(-n // block_out)
+            assert 1 <= splits <= mv._MAX_SPLITS
+            assert chunk % stage_k == 0
+            assert splits * chunk >= k > (splits - 1) * chunk
+            assert (blocks * splits >= fill * 132
+                    or splits == mv._MAX_SPLITS
+                    or k < 4 * splits * stage_k)
+    # the 5.1B decoder's projections: K3 splits o_proj and down_proj in
+    # clusters of 4; K4 (half the blocks) splits all four, the same at
+    # every M the engine gives it (decode 8, verify 40, prefill 128)
+    decode = ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072))
+    assert [mv._cluster_splits(k, n, 132, mv._K3_GEOMETRY)
+            for k, n in decode] == [(1, 3072), (4, 768), (1, 3072),
+                                    (4, 2048)]
+    for m in (1, 8, 40, 128):
+        assert tmatvec.small_m_viable(m, 3072, 3072,
+                                      max_m=tmatvec.MAX_QUANT_M)
+        assert [mv._cluster_splits(k, n, 132, mv._K4_GEOMETRY)
+                for k, n in decode] == [(4, 768), (8, 384), (2, 1536),
+                                        (8, 1024)]
 
 
 def test_small_m_viability_matches_jax():
@@ -349,7 +361,8 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "competesmoe_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "chip_faults.py"]
+    files += [REPO / "chip_smoke.py", REPO / "chip_faults.py",
+              REPO / "chip_variants.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
