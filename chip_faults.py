@@ -4,7 +4,8 @@
     python3 chip_faults.py
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
-csrc/gmm2_fused.cu, K1, or csrc/matvec_small_m.cu, K3 and K4), compiled
+csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
+csrc/matvec_int4.cu, K5), compiled
 from an edited copy in a temporary directory (csrc/'s headers are found
 through the build's include path); the checkout's sources are not
 touched. K2's forward faults: the causal comparison off by one, O not
@@ -18,7 +19,11 @@ adds nothing, and the cluster's reduction leaves out rank 0's partial
 sums. K4's faults: the scale applied twice, -128 converted as -127 (as if
 the weights were symmetric; every other byte right), the last 64-K stage
 of each split dropped, and the cluster's reduction leaving out the last
-rank (the reduction is the code K3 and K4 share). K1's faults: the tiles
+rank (the reduction is the code K3 and K4 share). K5's faults: the high
+nibble read unsigned, the low and high halves swapped against x, the last
+64-row stage of each split dropped, the cluster's sum without its last
+rank, two neighbouring outputs exchanged in the epilogue (tile rows g and
+g + 8), and the scale skipped on the first block of outputs. K1's faults: the tiles
 of expert 0 written as zeros, the relu skipped on the second 64 columns
 of h, and the expert of the next tile taken for the second half of a
 256-row tile (a block takes half a tile). The script
@@ -36,11 +41,11 @@ of h, and the expert of the next tile taken for the second half of a
        chip_smoke's K1 check shapes (ES 256, 384, 512);
      - small-LM faults: `small_lm_gaps` of 3 steps (seed 0) against the
        CPU;
-     - K3 and K4 faults: `small_m_compare` at the four decode projection
-       shapes (M 1 and 8, and 40 for K4), and `small_engine_check`, the
-       small served model's card-vs-CPU logits and engine streams (bf16
-       for K3, int8 for K4); both checks also run on the honest kernels
-       first.
+     - K3, K4 and K5 faults: `small_m_compare` at the four decode
+       projection shapes (M 1 and 8; 40 for K4; 40 and 128 for K5), and
+       `small_engine_check`, the small served model's card-vs-CPU logits
+       and engine streams (bf16 for K3, int8 for K4, int4 for K5); both
+       checks also run on the honest kernels first.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -170,9 +175,57 @@ FAULTS = {
         [("      if (rank < splits) sum += parts[rank];",
           "      if (rank + 1 < splits) sum += parts[rank];")],
         ("k4", "small_engine_int8")),
+    "k5_high_nibble_unsigned": (
+        "matvec_int4",
+        [("template <int E>\n__device__ __forceinline__ void unpack(",
+          "__device__ __forceinline__ uint32_t unsigned_bf16(uint32_t r) {\n"
+          "  uint32_t v = (r & 0x000F000Fu) | 0x43004300u;\n"
+          "  asm(\"sub.rn.bf16x2 %0, %0, %1;\\n\" : \"+r\"(v) : \"r\"(0x43004300u));\n"
+          "  return v;\n"
+          "}\n\n"
+          "template <int E>\n__device__ __forceinline__ void unpack("),
+         ("    a[tile][1][E] = to_bf16(r >> 4);\n"
+          "    a[tile][1][E + 1] = to_bf16(r >> 12);",
+          "    a[tile][1][E] = unsigned_bf16(r >> 4);\n"
+          "    a[tile][1][E + 1] = unsigned_bf16(r >> 12);")],
+        ("k5", "small_engine_int4")),
+    "k5_halves_swapped": (
+        "matvec_int4",
+        [("          product<NT>(acc[tile], a[kk][tile][0], lo + 2 * kk);\n"
+          "          product<NT>(acc[tile], a[kk][tile][1], hi + 2 * kk);",
+          "          product<NT>(acc[tile], a[kk][tile][0], hi + 2 * kk);\n"
+          "          product<NT>(acc[tile], a[kk][tile][1], lo + 2 * kk);")],
+        ("k5", "small_engine_int4")),
+    "k5_drops_last_k_stage": (
+        "matvec_int4",
+        [("k_stop > k_first ? (k_stop - k_first + kStageK - 1) / kStageK : 0;",
+          "k_stop > k_first ? (k_stop - k_first + kStageK - 1) / kStageK - 1 : 0;")],
+        ("k5", "small_engine_int4")),
+    "k5_cluster_drops_last_rank": (
+        "matvec_int4",
+        [("for (int rank = 0; rank < splits; ++rank) {",
+          "for (int rank = 0; rank + 1 < splits; ++rank) {")],
+        ("k5",)),
+    "k5_outputs_off_by_one_row": (
+        "matvec_int4",
+        [("tiles::pack_bf16(acc[0][nt][p] * s.x, acc[0][nt][2 + p] * s.y),",
+          "tiles::pack_bf16(acc[0][nt][2 + p] * s.x, acc[0][nt][p] * s.y),"),
+         ("make_float4(acc[0][nt][p], acc[0][nt][2 + p], acc[1][nt][p],",
+          "make_float4(acc[0][nt][2 + p], acc[0][nt][p], acc[1][nt][p],")],
+        ("k5", "small_engine_int4")),
+    "k5_skips_scale_on_a_block": (
+        "matvec_int4",
+        [("      const float4 s = *reinterpret_cast<const float4*>(scale + n0 + i);",
+          "      const float4 s = n0 == 0 ? make_float4(1.0f, 1.0f, 1.0f, 1.0f)\n"
+          "          : *reinterpret_cast<const float4*>(scale + n0 + i);"),
+         ("    const float4 s = *reinterpret_cast<const float4*>(scale + n0 + o);",
+          "    const float4 s = n0 == 0 ? make_float4(1.0f, 1.0f, 1.0f, 1.0f)\n"
+          "        : *reinterpret_cast<const float4*>(scale + n0 + o);")],
+        ("k5", "small_engine_int4")),
 }
-# K3/K4 shapes of the kernel check: the decode projections at these M
-K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40)}
+# K3/K4/K5 shapes of the kernel check: the decode projections at these M
+K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40),
+               "quant_small_m_matmul_int4": (1, 8, 40, 128)}
 SEEDS = range(5)
 
 
@@ -209,7 +262,7 @@ def use_library(src: str, path=None):
     if path is not None:
         lib = ctypes.CDLL(str(path))
         {"flash_attn": fa._bind, "gmm2_fused": gf._bind,
-         "matvec_small_m": mv._bind_small_m}[src](lib)
+         "matvec_small_m": mv._bind_small_m, "matvec_int4": mv._bind}[src](lib)
         _kernels._LIBS[src] = lib
 
 
@@ -313,8 +366,7 @@ def main():
                f"{max(d['grad_gap'] for d in hs):.3g} (tol "
                f"{cs.SMALL_LM_GRAD_TOL})")
 
-        for name, kind in (("small_m_matmul", "bf16"),
-                           ("quant_small_m_matmul", "int8")):
+        for kind, name in cs.SERVED_KERNEL.items():
             rows = k34_rows(name)
             ok, msg = small_engine_ok(kind)
             report[f"honest_{name}"] = dict(rows=rows, small_engine=msg)
@@ -353,7 +405,8 @@ def main():
                        f"grad_norm gaps {_g(gaps, 'grad_gap')} -> "
                        f"{_verdict(not failed['small_lm'])}")
             for check, kernel in (("k3", "small_m_matmul"),
-                                  ("k4", "quant_small_m_matmul")):
+                                  ("k4", "quant_small_m_matmul"),
+                                  ("k5", "quant_small_m_matmul_int4")):
                 if check in checks:
                     rows[check] = k34_rows(kernel)
                     failed[check] = not all(r["ok"] for r in rows[check])
@@ -361,7 +414,7 @@ def main():
                                 for r in rows[check])
                     cs.log(f"{name}: {kernel} worst {worst:.3g} of its "
                            f"tolerance -> {_verdict(not failed[check])}")
-            for kind in ("bf16", "int8"):
+            for kind in cs.SERVED_KERNEL:
                 check = f"small_engine_{kind}"
                 if check in checks:
                     ok, msg = small_engine_ok(kind)

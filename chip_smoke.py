@@ -12,16 +12,19 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      replays) beside its bound (bytes at 3.35 TB/s or operations at 989
      TFLOP/s bf16, whichever is larger):
      - the small-M decode matmuls at the four decode projection shapes
-       of the 5.1B decoder: K5 (packed int4) with M in {1, 8}, K3 (bf16)
-       with M in {1, 8, 32}, K4 (int8) with M in {1, 8, 32, 40, 128}, and
-       at other row counts for correctness only (3, 40 and 128 for K5; 2,
-       3 and 17 for K3; 3, 9, 17, 33 and 64 for K4: every wgmma width);
-       K4's int8 weights hold every value, -128 too; tolerance one bf16
-       ulp at the largest output, 2^-7 * max|ref|; each kernel run twice
-       gives the same bytes; launches rotate through 256 MB of weight copies,
-       as decode reads its weights; torch.matmul (K3) and
-       torch._weight_int8pack_mm where this torch implements it on CUDA
-       (K4) as library yardsticks;
+       of the 5.1B decoder: K5 (packed int4) and K4 (int8) with M in {1,
+       8, 32, 40, 128}, K3 (bf16) with M in {1, 8, 32}, and at other row
+       counts for correctness only (2, 3, 9, 17, 33 and 64 for K5; 2, 3
+       and 17 for K3; 3, 9, 17, 33 and 64 for K4: every wgmma width and
+       ragged last rows); K5's nibbles and K4's int8 weights hold every
+       value, -8 and -128 too; tolerance one bf16 ulp at the largest
+       output, 2^-7 * max|ref|; each kernel run twice gives the same
+       bytes; launches rotate through 256 MB of weight copies, as decode
+       reads its weights; library yardsticks where this torch implements
+       them on CUDA: torch._weight_int4pack_mm (K5; each group of K takes
+       the column's scale and zero 0, and it must first agree with the
+       plain version within the same tolerance), torch.matmul (K3) and
+       torch._weight_int8pack_mm (K4);
      - K1, the fused grouped ReLU double GEMM, at the 154M layer shape
        (65,536 tokens x top-8 over 64 experts of 128, skewed groups with
        empty experts; tolerance 2^-6 * max|ref|: the kernel reads the f32
@@ -57,28 +60,32 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      MoE tower, MoE projector, Phi-3.5-mini decoder) with random weights
      from --seed, quantized with the worker's --load-4bit (int4 decoder,
      int8 lm_head, NF4 tower) and an int8 KV cache, after a small model of
-     the same kind is held against the CPU; one image+text prompt, 32
-     greedy tokens through stream_generate, K5 launched 4 projections x
-     32 layers per decode step;
+     the same kind is held against the CPU (solo, and through
+     DecodeEngine as in 8); one image+text prompt, 32 greedy tokens
+     through stream_generate, K5 launched 4 projections x 32 layers per
+     decode step; then the same model through DecodeEngine as the worker
+     builds it with --engine-slots 8 --speculative 4 (K5 at every decode,
+     verify and prefill projection whose rows it takes, as in 8);
   7. server: the model worker over HTTP on 127.0.0.1 answers three text
      prompts;
   8. batched serving (main path of the engine slice): a small model of
      each served kind (bf16 with matvec_kernel: K3; --load-8bit with an
-     int8 KV cache: K4) runs the same 6 greedy requests through
-     DecodeEngine(n_slots=4, spec_k=2) on the card and on the CPU; then
+     int8 KV cache: K4; --load-4bit with an int8 KV cache: K5, before 6)
+     runs the same 6 greedy requests through DecodeEngine(n_slots=4,
+     spec_k=2) on the card and on the CPU; then
      CompeteSMoE-5.1B at full depth, random weights from --seed, through
      DecodeEngine as the worker builds it (make_engine): (1) --load-8bit,
      int8 KV, 8 slots, --speculative 4 (K4 at every decode and verify
      projection), then the worker over HTTP with --engine-slots 4
      --speculative 4 answering 3 concurrent requests; (2) bf16, 8 slots,
      pipeline depth 2 (K3). Each takes 8 concurrent requests (2 with a
-     224 px image) and 4 more once slots retire, 32 new tokens each; K3 or
-     K4 launches must equal 4 x 32 x the forwards whose rows the kernel
-     takes, every other kernel 0;
+     224 px image) and 4 more once slots retire, 32 new tokens each (the
+     int4 engine of 6 too); K3, K4 or K5 launches must equal 4 x 32 x the
+     forwards whose rows the kernel takes, every other kernel 0;
   9. with --profile: torch.profiler over two more training steps (with
      K1's and K2's shares of a step by name), over decode steps of the
-     served model and over engine ticks (with K3's or K4's share; device
-     busy share and the kernels that take the time).
+     served model and over engine ticks (with K3's, K4's or K5's share;
+     device busy share and the kernels that take the time).
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The last lines are the kernels JSON, the card line
 and the result JSON.
@@ -684,7 +691,8 @@ TRAIN_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
                                              "flash_bwd_dq_kernel"),
                 "K2 forward": ("flash_fwd_kernel",),
                 "K1 (without its weight casts)": ("gmm2_kernel",)}
-ENGINE_GROUPS = {"K3": ("mm_bf16_kernel",), "K4": ("qmm8_kernel",)}
+ENGINE_GROUPS = {"K3": ("mm_bf16_kernel",), "K4": ("qmm8_kernel",),
+                 "K5": ("qmm4_kernel",)}
 
 
 def _busy(prof, wall, steps, what, groups=None):
@@ -975,17 +983,19 @@ def phase_server(model):
 # the small-M decode matmuls: tag, the rows of x at which each is timed
 # at the four decode projections, and the rows checked for correctness
 # only at o_proj (other groupings of the kernels' 8-row blocks)
-SMALL_M = {"quant_small_m_matmul_int4": ("K5", (1, 8), (3, 40, 128)),
+SMALL_M = {"quant_small_m_matmul_int4": ("K5", (1, 8, 32, 40, 128),
+                                         (2, 3, 9, 17, 33, 64)),
            "small_m_matmul": ("K3", (1, 8, 32), (2, 3, 17)),
            "quant_small_m_matmul": ("K4", (1, 8, 32, 40, 128),
                                     (3, 9, 17, 33, 64))}
 
 
 def _small_m_operands(name, g, m, k, n):
-    """x and the weight arguments of K5 (nibble-packed int4 [K/2, N] and
-    an f32 scale), K3 (the [K, N] view of a contiguous [N, K] bf16 matrix,
-    as the decoder passes weight.t()) or K4 (int8 [K, N] holding every
-    int8 value, -128 too, and an f32 scale)."""
+    """x and the weight arguments of K5 (nibble-packed int4 [K/2, N]
+    holding every nibble value, -8 and 7 too, and an f32 scale), K3 (the
+    [K, N] view of a contiguous [N, K] bf16 matrix, as the decoder passes
+    weight.t()) or K4 (int8 [K, N] holding every int8 value, -128 too, and
+    an f32 scale)."""
     import torch
 
     from competesmoe_tpu_torch.models.decoder import pack_int4
@@ -997,7 +1007,9 @@ def _small_m_operands(name, g, m, k, n):
     q = torch.randint(-8 if int4 else -128, 8 if int4 else 128, (k, n),
                       generator=g, device="cuda",
                       dtype=torch.int32).to(torch.int8)
-    if not int4:
+    if int4:
+        q.view(-1)[:16] = torch.arange(-8, 8, device="cuda").to(torch.int8)
+    else:
         q.view(-1)[:256] = torch.arange(-128, 128, device="cuda").to(
             torch.int8)
         q[:, -1] = minus_128_column(x[0])
@@ -1033,6 +1045,51 @@ def _int8pack_mm():
     return fn, ""
 
 
+# K quantization group of the K5 yardstick torch._weight_int4pack_mm
+INT4PACK_GROUP = 128
+
+
+def int4pack_operands(w_packed, scale):
+    """K5's operands as torch._weight_int4pack_mm's: the unsigned nibbles
+    v + 8 of W^T [N, K] in pairs (even k in the high nibble), converted by
+    torch._convert_weight_to_int4pack, and for every group of
+    INT4PACK_GROUP rows of K the column's scale (bf16) with zero 0. The
+    library dequantizes (u - 8) * scale + zero = v * scale in bf16 and
+    multiplies with float32 accumulation: JAX's non-kernel int4 formula
+    (the weights times the scale in bf16, then the product)."""
+    import torch
+
+    from competesmoe_tpu_torch.ops.matvec import unpack_int4_halves
+    lo, hi = unpack_int4_halves(w_packed)
+    u = (torch.cat([lo, hi]).to(torch.int32) + 8).t().contiguous()
+    w4 = torch._convert_weight_to_int4pack(
+        ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    groups = u.shape[1] // INT4PACK_GROUP
+    s16 = scale.to(torch.bfloat16)[None, :].expand(groups, -1)
+    return w4, torch.stack([s16, torch.zeros_like(s16)], dim=2).contiguous()
+
+
+def _int4pack_mm():
+    """torch._weight_int4pack_mm as a K5 yardstick (x, int4pack weights,
+    group size, scales and zeros), or (None, why) where this torch lacks it
+    on CUDA."""
+    import torch
+    fn = getattr(torch, "_weight_int4pack_mm", None)
+    if fn is None or getattr(torch, "_convert_weight_to_int4pack",
+                             None) is None:
+        return None, "torch has no _weight_int4pack_mm"
+    try:
+        w4, sz = int4pack_operands(
+            torch.zeros(128, 256, device="cuda", dtype=torch.int8),
+            torch.ones(256, device="cuda"))
+        fn(torch.zeros(8, 256, device="cuda", dtype=torch.bfloat16), w4,
+           INT4PACK_GROUP, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"_weight_int4pack_mm on CUDA: {str(e).splitlines()[0]}"
+    return fn, ""
+
+
 def small_m_compare(name: str, g, m: int, k: int, n: int):
     """K5, K3 or K4 against its plain version on fresh operands:
     (max_abs_err, tol = 2^-7 * max|plain|, repeats, x, weight arguments);
@@ -1056,9 +1113,11 @@ def small_m_compare(name: str, g, m: int, k: int, n: int):
 def phase_small_m(reps: int = 60):
     """K5, K3 and K4 against their plain versions at the decode projection
     shapes, timed beside their bounds, plain versions and library calls
-    (torch.matmul for K3, torch._weight_int8pack_mm for K4, none computes
-    K5's packed int4); the launches rotate through 256 MB of weight
-    copies, as decode reads its weights."""
+    (torch._weight_int4pack_mm for K5, torch.matmul for K3,
+    torch._weight_int8pack_mm for K4; K5's is timed only where it agrees
+    with the plain version within the kernel's tolerance); the launches
+    rotate through 256 MB of weight copies, as decode reads its
+    weights."""
     import torch
 
     from competesmoe_tpu_torch.ops import matvec
@@ -1067,6 +1126,9 @@ def phase_small_m(reps: int = 60):
     int8pack, int8pack_why = _int8pack_mm()
     if int8pack is None:
         log(f"K4 library yardstick: n/a ({int8pack_why})")
+    int4pack, int4pack_why = _int4pack_mm()
+    if int4pack is None:
+        log(f"K5 library yardstick: n/a ({int4pack_why})")
     rows, max_err = [], {name: 0.0 for name in SMALL_M}
 
     def check(name, m, k, n, label, timed):
@@ -1099,6 +1161,16 @@ def phase_small_m(reps: int = 60):
             s16 = w[1].to(torch.bfloat16)
             lib_ms = time_launches(int8pack, [(x, c.t().contiguous(), s16)
                                               for c in copies], reps)
+        elif tag == "K5" and int4pack is not None:
+            lib_args = [(x, w4, INT4PACK_GROUP, sz) for w4, sz in
+                        (int4pack_operands(c, w[1]) for c in copies)]
+            lib_err, _ = rel_err(int4pack(*lib_args[0]), ref(x, *w))
+            if lib_err <= tol:
+                lib_ms = time_launches(int4pack, lib_args, reps)
+            else:
+                log(f"K5 library yardstick at {label} M={m}: n/a (differs "
+                    f"from the plain version by {lib_err:.3g} > {tol:.3g})")
+            del lib_args
         wbytes = sum(t.numel() * t.element_size() for t in (store, *w[1:]))
         nbytes = m * k * 2 + wbytes + m * n * 2
         bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
@@ -1121,7 +1193,7 @@ def phase_small_m(reps: int = 60):
                 check(name, m, k, n, label, timed=True)
         for m in check_m:
             check(name, m, 3072, 3072, "o_proj", timed=False)
-    return rows, max_err, int8pack_why
+    return rows, max_err, dict(K4=int8pack_why, K5=int4pack_why)
 
 
 def small_m_summary(rows, name, launches, max_err, m):
@@ -1156,28 +1228,39 @@ class ForwardRows:
 
 
 def matvec_launches(decoder, rows) -> int:
-    """The K3/K4 launches the forwards `rows` [(B, T)] must make: one per
-    matvec projection and forward whose M = B*T its kernel takes."""
+    """The K3/K4/K5 launches the forwards `rows` [(B, T)] must make: one
+    per matvec projection (bf16 PallasDense: K3; int8 QuantDense with
+    matvec_kernel: K4; int4 QuantDense: K5) and forward whose M = B*T its
+    kernel takes."""
     from competesmoe_tpu_torch.models.decoder import PallasDense, QuantDense
     from competesmoe_tpu_torch.ops.matvec import (MAX_QUANT_M, MAX_SMALL_M,
-                                                  small_m_viable)
+                                                  small_m_viable,
+                                                  small_m_viable_int4)
     n = 0
     for mod in decoder.modules():
         if isinstance(mod, PallasDense):
-            k, out, cap = mod.in_features, mod.out_features, MAX_SMALL_M
-        elif (isinstance(mod, QuantDense) and mod.matvec_kernel
-              and mod.mode == "int8"):
-            k, out, cap = mod.in_features, mod.features, MAX_QUANT_M
-        else:
-            continue
-        n += sum(small_m_viable(b * t, k, out, max_m=cap) for b, t in rows)
+            k, out = mod.in_features, mod.out_features
+            n += sum(small_m_viable(b * t, k, out, max_m=MAX_SMALL_M)
+                     for b, t in rows)
+        elif isinstance(mod, QuantDense) and mod.mode == "int4":
+            n += sum(small_m_viable_int4(b * t, mod.in_features, mod.features)
+                     for b, t in rows)
+        elif isinstance(mod, QuantDense) and mod.matvec_kernel:
+            n += sum(small_m_viable(b * t, mod.in_features, mod.features,
+                                    max_m=MAX_QUANT_M) for b, t in rows)
     return n
 
 
+# the kernel of each served kind's decode projections
+SERVED_KERNEL = {"bf16": "small_m_matmul", "int8": "quant_small_m_matmul",
+                 "int4": "quant_small_m_matmul_int4"}
+
+
 def served_config(kind: str, small: bool):
-    """The 5.1B configuration (or its small geometry) with matvec_kernel:
-    'bf16' (K3) or 'int8' (--load-8bit semantics with an int8 KV cache:
-    K4)."""
+    """The 5.1B configuration (or its small geometry) as served: 'bf16'
+    with matvec_kernel (K3), 'int8' with matvec_kernel and an int8 KV cache
+    (--load-8bit: K4) or 'int4' with an int8 KV cache (--load-4bit:
+    K5)."""
     import torch
 
     from competesmoe_tpu_torch.models.builder import (HF_5P1B,
@@ -1185,15 +1268,17 @@ def served_config(kind: str, small: bool):
     cfg = llava_config_from_hf(dict(HF_5P1B, **SMALL_HF) if small
                                else HF_5P1B, "llava_phi", torch.bfloat16)
     return dataclasses.replace(cfg, decoder=dataclasses.replace(
-        cfg.decoder, matvec_kernel=True,
-        kv_quant="int8" if kind == "int8" else None))
+        cfg.decoder, matvec_kernel=kind != "int4",
+        kv_quant=None if kind == "bf16" else "int8"))
 
 
 def build_served(kind: str, seed: int, device: str, small: bool = False):
-    from competesmoe_tpu_torch.models.builder import (apply_load_8bit,
+    from competesmoe_tpu_torch.models.builder import (apply_load_4bit,
+                                                      apply_load_8bit,
                                                       build_llava)
     model = build_llava(served_config(kind, small), seed=seed, device=device)
-    return apply_load_8bit(model) if kind == "int8" else model
+    return {"int8": apply_load_8bit, "int4": apply_load_4bit}.get(
+        kind, lambda m: m)(model)
 
 
 def engine_requests(rng, vocab: int, n_text: int, n_image: int,
@@ -1230,19 +1315,20 @@ def drive_ticks(engine, reqs, max_new: int):
 
 
 def small_engine_check(kind: str, seed: int):
-    """A small model of the served kind (matvec_kernel; 'bf16' runs K3,
-    'int8' K4) on the card against the same weights on the CPU: decode
-    logits of a teacher-forced stream within 3% of their largest
-    magnitude; the same 6 greedy requests through DecodeEngine(n_slots=4,
-    spec_k=2) give equal streams, or, where they part, the CPU's top-2
-    margin at that step lies within that tolerance; the card's K3/K4
-    launches equal the count its forwards' shapes call for."""
+    """A small model of the served kind ('bf16' runs K3, 'int8' K4, 'int4'
+    K5: SMALL_HF's projections tile each kernel) on the card against the
+    same weights on the CPU: decode logits of a teacher-forced stream
+    within 3% of their largest magnitude; the same 6 greedy requests
+    through DecodeEngine(n_slots=4, spec_k=2) give equal streams, or,
+    where they part, the CPU's top-2 margin at that step lies within that
+    tolerance; the card's K3/K4/K5 launches equal the count its forwards'
+    shapes call for."""
     import torch
 
     from competesmoe_tpu_torch.models.llava import LlavaModel
     from competesmoe_tpu_torch.serve.engine import DecodeEngine
 
-    name = "small_m_matmul" if kind == "bf16" else "quant_small_m_matmul"
+    name = SERVED_KERNEL[kind]
     cpu = build_served(kind, seed, "cpu", small=True)
     gpu = LlavaModel(cpu.cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
@@ -1292,12 +1378,13 @@ def small_engine_check(kind: str, seed: int):
                 launches=want)
 
 
-def phase_engine(kind: str, seed: int, new_tokens: int = 32):
+def phase_engine(kind: str, seed: int, new_tokens: int = 32, model=None):
     """The engine slice's main path at full width: CompeteSMoE-5.1B
     through DecodeEngine as the worker builds it. 'int8': --load-8bit,
-    int8 KV, 8 slots, --speculative 4 (pipeline 1); 'bf16': 8 slots,
-    pipeline 2. 8 requests from threads at once (2 with an image; 6
-    greedy, one at temperature 0.7, one at 0.7 with top_p 0.9), then 4
+    int8 KV, 8 slots, --speculative 4 (pipeline 1); 'int4': --load-4bit
+    (`model`: the solo phase's), int8 KV, 8 slots, --speculative 4; 'bf16':
+    8 slots, pipeline 2. 8 requests from threads at once (2 with an image;
+    6 greedy, one at temperature 0.7, one at 0.7 with top_p 0.9), then 4
     more once a slot retires; `new_tokens` each."""
     import threading
 
@@ -1305,14 +1392,16 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32):
 
     from competesmoe_tpu_torch.serve.model_worker import make_engine
 
-    name = "small_m_matmul" if kind == "bf16" else "quant_small_m_matmul"
-    spec = 4 if kind == "int8" else 0
+    name = SERVED_KERNEL[kind]
+    spec = 0 if kind == "bf16" else 4
     t0 = time.perf_counter()
-    model = build_served(kind, seed, "cuda")
-    torch.cuda.synchronize()
+    if model is None:
+        model = build_served(kind, seed, "cuda")
+        torch.cuda.synchronize()
+        log(f"engine {kind}: 5.1B built in {time.perf_counter() - t0:.1f} "
+            f"s; device memory "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     L = model.cfg.decoder.num_hidden_layers
-    log(f"engine {kind}: 5.1B built in {time.perf_counter() - t0:.1f} s; "
-        f"device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     vocab = model.cfg.decoder.vocab_size
     rng = np.random.default_rng(seed + 7)
     reqs = engine_requests(rng, vocab, 6, 2, 224)
@@ -1386,8 +1475,8 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32):
         / max(len(ticks), 1),
         prefill_rows=sorted({b * t for b, t in fw.rows if b != 8}),
         stats=stats)
-    log(f"engine {kind}: 12 requests, {n_tok} tokens in {wall:.2f} s = "
-        f"{n_tok / wall:.1f} tok/s aggregate; TTFT p50 "
+    log(f"engine {kind} ({card_line()}): 12 requests, {n_tok} tokens in "
+        f"{wall:.2f} s = {n_tok / wall:.1f} tok/s aggregate; TTFT p50 "
         f"{summary['ttft_p50_ms']:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
         f"{len(ticks)} ticks ({summary['verify_ticks']} verify), "
         f"{stats.get('engine_spec_tokens_per_step', 'n/a')} tokens per "
@@ -1406,7 +1495,7 @@ def profile_engine(model, kind: str, seed: int, ticks: int = 8):
 
     from competesmoe_tpu_torch.serve.engine import DecodeEngine
 
-    spec = 4 if kind == "int8" else 0
+    spec = 0 if kind == "bf16" else 4
     engine = DecodeEngine(model, n_slots=8, max_len=512, spec_k=spec,
                           pipeline_depth=1 if spec else 2, run_thread=False)
     rng = np.random.default_rng(seed + 9)
@@ -1497,6 +1586,7 @@ def main():
                          "engine ticks")
     a = ap.parse_args()
 
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1513,10 +1603,11 @@ def main():
     _kernels.build(verbose=True)
     log(f"build: {', '.join(_kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    small_rows, small_err, int8pack_why = phase_small_m()
+    small_rows, small_err, library_why = phase_small_m()
     print("kernel_shapes " + json.dumps({
         "card": card, "rows": small_rows,
-        "k4_library": int8pack_why or "torch._weight_int8pack_mm"}),
+        "k4_library": library_why["K4"] or "torch._weight_int8pack_mm",
+        "k5_library": library_why["K5"] or "torch._weight_int4pack_mm"}),
         flush=True)
     k1 = phase_k1(a.seed)
     k2 = phase_k2(a.seed)
@@ -1528,16 +1619,22 @@ def main():
     free_card()
     print("lm_summary " + json.dumps(dict(lm, card=card)), flush=True)
     small_model_check(a.seed)
+    small = [small_engine_check("int4", a.seed)]
     model, k5_launches, summary = phase_model(a.seed)
     phase_server(model)
     if a.profile:
         summary["profile"] = profile_decode(model, a.seed)
     print("model_summary " + json.dumps(dict(summary, card=card)),
           flush=True)
+    # the same int4 model through the engine: K5 at M 8, 40 and prefill
+    # groups
+    engines = {}
+    _, engines["int4"] = phase_engine("int4", a.seed, model=model)
+    if a.profile:
+        engines["int4"]["profile"] = profile_engine(model, "int4", a.seed)
     del model
     free_card()
-    small = [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
-    engines = {}
+    small += [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
     for kind in ("int8", "bf16"):
         model, engines[kind] = phase_engine(kind, a.seed)
         if kind == "int8":
@@ -1550,7 +1647,8 @@ def main():
                                               **engines)), flush=True)
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
-                ("quant_small_m_matmul_int4", k5_launches, 1),
+                ("quant_small_m_matmul_int4",
+                 k5_launches + engines["int4"]["launches"], 1),
                 ("small_m_matmul", engines["bf16"]["launches"], 8),
                 ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
     for row in [k1] + [k2[n] for n in ("flash_attention_fwd",
@@ -1562,6 +1660,8 @@ def main():
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"],
                          library_ms=row["library_ms"]))
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=r["name"], route="cuda", source=KERNELS[r["name"]][0],
              replaces=KERNELS[r["name"]][1],

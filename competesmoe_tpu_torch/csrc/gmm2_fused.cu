@@ -228,7 +228,7 @@ gmm2_kernel(const __grid_constant__ CUtensorMap xmap,   // xs [S, D]
       for (int c = 0; c < HC; ++c)
 #pragma unroll
         for (int kk = 0; kk < kHC / 16; ++kk)        // 16 ES rows: 2048 bytes of values
-          tiles::WgmmaRST<64>::template run<0>(acc, ha[c][kk],
+          tiles::WgmmaRS<64>::template run<0>(acc, ha[c][kk],
                                                b + 128 * (kHC / 16 * c + kk));
       tiles::wgmma_commit();
       tiles::wgmma_wait<0>();

@@ -83,7 +83,7 @@
 //     so the conversion keeps the bytes' order and needs no transpose; it
 //     writes a word's bytes 0, 2 | 1, 3 as pairs, so tile column i holds
 //     output sigma(i) (bits 0 and 1 exchanged), which the epilogue undoes.
-//     Building the A fragments straight in registers (WgmmaRST) would need
+//     Building the A fragments straight in registers (WgmmaRS) would need
 //     single bytes of 16 different K rows per thread, one load each; the
 //     shared-memory tile takes 16-byte loads and stores, conflict-free.
 //   * Two converted tiles alternate: stage s is converted while the
@@ -469,45 +469,16 @@ qmm8_kernel(const __grid_constant__ CUtensorMap wmap,   // int8 w [K, N]
                           rows, M, N, split, splits);
 }
 
-// Raise a kernel's dynamic shared-memory limit once, on its first launch
-// (outside any CUDA-graph capture, since callers warm up before capturing).
-template <auto Kernel>
-int prepare(int smem) {
-  static const int err = static_cast<int>(cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  return err;
-}
-
-// A kernel on a grid of a block per `out` outputs (x) and K split (y);
-// the splits of a block of outputs are one cluster.
-template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int out, int threads, int smem,
-                    int N, int splits, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + out - 1) / out, splits, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
-}
-
 template <int NT>
 int launch_mm(const void* x, const void* w, void* out, int M, int K, int N,
               int splits, int chunk, cudaStream_t stream) {
-  int err = prepare<mm_bf16_kernel<NT>>(Geo3<NT>::SMEM);
+  int err = tiles::prepare<mm_bf16_kernel<NT>>(Geo3<NT>::SMEM);
   if (err) return err;
   CUtensorMap wmap, xmap;
   if (!tma::bf16_map(&wmap, w, N, K, kRows3) ||
       !tma::bf16_map(&xmap, x, M, K, 8 * NT))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_clusters(mm_bf16_kernel<NT>, kRows3, kThreads3, Geo3<NT>::SMEM,
+  return tiles::launch_clusters(mm_bf16_kernel<NT>, kRows3, kThreads3, Geo3<NT>::SMEM,
                          N, splits, stream, wmap, xmap,
                          static_cast<bf16*>(out), M, K, N, chunk);
 }
@@ -516,14 +487,14 @@ template <int NT>
 int launch_qmm(const void* x, const void* w, const void* scale, void* out,
                int M, int K, int N, int splits, int chunk,
                cudaStream_t stream) {
-  int err = prepare<qmm8_kernel<NT>>(Geo4<NT>::SMEM);
+  int err = tiles::prepare<qmm8_kernel<NT>>(Geo4<NT>::SMEM);
   if (err) return err;
   CUtensorMap wmap, xmap;
   if (!tma::matrix_map(&wmap, w, K, N, kStageK4, kOut4, 1,
                        CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tma::bf16_map(&xmap, x, M, K, 8 * NT))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_clusters(qmm8_kernel<NT>, kOut4, kThreads4, Geo4<NT>::SMEM, N,
+  return tiles::launch_clusters(qmm8_kernel<NT>, kOut4, kThreads4, Geo4<NT>::SMEM, N,
                          splits, stream, wmap, xmap,
                          static_cast<const float*>(scale),
                          static_cast<bf16*>(out), M, K, N, chunk);

@@ -2,14 +2,16 @@
 // tensor-core instructions (wgmma, sm_90a) on bf16 tiles in shared memory:
 //   * copies from global to shared memory: 4-byte cp.async in groups, and
 //     bulk copies by the copy engine counted on an mbarrier;
-//   * a cluster's barrier and reads of another block's shared memory;
+//   * a cluster's barrier (whole, or its two halves), reads and writes of
+//     another block's shared memory, and the host side of a launch whose
+//     grid's y extent is one cluster;
 //   * the swizzled tile layout that wgmma reads without bank conflicts and
 //     that a warp fills, a row at a time, without bank conflicts either;
 //   * wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulation), its
-//     descriptors, fences and the two products a warpgroup that owns 64
-//     rows needs: C = A X^T (both from shared memory, either of them
-//     MN-major through wgmma's transpose bits) and C += A X (A from
-//     registers).
+//     descriptors, fences and the products a warpgroup that owns 64 rows
+//     needs: C = A X^T (both from shared memory, either of them MN-major
+//     through wgmma's transpose bits) and C += A X or A X^T (A from
+//     registers, X MN-major or K-major).
 //
 // Register layouts of m64nNk16 for the warpgroup's thread 32 w + lane,
 // lane = 4 g + t: warp w holds rows 16 w .. 16 w + 15 of the 64.
@@ -39,6 +41,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tiles {
@@ -138,6 +141,45 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// Raise a kernel's dynamic shared-memory limit once, on its first launch
+// (outside any CUDA-graph capture, since callers warm up before capturing).
+template <auto Kernel>
+int prepare(int smem) {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  return err;
+}
+
+// A kernel on a grid of a block per `out` outputs (x) and K split (y);
+// the splits of a block of outputs are one cluster.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int out, int threads, int smem,
+                    int N, int splits, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + out - 1) / out, splits, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+// The two halves of a cluster barrier, for work between them: every
+// thread arrives (relaxed: no memory ordering), and later waits for all.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // A float in the shared memory of block `rank` of the cluster, at the
 // address `p` has in this block's shared memory.
 __device__ __forceinline__ float ld_cluster_f32(const void* p, uint32_t rank) {
@@ -151,6 +193,21 @@ __device__ __forceinline__ float ld_cluster_f32(const void* p, uint32_t rank) {
                : "r"(remote)
                : "memory");
   return v;
+}
+
+// Store four floats (16-byte aligned) into the shared memory of block
+// `rank` of the cluster, at the address `p` has in this block's shared
+// memory (visible there after the next cluster barrier).
+__device__ __forceinline__ void st_cluster_f32x4(void* p, uint32_t rank,
+                                                 float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // A word of shared memory at a 32-bit shared-space address.
@@ -306,9 +363,10 @@ template <int N>
 struct WgmmaSS;
 
 // d[64 x N] += a[64 x 16] b[16 x N] on the n-tiles OFF .. OFF + N / 8 of d, a
-// from registers, b MN-major in shared memory (stored [k][n]).
+// from registers, b in shared memory, MN-major (stored [k][n]) by default
+// or K-major with TB 0. N = 8, 16, 24, 32, 40 or 64.
 template <int N>
-struct WgmmaRST;
+struct WgmmaRS;
 
 template <>
 struct WgmmaSS<8> {
@@ -486,8 +544,74 @@ struct WgmmaSS<128> {
 
 
 template <>
-struct WgmmaRST<32> {
-  template <int OFF, int NT>
+struct WgmmaRS<8> {
+  template <int OFF, int TB = 1, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 1 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<16> {
+  template <int OFF, int TB = 1, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 2 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<24> {
+  template <int OFF, int TB = 1, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 3 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, %18;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<32> {
+  template <int OFF, int TB = 1, int NT>
   static __device__ __forceinline__ void run(float (&d)[NT][4],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
@@ -497,21 +621,48 @@ struct WgmmaRST<32> {
         ".reg .pred p;\n"
         "setp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
         "}\n"
         : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
           "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
           "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
           "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
 template <>
-struct WgmmaRST<64> {
-  template <int OFF, int NT>
+struct WgmmaRS<40> {
+  template <int OFF, int TB = 1, int NT>
+  static __device__ __forceinline__ void run(float (&d)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    static_assert(OFF + 5 <= NT, "n-tiles out of range");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19"
+        "}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1, %26;\n"
+        "}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  template <int OFF, int TB = 1, int NT>
   static __device__ __forceinline__ void run(float (&d)[NT][4],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
@@ -521,10 +672,11 @@ struct WgmmaRST<64> {
         ".reg .pred p;\n"
         "setp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
         "}\n"
         : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
           "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
@@ -534,7 +686,7 @@ struct WgmmaRST<64> {
           "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
           "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
           "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
@@ -567,12 +719,12 @@ __device__ __forceinline__ void wgmma_nn(float (&c)[P / 8][4],
   const uint64_t x0 = block_desc<W0>(x);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)              // 16 rows on: W * 32 bytes
-    WgmmaRST<W0>::template run<0>(c, a[kk], x0 + kk * (W0 * 2));
+    WgmmaRS<W0>::template run<0>(c, a[kk], x0 + kk * (W0 * 2));
   if constexpr (W1 > 0) {
     const uint64_t x1 = block_desc<W1>(x + kTileRows * W0);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRST<W1>::template run<W0 / 8>(c, a[kk], x1 + kk * (W1 * 2));
+      WgmmaRS<W1>::template run<W0 / 8>(c, a[kk], x1 + kk * (W1 * 2));
   }
 }
 

@@ -74,19 +74,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous row-major [rows, cols] matrix of
-// `elem_bytes`-byte elements (bf16 or int8), read in boxes of `box_rows`
-// rows x `box_cols` columns in the given swizzle; zeros beyond its
-// bounds. The row pitch must be a multiple of 16 bytes. False if the
-// driver refuses it.
+// The tensor map of a row-major [rows, cols] matrix of `elem_bytes`-byte
+// elements (bf16 or int8), `pitch` elements from one row to the next
+// (default: contiguous, `cols`), read in boxes of `box_rows` rows x
+// `box_cols` columns in the given swizzle; zeros beyond its bounds. The
+// base must be 16-byte aligned and the row pitch a multiple of 16 bytes.
+// False if cuTensorMapEncodeTiled refuses it.
 inline bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
                        int box_rows, int box_cols, int elem_bytes,
-                       CUtensorMapSwizzle swizzle) {
+                       CUtensorMapSwizzle swizzle, int pitch = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint64_t strides[1] = {
+      static_cast<cuuint64_t>(pitch > 0 ? pitch : cols) * elem_bytes};
   const cuuint32_t boxdim[2] = {static_cast<cuuint32_t>(box_cols),
                                 static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -101,18 +100,12 @@ def quant_small_m_matmul_int4_reference(x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Bind the CUDA kernel (built by competesmoe_tpu_torch/_kernels.py)
+# Bind the CUDA kernels (built by competesmoe_tpu_torch/_kernels.py)
 # ---------------------------------------------------------------------------
-
-# K-split geometry of csrc/matvec_int4.cu
-_KERNEL_BLOCK_N = 256
-_KERNEL_ROW_STEP = 16          # K-lanes * unroll
-_KERNEL_MAX_CHUNK = 256
-
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.qmm4_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.qmm4_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.qmm4_launch.restype = ctypes.c_int
 
 
@@ -129,76 +122,15 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _split_k(k: int, blocks: int, n_sms: int, step: int, min_rows: int,
-             max_chunk: Optional[int] = None):
-    """(splits, chunk) for a kernel whose output takes `blocks` blocks: cut
-    the K rows across more blocks so that about four blocks per SM are in
-    flight, with at least `min_rows` rows per split, each split a multiple
-    of `step` rows and at most `max_chunk` (the kernel's x staging
-    buffer, where it has one)."""
-    splits = max(1, min(-(-4 * n_sms // blocks), k // min_rows))
-    chunk = -(-k // splits)
-    chunk = -(-chunk // step) * step
-    if max_chunk is not None:
-        chunk = min(chunk, max_chunk)
-    return -(-k // chunk), chunk
-
-
-def quant_small_m_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
-                              scale: torch.Tensor) -> torch.Tensor:
-    """[M, K] bf16 x nibble-packed int4 [K//2, N] * scale f32 [N] -> [M, N]
-    bf16. CUDA tensors launch the Hopper kernel (raising on anything it
-    does not take); CPU tensors run the plain version."""
-    if x.device.type == "cpu":
-        return quant_small_m_matmul_int4_reference(x, w_packed, scale)
-    if x.device.type != "cuda" or w_packed.device != x.device \
-            or scale.device != x.device:
-        raise ValueError("x, w_packed and scale must share one CUDA device")
-    if (x.dtype != torch.bfloat16 or w_packed.dtype != torch.int8
-            or scale.dtype != torch.float32):
-        raise TypeError(f"expected bf16 x, int8 w_packed, f32 scale; got "
-                        f"{x.dtype}, {w_packed.dtype}, {scale.dtype}")
-    if x.dim() != 2 or w_packed.dim() != 2 or scale.dim() != 1:
-        raise ValueError("expected x [M, K], w_packed [K/2, N], scale [N]")
-    m, k = x.shape
-    k2, n = w_packed.shape
-    if k != 2 * k2 or scale.shape[0] != n or n % 8 or m < 1:
-        raise ValueError(f"bad shapes x {tuple(x.shape)}, w_packed "
-                         f"{tuple(w_packed.shape)}, scale {tuple(scale.shape)}")
-    if not (x.is_contiguous() and w_packed.is_contiguous()
-            and scale.is_contiguous()) or w_packed.data_ptr() % 16:
-        raise ValueError("x, w_packed and scale must be contiguous and "
-                         "w_packed 16-byte aligned")
-    lib = _kernels.load("matvec_int4", _bind)
-    splits, chunk = _split_k(k2, -(-n // _KERNEL_BLOCK_N),
-                             _sm_count(x.device.index), _KERNEL_ROW_STEP, 64,
-                             _KERNEL_MAX_CHUNK)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    rc = lib.qmm4_launch(
-        x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        out.data_ptr(), m, k2, n, splits, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(rc, "int4 matvec")
-    quant_small_m_matmul_int4.launches += 1
-    return out
-
-
-quant_small_m_matmul_int4.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K3 and K4 (csrc/matvec_small_m.cu)
-# ---------------------------------------------------------------------------
-
-# geometry of csrc/matvec_small_m.cu: (outputs per block, K per stage of
-# the block's ring, blocks an SM the splits aim for) of K3 and K4; the K
-# splits of a block are one cluster. K4 fits two or three blocks an SM
-# and is faster with half again as many blocks as SMs (PERF.md)
+# geometry of the kernels: (outputs per block, K per stage of the block's
+# ring, blocks an SM the splits aim for) of K3 and K4
+# (csrc/matvec_small_m.cu) and K5 (csrc/matvec_int4.cu; its K is the
+# packed rows); the K splits of a block are one cluster. K4 and K5 fit two
+# or three blocks an SM and are faster with half again as many blocks as
+# SMs (PERF.md)
 _K3_GEOMETRY = (64, 128, 1.0)
 _K4_GEOMETRY = (128, 64, 1.5)
+_K5_GEOMETRY = (128, 64, 1.5)
 _MAX_SPLITS = 8
 
 
@@ -215,14 +147,15 @@ def _check_x(x: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def _cluster_splits(k: int, n: int, n_sms: int, geometry):
-    """(splits, chunk) of K3 or K4 (`geometry`: outputs per block, K per
-    stage, blocks an SM): the blocks that share a block of outputs split
-    K and form one thread-block cluster, which reduces their sums inside
-    the launch. Double the splits (at most 8, the portable cluster size)
-    until the blocks cover every SM `fill` times, keeping at least two
-    stages per split; each split is a whole number of stages and the last
-    one is not empty. Every row of x goes through one block in one pass,
-    so the rule does not depend on M."""
+    """(splits, chunk) of K3, K4 or K5 (`geometry`: outputs per block, K
+    per stage, blocks an SM; K5's K is its packed rows): the blocks that
+    share a block of outputs split K and form one thread-block cluster,
+    which reduces their sums inside the launch. Double the splits (at
+    most 8, the portable cluster size) until the blocks cover every SM
+    `fill` times, keeping at least two stages per split; each split is a
+    whole number of stages and the last one is not empty. Every row of x
+    goes through one block in one pass, so the rule does not depend on
+    M."""
     block_out, stage_k, fill = geometry
     blocks = -(-n // block_out)
     splits = 1
@@ -232,6 +165,46 @@ def _cluster_splits(k: int, n: int, n_sms: int, geometry):
     chunk = -(-k // splits)
     chunk = -(-chunk // stage_k) * stage_k
     return -(-k // chunk), chunk
+
+
+def quant_small_m_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
+                              scale: torch.Tensor) -> torch.Tensor:
+    """K5: [M, K] bf16 x nibble-packed int4 [K//2, N] * scale f32 [N] ->
+    [M, N] bf16, float32 accumulation, the scale applied once per output
+    in a float32 epilogue. CUDA tensors launch the Hopper kernel, one
+    launch for any M up to MAX_QUANT_M (raising on anything it does not
+    take); CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return quant_small_m_matmul_int4_reference(x, w_packed, scale)
+    _check_x(x, w_packed, scale)
+    if w_packed.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"expected int8 w_packed and f32 scale; got "
+                        f"{w_packed.dtype}, {scale.dtype}")
+    m, k = x.shape
+    if w_packed.dim() != 2 or scale.dim() != 1 \
+            or k != 2 * w_packed.shape[0] or k % 16 \
+            or scale.shape[0] != w_packed.shape[1] or w_packed.shape[1] % 16:
+        raise ValueError(f"bad shapes x {tuple(x.shape)}, w_packed "
+                         f"{tuple(w_packed.shape)}, scale {tuple(scale.shape)}"
+                         f" (K % 16 == 0 and N % 16 == 0)")
+    k2, n = w_packed.shape
+    if not (w_packed.is_contiguous() and scale.is_contiguous()) \
+            or w_packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("w_packed and scale must be contiguous and 16-byte "
+                         "aligned")
+    if m > MAX_QUANT_M:
+        raise ValueError(f"K5 takes at most {MAX_QUANT_M} rows of x; got {m}")
+    lib = _kernels.load("matvec_int4", _bind)
+    splits, chunk = _cluster_splits(k2, n, _sm_count(x.device.index),
+                                    _K5_GEOMETRY)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    rc = lib.qmm4_launch(
+        x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        m, k2, n, splits, chunk,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(rc, "int4 small-M matmul")
+    quant_small_m_matmul_int4.launches += 1
+    return out
 
 
 def small_m_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -307,5 +280,6 @@ def quant_small_m_matmul(x: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
+quant_small_m_matmul_int4.launches = 0
 small_m_matmul.launches = 0
 quant_small_m_matmul.launches = 0

@@ -38,9 +38,12 @@ def gen():
 
 
 def _operands(g, m, k, n):
+    """x, int4 weights holding every nibble value (-8 and 7 too), packed
+    split-half, and a scale."""
     x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
     q = torch.randint(-8, 8, (k, n), generator=g, device="cuda",
                       dtype=torch.int32).to(torch.int8)
+    q.view(-1)[:16] = torch.arange(-8, 8, device="cuda").to(torch.int8)
     scale = torch.rand(n, generator=g, device="cuda") * 1e-3 + 1e-3
     return x, tdec.pack_int4(q), scale
 
@@ -51,11 +54,20 @@ def _assert_close(got, want):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
-# decode projections of the 5.1B decoder, then the other row groupings
+# decode projections of the 5.1B decoder at the rows of a solo decode
+# step (1), an engine tick (8), a verify tick (40) and prefill groups (32,
+# 128); then other row counts (every wgmma width, ragged last rows) at
+# o_proj, smaller shapes, a ragged last block of outputs (N % 128 != 0)
+# and a ragged last stage (K / 2 % 64 != 0)
 @pytest.mark.parametrize("m,k,n", [
     (1, 3072, 9216), (1, 3072, 3072), (1, 3072, 16384), (1, 8192, 3072),
     (2, 3072, 3072), (3, 1024, 256), (8, 8192, 3072), (40, 1024, 256),
-    (128, 3072, 512)])
+    (128, 3072, 512)]
+    + [(m, k, n) for m in (8, 32, 40, 128)
+       for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072))
+       if (m, k, n) != (8, 8192, 3072)]
+    + [(m, 3072, 3072) for m in (3, 9, 17, 33, 64)]
+    + [(17, 1040, 400), (64, 2064, 208), (128, 2064, 3088)])
 def test_int4_kernel_matches_plain(gen, m, k, n):
     x, w, scale = _operands(gen, m, k, n)
     before = tmatvec.quant_small_m_matmul_int4.launches
@@ -64,6 +76,35 @@ def test_int4_kernel_matches_plain(gen, m, k, n):
     assert tmatvec.quant_small_m_matmul_int4.launches == before + 1
     _assert_close(got, tmatvec.quant_small_m_matmul_int4_reference(
         x, w, scale))
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 128])
+def test_int4_kernel_repeats_bit_for_bit(gen, m):
+    """K5's splits are summed across the cluster in rank order (no
+    atomics): two runs give the same bytes, at o_proj and down_proj (8
+    splits) and at qkv (4)."""
+    for k, n in ((3072, 3072), (8192, 3072), (3072, 9216)):
+        x, w, scale = _operands(gen, m, k, n)
+        a = tmatvec.quant_small_m_matmul_int4(x, w, scale)
+        b = tmatvec.quant_small_m_matmul_int4(x, w, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 128])
+def test_int4_kernel_is_one_launch_a_call(gen, m):
+    """One call is one CUDA kernel at every M (no second pass over split
+    partials, no launch per 8 rows of x), at o_proj, which splits K."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w, scale = _operands(gen, m, 3072, 3072)
+    tmatvec.quant_small_m_matmul_int4(x, w, scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tmatvec.quant_small_m_matmul_int4(x, w, scale)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "qmm4_kernel" in names[0], names
 
 
 def test_int4_kernel_rejects_what_it_does_not_take(gen):
@@ -76,6 +117,12 @@ def test_int4_kernel_rejects_what_it_does_not_take(gen):
         tmatvec.quant_small_m_matmul_int4(x[:, :512], w, scale)
     with pytest.raises(ValueError):
         tmatvec.quant_small_m_matmul_int4(x, w, scale.cpu())
+    x8, w8, s8 = _operands(gen, 129, 1024, 256)
+    with pytest.raises(ValueError):           # more rows than one pass takes
+        tmatvec.quant_small_m_matmul_int4(x8, w8, s8)
+    with pytest.raises(ValueError):           # N % 16 != 0
+        tmatvec.quant_small_m_matmul_int4(x, w[:, :248].contiguous(),
+                                          scale[:248].contiguous())
 
 
 def test_quant_dense_sends_decode_shapes_to_the_kernel(gen):

@@ -194,39 +194,34 @@ def test_pack_int4_roundtrip_matches_jax():
 
 
 def test_split_k_covers_decode_shapes():
-    """K5's K splits, and the cluster splits of K3 and K4, at the decode
-    shapes. K5: each split a whole number of the kernel's K steps, within
-    its staging buffer, and the splits cover K once (no empty last
-    split). K3 (64 outputs a block, 128-K stages, one block an SM) and K4
-    (128 outputs, 64-K stages, 1.5 blocks an SM) share one rule: the
-    splits of a block of outputs are one thread-block cluster (at most
-    8), each a whole number of stages, covering K once, with enough
-    blocks for their share of 132 SMs where K allows two stages a
-    split. K4 takes every row of x in one pass, so its splits
-    are the same at M 1, 8, 40 and 128 (the old rule grew the grid by one
-    block per 8 rows)."""
+    """The cluster splits of K3, K4 and K5 at the decode shapes. K3 (64
+    outputs a block, 128-K stages, one block an SM), K4 (128 outputs,
+    64-K stages, 1.5 blocks an SM) and K5 (128 outputs, 64 packed rows of
+    K a stage, 1.5 blocks an SM) share one rule: the splits of a block of
+    outputs are one thread-block cluster (at most 8), each a whole number
+    of stages, covering K (K5: its packed rows, K / 2) once, with enough
+    blocks for their share of 132 SMs where K allows two stages a split.
+    K4 and K5 take every row of x in one pass, so their splits are the same
+    at M 1, 8, 40 and 128 (K5's old rule grew the grid by one block per 8
+    rows)."""
     mv = tmatvec
     for k, n in ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072),
                  (256, 768), (512, 256), (128, 384), (1024, 256)):
-        splits, chunk = mv._split_k(k // 2, -(-n // mv._KERNEL_BLOCK_N), 132,
-                                    mv._KERNEL_ROW_STEP, 64,
-                                    mv._KERNEL_MAX_CHUNK)
-        assert chunk % mv._KERNEL_ROW_STEP == 0
-        assert 0 < chunk <= mv._KERNEL_MAX_CHUNK
-        assert splits * chunk >= k // 2 > (splits - 1) * chunk
-        for geometry in (mv._K3_GEOMETRY, mv._K4_GEOMETRY):
+        for geometry, rows in ((mv._K3_GEOMETRY, k), (mv._K4_GEOMETRY, k),
+                               (mv._K5_GEOMETRY, k // 2)):
             block_out, stage_k, fill = geometry
-            splits, chunk = mv._cluster_splits(k, n, 132, geometry)
+            splits, chunk = mv._cluster_splits(rows, n, 132, geometry)
             blocks = -(-n // block_out)
             assert 1 <= splits <= mv._MAX_SPLITS
             assert chunk % stage_k == 0
-            assert splits * chunk >= k > (splits - 1) * chunk
+            assert splits * chunk >= rows > (splits - 1) * chunk
             assert (blocks * splits >= fill * 132
                     or splits == mv._MAX_SPLITS
-                    or k < 4 * splits * stage_k)
+                    or rows < 4 * splits * stage_k)
     # the 5.1B decoder's projections: K3 splits o_proj and down_proj in
-    # clusters of 4; K4 (half the blocks) splits all four, the same at
-    # every M the engine gives it (decode 8, verify 40, prefill 128)
+    # clusters of 4; K4 (half the blocks) splits all four, as does K5, the
+    # same at every M the engine gives them (decode 8, verify 40, prefill
+    # 128)
     decode = ((3072, 9216), (3072, 3072), (3072, 16384), (8192, 3072))
     assert [mv._cluster_splits(k, n, 132, mv._K3_GEOMETRY)
             for k, n in decode] == [(1, 3072), (4, 768), (1, 3072),
@@ -234,9 +229,13 @@ def test_split_k_covers_decode_shapes():
     for m in (1, 8, 40, 128):
         assert tmatvec.small_m_viable(m, 3072, 3072,
                                       max_m=tmatvec.MAX_QUANT_M)
+        assert tmatvec.small_m_viable_int4(m, 3072, 3072)
         assert [mv._cluster_splits(k, n, 132, mv._K4_GEOMETRY)
                 for k, n in decode] == [(4, 768), (8, 384), (2, 1536),
                                         (8, 1024)]
+        assert [mv._cluster_splits(k // 2, n, 132, mv._K5_GEOMETRY)
+                for k, n in decode] == [(4, 384), (8, 192), (2, 768),
+                                        (8, 512)]
 
 
 def test_small_m_viability_matches_jax():

@@ -363,6 +363,32 @@ def tiny_engine_model():
     return jllava.LlavaModel(cfg), params, model
 
 
+@pytest.fixture(scope="module")
+def tiny_engine_model_int4(tiny_engine_model):
+    """The engine fixture served as the worker's --load-4bit with an int8
+    KV cache: JAX's builder param transforms (int4 decoder, int8 lm_head,
+    NF4 tower and projector) against the port's apply_load_4bit on the
+    same f32 weights."""
+    jm, params, _ = tiny_engine_model
+    cfg = dataclasses.replace(jm.cfg, decoder=dataclasses.replace(
+        jm.cfg.decoder, kv_quant="int8"))
+    model = tllava.LlavaModel(port_llava_cfg(cfg), device="cpu")
+    model.load_state_dict(from_jax_params(params))
+    tbuilder.apply_load_4bit(model)
+    p = params["params"]
+    params = {"params": {
+        "language_model": jbuilder.quantize_decoder_to_int8(
+            p["language_model"], bits=4),
+        **jbuilder.quantize_nf4_weight_only(
+            {k: v for k, v in p.items() if k != "language_model"})}}
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, quant="int4"))
+    assert model.cfg.decoder.quant == "int4"
+    proj = model.language_model.layers[0].self_attn.qkv_proj
+    assert isinstance(proj, tdec.QuantDense) and proj.mode == "int4"
+    return jllava.LlavaModel(cfg), params, model
+
+
 def _engine_traffic(seed=20):
     """(ids, pixel_values, max_new) per request: repetitive text prompts
     of several buckets, one image request; requests 3-5 arrive later."""
@@ -405,13 +431,19 @@ def _last_tokens_draft(history, k):
 @pytest.mark.parametrize("opts", [
     dict(), dict(pipeline_depth=2), dict(spec_k=2),
     dict(spec_k=3, draft_fn=_last_tokens_draft),
-    dict(steps_per_call=2, max_prefill_batch=1)],
-    ids=["plain", "pipeline2", "spec2", "spec3-draft_fn", "spc2-batch1"])
-def test_engine_matches_jax_tick_by_tick(tiny_engine_model, opts):
+    dict(steps_per_call=2, max_prefill_batch=1),
+    dict(load_4bit=True), dict(load_4bit=True, spec_k=2)],
+    ids=["plain", "pipeline2", "spec2", "spec3-draft_fn", "spc2-batch1",
+         "int4-plain", "int4-spec2"])
+def test_engine_matches_jax_tick_by_tick(request, opts):
     """Two slots, six requests (one with an image), three of them admitted
     while the first are decoding, so slots retire and are reused. The
-    port's greedy streams equal JAX's engine, token for token."""
-    jm, params, model = tiny_engine_model
+    port's greedy streams equal JAX's engine, token for token; `load_4bit`
+    serves both as the worker's --load-4bit with an int8 KV cache."""
+    opts = dict(opts)
+    jm, params, model = request.getfixturevalue(
+        "tiny_engine_model_int4" if opts.pop("load_4bit", False)
+        else "tiny_engine_model")
     traffic = _engine_traffic()
     je = jengine.DecodeEngine(jm, params, n_slots=2, max_len=96,
                               run_thread=False, **opts)
