@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted kernel faults against the checks of chip_smoke.py (one CUDA GPU).
+"""Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
     python3 chip_faults.py
 
@@ -26,7 +26,11 @@ rank, two neighbouring outputs exchanged in the epilogue (tile rows g and
 g + 8), and the scale skipped on the first block of outputs. K1's faults: the tiles
 of expert 0 written as zeros, the relu skipped on the second 64 columns
 of h, and the expert of the next tile taken for the second half of a
-256-row tile (a block takes half a tile). The script
+256-row tile (a block takes half a tile). Three more faults are planted
+in the Python of the checkpoint path (CHECKPOINT_FAULTS, swapped in for
+the check and back): two tower experts swapped by the converter,
+`gate_kernel` taken without its transpose, and the second of two shards
+skipped by the loader. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -45,7 +49,10 @@ of h, and the expert of the next tile taken for the second half of a
        projection shapes (M 1 and 8; 40 for K4; 40 and 128 for K5), and
        `small_engine_check`, the small served model's card-vs-CPU logits
        and engine streams (bf16 for K3, int8 for K4, int4 for K5); both
-       checks also run on the honest kernels first.
+       checks also run on the honest kernels first;
+     - checkpoint faults: `small_checkpoint_check` (a small model written
+       in two shards, reloaded in bf16 and with --load-4bit, every
+       tensor held to the writer's), honest first.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -223,6 +230,45 @@ FAULTS = {
           "        : *reinterpret_cast<const float4*>(scale + n0 + o);")],
         ("k5", "small_engine_int4")),
 }
+
+
+def _swap_tower_experts(loader, builder):
+    """The converter stacks layer 0's tower experts 0 and 1 swapped."""
+    real = builder.convert_siglip_tower
+
+    def planted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        for k in ("experts_w1", "experts_b1", "experts_w2", "experts_b2"):
+            t = out[f"layers.0.moelayer.{k}"]
+            out[f"layers.0.moelayer.{k}"] = t[[1, 0, *range(2, len(t))]]
+        return out
+    return builder, "convert_siglip_tower", planted
+
+
+def _gate_not_transposed(loader, builder):
+    """`gate.weight` [E, in] taken as `gate_kernel` without the
+    transpose."""
+    return loader, "_t", lambda w: w.contiguous()
+
+
+def _second_shard_skipped(loader, builder):
+    """The loader reads the first shard of two and skips the second."""
+    real = loader.load_file
+
+    def planted(path, device=None):
+        return {} if "00002-of-00002" in str(path) else real(path, device)
+    return loader, "load_file", planted
+
+
+# Python faults of the checkpoint path, each a function of (hf_loader,
+# builder) -> (module, attribute, planted value), caught by
+# chip_smoke.small_checkpoint_check (the first step of the checkpoint
+# phase)
+CHECKPOINT_FAULTS = {
+    "tower_experts_swapped": _swap_tower_experts,
+    "gate_kernel_not_transposed": _gate_not_transposed,
+    "second_shard_skipped": _second_shard_skipped,
+}
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
 K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40),
                "quant_small_m_matmul_int4": (1, 8, 40, 128)}
@@ -310,6 +356,27 @@ def k1_rows():
         rows.append(dict(shape=shape, max_abs_err=err, tol=tol,
                          repeats=repeats, ok=err <= tol and repeats))
     return rows
+
+
+def checkpoint_ok(fault=None):
+    """(passed, message) of chip_smoke's small checkpoint check, with the
+    checkpoint fault `fault` (a CHECKPOINT_FAULTS name) planted for its
+    duration. Any exception counts as caught."""
+    from competesmoe_tpu_torch.models import builder, hf_loader
+
+    undo = None
+    if fault is not None:
+        module, attr, planted = CHECKPOINT_FAULTS[fault](hf_loader, builder)
+        undo = (module, attr, getattr(module, attr))
+        setattr(module, attr, planted)
+    try:
+        cs.small_checkpoint_check(0)
+        return True, "passes"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
 
 
 def small_engine_ok(kind: str):
@@ -427,6 +494,20 @@ def main():
             for check, f in failed.items():
                 if not f:
                     failures.append(f"fault {name} passed the {check} check")
+
+        ok, msg = checkpoint_ok()
+        report["honest_checkpoint"] = msg
+        cs.log(f"honest small checkpoint check: {msg}")
+        if not ok:
+            failures.append(f"honest checkpoint check: {msg}")
+        for name in CHECKPOINT_FAULTS:
+            ok, msg = checkpoint_ok(name)
+            report["faults"][name] = dict(failed={"checkpoint": not ok},
+                                          checkpoint=msg)
+            cs.log(f"{name}: small checkpoint check -> {_verdict(ok)} "
+                   f"({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the checkpoint check")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("faults " + json.dumps(report), flush=True)

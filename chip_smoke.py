@@ -48,7 +48,9 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      0, 2 and 1 competing layers; losses agree within SMALL_LM_LOSS_TOL
      and grad_norm within SMALL_LM_GRAD_TOL of the CPU's (a few times the
      gaps seen over several seeds, and planted kernel faults exceed them:
-     chip_faults.py);
+     chip_faults.py); then on the card 2 steps, a save through the task's
+     Saver, a fresh task that resumes from it and the third step: losses
+     and grad norms equal the uninterrupted run's, bit for bit;
   5. LM training (main path of the training slice): the 154M CompeteSMoE
      configuration of sweeps/slimpajama_moe_no_attmoe_154M_competesmoe.yaml
      at full width and depth with -moe.impl fused and
@@ -56,16 +58,26 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      at batch 64 x 1024 (one microbatch) from step 0 of its flip schedule;
      losses finite, and per step K1 launches = 16 - competing layers and
      16 launches of each K2 kernel;
-  6. serving (main path of the serving slice): CompeteSMoE-5.1B (SigLIP
-     MoE tower, MoE projector, Phi-3.5-mini decoder) with random weights
-     from --seed, quantized with the worker's --load-4bit (int4 decoder,
-     int8 lm_head, NF4 tower) and an int8 KV cache, after a small model of
-     the same kind is held against the CPU (solo, and through
-     DecodeEngine as in 8); one image+text prompt, 32 greedy tokens
-     through stream_generate, K5 launched 4 projections x 32 layers per
-     decode step; then the same model through DecodeEngine as the worker
-     builds it with --engine-slots 8 --speculative 4 (K5 at every decode,
-     verify and prefill projection whose rows it takes, as in 8);
+  6. checkpoint and serving (main paths of the checkpoint and serving
+     slices): a small model written in two shards and reloaded (bf16 and
+     --load-4bit) equal to its writer, tensor for tensor; then
+     CompeteSMoE-5.1B (SigLIP MoE tower, MoE projector, Phi-3.5-mini
+     decoder) at full depth with random bf16 weights from --seed, written
+     with save_hf_checkpoint into a temporary directory (names and shapes
+     held to tests/fixtures/golden_5p1b_keys.json), loaded back in bf16
+     (every tensor equal to the writer's), then loaded as the worker's
+     --load-4bit --kv-quant int8 does (int4 decoder, int8 lm_head, NF4
+     tower; every tensor equal to the writer quantized in place), with a
+     `checkpoint_summary` line (bytes, seconds and GB/s of the write and of
+     each load, each load's peak device memory, the host's peak resident
+     memory); after a small model of the same kind is held against the
+     CPU (solo, and through DecodeEngine as in 8), the loaded model
+     answers one image+text prompt with 32 greedy tokens through
+     stream_generate, equal to the writer's, K5 launched 4 projections x
+     32 layers per decode step; then the same model through DecodeEngine
+     as the worker builds it with --engine-slots 8 --speculative 4 (K5 at
+     every decode, verify and prefill projection whose rows it takes, as
+     in 8);
   7. server: the model worker over HTTP on 127.0.0.1 answers three text
      prompts;
   8. batched serving (main path of the engine slice): a small model of
@@ -96,6 +108,8 @@ import dataclasses
 import gc
 import json
 import math
+import resource
+import shutil
 import socket
 import statistics
 import subprocess
@@ -532,10 +546,11 @@ SMALL_LM_FLAGS = (
     "-run_dir runs/chip_smoke -name small_lm").split()
 
 
-def small_lm_task(seed: int, device: str, weights=None):
-    """The small LM's task on `device`, with `weights` (a state dict)
-    loaded when given."""
-    task = _task(SMALL_LM_FLAGS + ["-seed", str(seed), "-device", device])
+def small_lm_task(seed: int, device: str, weights=None, flags=()):
+    """The small LM's task on `device` (more `flags` after the small LM's
+    own), with `weights` (a state dict) loaded when given."""
+    task = _task(SMALL_LM_FLAGS + ["-seed", str(seed), "-device", device,
+                                   *flags])
     if weights is not None:
         task.model.load_state_dict(weights)
     return task
@@ -574,10 +589,12 @@ def small_lm_check():
     grad_norm within SMALL_LM_GRAD_TOL (bf16 activations; K1 rounds the
     f32 expert weights to bf16, K2 rounds P and dS)."""
     cpu = small_lm_task(0, "cpu")
-    gpu = small_lm_task(0, "cuda", cpu.model.state_dict())
+    init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    gpu = small_lm_task(0, "cuda", init)
     counts0 = read_counts()
     card = small_lm_steps(gpu)
     counts = {k: v - counts0[k] for k, v in read_counts().items()}
+    small_lm_resume_check(init, card)
     ref = small_lm_steps(cpu)
     gaps = small_lm_gaps(ref, card)
     for c, g, d in zip(ref, card, gaps):
@@ -599,6 +616,41 @@ def small_lm_check():
         raise AssertionError(f"small LM launches {counts} != {want}")
     log(f"small LM: card launches {counts}")
     return gaps
+
+
+def small_lm_resume_check(init, card):
+    """The Saver on the card: the small LM from `init` takes 2 steps and
+    saves them; a fresh task in the same run directory resumes from that
+    checkpoint (model, optimizer state, sampler, flip schedule) and takes
+    the third. Every step's loss and grad_norm must equal, bit for bit,
+    those of the uninterrupted card run `card` (K1 and K2 are
+    deterministic, and so is the rest of the step)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        flags = ["-run_dir", str(tmp), "-name", "resume"]
+        first = small_lm_task(0, "cuda", init, flags)
+        rows = small_lm_steps(first, 2)
+        saved = first.saver.save(first.state.step)
+        del first
+        second = small_lm_task(0, "cuda", flags=flags)
+        if second.state.step != 2 or second.sampler.pos != 2:
+            raise AssertionError(f"small LM resume: step "
+                                 f"{second.state.step}, sampler "
+                                 f"{second.sampler.pos} after restoring "
+                                 f"{saved.name}")
+        rows += small_lm_steps(second, 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("loss/total", "grad_norm", "competesmoe/n_flip_layers")
+    got = [[r[k] for k in keys] for r in rows]
+    want = [[r[k] for k in keys] for r in card]
+    log(f"small LM save/restore on the card: 2 steps, {saved.name}, a "
+        f"fresh task restored, 1 step: {got} (uninterrupted {want})")
+    if got != want:
+        raise AssertionError(f"small LM after save/restore {got} != the "
+                             f"uninterrupted run {want}")
 
 
 def phase_lm(seed: int, steps: int = LM_STEPS):
@@ -834,44 +886,197 @@ def small_model_check(seed: int):
                              f"{kernel_launches}")
 
 
-def phase_model(seed: int, new_tokens: int = 32):
+MANIFEST = REPO / "tests" / "fixtures" / "golden_5p1b_keys.json"
+
+
+def differing(got, want):
+    """Names whose tensors differ between two state dicts (missing on one
+    side, or another dtype, shape or any bit)."""
+    import torch
+    bad = sorted(set(got) ^ set(want))
+    return bad + [k for k in sorted(want) if k in got and not (
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and torch.equal(got[k], want[k]))]
+
+
+def small_checkpoint_check(seed: int):
+    """The checkpoint path at SMALL_HF's geometry on the card: a bf16 model
+    from `seed` exported and written in two shards (half the tensors each,
+    with config.json), loaded back in bf16 (every tensor equal, bit for
+    bit) and with --load-4bit --kv-quant int8 (every tensor equal to the
+    writer quantized in place)."""
+    import tempfile
+
     import torch
 
     from competesmoe_tpu_torch.models.builder import (
-        HF_5P1B, apply_load_4bit, build_llava, llava_config_from_hf)
-    from competesmoe_tpu_torch.models.llava import stream_generate
+        HF_5P1B, apply_load_4bit, build_llava, load_pretrained_model)
+    from competesmoe_tpu_torch.models.hf_export import (
+        export_llava_checkpoint)
+    from competesmoe_tpu_torch.models.safetensors_io import save_file
 
-    cfg = llava_config_from_hf(HF_5P1B, "llava_phi", torch.bfloat16)
-    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-        cfg.decoder, kv_quant="int8"))
-    t0 = time.perf_counter()
-    model = apply_load_4bit(build_llava(cfg, seed=seed, device="cuda"))
+    writer = build_llava(served_config("int4", small=True), seed, "cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_small_ckpt_"))
+    try:
+        sd = export_llava_checkpoint(writer)
+        names = sorted(sd)
+        for i, part in enumerate((names[:len(names) // 2],
+                                  names[len(names) // 2:])):
+            save_file({k: sd[k] for k in part},
+                      tmp / f"model-0000{i + 1}-of-00002.safetensors")
+        (tmp / "config.json").write_text(json.dumps(dict(HF_5P1B,
+                                                         **SMALL_HF)))
+        loaded = load_pretrained_model(tmp, device="cuda")[1]
+        bad = differing(loaded.state_dict(), writer.state_dict())
+        if bad:
+            raise AssertionError(f"small checkpoint: {len(bad)} tensors "
+                                 f"differ after the bf16 reload: {bad[:6]}")
+        quant = load_pretrained_model(tmp, load_4bit=True, kv_quant="int8",
+                                      device="cuda")[1]
+        apply_load_4bit(writer)
+        bad = differing(quant.state_dict(), writer.state_dict())
+        if bad or quant.cfg != writer.cfg:
+            raise AssertionError(f"small checkpoint: --load-4bit differs "
+                                 f"from the writer quantized: {bad[:6]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in model.state_dict().values())
-    log(f"model: {n_params / 1e9:.3f}B stored values built and quantized "
-        f"in {time.perf_counter() - t0:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"small checkpoint (card): {len(names)} tensors in two shards, "
+        "the bf16 and the --load-4bit reloads equal the writer, bit for bit")
 
+
+def phase_checkpoint(seed: int, new_tokens: int = 32):
+    """The checkpoint path at the full 5.1B geometry: build the bf16 model
+    from `seed`, write it with save_hf_checkpoint (config.json = HF_5P1B),
+    hold the written names and shapes to the released layout
+    (tests/fixtures/golden_5p1b_keys.json), load it back in bf16 (every
+    tensor equal, bit for bit), then quantize the writer in place as the
+    solo phase used to build its model (--load-4bit, int8 KV) and take its
+    greedy tokens, load the checkpoint with --load-4bit --kv-quant int8
+    (every tensor and the config equal to the quantized writer's) and
+    return that model with the writer's tokens. The checkpoint lives in a
+    temporary directory, removed at the end whether or not a check
+    failed."""
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import (
+        HF_5P1B, apply_load_4bit, build_llava, load_pretrained_model)
+    from competesmoe_tpu_torch.models.hf_export import save_hf_checkpoint
+    from competesmoe_tpu_torch.models.safetensors_io import read_header
+
+    small_checkpoint_check(seed)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    cfg = served_config("int4", small=False)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    ckpt = tmp / "competesmoe-5.1b"
+    try:
+        t0 = time.perf_counter()
+        writer = build_llava(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        log(f"checkpoint: 5.1B bf16 built in {time.perf_counter() - t0:.1f}"
+            f" s")
+        t0 = time.perf_counter()
+        path = save_hf_checkpoint(writer, cfg, ckpt, hf_config=HF_5P1B)
+        write_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        layout = {k: v["shape"] for k, v in read_header(path).items()
+                  if k != "__metadata__"}
+        manifest = json.loads(MANIFEST.read_text())["keys"]
+        if layout != manifest:
+            diff = sorted(k for k in set(layout) | set(manifest)
+                          if layout.get(k) != manifest.get(k))
+            raise AssertionError(f"written layout differs from the 5.1B "
+                                 f"manifest at {len(diff)} names: {diff[:6]}")
+        log(f"checkpoint: wrote {nbytes / 1e9:.3f} GB in {write_s:.1f} s; "
+            f"{len(layout)} names and shapes equal the released layout")
+
+        def load(**kw):
+            free_card()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = load_pretrained_model(ckpt, device="cuda", **kw)[1]
+            torch.cuda.synchronize()
+            return (model, time.perf_counter() - t0,
+                    torch.cuda.max_memory_allocated() - base)
+
+        loaded, bf16_s, bf16_peak = load()
+        bad = differing(loaded.state_dict(), writer.state_dict())
+        if bad:
+            raise AssertionError(f"bf16 reload: {len(bad)} tensors differ "
+                                 f"from the writer's: {bad[:6]}")
+        log(f"checkpoint: bf16 load in {bf16_s:.1f} s, every tensor equal "
+            f"to the writer's")
+        del loaded
+        apply_load_4bit(writer)
+        want = greedy_run(writer, *model_prompt(seed, cfg.decoder.vocab_size),
+                          new_tokens)[0][0].tolist()
+        model, q_s, q_peak = load(load_4bit=True, kv_quant="int8")
+        bad = differing(model.state_dict(), writer.state_dict())
+        if bad or model.cfg != writer.cfg:
+            raise AssertionError(f"--load-4bit: {len(bad)} tensors differ "
+                                 f"from the quantized writer's: {bad[:6]}")
+        del writer
+        free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    summary = dict(
+        bytes_written=nbytes, tensors=len(layout), write_s=write_s,
+        write_gb_s=nbytes / write_s / 1e9, load_bf16_s=bf16_s,
+        load_bf16_gb_s=nbytes / bf16_s / 1e9, load_4bit_s=q_s,
+        load_4bit_gb_s=nbytes / q_s / 1e9,
+        load_bf16_peak_device_gib=bf16_peak / 2 ** 30,
+        load_4bit_peak_device_gib=q_peak / 2 ** 30,
+        host_peak_rss_gib_before=rss0 / 2 ** 30,
+        host_peak_rss_gib=rss / 2 ** 30, card=card_line())
+    log(f"checkpoint: --load-4bit --kv-quant int8 in {q_s:.1f} s, every "
+        f"tensor equal to the quantized writer's; device memory "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    print("checkpoint_summary " + json.dumps(summary), flush=True)
+    return model, want
+
+
+def model_prompt(seed: int, vocab: int):
+    """The solo phase's prompt: 48 tokens with the image sentinel at 8,
+    and a 224 px image."""
     rng = np.random.default_rng(seed)
-    ids = rng.integers(3, cfg.decoder.vocab_size, (1, 48)).astype(np.int32)
+    ids = rng.integers(3, vocab, (1, 48)).astype(np.int32)
     ids[0, 8] = -200
     px = rng.uniform(-1, 1, (1, 224, 224, 3)).astype(np.float32)
+    return ids, px
 
-    def run(n):
-        t_start = time.perf_counter()
-        chunks, t_first = [], None
-        for c in stream_generate(model, ids, px, max_new_tokens=n,
-                                 temperature=0.0):
-            if t_first is None:
-                t_first = time.perf_counter()
-            chunks.append(c)
-        t_end = time.perf_counter()
-        return np.concatenate(chunks, axis=1), t_first - t_start, \
-            t_end - t_first
 
-    run(4)                                   # warm-up: lazy inits
+def greedy_run(model, ids, px, n: int):
+    """`n` greedy tokens through stream_generate: (tokens [1, n], seconds
+    to the first chunk, seconds from it to the last)."""
+    from competesmoe_tpu_torch.models.llava import stream_generate
+
+    t_start = time.perf_counter()
+    chunks, t_first = [], None
+    for c in stream_generate(model, ids, px, max_new_tokens=n,
+                             temperature=0.0):
+        if t_first is None:
+            t_first = time.perf_counter()
+        chunks.append(c)
+    t_end = time.perf_counter()
+    return np.concatenate(chunks, axis=1), t_first - t_start, \
+        t_end - t_first
+
+
+def phase_model(seed: int, model, want_tokens=None, new_tokens: int = 32):
+    """The serving slice's main path: `model` (the 5.1B checkpoint loaded
+    with --load-4bit --kv-quant int8) answers one image+text prompt with
+    `new_tokens` greedy tokens through stream_generate; they must equal
+    `want_tokens` when given (the tokens of the model that wrote the
+    checkpoint)."""
+    cfg = model.cfg
+    ids, px = model_prompt(seed, cfg.decoder.vocab_size)
+    greedy_run(model, ids, px, 4)            # warm-up: lazy inits
     reset_counts()                           # main path starts here
-    toks, ttft, rest = run(new_tokens)
+    toks, ttft, rest = greedy_run(model, ids, px, new_tokens)
     counts = read_counts()                   # main path ends here
     launches = counts["quant_small_m_matmul_int4"]
     steps = toks.shape[1] - 1
@@ -882,14 +1087,19 @@ def phase_model(seed: int, new_tokens: int = 32):
     if launches != 4 * L * steps or sum(counts.values()) != launches:
         raise AssertionError(f"launches {counts}: K5 must be 4 x {L} layers "
                              f"x {steps} decode steps, the others 0")
+    if want_tokens is not None and toks[0].tolist() != want_tokens:
+        raise AssertionError(f"the loaded checkpoint's tokens {toks[0]} != "
+                             f"those of the model that wrote it "
+                             f"{want_tokens}")
     tok_s = steps / rest
     log(f"generate: {new_tokens} greedy tokens, TTFT {ttft * 1e3:.1f} ms, "
         f"decode {tok_s:.2f} tok/s ({rest / steps * 1e3:.2f} ms/token), K5 "
         f"launches {launches} = {launches // steps} per decode step")
-    log(f"tokens: {toks[0].tolist()}")
-    return model, launches, dict(ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
-                                 ms_per_token=rest / steps * 1e3,
-                                 decode_steps=steps, layers=L)
+    log(f"tokens: {toks[0].tolist()} (equal to the writer's: "
+        f"{want_tokens is not None})")
+    return launches, dict(ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
+                          ms_per_token=rest / steps * 1e3,
+                          decode_steps=steps, layers=L)
 
 
 def profile_decode(model, seed: int, steps: int = 8):
@@ -1620,7 +1830,8 @@ def main():
     print("lm_summary " + json.dumps(dict(lm, card=card)), flush=True)
     small_model_check(a.seed)
     small = [small_engine_check("int4", a.seed)]
-    model, k5_launches, summary = phase_model(a.seed)
+    model, want_tokens = phase_checkpoint(a.seed)
+    k5_launches, summary = phase_model(a.seed, model, want_tokens)
     phase_server(model)
     if a.profile:
         summary["profile"] = profile_decode(model, a.seed)

@@ -1,7 +1,12 @@
 """Model configuration from HF-style config dicts, random weights from a
-seed, and the serving-time weight quantizers (port of the config and
-quantization parts of competesmoe_tpu/models/builder.py; the checkpoint
-loader waits).
+seed, the checkpoint loader and the serving-time weight quantizers (port
+of competesmoe_tpu/models/builder.py).
+
+`load_pretrained_model(model_path, ...)` reads a released-layout
+checkpoint directory (`config.json` and `*.safetensors` or `*.bin`
+weights; a LoRA adapter over a base when the name says `lora`), converts
+it with `convert_llava_checkpoint` and loads it into a `LlavaModel` built
+on the meta device, so no weight is drawn and then overwritten.
 
 The quantizers work in place on the port's modules and on whatever device
 the weights live, computing exactly what the JAX builder computes on its
@@ -21,15 +26,24 @@ param trees:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import json
+import warnings
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..device import resolve_device
 from ..moe.config import MoEArgs
+from ..multimodal.mm_utils import ImageProcessorConfig
 from .decoder import DecoderConfig, QuantDense, RMSNorm, pack_int4
+from .hf_loader import (ReadTracker, _strip_prefix, convert_clip_tower,
+                        convert_decoder, convert_mlpmoe_projector,
+                        convert_siglip_tower, load_torch_state_dict)
 from .llava import LlavaConfig, LlavaModel
 from .projector import ProjectorConfig
+from .safetensors_io import load_file
 from .vision import VisionConfig
 
 # The CompeteSMoE-5.1B geometry (tools/bench_e2e_mm.py): SigLIP-so400m
@@ -313,3 +327,194 @@ def apply_load_8bit(model: LlavaModel) -> LlavaModel:
     model.cfg = dataclasses.replace(model.cfg,
                                     decoder=model.language_model.cfg)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint loading (reference builder.py:29-184)
+# ---------------------------------------------------------------------------
+
+def convert_llava_checkpoint(sd, cfg: LlavaConfig) -> Dict[str, torch.Tensor]:
+    """Released-checkpoint state dict -> `LlavaModel` state dict."""
+    vision_sd = _strip_prefix(sd, "model.vision_tower.vision_tower.")
+    proj_sd = _strip_prefix(sd, "model.mm_projector.")
+    convert_tower = (convert_clip_tower if cfg.vision.tower_type == "clip"
+                     else convert_siglip_tower)
+    parts = {
+        "vision_tower": convert_tower(vision_sd, cfg.vision, prefix=""),
+        "mm_projector": convert_mlpmoe_projector(
+            proj_sd, cfg.projector.num_experts, prefix="")
+        if cfg.projector.projector_type == "moe" else
+        _convert_plain_projector(proj_sd, cfg.projector),
+        "language_model": convert_decoder(sd, cfg.decoder, prefix="model."),
+    }
+    return {f"{part}.{k}": v for part, psd in parts.items()
+            for k, v in psd.items()}
+
+
+def _convert_plain_projector(sd, pcfg: ProjectorConfig
+                             ) -> Dict[str, torch.Tensor]:
+    if pcfg.projector_type == "linear":
+        return {"fc.weight": sd["weight"], "fc.bias": sd["bias"]}
+    if pcfg.projector_type == "identity":
+        return {}
+    raise NotImplementedError(
+        f"projector type {pcfg.projector_type!r} is not ported: ROADMAP §1 "
+        "item 1.2 (the mlpNx_gelu projector)")
+
+
+def merge_lora_checkpoint(base_sd, lora_path) -> Dict[str, torch.Tensor]:
+    """Merge a PEFT LoRA checkpoint into the base state dict (the
+    reference's PeftModel.from_pretrained + merge_and_unload, done as
+    W <- W + (alpha / r) * B @ A in float32), after overlaying
+    `non_lora_trainables.bin` (mm projector etc.) with the reference's
+    prefix stripping. Merged and overlaid tensors come out float32 on
+    the device of the base tensor they replace (or the CPU)."""
+    lora_path = Path(lora_path)
+    sd = dict(base_sd)
+    some = next(iter(sd.values()), None)
+    dev = some.device if some is not None else torch.device("cpu")
+
+    nlt_file = lora_path / "non_lora_trainables.bin"
+    if nlt_file.exists():
+        nlt = torch.load(nlt_file, map_location="cpu", weights_only=True)
+        nlt = {(k[len("base_model."):] if k.startswith("base_model.")
+                else k): v for k, v in nlt.items()}
+        if any(k.startswith("model.model.") for k in nlt):
+            nlt = {(k[len("model."):] if k.startswith("model.") else k): v
+                   for k, v in nlt.items()}
+        for k, v in nlt.items():
+            sd[k] = v.to(dev, torch.float32)
+
+    acfg = json.loads((lora_path / "adapter_config.json").read_text())
+    scaling = acfg["lora_alpha"] / acfg["r"]
+    st_file = lora_path / "adapter_model.safetensors"
+    if st_file.exists():
+        adapter = load_file(st_file, dev)
+    else:
+        adapter = torch.load(lora_path / "adapter_model.bin",
+                             map_location=dev, weights_only=True)
+    merged = 0
+    for k, a in adapter.items():
+        if ".lora_A." not in k:
+            continue
+        b = adapter[k.replace(".lora_A.", ".lora_B.")]
+        # peft keys: base_model.model.<target>.lora_{A,B}.weight
+        target = k.split(".lora_A.")[0]
+        for pre in ("base_model.model.", "base_model."):
+            if target.startswith(pre):
+                target = target[len(pre):]
+                break
+        wk = target + ".weight"
+        if wk not in sd:
+            raise KeyError(f"LoRA target {wk!r} not in base checkpoint")
+        delta = scaling * (b.float() @ a.float())
+        sd[wk] = sd[wk].float() + delta.to(sd[wk].device)
+        merged += 1
+    if merged == 0:
+        raise ValueError(f"no lora_A/lora_B pairs found in {lora_path}")
+    return sd
+
+
+@torch.no_grad()
+def _load_converted(model: nn.Module, sd: Dict[str, torch.Tensor],
+                    device: torch.device) -> None:
+    """Load a converted state dict into `model` (built on the meta device)
+    by assignment, each tensor cast to its parameter's dtype on `device`;
+    a missing, extra or misshapen tensor raises, naming it."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"checkpoint does not fit the model: missing "
+                       f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                       f"unexpected {extra[:8]}"
+                       f"{'...' if len(extra) > 8 else ''}")
+    bad = [(k, tuple(sd[k].shape), tuple(w.shape)) for k, w in want.items()
+           if sd[k].shape != w.shape]
+    if bad:
+        raise ValueError(f"checkpoint shapes do not fit the model "
+                         f"(name, checkpoint, model): {bad[:8]}")
+    model.load_state_dict(
+        {k: sd[k].to(device=device, dtype=w.dtype).contiguous()
+         for k, w in want.items()}, strict=True, assign=True)
+    left = [k for k, t in model.state_dict().items() if t.is_meta]
+    if left:
+        raise RuntimeError(f"tensors left unloaded: {left[:8]}")
+
+
+def _tokenizer(model_path: Path):
+    """The directory's HF tokenizer, or None when it holds no tokenizer
+    files or `transformers` is absent (read from local files only)."""
+    names = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model",
+             "vocab.json")
+    if not any((model_path / n).exists() for n in names):
+        return None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        return None
+    return AutoTokenizer.from_pretrained(str(model_path),
+                                         local_files_only=True)
+
+
+def load_pretrained_model(model_path, model_name: Optional[str] = None,
+                          model_base: Optional[str] = None,
+                          load_8bit: bool = False, load_4bit: bool = False,
+                          kv_quant: Optional[str] = None,
+                          dtype: torch.dtype = torch.bfloat16, device=None
+                          ) -> Tuple[object, LlavaModel, ImageProcessorConfig,
+                                     int]:
+    """(tokenizer, model, image_processor, context_len): the reference
+    builder's return contract without JAX's separate params tree, since
+    the module holds its weights.
+
+    Reads `config.json` (from `model_base` for a LoRA adapter, whose own
+    config.json wins when present), loads the weights on `device` (cuda
+    unless the caller asks for another; no CPU fallback), merges a LoRA
+    adapter when `model_name` contains 'lora' and `model_base` is given,
+    converts and loads into a model built on the meta device (every
+    parameter must come from the checkpoint; a checkpoint tensor that no
+    parameter takes is named in a warning), then applies `load_8bit`
+    (int8 decoder, tower and projector int8 value-quantized) or
+    `load_4bit` (packed int4 decoder with an int8 lm_head, tower and
+    projector NF4 value-quantized) and `kv_quant` ('int8' KV cache). The
+    tokenizer is None when the directory holds none or `transformers` is
+    absent."""
+    if load_8bit and load_4bit:
+        raise ValueError("load_8bit and load_4bit exclude each other")
+    device = resolve_device(device)
+    model_path = Path(model_path)
+    model_name = model_name or model_path.name
+    is_lora = "lora" in model_name.lower() and model_base is not None
+    if "lora" in model_name.lower() and model_base is None:
+        warnings.warn("`lora` is in the model name but no model_base was "
+                      "provided (reference builder.py:52)")
+    cfg_dir = Path(model_base) if is_lora else model_path
+    cfg_file = model_path / "config.json"
+    if not cfg_file.exists():
+        cfg_file = cfg_dir / "config.json"
+    hf_cfg = json.loads(cfg_file.read_text())
+    cfg = llava_config_from_hf(hf_cfg, model_name, dtype)
+    if kv_quant:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, kv_quant=kv_quant))
+    sd = load_torch_state_dict(cfg_dir, device)
+    if is_lora:
+        sd = merge_lora_checkpoint(sd, model_path)
+    sd = ReadTracker(sd)
+    converted = convert_llava_checkpoint(sd, cfg)
+    if sd.unread():
+        warnings.warn(f"checkpoint tensors the model does not take: "
+                      f"{sd.unread()[:8]}")
+    del sd
+    model = LlavaModel(cfg, device="meta")
+    _load_converted(model, converted, device)
+    del converted
+    if load_8bit:
+        apply_load_8bit(model)
+    elif load_4bit:
+        apply_load_4bit(model)
+    image_processor = ImageProcessorConfig(size=cfg.vision.image_size)
+    context_len = hf_cfg.get("max_sequence_length",
+                             hf_cfg.get("tokenizer_model_max_length", 2048))
+    return _tokenizer(model_path), model, image_processor, context_len

@@ -303,6 +303,13 @@ class MoELanguageModel(nn.Module):
         self.output = nn.Linear(cfg.d_model, cfg.vocab_size, bias=True,
                                 device=device)
 
+    def set_flip_schedule(self, schedule: FlipSchedule) -> None:
+        """Compete by `schedule` from now on (a restored run's own)."""
+        self.flip_schedule = schedule
+        for mod in self.modules():
+            if isinstance(mod, PretrainCompeteSMoE):
+                mod.step_warm = schedule.step_warm
+
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "MoELanguageModel":
         """The JAX init distributions, drawn on the model's device."""

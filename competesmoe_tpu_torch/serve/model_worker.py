@@ -280,11 +280,11 @@ def weight_files(model_path) -> List[str]:
 
 
 def main(argv=None):
-    """Worker launch CLI: build the model on the GPU (random weights from
-    --seed until the checkpoint loader is ported), optionally register
-    with a controller, serve. A --model-path that holds weights is
-    refused: they cannot be loaded yet, and random weights in their place
-    would answer every request wrongly."""
+    """Worker launch CLI: load the checkpoint of --model-path on the GPU
+    (`load_pretrained_model`: --load-8bit / --load-4bit / --kv-quant), or,
+    for a directory with only config.json or no --model-path at all, build
+    that geometry (default: CompeteSMoE-5.1B's) with random weights from
+    --seed; optionally register with a controller; serve."""
     import argparse
     import dataclasses
     from pathlib import Path
@@ -293,18 +293,24 @@ def main(argv=None):
 
     from ..eval.llava_adapter import TorchLlava
     from ..models.builder import (HF_5P1B, apply_load_4bit, apply_load_8bit,
-                                  build_llava, llava_config_from_hf)
+                                  build_llava, llava_config_from_hf,
+                                  load_pretrained_model)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-path", default=None,
-                    help="directory with only an HF-style config.json: "
-                         "its geometry, with random weights from --seed "
-                         "(a directory that holds weights is refused; "
-                         "the checkpoint loader is not ported yet); "
-                         "default: CompeteSMoE-5.1B's geometry")
-    ap.add_argument("--model-name", default="competesmoe-5.1b")
-    ap.add_argument("--tokenizer", required=True,
-                    help="HF tokenizer directory (needs `transformers`)")
+                    help="checkpoint directory in the released layout "
+                         "(config.json and *.safetensors or *.bin "
+                         "weights), loaded; a directory with only "
+                         "config.json serves its geometry with random "
+                         "weights from --seed; default: CompeteSMoE-5.1B's "
+                         "geometry with random weights")
+    ap.add_argument("--model-name", default=None,
+                    help="the name the worker serves under; default: the "
+                         "checkpoint directory's name, else "
+                         "competesmoe-5.1b")
+    ap.add_argument("--tokenizer", default=None,
+                    help="HF tokenizer directory (needs `transformers`); "
+                         "default: the tokenizer found in --model-path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--controller-address",
@@ -349,27 +355,32 @@ def main(argv=None):
     if a.load_8bit and a.load_4bit:
         raise SystemExit("--load-8bit and --load-4bit exclude each other")
     weights = weight_files(a.model_path) if a.model_path else []
+    if not (a.tokenizer or weights):
+        raise SystemExit("--tokenizer is needed unless --model-path holds "
+                         "a checkpoint to take the tokenizer from")
+    model_name = a.model_name or (Path(a.model_path).name if weights
+                                  else "competesmoe-5.1b")
+    tokenizer = None
     if weights:
-        raise SystemExit(
-            f"--model-path {a.model_path} holds weights "
-            f"({', '.join(weights)}): the checkpoint loader is not ported "
-            "yet (ROADMAP §1 item 1.4), and serving random weights in "
-            "their place would answer wrongly. Give a directory with only "
-            "config.json to serve its geometry with random weights.")
-
-    hf_cfg = (json.loads((Path(a.model_path) / "config.json").read_text())
-              if a.model_path else HF_5P1B)
-    cfg = llava_config_from_hf(hf_cfg, a.model_name, torch.bfloat16)
-    if a.kv_quant:
-        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-            cfg.decoder, kv_quant=a.kv_quant))
-    model = build_llava(cfg, seed=a.seed, device=a.device)
-    if a.load_8bit:
-        apply_load_8bit(model)
-    elif a.load_4bit:
-        apply_load_4bit(model)
-    from transformers import AutoTokenizer
-    tokenizer = AutoTokenizer.from_pretrained(a.tokenizer)
+        tokenizer, model, _, _ = load_pretrained_model(
+            a.model_path, load_8bit=a.load_8bit,
+            load_4bit=a.load_4bit, kv_quant=a.kv_quant or None,
+            dtype=torch.bfloat16, device=a.device)
+    else:
+        hf_cfg = (json.loads((Path(a.model_path) / "config.json")
+                             .read_text()) if a.model_path else HF_5P1B)
+        cfg = llava_config_from_hf(hf_cfg, model_name, torch.bfloat16)
+        if a.kv_quant:
+            cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+                cfg.decoder, kv_quant=a.kv_quant))
+        model = build_llava(cfg, seed=a.seed, device=a.device)
+        if a.load_8bit:
+            apply_load_8bit(model)
+        elif a.load_4bit:
+            apply_load_4bit(model)
+    if tokenizer is None or a.tokenizer:
+        from transformers import AutoTokenizer
+        tokenizer = AutoTokenizer.from_pretrained(a.tokenizer or a.model_path)
     adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
                          max_new_tokens=a.max_new_tokens,
                          speculative=a.speculative)
@@ -385,10 +396,10 @@ def main(argv=None):
         extra_status = None
     worker = ModelWorker(
         None if a.no_register else a.controller_address,
-        a.worker_address or f"http://localhost:{a.port}", [a.model_name],
+        a.worker_address or f"http://localhost:{a.port}", [model_name],
         gen_fn, limit_model_concurrency=concurrency,
         extra_status_fn=extra_status)
-    print(f"worker {worker.worker_id} serving {a.model_name} on "
+    print(f"worker {worker.worker_id} serving {model_name} on "
           f"{a.host}:{a.port}", flush=True)
     serve_worker(worker, a.host, a.port)
 

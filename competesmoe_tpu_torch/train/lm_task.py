@@ -7,11 +7,18 @@ The flip schedule is built from (`stop_after`, `warm_up`, `rate_flip`,
 the same layers compete at the same steps. Weights are drawn on the
 device from `-seed`. The task runs on `-device` (default cuda).
 
+Checkpoints: a `Saver` under `<run_dir>/<name>/checkpoint` holds the
+model, the optimizer state, the sampler, the args and the flip schedule;
+training saves every `-save_interval` steps and at `-stop_after`. A task
+resumes from the newest checkpoint there, or from `-restore` (a step, a
+`model-<step>` directory or a checkpoint directory); a restored flip
+schedule that differs from the rebuilt one replaces it.
+
 Not ported here (each raises NotImplementedError naming its ROADMAP
 item, or is absent): meshes, FSDP, expert and sequence parallelism
-(`-n_expert_shards`, `-n_seq_shards`, `-fsdp`), resume and checkpoints
-(`-restore`; nothing is saved), the streaming corpora and the other tasks,
-W&B and TensorBoard logging, the zero-shot QA battery, profiler traces.
+(`-n_expert_shards`, `-n_seq_shards`, `-fsdp`), the preemption job
+record, the streaming corpora and the other tasks, W&B and TensorBoard
+logging, the zero-shot QA battery, profiler traces.
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ from ..data.lm_data import SequentialMultibatchSampler, SyntheticLMDataset
 from ..device import resolve_device
 from ..models.lm import LMConfig, MoELanguageModel
 from ..moe.config import MoEArgs
-from ..moe.schedule import build_flip_schedule
+from ..moe.schedule import (build_flip_schedule, schedule_from_dict,
+                            schedule_to_dict)
 from ..utils.argparser import ArgumentParser, DotDict, args
+from .checkpoint import Saver
 from .lm_trainer import (OptConfig, TrainState, make_eval_step,
                          make_optimizer, make_train_step)
 from .logger import ElapsedTimeMeter, MetricLogger, device_memory_stats
@@ -75,6 +84,7 @@ def _task_args(parser: ArgumentParser):
     parser.add_argument("-opt.state_8bit", default=False)
     parser.add_argument("-amp", default=True)  # bf16 activations
     parser.add_argument("-save_interval", default=1000)
+    parser.add_argument("-keep_last", default=2)
     parser.add_argument("-log_interval", default=10)
     parser.add_argument("-valid_interval", default=500)
     parser.add_argument("-valid_batches", default=10)
@@ -168,7 +178,6 @@ def _not_ported(a: DotDict) -> None:
             ("n_expert_shards", a.n_expert_shards > 1, "1.7 (parallelism)"),
             ("n_seq_shards", a.n_seq_shards > 1, "1.7 (ring attention)"),
             ("fsdp", a.fsdp, "1.7 (parallelism)"),
-            ("restore", bool(a.restore), "1.1 (checkpoints)"),
             ("log", a.log == "wandb", "1.1 (W&B logging)")):
         if bad:
             raise NotImplementedError(f"-{flag} is not ported: ROADMAP open "
@@ -211,6 +220,52 @@ class SyntheticTransformerTask:
                                           n_microbatch=a.n_microbatch)
         self.eval_step = make_eval_step(self.model)
 
+        self.saver = Saver(self.run_dir / "checkpoint",
+                           save_interval=a.save_interval,
+                           keep_last=a.keep_last)
+        self.saver["model"] = self.model
+        self.saver["optimizer"] = self.state.opt_state
+        self.saver["sampler"] = self.sampler
+        self.saver["args"] = ArgumentParser.namespace_to_dict(a)
+        if self.schedule is not None:
+            self.saver["flip_schedule"] = schedule_to_dict(self.schedule)
+        if a.restore:
+            self.restore(a.restore)
+        elif self.saver.latest_step() is not None:
+            self.restore()
+
+    # -- checkpoint --
+
+    def restore(self, path_or_step=None) -> int:
+        """Accepts a step number, a `model-<step>` checkpoint path, or a
+        checkpoint directory (the reference's `--restore <ckpt_path>`)."""
+        step = None
+        if isinstance(path_or_step, str) and path_or_step:
+            p = Path(path_or_step)
+            if p.exists():
+                if p.name.startswith("model-"):
+                    # point the saver at the foreign checkpoint dir
+                    self.saver.dir = p.parent
+                    step = int(p.name.split("-", 1)[1])
+                else:
+                    self.saver.dir = p
+            else:
+                step = int(path_or_step)
+        restored = self.saver.restore(step)
+        self.state.step = restored
+        # The competition schedule is part of the training state: a
+        # resumed run keeps the ORIGINAL schedule even if stop_after
+        # changed (the reference keeps prob_flips as a buffer).
+        if self.schedule is not None and "flip_schedule" in self.saver:
+            saved = schedule_from_dict(self.saver["flip_schedule"])
+            if not np.array_equal(saved.flips, self.schedule.flips):
+                print("restoring original flip schedule from checkpoint")
+                self.schedule = saved
+                self.model.set_flip_schedule(saved)
+                self.saver["flip_schedule"] = schedule_to_dict(saved)
+        print(f"restored checkpoint at step {restored}")
+        return restored
+
     def fetch_batch(self) -> torch.Tensor:
         batch = self.dataset.batch(next(self.sampler))
         return torch.from_numpy(batch.astype(np.int64)).to(
@@ -230,7 +285,8 @@ class SyntheticTransformerTask:
 
     def train(self, n_steps: Optional[int] = None) -> None:
         """Train from the current step to `stop_after`, or for `n_steps`
-        steps. The step number selects the flips and the learning rate."""
+        steps. The step number selects the flips and the learning rate.
+        Saves every `save_interval` steps, and at `stop_after`."""
         a = self.a
         start = self.state.step
         end = a.stop_after if n_steps is None else min(a.stop_after,
@@ -266,8 +322,11 @@ class SyntheticTransformerTask:
                 self.logger.log(step, {"valid/perplexity": self.validate()},
                                 to_stdout=True)
                 wall_t0, wall_steps = time.perf_counter(), 0
+            self.saver.tick(step + 1)
         if prev is not None:
             _check_finite(*prev)
+        if end == a.stop_after:
+            self.saver.save(a.stop_after)
 
     def test(self) -> Dict[str, float]:
         return {"valid/perplexity": self.validate()}

@@ -83,6 +83,23 @@ class AdamState:
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
 
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: Dict) -> None:
+        """Copy saved moments into this state's tensors (their devices
+        stay); the parameter names must match."""
+        for key in ("mu", "nu"):
+            mine, saved = getattr(self, key), d[key]
+            if set(mine) != set(saved):
+                raise KeyError(f"optimizer state {key}: saved names differ "
+                               f"from the model's: "
+                               f"{sorted(set(mine) ^ set(saved))[:8]}")
+            for name, t in mine.items():
+                t.copy_(saved[name])
+        self.count = int(d["count"])
+
 
 class Optimizer:
     """clip_by_global_norm -> adam/adamw with the LR schedule (the optax

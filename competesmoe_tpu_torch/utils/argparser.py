@@ -4,8 +4,8 @@ Re-design of `moe_pretrain_model/framework/helpers/argument_parser.py`:
 flags registered next to the code that uses them (`-lm.unroll 1024` style),
 typed by their default value, with `none` sentinels, and `@args` hook
 registration (task_db.py). The parsing part of
-competesmoe_tpu/utils/argparser.py (pure Python); the dict round-trip for
-checkpoint restore waits for checkpoints.
+competesmoe_tpu/utils/argparser.py (pure Python), with the flat dict of a
+parsed namespace that a checkpoint keeps.
 """
 
 from __future__ import annotations
@@ -96,6 +96,20 @@ class ArgumentParser:
                     f"-{key} must be one of {self._choices[key]}, got {val!r}")
             values[key] = val
         return self.to_namespace(values)
+
+    @staticmethod
+    def namespace_to_dict(ns: DotDict) -> Dict[str, Any]:
+        """{dotted flag: value} of a parsed namespace."""
+        out: Dict[str, Any] = {}
+
+        def walk(node: DotDict, prefix: str) -> None:
+            for key, val in vars(node).items():
+                if isinstance(val, DotDict):
+                    walk(val, f"{prefix}{key}.")
+                else:
+                    out[prefix + key] = val
+        walk(ns, "")
+        return out
 
     def to_namespace(self, values: Dict[str, Any]) -> DotDict:
         root = DotDict()

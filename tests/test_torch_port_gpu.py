@@ -4,7 +4,8 @@ and the decode-shape routing of the int4 `QuantDense`; K3 and K4 (bf16
 and int8 small-M matmuls) and the routing of `PallasDense` and the int8
 `QuantDense` with `matvec_kernel`; K1 (fused grouped ReLU double GEMM) and
 its pipeline's gradients; K2 (causal flash attention, forward, dK/dV and
-dQ) at small shapes and the 154M shape.
+dQ) at small shapes and the 154M shape; a checkpoint loaded on the card
+(the golden tiny checkpoint's digests, and K5 under --load-4bit).
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -18,6 +19,10 @@ or int4 values in float32, in different orders. K1's and K2's tolerances
 are stated with their tests.
 """
 
+import json
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -614,8 +619,6 @@ def test_pipelined_engine_ticks_do_not_synchronise(gen):
     one tick later, after an event."""
     import dataclasses
 
-    import numpy as np
-
     from competesmoe_tpu_torch.models.builder import (HF_5P1B, build_llava,
                                                       llava_config_from_hf)
     from competesmoe_tpu_torch.serve.engine import DecodeEngine
@@ -649,3 +652,82 @@ def test_pipelined_engine_ticks_do_not_synchronise(gen):
     for _ in range(20):
         engine._tick()
     assert all(r.done and len(r.emitted) == 12 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the card
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).parent / "fixtures"
+
+
+def test_golden_checkpoint_on_the_card_reproduces_the_digests(gen):
+    """The released-layout tiny checkpoint loaded on cuda in float32 gives
+    the recorded greedy tokens of its image and text prompts (drawn as
+    tests/test_golden_layout.py draws them; TF32 off, as on the CPU)."""
+    from competesmoe_tpu_torch.models.builder import load_pretrained_model
+    from competesmoe_tpu_torch.models.llava import IMAGE_TOKEN_INDEX, generate
+
+    digests = json.loads((FIXTURES / "golden_tiny_digests.json")
+                         .read_text())
+    rng = np.random.default_rng(4)
+    vocab = digests["geometry"]["vocab_size"]
+    ids_img = rng.integers(2, vocab, (1, 7)).astype(np.int32)
+    ids_img[0, 1] = IMAGE_TOKEN_INDEX
+    px = rng.normal(size=(1, 28, 28, 3)).astype(np.float32)
+    ids_txt = rng.integers(2, vocab, (1, 9)).astype(np.int32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = load_pretrained_model(FIXTURES / "golden_tiny_ckpt",
+                                      dtype=torch.float32, device="cuda")[1]
+        assert {t.device.type for t in model.state_dict().values()} == \
+            {"cuda"}
+        got_img = generate(model, ids_img, px, max_new_tokens=8)[0]
+        got_txt = generate(model, ids_txt, None, max_new_tokens=8)[0]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert got_img[0].tolist() == digests["greedy_tokens_image"]
+    assert got_txt[0].tolist() == digests["greedy_tokens_text"]
+
+
+def test_load_4bit_of_a_written_checkpoint_launches_k5(gen, tmp_path):
+    """A small bf16 model (projections K5 tiles) written with
+    save_hf_checkpoint and loaded with --load-4bit: every tensor equals the
+    writer quantized in place, and a prefill of 8 rows and a decode step
+    launch K5 at each of the 2 layers' 4 projections."""
+    from competesmoe_tpu_torch.models.builder import (
+        HF_5P1B, apply_load_4bit, build_llava, llava_config_from_hf,
+        load_pretrained_model)
+    from competesmoe_tpu_torch.models.hf_export import save_hf_checkpoint
+
+    small = dict(HF_5P1B, vocab_size=512, hidden_size=256,
+                 intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=4,
+                 mm_hidden_size=64,
+                 vision_config=dict(hidden_size=64, intermediate_size=128,
+                                    num_hidden_layers=2,
+                                    num_attention_heads=2, image_size=28,
+                                    patch_size=14))
+    cfg = llava_config_from_hf(small, "llava_phi", torch.bfloat16)
+    writer = build_llava(cfg, seed=1, device="cuda")
+    save_hf_checkpoint(writer, cfg, tmp_path, hf_config=small)
+    model = load_pretrained_model(tmp_path, load_4bit=True,
+                                  device="cuda")[1]
+    apply_load_4bit(writer)
+    got, want = model.state_dict(), writer.state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], v) for k, v in want.items())
+    ids = torch.arange(3, 11, device="cuda")[None]
+    before = tmatvec.quant_small_m_matmul_int4.launches
+    with torch.no_grad():
+        cache = tdec.KVCache.create(model.language_model.cfg, 1, 16, "cuda")
+        out = model(ids, None, cache=cache)
+        out = model(out.logits[:, -1].argmax(-1)[:, None], None,
+                    cache=out.cache)
+    torch.cuda.synchronize()
+    assert tmatvec.quant_small_m_matmul_int4.launches - before == 2 * 4 * 2
+    assert torch.isfinite(out.logits).all()

@@ -438,10 +438,14 @@ def test_task_needs_a_card_unless_asked(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             get_task(a.task)(a)
-    for flag in (["-n_expert_shards", "2"], ["-fsdp", "1"],
-                 ["-restore", "5"]):
+    for flag in (["-n_expert_shards", "2"], ["-fsdp", "1"]):
         a = build_parser().parse(_TINY_FLAGS + flag + ["-device", "cpu",
                                                        "-run_dir",
                                                        str(tmp_path)])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_task(a.task)(a)
+    # -restore is ported: a step with no checkpoint names what is missing
+    a = build_parser().parse(_TINY_FLAGS + ["-restore", "5", "-device",
+                                            "cpu", "-run_dir", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="step 5"):
+        get_task(a.task)(a)

@@ -349,7 +349,8 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
-            "k.startswith(('jax.', 'flax', 'competesmoe_tpu.')) or "
+            "k.startswith(('jax.', 'flax', 'competesmoe_tpu.', "
+            "'safetensors', 'transformers')) or "
             "k == 'competesmoe_tpu']\n"
             "assert not bad, bad\n"
             "print('ok')\n")
@@ -374,6 +375,15 @@ def test_port_sources_import_no_jax():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "flax", "optax",
                                     "competesmoe_tpu"), (path, name)
+        # the card machine has neither package: never at module level
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert not any(n.split(".")[0] in ("safetensors",
+                                                   "transformers")
+                               for n in names), (path, names)
 
 
 def _entry_point(name):

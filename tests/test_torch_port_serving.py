@@ -558,39 +558,83 @@ def test_unported_engine_options_raise(tiny_engine_model):
             main(["--tokenizer", "unused", "--device", "cpu"] + flag)
 
 
-def test_worker_refuses_a_model_path_that_holds_weights(tmp_path,
-                                                       monkeypatch):
-    """The worker cannot load a checkpoint yet: a --model-path with
-    weights exits naming them and the ROADMAP item, before any model or
-    tokenizer is built; the same config.json alone still serves as
-    geometry and reaches the tokenizer load."""
+def test_worker_loads_a_model_path_that_holds_weights(tmp_path,
+                                                     monkeypatch):
+    """A --model-path that holds weights is loaded (bf16, as the worker
+    serves) and answers over HTTP with the golden checkpoint's recorded
+    greedy tokens; a directory with only config.json still builds its
+    geometry and reaches the tokenizer load; without --tokenizer and
+    without weights the worker exits before building anything."""
     import shutil
     import sys
     import types
 
     from competesmoe_tpu_torch.serve import model_worker
     ckpt = Path(__file__).parent / "fixtures" / "golden_tiny_ckpt"
+    digests = json.loads((ckpt.parent / "golden_tiny_digests.json")
+                         .read_text())
     assert model_worker.weight_files(ckpt) == ["model.safetensors"]
-    with pytest.raises(SystemExit, match=r"model\.safetensors.*not ported"
-                       r".*item 1\.4"):
-        model_worker.main(["--tokenizer", "unused", "--model-path",
-                           str(ckpt), "--device", "cpu"])
-    shutil.copy(ckpt / "config.json", tmp_path / "config.json")
-    assert model_worker.weight_files(tmp_path) == []
+
+    class IntTok:
+        """Token ids written as decimal words."""
+        eos_token_id = None
+
+        def __call__(self, text):
+            return types.SimpleNamespace(
+                input_ids=[int(w) for w in text.split()])
+
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(int(i)) for i in ids)
 
     class ReachedTokenizer(Exception):
         pass
 
     def from_pretrained(path):
+        if path == "int-tok":
+            return IntTok()
         raise ReachedTokenizer(path)
 
     fake = types.ModuleType("transformers")
     fake.AutoTokenizer = types.SimpleNamespace(
         from_pretrained=from_pretrained)
     monkeypatch.setitem(sys.modules, "transformers", fake)
+    served, serve = [], model_worker.serve_worker
+
+    def serve_in_background(worker, host, port):
+        served.append(serve(worker, host, port, background=True))
+
+    monkeypatch.setattr(model_worker, "serve_worker", serve_in_background)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    model_worker.main(["--model-path", str(ckpt), "--tokenizer", "int-tok",
+                       "--device", "cpu", "--no-register", "--host",
+                       "127.0.0.1", "--port", str(port)])
+    try:
+        prompt = " ".join(str(i) for i in digests["prompt_text"])
+        req = urlrequest.Request(
+            f"http://127.0.0.1:{port}/worker_generate_stream",
+            data=json.dumps({"prompt": prompt, "max_new_tokens": 8,
+                             "temperature": 0.0}).encode(),
+            method="POST", headers={"Content-Type": "application/json"})
+        with urlrequest.urlopen(req, timeout=120) as r:
+            chunks = [json.loads(p) for p in r.read().split(b"\0") if p]
+    finally:
+        served[0].shutdown()
+        served[0].server_close()
+    assert chunks and all(c["error_code"] == 0 for c in chunks)
+    assert chunks[-1]["text"] == " ".join(
+        str(t) for t in digests["greedy_tokens_text"])
+
+    shutil.copy(ckpt / "config.json", tmp_path / "config.json")
+    assert model_worker.weight_files(tmp_path) == []
     with pytest.raises(ReachedTokenizer, match="tok-dir"):
         model_worker.main(["--tokenizer", "tok-dir", "--model-path",
                            str(tmp_path), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--tokenizer is needed"):
+        model_worker.main(["--model-path", str(tmp_path), "--device",
+                           "cpu"])
     for name in ("shard.bin", "w.pt", "model.safetensors.index.json"):
         (tmp_path / name).write_text("{}")
     assert model_worker.weight_files(tmp_path) == [
