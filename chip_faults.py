@@ -30,7 +30,10 @@ of h, and the expert of the next tile taken for the second half of a
 in the Python of the checkpoint path (CHECKPOINT_FAULTS, swapped in for
 the check and back): two tower experts swapped by the converter,
 `gate_kernel` taken without its transpose, and the second of two shards
-skipped by the loader. The script
+skipped by the loader. Three more are planted in the engine's features
+(ENGINE_FAULTS): the unpark's suffix written one position late, the
+final chunk's logits taken at the chunk's last slot, and the park key
+without the pixel hash. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -52,7 +55,15 @@ skipped by the loader. The script
        checks also run on the honest kernels first;
      - checkpoint faults: `small_checkpoint_check` (a small model written
        in two shards, reloaded in bf16 and with --load-4bit, every
-       tensor held to the writer's), honest first.
+       tensor held to the writer's), honest first;
+     - engine-feature faults: `small_engine_features_check` (chunked
+       prefill and the prefix cache on a small int4 model against
+       engines without them), honest first; the unpark fault also
+       against `multiturn_check` at the full 5.1B width and depth
+       (random int4 weights, FEATURES' engine: turn 2 against its parked
+       row's continuation), honest first. The other two do not show
+       there: its prompts carry no image, and the phase's long prompt
+       fills its last chunk.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -269,6 +280,43 @@ CHECKPOINT_FAULTS = {
     "gate_kernel_not_transposed": _gate_not_transposed,
     "second_shard_skipped": _second_shard_skipped,
 }
+def _unpark_one_late(engine):
+    """The unpark's suffix written (and its positions taken) one position
+    after the parked length."""
+    real = engine.DecodeEngine._unpark_admit
+
+    def planted(self, pslots, pos0, *rest):
+        return real(self, pslots, pos0 + 1, *rest)
+    return engine.DecodeEngine, "_unpark_admit", planted
+
+
+def _chunk_logits_at_last_slot(engine):
+    """The final chunk's first-token logits taken at the chunk's last slot
+    (a pad slot when the chunk is partial), not its last real token."""
+    def planted(self, ids, mask):
+        out = self.model(self._dev(ids), None,
+                         attention_mask=self._dev(mask), cache=self._stage)
+        self._stage = out.cache
+        return out.logits[:, -1]
+    return engine.DecodeEngine, "_chunk_prefill", planted
+
+
+def _park_key_without_pixels(engine):
+    """Parked conversations keyed by their tokens alone: a follow-up with
+    another image reuses the first image's row."""
+    return engine.DecodeEngine, "_px_hash", staticmethod(lambda px: None)
+
+
+# Python faults of the engine's features, each a function of the engine
+# module -> (object, attribute, planted value), caught by
+# chip_smoke.small_engine_features_check
+ENGINE_FAULTS = {
+    "unpark_suffix_one_late": _unpark_one_late,
+    "chunk_logits_at_last_slot": _chunk_logits_at_last_slot,
+    "park_key_without_pixel_hash": _park_key_without_pixels,
+}
+# the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
+FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
 K34_CHECK_M = {"small_m_matmul": (1, 8), "quant_small_m_matmul": (1, 8, 40),
                "quant_small_m_matmul_int4": (1, 8, 40, 128)}
@@ -371,6 +419,58 @@ def checkpoint_ok(fault=None):
         setattr(module, attr, planted)
     try:
         cs.small_checkpoint_check(0)
+        return True, "passes"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+
+
+def _planted(fault):
+    """Plant the ENGINE_FAULTS fault `fault` (None: nothing); returns the
+    undo (object, attribute, honest value) or None."""
+    from competesmoe_tpu_torch.serve import engine
+
+    if fault is None:
+        return None
+    obj, attr, planted = ENGINE_FAULTS[fault](engine)
+    undo = (obj, attr, obj.__dict__[attr])
+    setattr(obj, attr, planted)
+    return undo
+
+
+def full_multiturn_ok(model, fault=None):
+    """(passed, message) of chip_smoke's multi-turn check on the full-size
+    `model` through FEATURES' engine, with `fault` planted for its
+    duration. Any exception counts as caught."""
+    import numpy as np
+
+    undo = _planted(fault)
+    engine = cs.record_first_logits(cs.features_engine(model))
+    path = cs.MainPath(model.language_model)
+    try:
+        r = cs.multiturn_check(model, engine, np.random.default_rng(11),
+                               path)
+        return True, (f"passes (first-token gaps "
+                      f"{[round(g, 4) for g in r['first_logits_gap']]})")
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        engine.shutdown()
+        path.fw.remove()
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def engine_features_ok(fault=None):
+    """(passed, message) of chip_smoke's small engine-features check, with
+    the ENGINE_FAULTS fault `fault` planted for its duration. Any
+    exception counts as caught."""
+    undo = _planted(fault)
+    try:
+        cs.small_engine_features_check(0)
         return True, "passes"
     except Exception as e:  # noqa: BLE001 - any failure is the catch
         return False, f"{type(e).__name__}: {str(e)[:140]}"
@@ -508,6 +608,37 @@ def main():
                    f"({msg})")
             if ok:
                 failures.append(f"fault {name} passed the checkpoint check")
+        ok, msg = engine_features_ok()
+        report["honest_engine_features"] = msg
+        cs.log(f"honest small engine-features check: {msg}")
+        if not ok:
+            failures.append(f"honest engine-features check: {msg}")
+        for name in ENGINE_FAULTS:
+            ok, msg = engine_features_ok(name)
+            report["faults"][name] = dict(
+                failed={"engine_features": not ok}, engine_features=msg)
+            cs.log(f"{name}: small engine-features check -> "
+                   f"{_verdict(ok)} ({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the engine-features "
+                                f"check")
+        model = cs.build_served("int4", 0, "cuda")
+        ok, msg = full_multiturn_ok(model)
+        report["honest_full_multiturn"] = msg
+        cs.log(f"honest full-size multi-turn check: {msg}")
+        if not ok:
+            failures.append(f"honest full-size multi-turn check: {msg}")
+        for name in FULL_SIZE_ENGINE_FAULTS:
+            ok, msg = full_multiturn_ok(model, name)
+            report["faults"][name]["failed"]["full_multiturn"] = not ok
+            report["faults"][name]["full_multiturn"] = msg
+            cs.log(f"{name}: full-size multi-turn check -> {_verdict(ok)} "
+                   f"({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the full-size "
+                                f"multi-turn check")
+        del model
+        cs.free_card()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("faults " + json.dumps(report), flush=True)

@@ -94,16 +94,42 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      224 px image) and 4 more once slots retire, 32 new tokens each (the
      int4 engine of 6 too); K3, K4 or K5 launches must equal 4 x 32 x the
      forwards whose rows the kernel takes, every other kernel 0;
-  9. with --profile: torch.profiler over two more training steps (with
+  9. the engine's features (main path of the serving features), on 6's
+     loaded --load-4bit --kv-quant int8 model, through engines built as
+     the worker builds them with --engine-slots 8 --engine-max-len 2048
+     --speculative 4 --spec-adaptive --engine-prefix-cache 4
+     --engine-prefill-chunk 128 --engine-warmup 32,128,256 (FEATURES):
+     warmup's programs and seconds and an 8-request burst's TTFT with and
+     without it; 4 two-turn conversations (4 prefix-cache hits, turn 2's
+     first-token logits and tokens against an engine without the cache);
+     a 1,536-token prompt beside 6 live streams (its first-token logits
+     against the model's own cache filled in the same chunks, its tokens
+     against an unchunked engine's, the longest gap of a live stream with
+     and without chunking); adaptive speculation on a repetitive and a
+     random mix (the random one must suppress verify ticks); the
+     controller, a worker on the engine and the OpenAI API over HTTP (3
+     chat completions against the engine's own output). First-token
+     logits agree within 3% of the reference's largest where both sides
+     take K5; streams of one prompt on two engines may part only where
+     the top-2 margin is within 3% of the largest logit of the stream so
+     far. The reference engines and forwards run outside the main path's
+     windows: K5 launches on the main path must equal 4 x 32 x its viable
+     forwards (chunks and unparks included), K3 and K4 0. Before 6,
+     `small_engine_features_check`
+     holds chunked prefill and the prefix cache on a small int4 model
+     against engines without them (chip_faults.py plants three faults
+     against it);
+ 10. with --profile: torch.profiler over two more training steps (with
      K1's and K2's shares of a step by name), over decode steps of the
      served model and over engine ticks (with K3's, K4's or K5's share;
      device busy share and the kernels that take the time).
-Each main path is driven with every launch count set to 0 just before it
-and read just after. The last lines are the kernels JSON, the card line
-and the result JSON.
+Each main path (or each window of one) is driven with every launch count
+set to 0 just before it and read just after. The last lines are the
+kernels JSON, the card line and the result JSON.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1419,15 +1445,19 @@ def small_m_summary(rows, name, launches, max_err, m):
 
 
 class ForwardRows:
-    """Records (batch, length) of every forward of a decoder, from a
-    forward pre-hook: the forwards a phase must account for."""
+    """Records (batch, length) of every forward of a decoder while
+    `active`, from a forward pre-hook: the forwards a phase must account
+    for."""
 
     def __init__(self, decoder):
         self.rows = []
+        self.active = True
         self._h = decoder.register_forward_pre_hook(self._hook,
                                                     with_kwargs=True)
 
     def _hook(self, module, args, kwargs):
+        if not self.active:
+            return
         x = args[0] if args and args[0] is not None else (
             kwargs.get("input_ids") if kwargs.get("input_ids") is not None
             else kwargs["inputs_embeds"])
@@ -1530,11 +1560,9 @@ def small_engine_check(kind: str, seed: int):
     same weights on the CPU: decode logits of a teacher-forced stream
     within 3% of their largest magnitude; the same 6 greedy requests
     through DecodeEngine(n_slots=4, spec_k=2) give equal streams, or,
-    where they part, the CPU's top-2 margin at that step lies within that
-    tolerance; the card's K3/K4/K5 launches equal the count its forwards'
-    shapes call for."""
-    import torch
-
+    where they part, the CPU's top-2 margin at that step lies within 3%
+    of the largest logit of the stream so far (`agree`); the card's
+    K3/K4/K5 launches equal the count its forwards' shapes call for."""
     from competesmoe_tpu_torch.models.llava import LlavaModel
     from competesmoe_tpu_torch.serve.engine import DecodeEngine
 
@@ -1555,24 +1583,10 @@ def small_engine_check(kind: str, seed: int):
         engine = DecodeEngine(model, n_slots=4, max_len=128, spec_k=2,
                               run_thread=False)
         streams[key] = drive_ticks(engine, reqs, 12)
-    parted = []
-    for (rids, rpx), a, b in zip(reqs, streams["card"], streams["cpu"]):
-        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if j is None:
-            if len(a) != len(b):
-                raise AssertionError(f"stream lengths {len(a)} != {len(b)}")
-            continue
-        full = np.concatenate([rids, np.asarray(b[:j], np.int32)])[None]
-        with torch.no_grad():
-            last = cpu(torch.as_tensor(full), None if rpx is None
-                       else torch.as_tensor(rpx)).logits[0, -1].float()
-        top2 = last.topk(2).values
-        margin = float(top2[0] - top2[1])
-        parted.append(dict(step=j, margin=margin))
-        if margin > tol:
-            raise AssertionError(f"small {kind} engine streams part at step "
-                                 f"{j} where the CPU's top-2 margin {margin}"
-                                 f" exceeds the logit tolerance {tol}")
+    parted = [agree(cpu, rids, rpx, a, b, f"small {kind} engine request {i}")
+              for i, ((rids, rpx), a, b) in enumerate(
+                  zip(reqs, streams["card"], streams["cpu"]))]
+    parted = [p for p in parted if p]
     fw.remove()
     counts = {k: v - counts0[k] for k, v in read_counts().items()}
     want = matvec_launches(gpu.language_model, fw.rows)
@@ -1779,6 +1793,776 @@ def phase_engine_server(model):
                              "K4")
 
 
+# ---------------------------------------------------------------------------
+# The engine's features: prefix cache, chunked prefill, adaptive
+# speculation, warmup, and the front ends over HTTP
+# ---------------------------------------------------------------------------
+
+# the worker's --engine-slots 8 --engine-max-len 2048 --speculative 4
+# --spec-adaptive --engine-prefix-cache 4 --engine-prefill-chunk 128
+FEATURES = dict(engine_slots=8, engine_max_len=2048, speculative=4,
+                engine_pipeline=2, prefix_cache=4, prefill_chunk=128,
+                spec_adaptive=True)
+WARMUP_BUCKETS = (32, 128, 256)
+
+
+def features_engine(model, **over):
+    """The DecodeEngine the worker builds with FEATURES' flags (`over`
+    replaces some of them), through make_engine."""
+    from competesmoe_tpu_torch.serve.model_worker import make_engine
+    return make_engine(model, **dict(FEATURES, **over))
+
+
+def settle(engine):
+    """Wait until the engine thread comes round to an idle tick: every
+    forward of the requests it served has been launched."""
+    engine._idle.clear()
+    if not engine._idle.wait(timeout=60) or engine.error is not None:
+        raise AssertionError(f"the engine did not come to rest: "
+                             f"{engine.error!r}")
+
+
+class MainPath:
+    """A phase's main path when comparison runs interleave with it: each
+    `window(engine)` sets every launch count to 0 as it opens and reads
+    the counts as it closes (once `engine` is at rest), adding them up;
+    the decoder's forwards are recorded only inside a window."""
+
+    def __init__(self, decoder):
+        self.counts = dict.fromkeys(read_counts(), 0)
+        self.fw = ForwardRows(decoder)
+        self.fw.active = False
+
+    @contextlib.contextmanager
+    def window(self, engine):
+        reset_counts()
+        self.fw.active = True
+        try:
+            yield
+            settle(engine)
+        finally:
+            self.fw.active = False
+            for k, v in read_counts().items():
+                self.counts[k] += v
+
+
+def padded_forward(model, ids, cache, width: int):
+    """One forward of the text tokens `ids` continuing `cache`, padded to
+    `width` rows with mask 0 (the pads write to the cache's dump slot),
+    as the engine pads a chunk or a suffix; returns (the logits of the
+    last real token, the cache)."""
+    import torch
+
+    dev = model.device
+    x = np.zeros((1, width), np.int64)
+    x[0, :len(ids)] = ids
+    mask = (np.arange(width) < len(ids)).astype(np.int64)[None]
+    with torch.no_grad():
+        out = model(torch.as_tensor(x, device=dev), None,
+                    attention_mask=torch.as_tensor(mask, device=dev),
+                    cache=cache)
+    return out.logits[0, len(ids) - 1].float().cpu(), out.cache
+
+
+def chunked_first_logits(model, ids, chunk: int):
+    """The next-token logits after a text prompt prefilled through the
+    model's own KV cache (of the model's kind, sized to the prompt plus a
+    dump slot) in forwards of `chunk` tokens, the last one padded: the
+    route of the engine's chunked prefill (K5 at M `chunk`) without its
+    staging row, slot and splice."""
+    from competesmoe_tpu_torch.models.decoder import KVCache
+
+    ids = np.asarray(ids, np.int64)
+    cache = KVCache.create(model.language_model.cfg, 1, len(ids) + 1,
+                           model.device)
+    for i in range(0, len(ids), chunk):
+        last, cache = padded_forward(model, ids[i:i + chunk], cache, chunk)
+    return last
+
+
+def parked_rows(engine, convs):
+    """Copies of the parked rows of finished conversations [(prompt,
+    answer)]: each found by the key prompt + answer[:-1] (the last token
+    was never fed) and held to the length that key implies. Returns
+    [(KVCache of the one row at that length, length)]."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import KVCache
+
+    park, rows = engine._park, []
+    for ids, answer in convs:
+        key = tuple(int(t) for t in ids) + tuple(int(t) for t in answer[:-1])
+        found = [i for i, m in enumerate(engine._park_meta)
+                 if m is not None and m["ids"] == key]
+        if len(found) != 1 or engine._park_meta[found[0]]["len"] != len(key):
+            raise AssertionError(f"a conversation of {len(key)} tokens is "
+                                 f"parked {len(found)} times, or at another "
+                                 f"length")
+        sl = slice(found[0], found[0] + 1)
+        rows.append((KVCache(
+            k=park.k[:, sl].clone(), v=park.v[:, sl].clone(),
+            pos=torch.tensor([len(key)], device=park.k.device),
+            k_scale=(None if park.k_scale is None
+                     else park.k_scale[:, sl].clone()),
+            v_scale=(None if park.v_scale is None
+                     else park.v_scale[:, sl].clone())), len(key)))
+    return rows
+
+
+def continued_first_logits(model, row, n_parked: int, ids):
+    """The next-token logits after `ids`, continued from a copy of its
+    parked row (`n_parked` positions) by one forward of the suffix padded
+    to a power of two of at least 32 rows: the route of the engine's
+    unpark (K5, whose rows do not depend on the others of a launch)
+    without its gather, group and splice."""
+    suffix = np.asarray(ids[n_parked:], np.int64)
+    width = max(32, 1 << (len(suffix) - 1).bit_length())
+    return padded_forward(model, suffix, row, width)[0]
+
+
+def reference_margin(model, ids, px, tokens):
+    """(top-2 margin, tolerance) of the model's next-token logits after
+    `ids` + `tokens`, from one forward through a KV cache of the model's
+    own kind (int8 where it serves int8); the tolerance is 3% of the
+    largest logit magnitude over the rows that predict the stream's
+    tokens up to this one (the rule of the small engine checks: 3% of
+    the largest magnitude over a stream's logit rows)."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import KVCache
+
+    dev = model.device
+    full = np.concatenate([np.asarray(ids, np.int64),
+                           np.asarray(tokens, np.int64)])[None]
+    n_img = int(np.sum(full == -200))         # image sentinels
+    length = full.shape[1] + n_img * (model.cfg.num_image_tokens - 1)
+    cache = KVCache.create(model.language_model.cfg, 1, length + 1, dev)
+    with torch.no_grad():
+        rows = model(torch.as_tensor(full, device=dev),
+                     None if px is None else torch.as_tensor(px, device=dev),
+                     cache=cache).logits[0, -(len(tokens) + 1):].float()
+    top2 = rows[-1].topk(2).values
+    return float(top2[0] - top2[1]), 0.03 * float(rows.abs().max())
+
+
+def agree(model, ids, px, got, want, what: str):
+    """Two greedy streams of one prompt: None when equal; else they may
+    part only where the reference stream's (`want`'s) top-2 margin lies
+    within the logit tolerance (a near tie that a different kernel shape
+    or tick kind may break either way). Returns the parting step, margin
+    and tolerance, or raises."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None)
+    if j is None:
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: stream lengths {len(got)} != "
+                                 f"{len(want)}")
+        return None
+    margin, tol = reference_margin(model, ids, px, want[:j])
+    if margin > tol:
+        raise AssertionError(f"{what}: the streams part at step {j} where "
+                             f"the top-2 margin {margin:.4g} exceeds the "
+                             f"tolerance {tol:.4g}")
+    return dict(step=j, margin=margin, tol=tol)
+
+
+def prompt_key(ids, px):
+    return (np.asarray(ids, np.int32).tobytes(),
+            None if px is None else np.asarray(px).tobytes())
+
+
+def record_first_logits(engine):
+    """Make `engine` record each admitted request's first-token logits
+    (what `_insert` samples from) in `engine.first_logits`, by prompt and
+    image; returns the engine."""
+    engine.first_logits, pending = {}, []
+    insert, emit = engine._insert, engine._emit_admission
+
+    def recording_insert(rows, slots, last, temps, topps):
+        pending.append(last.float().cpu())
+        return insert(rows, slots, last, temps, topps)
+
+    def recording_emit(toks, reqs):
+        last = pending.pop()
+        for i, r in enumerate(reqs):
+            engine.first_logits[prompt_key(r.ids, r.pixel_values)] = last[i]
+        return emit(toks, reqs)
+
+    engine._insert, engine._emit_admission = recording_insert, recording_emit
+    return engine
+
+
+def first_logits(engine, ids, px=None):
+    """One prompt's first-token logits as `engine` recorded them."""
+    return engine.first_logits[prompt_key(ids, px)]
+
+
+def logits_gap(got, want):
+    """(max |got - want|, 3% of the largest |want|)."""
+    return float((got - want).abs().max()), 0.03 * float(want.abs().max())
+
+
+def hold_gaps(gaps, what: str):
+    for i, (g, t) in enumerate(gaps):
+        if not g <= t:
+            raise AssertionError(f"{what} {i}: first-token logits differ by "
+                                 f"{g:.4g} > {t:.4g} (3% of the largest)")
+
+
+def timed_clients(engine, reqs, max_new: int, started=None):
+    """Submit each (ids, px) from its own thread at once: per request its
+    tokens, submit time and each token's arrival time (filled in as they
+    come). `started`, when given, is set once every stream has its first
+    token."""
+    import threading
+
+    out = [dict(tokens=[], t_sub=0.0, times=[]) for _ in reqs]
+
+    def client(i):
+        ids, px = reqs[i]
+        o = out[i]
+        o["t_sub"] = time.perf_counter()
+        for tok in engine.submit(ids, px, max_new_tokens=max_new):
+            o["times"].append(time.perf_counter())
+            o["tokens"].append(tok)
+            if started is not None and all(x["times"] for x in out):
+                started.set()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    return threads, out
+
+
+def join_clients(engine, threads, out, what: str):
+    for th in threads:
+        th.join(timeout=900)
+    if engine.error is not None or any(th.is_alive() for th in threads):
+        raise AssertionError(f"{what}: engine error {engine.error!r} or a "
+                             f"client still waiting")
+    return out
+
+
+def ttfts_ms(out):
+    return sorted((o["times"][0] - o["t_sub"]) * 1e3 for o in out)
+
+
+def text_prompts(rng, vocab: int, n: int, lengths):
+    return [(rng.integers(3, vocab, int(rng.integers(*lengths)))
+             .astype(np.int32), None) for _ in range(n)]
+
+
+def burst_ttft(engine, reqs, what):
+    threads, out = timed_clients(engine, reqs, 16)
+    out = join_clients(engine, threads, out, what)
+    t = ttfts_ms(out)
+    return dict(ttft_p50_ms=statistics.median(t), ttft_max_ms=t[-1])
+
+
+def longest_gap_ms(engine, shorts, long_req, max_new_short: int,
+                   what: str):
+    """6 short streams decode; once each has its first token the long
+    prompt is submitted. Returns (the long prompt's tokens, the longest
+    gap between two tokens of a short stream while the long prompt waited
+    for its first token, in ms, the long prompt's TTFT in ms)."""
+    import threading
+
+    started = threading.Event()
+    threads, out = timed_clients(engine, shorts, max_new_short, started)
+    if not started.wait(timeout=600):
+        raise AssertionError(f"{what}: the short streams never started")
+    lthreads, lout = timed_clients(engine, [long_req], 16)
+    join_clients(engine, lthreads, lout, what)
+    join_clients(engine, threads, out, what)
+    t0, t1 = lout[0]["t_sub"], lout[0]["times"][0]
+    gaps = [b - a for o in out for a, b in zip(o["times"], o["times"][1:])
+            if b >= t0 and a <= t1]
+    if not gaps:
+        raise AssertionError(f"{what}: no short stream was live while the "
+                             f"long prompt prefilled")
+    return lout[0]["tokens"], max(gaps) * 1e3, (t1 - t0) * 1e3
+
+
+def tick_cost(model, max_len: int, seed: int, ticks: int = 8):
+    """torch.profiler over `ticks` plain engine ticks with 8 live slots at
+    `max_len` (each tick ends in its tokens' read, which waits for the
+    device): host and device-kernel ms per tick (`_busy`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    engine = DecodeEngine(model, n_slots=8, max_len=max_len,
+                          run_thread=False)
+    rng = np.random.default_rng(seed)
+    for ids, px in text_prompts(rng, model.cfg.decoder.vocab_size, 8,
+                                (20, 40)):
+        engine._make_request(ids, px, max_new_tokens=64)
+    with torch.no_grad():
+        for _ in range(3):
+            engine._tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                engine._tick()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    engine.shutdown()
+    return _busy(prof, wall, ticks, f"engine-tick (max_len {max_len})")
+
+
+def route_gap(model, seed: int):
+    """Last-position logits of one 100-token prompt through the int4
+    projections' two routes: alone (100 rows: K5) and as the first of two
+    copies (200 rows: the plain formula, weights rounded to bf16 after
+    the scale). Returns (max |K5 - plain|, 3% of the largest |plain|)."""
+    import torch
+
+    ids = np.random.default_rng(seed).integers(
+        3, model.cfg.decoder.vocab_size, (1, 100))
+    x = torch.as_tensor(ids, device=model.device)
+    with torch.no_grad():
+        one = model(x, None).logits[0, -1].float()
+        two = model(x.repeat(2, 1), None).logits[0, -1].float()
+    return float((one - two).abs().max()), 0.03 * float(two.abs().max())
+
+
+def multiturn_check(model, engine, rng, path):
+    """4 text conversations on `engine` (FEATURES' prefix cache; turn 1:
+    150-250 tokens, 32 new; turn 2: turn 1, its answer and 40 new tokens,
+    two conversations at a time, so each unpark is at most 2 x 64 rows),
+    their traffic in windows of the main `path`: each conversation parked
+    once at the length its key implies; 4 prefix-cache hits; turn 2's
+    first-token logits within 3% of its parked row continued by the
+    model's own forward (`continued_first_logits`); its tokens against an
+    engine without a prefix cache (`agree`), whose first-token logits are
+    printed beside. Returns the numbers."""
+    import threading
+
+    vocab = model.cfg.decoder.vocab_size
+    turn1 = text_prompts(rng, vocab, 4, (150, 251))
+    with path.window(engine):
+        threads, out1 = timed_clients(engine, turn1, 32)
+        out1 = join_clients(engine, threads, out1, "turn 1")
+    turn2 = [(np.concatenate([ids, np.asarray(o["tokens"], np.int32),
+                              rng.integers(3, vocab, 40).astype(np.int32)]),
+              None) for (ids, _), o in zip(turn1, out1)]
+    parked = parked_rows(engine, [(ids, o["tokens"])
+                                  for (ids, _), o in zip(turn1, out1)])
+    hits0 = engine.stats()["engine_prefix_cache_hits"]
+    with path.window(engine):
+        started = threading.Event()
+        threads, out2 = timed_clients(engine, turn2[:2], 32, started)
+        if not started.wait(timeout=600):
+            raise AssertionError("turn 2: the first two never started")
+        later, out2b = timed_clients(engine, turn2[2:], 32)
+        out2 = (join_clients(engine, threads, out2, "turn 2")
+                + join_clients(engine, later, out2b, "turn 2"))
+    hits = engine.stats()["engine_prefix_cache_hits"] - hits0
+    if hits != 4:
+        raise AssertionError(f"multi-turn: {hits} prefix-cache hits, not 4")
+    gaps = [logits_gap(first_logits(engine, ids),
+                       continued_first_logits(model, row, n, ids))
+            for (row, n), (ids, _) in zip(parked, turn2)]
+    del parked
+    hold_gaps(gaps, "turn 2 (against its parked row) of conversation")
+    cold = record_first_logits(features_engine(model, prefix_cache=0))
+    threads, ref2 = timed_clients(cold, turn2, 32)
+    ref2 = join_clients(cold, threads, ref2, "turn 2 without the cache")
+    cold_gaps = [logits_gap(first_logits(engine, ids),
+                            first_logits(cold, ids))[0] for ids, _ in turn2]
+    cold.shutdown()
+    del cold
+    free_card()
+    parted = [agree(model, ids, None, o["tokens"], r["tokens"],
+                    f"turn 2 of conversation {i}")
+              for i, ((ids, _), o, r) in enumerate(zip(turn2, out2, ref2))]
+    t_hit, t_cold = ttfts_ms(out2), ttfts_ms(ref2)
+    res = dict(
+        hits=hits, turn1_lengths=[len(i) for i, _ in turn1],
+        turn2_lengths=[len(i) for i, _ in turn2],
+        turn2_ttft_cache_ms=t_hit, turn2_ttft_no_cache_ms=t_cold,
+        parted=[p for p in parted if p],
+        first_logits_gap=[g for g, _ in gaps],
+        first_logits_tol=[t for _, t in gaps],
+        first_logits_gap_no_cache=cold_gaps)
+    log(f"engine features: multi-turn {hits} prefix hits; turn-2 TTFT "
+        f"p50 {statistics.median(t_hit):.1f} ms with the cache, "
+        f"{statistics.median(t_cold):.1f} ms without (prompts "
+        f"{res['turn2_lengths']} tokens); first-token logits "
+        f"apart from their parked rows' continuation by "
+        f"{[f'{g:.4g}' for g, _ in gaps]} (3% of the largest: "
+        f"{[f'{t:.4g}' for _, t in gaps]}), from the engine without the "
+        f"cache by {[f'{g:.4g}' for g in cold_gaps]}; streams equal "
+        f"{sum(p is None for p in parted)}/4, parted "
+        f"{res['parted']}")
+    return res
+
+
+def phase_engine_features(seed: int, model):
+    """The serving slice's engine features on `model` (the 5.1B checkpoint
+    loaded with --load-4bit --kv-quant int8), through engines built as
+    the worker builds them with FEATURES' flags:
+    1. warmup(WARMUP_BUCKETS): its programs and seconds; the TTFT of an
+       8-request burst on a fresh engine without warmup, then on the
+       warmed engine;
+    2. multi-turn: 4 text conversations (turn 1: 150-250 tokens, 32 new;
+       turn 2: turn 1, its answer and 40 new tokens, two conversations at
+       a time): each parked once at the length its key implies, 4
+       prefix-cache hits; turn 2's first-token logits against its parked
+       row continued by the model's own forward, its tokens against an
+       engine without a prefix cache, TTFT with and without;
+    3. long prompt: a 1,536-token prompt (12 chunks of 128) submitted
+       while 6 short streams decode: its first-token logits against the
+       model's own cache filled in the same chunks, its tokens against an
+       unchunked engine's, and the longest gap of a live stream with and
+       without chunking;
+    4. adaptive speculation: 8 repetitive and 8 random prompts, each mix
+       on a fresh engine: tok/s and suppressed verify ticks;
+    5. the controller, a worker on the warmed engine and the OpenAI API
+       over HTTP on 127.0.0.1: 3 chat completions (one streamed), their
+       text against the engine's own output for the rendered prompts.
+    First-token logits of a featured admission and its reference, which
+    take the same projection route (K5, padded as the engine pads) from
+    the same cache contents, agree within 3% of the reference's largest
+    magnitude; against an engine without the feature they are printed
+    only (its K/V of the answer came from chunks, not decode ticks, and
+    a 32-layer model with random weights carries that difference to the
+    logits). Streams
+    of one prompt on two engines may part only where the top-2 margin is
+    within the logit tolerance (`agree`). The main path is the FEATURES
+    engines' own traffic (1 after the fresh engine, 2-5 without their
+    references), read in windows (`MainPath`): K5 launches must equal 4 x
+    32 x its viable forwards, K3 and K4 0."""
+    vocab = model.cfg.decoder.vocab_size
+    L = model.cfg.decoder.num_hidden_layers
+    chunk = FEATURES["prefill_chunk"]
+    rng = np.random.default_rng(seed + 11)
+    res = dict(card=card_line(), flags=FEATURES)
+    path = MainPath(model.language_model)
+    t_phase = time.perf_counter()
+
+    # 1. warmup, and a burst's TTFT without and with it
+    burst = text_prompts(rng, vocab, 8, (100, 250))
+    fresh = features_engine(model)
+    res["burst_no_warmup"] = burst_ttft(fresh, burst, "burst (no warmup)")
+    fresh.shutdown()
+    del fresh
+    free_card()
+    engine = record_first_logits(features_engine(model))
+    with path.window(engine):
+        w = engine.warmup(prompt_buckets=WARMUP_BUCKETS)
+        res["burst_after_warmup"] = burst_ttft(engine, burst,
+                                               "burst (after warmup)")
+    res["warmup"] = dict(programs=w["programs"], seconds=w["seconds"])
+    log(f"engine features ({res['card']}): warmup "
+        f"{len(w['programs'])} programs in {w['seconds']} s: "
+        f"{w['programs']}")
+    log(f"engine features: 8-request burst TTFT p50/max "
+        f"{res['burst_no_warmup']['ttft_p50_ms']:.1f}/"
+        f"{res['burst_no_warmup']['ttft_max_ms']:.1f} ms on a fresh engine "
+        f"without warmup, {res['burst_after_warmup']['ttft_p50_ms']:.1f}/"
+        f"{res['burst_after_warmup']['ttft_max_ms']:.1f} ms after warmup")
+
+    # 2. multi-turn through the prefix cache
+    res["multiturn"] = multiturn_check(model, engine, rng, path)
+
+    # 3. a long prompt beside live streams, chunked and not
+    shorts = text_prompts(rng, vocab, 6, (30, 61))
+    long_req = (rng.integers(3, vocab, 1536).astype(np.int32), None)
+    with path.window(engine):
+        got, gap, ttft = longest_gap_ms(engine, shorts, long_req, 64,
+                                        "long prompt (chunked)")
+    lgap, ltol = logits_gap(first_logits(engine, long_req[0]),
+                            chunked_first_logits(model, long_req[0], chunk))
+    hold_gaps([(lgap, ltol)], "the long prompt")
+    unchunked = record_first_logits(features_engine(model,
+                                                    prefill_chunk=0))
+    want, gap0, ttft0 = longest_gap_ms(unchunked, shorts, long_req, 64,
+                                       "long prompt (unchunked)")
+    ugap, _ = logits_gap(first_logits(engine, long_req[0]),
+                         first_logits(unchunked, long_req[0]))
+    unchunked.shutdown()
+    del unchunked
+    free_card()
+    part = agree(model, long_req[0], None, got, want, "the long prompt")
+    res["long_prompt"] = dict(
+        tokens=1536, chunks=1536 // chunk,
+        longest_gap_chunked_ms=gap, longest_gap_unchunked_ms=gap0,
+        ttft_chunked_ms=ttft, ttft_unchunked_ms=ttft0, parted=part,
+        first_logits_gap=lgap, first_logits_tol=ltol,
+        first_logits_gap_unchunked=ugap)
+    log(f"engine features: 1,536-token prompt beside 6 live streams: "
+        f"longest gap of a live stream {gap:.1f} ms chunked (12 x 128), "
+        f"{gap0:.1f} ms unchunked; its TTFT {ttft:.1f} / {ttft0:.1f} ms; "
+        f"first-token logits apart from the chunked reference by "
+        f"{lgap:.4g} (3%: {ltol:.4g}), from the unchunked engine (the "
+        f"plain int4 formula) by {ugap:.4g}; tokens "
+        f"{'equal' if part is None else f'parted {part}'}")
+
+    # 4. adaptive speculation on two mixes
+    res["adaptive"] = {}
+    mixes = {"repetitive": engine_requests(rng, vocab, 8, 0, 224,
+                                           lengths=(40, 120)),
+             "random": text_prompts(rng, vocab, 8, (40, 120))}
+    for mix, reqs in mixes.items():
+        eng = features_engine(model)
+        with path.window(eng):
+            t0 = time.perf_counter()
+            threads, out = timed_clients(eng, reqs, 48)
+            out = join_clients(eng, threads, out, f"{mix} mix")
+            wall = time.perf_counter() - t0
+        st = eng.stats()
+        eng.shutdown()
+        n = sum(len(o["tokens"]) for o in out)
+        res["adaptive"][mix] = dict(
+            tokens=n, wall_s=wall, tok_s=n / wall,
+            suppressed_ticks=st["engine_spec_suppressed_ticks"],
+            verify_calls=st["engine_spec_verify_calls"],
+            tokens_per_verify=st["engine_spec_tokens_per_step"],
+            tps_verify=st["engine_spec_tps_verify"],
+            tps_plain=st["engine_spec_tps_plain"])
+        log(f"engine features: {mix} mix, 8 x 48 tokens: "
+            f"{n / wall:.1f} tok/s, {st['engine_spec_verify_calls']} "
+            f"verify ticks ({st['engine_spec_tokens_per_step']} tokens "
+            f"each), {st['engine_spec_suppressed_ticks']} suppressed")
+    del eng
+    free_card()
+    if res["adaptive"]["random"]["suppressed_ticks"] == 0:
+        raise AssertionError("the random mix suppressed no verify tick")
+
+    # 5. the front ends over HTTP
+    res["http"] = phase_frontends(model, engine, path)
+    engine.shutdown()
+    del engine
+    free_card()
+    counts, rows_fw = path.counts, path.fw.rows
+    path.fw.remove()
+    want_k5 = matvec_launches(model.language_model, rows_fw)
+    if counts["quant_small_m_matmul_int4"] != want_k5 or \
+            sum(counts.values()) != want_k5:
+        raise AssertionError(f"engine features launches {counts}: K5 must "
+                             f"be {want_k5} (4 x {L} x viable forwards), "
+                             f"the others 0")
+    rows = {}
+    for b, t in rows_fw:
+        rows[b * t] = rows.get(b * t, 0) + 1
+    res.update(launches=want_k5, forwards=len(rows_fw),
+               rows=dict(sorted(rows.items())),
+               seconds=time.perf_counter() - t_phase)
+    log(f"engine features: K5 launches on the main path {want_k5} = 4 x "
+        f"{L} x {want_k5 // (4 * L)} viable forwards of {len(rows_fw)} (M: "
+        f"{res['rows']}); phase {res['seconds']:.1f} s")
+    res["tick"] = {ml: tick_cost(model, ml, seed) for ml in (512, 2048)}
+    res["route_gap"] = route_gap(model, seed)
+    log(f"engine features: a plain tick with 8 live slots: host "
+        + ", ".join(f"{t['wall_ms_per_step']:.1f} ms with "
+                    f"{t['device_ms_per_step']:.2f} ms of kernels at "
+                    f"max_len {ml}" for ml, t in res["tick"].items())
+        + f"; one prompt's logits through K5 (100 rows) and the plain "
+        f"int4 formula (200 rows) apart by {res['route_gap'][0]:.4g} (3%: "
+        f"{res['route_gap'][1]:.4g})")
+    return res
+
+
+def phase_frontends(model, engine, path):
+    """The port's controller, a model worker on `engine` registered with
+    it, and the OpenAI API, all on 127.0.0.1, with phase_server's stand-in
+    tokenizer: 3 chat completions one after another (the second
+    streamed), in a window of the main `path`. The worker's submissions
+    are recorded: each completion's text must be its tokens' text, and
+    its tokens must agree with the engine's own output for the rendered
+    prompt, asked for after the HTTP requests (outside the window)
+    through the same generate function."""
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    from competesmoe_tpu_torch.serve.controller import serve_controller
+    from competesmoe_tpu_torch.serve.model_worker import (ModelWorker,
+                                                          engine_generate_fn,
+                                                          serve_worker)
+    from competesmoe_tpu_torch.serve.openai_api import (_render_prompt,
+                                                        serve_openai_api)
+
+    tok = WordTok(model.cfg.decoder.vocab_size)
+    adapter = TorchLlava(model, tok, max_new_tokens=16)
+    submitted, submit = [], engine.submit
+
+    def recording_submit(ids, *args, **kwargs):
+        toks = []
+        submitted.append((np.asarray(ids), toks))
+        for t in submit(ids, *args, **kwargs):
+            toks.append(t)
+            yield t
+
+    engine.submit = recording_submit
+    gen_fn = engine_generate_fn(adapter, engine)
+    ports = []
+    for _ in range(3):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    caddr = f"http://127.0.0.1:{ports[0]}"
+    _, chttpd = serve_controller("127.0.0.1", ports[0], background=True)
+    worker = ModelWorker(caddr, f"http://127.0.0.1:{ports[1]}", ["smoke"],
+                         gen_fn, register=True)
+    whttpd = serve_worker(worker, "127.0.0.1", ports[1], background=True)
+    ohttpd = serve_openai_api(caddr, "127.0.0.1", ports[2],
+                              background=True)
+    api = f"http://127.0.0.1:{ports[2]}/v1/chat/completions"
+    chats = [[{"role": "user", "content": "what color is the cat"}],
+             [{"role": "system", "content": "answer briefly"},
+              {"role": "user", "content": "describe the image please"}],
+             [{"role": "user", "content": "hello there"},
+              {"role": "assistant", "content": "hello how are you"},
+              {"role": "user", "content": "tell me a story"}]]
+    for messages in chats:
+        # every word gets its id now: a later first sight would change
+        # how an emitted id decodes between the HTTP and the direct text
+        tok(_render_prompt("phi35", messages)[0])
+    texts, seconds = [], []
+    try:
+        with path.window(engine):
+            for i, messages in enumerate(chats):
+                body = {"model": "smoke", "messages": messages,
+                        "max_tokens": 16, "temperature": 0.0,
+                        "stream": i == 1}
+                t0 = time.perf_counter()
+                req = urlrequest.Request(
+                    api, data=json.dumps(body).encode(), method="POST",
+                    headers={"Content-Type": "application/json"})
+                with urlrequest.urlopen(req, timeout=300) as r:
+                    raw = r.read().decode()
+                seconds.append(time.perf_counter() - t0)
+                if i == 1:
+                    text = ""
+                    lines = [x[6:] for x in raw.splitlines()
+                             if x.startswith("data: ")]
+                    if lines[-1] != "[DONE]":
+                        raise AssertionError(f"SSE stream without [DONE]: "
+                                             f"{raw[-200:]!r}")
+                    for payload in lines[:-1]:
+                        ch = json.loads(payload)
+                        if "error" in ch:
+                            raise AssertionError(f"SSE error {ch}")
+                        text += ch["choices"][0]["delta"].get("content", "")
+                else:
+                    text = json.loads(raw)["choices"][0]["message"]["content"]
+                texts.append(text)
+    finally:
+        for h in (ohttpd, whttpd, chttpd):
+            h.shutdown()
+            h.server_close()
+    if len(submitted) != 3:
+        raise AssertionError(f"the worker made {len(submitted)} engine "
+                             f"submissions for 3 completions")
+    rows = []
+    for i, messages in enumerate(chats):
+        prompt, images, stop = _render_prompt("phi35", messages)
+        params = {"prompt": prompt, "images": images, "max_new_tokens": 16,
+                  "temperature": 0.0, "stop": [stop]}
+        want_text = list(gen_fn(params))[-1]
+        ids, got = submitted[i]
+        _, want = submitted[3 + i]
+        if list(ids) != adapter.tokenizer_ids_for_prompt(prompt, False):
+            raise AssertionError(f"completion {i}: the worker's prompt is "
+                                 f"not the rendered template's")
+        part = agree(model, ids, None, got, want, f"completion {i}")
+        if part is None and texts[i] != want_text:
+            raise AssertionError(f"completion {i}: HTTP text "
+                                 f"{texts[i]!r} != the engine's "
+                                 f"{want_text!r}")
+        rows.append(dict(chars=len(texts[i]), tokens=len(got),
+                         seconds=seconds[i], equal=texts[i] == want_text,
+                         parted=part))
+    engine.submit = submit
+    log(f"engine features: 3 chat completions over HTTP (controller, "
+        f"worker, OpenAI API; one streamed) in "
+        f"{', '.join(f'{s:.2f}' for s in seconds)} s; equal to the "
+        f"engine's own text: {[r['equal'] for r in rows]}")
+    return rows
+
+
+def small_engine_features_check(seed: int, device: str = "cuda"):
+    """The engine's features on a small int4 model (SMALL_HF; K5 at every
+    projection whose rows it takes) on the card, against engines without
+    them on the card: each request's first-token logits within 3% of the
+    plain admission's largest magnitude, and where streams part, the CPU
+    model's top-2 margin after the reference stream within the same
+    tolerance:
+    - chunked prefill (chunk 16) of three prompts whose last chunk is
+      partial (40, 45 and 61 tokens) beside two short streams, against
+      grouped admission;
+    - the prefix cache (4 slots): three text conversations and one with
+      an image, whose turn 2 each hit, against cold admission; the image
+      conversation's turn 2 with another image, admitted beside them,
+      must not hit, and its tokens must be a cold engine's for that
+      image.
+    Catches an unpark suffix written at the wrong position, a chunk's
+    logits taken at a pad slot and a park key without the pixel hash
+    (chip_faults.py)."""
+    from competesmoe_tpu_torch.models.llava import LlavaModel
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    cpu = build_served("int4", seed, "cpu", small=True)
+    gpu = LlavaModel(cpu.cfg, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 5)
+    px = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
+    px_other = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
+
+    def engine(n_slots=4, **kw):
+        return record_first_logits(DecodeEngine(
+            gpu, n_slots=n_slots, max_len=256, spec_k=2, run_thread=False,
+            **kw))
+
+    def check(reqs, got, want, what, featured, plain):
+        """First-token logits within 3% of the plain admission's largest
+        magnitude, then the streams."""
+        for i, (ids, p) in enumerate(reqs):
+            err, tol = logits_gap(first_logits(featured, ids, p),
+                                  first_logits(plain, ids, p))
+            if not err <= tol:
+                raise AssertionError(f"{what} {i}: first-token logits "
+                                     f"differ by {err:.4g} > {tol:.4g}")
+        for i, ((ids, p), a, b) in enumerate(zip(reqs, got, want)):
+            agree(cpu, ids, p, a, b, f"{what} {i}")
+
+    chunked = ([(rng.integers(3, 512, n).astype(np.int32), None)
+                for n in (40, 45, 61)]
+               + [(rng.integers(3, 512, n).astype(np.int32), None)
+                  for n in (7, 12)])
+    featured, plain = engine(prefill_chunk=16), engine()
+    check(chunked, drive_ticks(featured, chunked, 10),
+          drive_ticks(plain, chunked, 10), "chunked prefill", featured,
+          plain)
+
+    turn1 = [(rng.integers(3, 512, n).astype(np.int32), None)
+             for n in (20, 33, 9)]
+    img = rng.integers(3, 512, 12).astype(np.int32)
+    img[2] = -200
+    turn1.append((img, px))
+    parked = engine(n_slots=5, prefix_cache_slots=4)
+    out1 = drive_ticks(parked, turn1, 6)
+    turn2 = [(np.concatenate([ids, np.asarray(o, np.int32),
+                              rng.integers(3, 512, 5).astype(np.int32)]), p)
+             for (ids, p), o in zip(turn1, out1)]
+    # the image conversation's turn 2 with another image, admitted with
+    # the others while every turn-1 row is still parked
+    turn2.append((turn2[3][0], px_other))
+    got = drive_ticks(parked, turn2, 8)
+    hits = parked.stats()["engine_prefix_cache_hits"]
+    if hits != 4:
+        raise AssertionError(f"prefix cache: {hits} hits for 4 follow-ups "
+                             f"and one with another image (must be 4)")
+    plain = engine()
+    check(turn2, got, drive_ticks(plain, turn2, 8), "unpark", parked, plain)
+    log("small engine features (card, int4, chunk 16 and 4 park slots "
+        "against engines without them): passed")
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -1830,6 +2614,7 @@ def main():
     print("lm_summary " + json.dumps(dict(lm, card=card)), flush=True)
     small_model_check(a.seed)
     small = [small_engine_check("int4", a.seed)]
+    small_engine_features_check(a.seed)
     model, want_tokens = phase_checkpoint(a.seed)
     k5_launches, summary = phase_model(a.seed, model, want_tokens)
     phase_server(model)
@@ -1843,6 +2628,9 @@ def main():
     _, engines["int4"] = phase_engine("int4", a.seed, model=model)
     if a.profile:
         engines["int4"]["profile"] = profile_engine(model, "int4", a.seed)
+    # the same model through the engine's features
+    features = phase_engine_features(a.seed, model)
+    print("engine_features_summary " + json.dumps(features), flush=True)
     del model
     free_card()
     small += [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
@@ -1859,7 +2647,8 @@ def main():
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",
-                 k5_launches + engines["int4"]["launches"], 1),
+                 k5_launches + engines["int4"]["launches"]
+                 + features["launches"], 1),
                 ("small_m_matmul", engines["bf16"]["launches"], 8),
                 ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
     for row in [k1] + [k2[n] for n in ("flash_attention_fwd",

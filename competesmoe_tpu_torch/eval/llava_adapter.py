@@ -1,6 +1,8 @@
 """LLaVA model adapter: the part of competesmoe_tpu/eval/llava_adapter.py
 the serving worker uses (model, tokenizer, image processor, prompt
-tokenization, stop ids). The lmms evaluation interface waits."""
+tokenization, stop ids). The lmms evaluation interface waits, and with
+it the eval prompt built through `conv_template` (the worker receives
+prompts that the OpenAI API or the web chat already templated)."""
 
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Stdlib HTTP: semaphore-limited streaming `/worker_generate_stream` (JSON
 chunks terminated by \\0, FastChat protocol), `/worker_get_status`,
 optional controller registration with a heartbeat thread. Requests stream
 through `stream_generate` one at a time, or, with `--engine-slots`, share
-the batched steps of a `DecodeEngine`. Tensor- and expert-parallel serving
-wait for a later slice.
+the batched steps of a `DecodeEngine` (prefix cache, chunked prefill,
+adaptive speculation and warmup by flag). Tensor- and expert-parallel
+serving wait for ROADMAP §1 item 1.7.
 """
 
 from __future__ import annotations
@@ -210,14 +211,20 @@ def engine_generate_fn(adapter, engine):
 
 
 def make_engine(model, engine_slots: int, engine_max_len: int = 2048,
-                speculative: int = 0, engine_pipeline: int = 2):
+                speculative: int = 0, engine_pipeline: int = 2,
+                prefix_cache: int = 0, prefill_chunk: int = 0,
+                spec_adaptive: bool = False):
     """The DecodeEngine the worker's --engine-slots builds: spec_k =
-    --speculative, pipeline depth --engine-pipeline, forced to 1 under
-    speculation (drafts need the freshest emitted history)."""
+    --speculative (pipeline depth --engine-pipeline, forced to 1 under
+    speculation: drafts need the freshest emitted history),
+    --engine-prefix-cache parked rows, --engine-prefill-chunk and
+    --spec-adaptive."""
     from .engine import DecodeEngine
     return DecodeEngine(model, n_slots=engine_slots, max_len=engine_max_len,
-                        spec_k=speculative,
-                        pipeline_depth=1 if speculative else engine_pipeline)
+                        prefix_cache_slots=prefix_cache, spec_k=speculative,
+                        spec_adaptive=spec_adaptive,
+                        pipeline_depth=1 if speculative else engine_pipeline,
+                        prefill_chunk=prefill_chunk)
 
 
 def make_handler(worker: ModelWorker):
@@ -279,24 +286,9 @@ def weight_files(model_path) -> List[str]:
                    for f in root.glob(pat)})
 
 
-def main(argv=None):
-    """Worker launch CLI: load the checkpoint of --model-path on the GPU
-    (`load_pretrained_model`: --load-8bit / --load-4bit / --kv-quant), or,
-    for a directory with only config.json or no --model-path at all, build
-    that geometry (default: CompeteSMoE-5.1B's) with random weights from
-    --seed; optionally register with a controller; serve."""
-    import argparse
-    import dataclasses
-    from pathlib import Path
-
-    import torch
-
-    from ..eval.llava_adapter import TorchLlava
-    from ..models.builder import (HF_5P1B, apply_load_4bit, apply_load_8bit,
-                                  build_llava, llava_config_from_hf,
-                                  load_pretrained_model)
-
-    ap = argparse.ArgumentParser()
+def add_model_args(ap) -> None:
+    """The flags that choose and load the served model (the worker's and
+    the chat CLI's)."""
     ap.add_argument("--model-path", default=None,
                     help="checkpoint directory in the released layout "
                          "(config.json and *.safetensors or *.bin "
@@ -313,45 +305,29 @@ def main(argv=None):
                          "default: the tokenizer found in --model-path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--controller-address",
-                    default="http://localhost:21001")
-    ap.add_argument("--worker-address", default=None)
-    ap.add_argument("--host", default="0.0.0.0")
-    ap.add_argument("--port", type=int, default=21002)
-    ap.add_argument("--conv-template", default="phi35")
-    ap.add_argument("--limit-model-concurrency", type=int, default=5)
-    ap.add_argument("--max-new-tokens", type=int, default=256)
     ap.add_argument("--load-8bit", action="store_true",
                     help="int8 decoder (lm_head included), tower and "
                          "projector int8 value-quantized")
     ap.add_argument("--load-4bit", action="store_true")
     ap.add_argument("--kv-quant", default="", choices=["", "int8"])
-    ap.add_argument("--engine-slots", type=int, default=0,
-                    help="serve through the continuous-batching "
-                         "DecodeEngine with this many sequence slots; "
-                         "0 = one stream_generate per request")
-    ap.add_argument("--engine-max-len", type=int, default=2048)
-    ap.add_argument("--speculative", type=int, default=0,
-                    help="prompt-lookup speculative decoding: verify K "
-                         "drafts per forward (solo path and engine)")
-    ap.add_argument("--engine-pipeline", type=int, default=2,
-                    help="with --engine-slots: issue tick N+1 before "
-                         "reading tick N's tokens; forced to 1 under "
-                         "--speculative")
-    unported = ("--engine-prefill-chunk", "--engine-prefix-cache",
-                "--engine-warmup", "--mesh", "--ep-shards")
-    for flag in unported:
-        ap.add_argument(flag, default="", help="not ported yet")
-    ap.add_argument("--spec-adaptive", action="store_true",
-                    help="not ported yet")
-    ap.add_argument("--no-register", action="store_true")
-    a = ap.parse_args(argv)
-    refused = [f for f in unported
-               if getattr(a, f[2:].replace("-", "_")) not in ("", "0")]
-    refused += ["--spec-adaptive"] if a.spec_adaptive else []
-    if refused:
-        raise SystemExit(f"{', '.join(refused)}: not ported (ROADMAP §1 "
-                         "item 5: serving)")
+
+
+def load_model(a):
+    """(model, tokenizer, model name) from the flags of `add_model_args`:
+    the checkpoint of --model-path loaded on --device
+    (`load_pretrained_model`: --load-8bit / --load-4bit / --kv-quant), or,
+    for a directory with only config.json or no --model-path at all, that
+    geometry (default: CompeteSMoE-5.1B's) with random weights from
+    --seed."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from ..models.builder import (HF_5P1B, apply_load_4bit, apply_load_8bit,
+                                  build_llava, llava_config_from_hf,
+                                  load_pretrained_model)
+
     if a.load_8bit and a.load_4bit:
         raise SystemExit("--load-8bit and --load-4bit exclude each other")
     weights = weight_files(a.model_path) if a.model_path else []
@@ -381,12 +357,82 @@ def main(argv=None):
     if tokenizer is None or a.tokenizer:
         from transformers import AutoTokenizer
         tokenizer = AutoTokenizer.from_pretrained(a.tokenizer or a.model_path)
+    return model, tokenizer, model_name
+
+
+def main(argv=None):
+    """Worker launch CLI: load the model (`load_model`); optionally
+    register with a controller; serve."""
+    import argparse
+
+    from ..eval.llava_adapter import TorchLlava
+
+    ap = argparse.ArgumentParser()
+    add_model_args(ap)
+    ap.add_argument("--controller-address",
+                    default="http://localhost:21001")
+    ap.add_argument("--worker-address", default=None)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=21002)
+    ap.add_argument("--conv-template", default="phi35")
+    ap.add_argument("--limit-model-concurrency", type=int, default=5)
+    ap.add_argument("--max-new-tokens", type=int, default=256)
+    ap.add_argument("--engine-slots", type=int, default=0,
+                    help="serve through the continuous-batching "
+                         "DecodeEngine with this many sequence slots; "
+                         "0 = one stream_generate per request")
+    ap.add_argument("--engine-max-len", type=int, default=2048)
+    ap.add_argument("--engine-prefill-chunk", type=int, default=0,
+                    help="chunked prefill: long text prompts prefill N "
+                         "tokens per engine tick (decode steps for the "
+                         "live slots run between chunks) instead of "
+                         "stalling every stream for the whole prefill")
+    ap.add_argument("--engine-prefix-cache", type=int, default=0,
+                    help="park this many retired conversation rows for "
+                         "prefix reuse (multi-turn TTFT; costs N extra "
+                         "cache rows of device memory)")
+    ap.add_argument("--speculative", type=int, default=0,
+                    help="prompt-lookup speculative decoding: verify K "
+                         "drafts per forward (solo path and engine)")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="with --engine-slots and --speculative: measure "
+                         "the realized tokens/s of verify ticks and of "
+                         "plain ticks, run the faster and probe the other "
+                         "now and then (default: always speculate)")
+    ap.add_argument("--engine-pipeline", type=int, default=2,
+                    help="with --engine-slots: issue tick N+1 before "
+                         "reading tick N's tokens; forced to 1 under "
+                         "--speculative")
+    ap.add_argument("--engine-warmup", default="",
+                    help="comma-separated prompt-length buckets (e.g. "
+                         "'64,512,1024') to drive through every engine "
+                         "path before serving (DecodeEngine.warmup): "
+                         "kernel builds, cuBLAS handles and allocator "
+                         "blocks then come before the first request")
+    for flag in ("--mesh", "--ep-shards"):
+        ap.add_argument(flag, default="", help="not ported yet")
+    ap.add_argument("--no-register", action="store_true")
+    a = ap.parse_args(argv)
+    refused = [f for f in ("--mesh", "--ep-shards")
+               if getattr(a, f[2:].replace("-", "_")) not in ("", "0")]
+    if refused:
+        raise SystemExit(f"{', '.join(refused)}: not ported (ROADMAP §1 "
+                         "item 1.7: parallelism)")
+    model, tokenizer, model_name = load_model(a)
     adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
                          max_new_tokens=a.max_new_tokens,
                          speculative=a.speculative)
     if a.engine_slots > 0:
         engine = make_engine(model, a.engine_slots, a.engine_max_len,
-                             a.speculative, a.engine_pipeline)
+                             a.speculative, a.engine_pipeline,
+                             prefix_cache=a.engine_prefix_cache,
+                             prefill_chunk=a.engine_prefill_chunk,
+                             spec_adaptive=a.spec_adaptive)
+        if a.engine_warmup:
+            buckets = [int(x) for x in a.engine_warmup.split(",") if x]
+            w = engine.warmup(prompt_buckets=buckets)
+            print(f"engine warmup: {len(w['programs'])} programs in "
+                  f"{w['seconds']} s", flush=True)
         gen_fn = engine_generate_fn(adapter, engine)
         concurrency = max(a.limit_model_concurrency, a.engine_slots)
         extra_status = engine.stats

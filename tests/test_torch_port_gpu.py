@@ -731,3 +731,105 @@ def test_load_4bit_of_a_written_checkpoint_launches_k5(gen, tmp_path):
     torch.cuda.synchronize()
     assert tmatvec.quant_small_m_matmul_int4.launches - before == 2 * 4 * 2
     assert torch.isfinite(out.logits).all()
+
+
+# ---------------------------------------------------------------------------
+# The engine's chunked prefill and prefix cache on the card
+# ---------------------------------------------------------------------------
+
+def _small_cfg(dtype=torch.float32, **decoder):
+    import dataclasses
+
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B,
+                                                      llava_config_from_hf)
+    small = dict(HF_5P1B, vocab_size=512, hidden_size=256,
+                 intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=4,
+                 mm_hidden_size=64,
+                 vision_config=dict(hidden_size=64, intermediate_size=128,
+                                    num_hidden_layers=2,
+                                    num_attention_heads=2, image_size=28,
+                                    patch_size=14))
+    cfg = llava_config_from_hf(small, "llava_phi", dtype)
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, **decoder))
+
+
+def _drive_engine(engine, prompts, max_new):
+    reqs = [engine._make_request(p, max_new_tokens=max_new)
+            for p in prompts]
+    for _ in range(50 * max_new):
+        if all(r.done for r in reqs):
+            break
+        engine._tick()
+    assert all(r.done for r in reqs)
+    return [list(r.emitted) for r in reqs]
+
+
+def test_chunked_prefill_and_unpark_equal_cold_admission(gen):
+    """A small float32 model on the card (TF32 off): prompts of 40 and 45
+    tokens prefilled in chunks of 16 (the last one partial), and turn-2
+    follow-ups admitted through the prefix cache (the parked row, then
+    the suffix alone), each give the greedy tokens of a cold, unchunked
+    admission."""
+    from competesmoe_tpu_torch.models.builder import build_llava
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = build_llava(_small_cfg(), seed=2, device="cuda")
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(3, 512, n).astype(np.int32)
+                   for n in (40, 45, 9)]
+
+        def engine(**kw):
+            return DecodeEngine(model, n_slots=3, max_len=160,
+                                run_thread=False, **kw)
+
+        chunked = engine(prefill_chunk=16)
+        calls, chunk_prefill = [], chunked._chunk_prefill
+        chunked._chunk_prefill = lambda ids, mask: (
+            calls.append(int(mask.sum())) or chunk_prefill(ids, mask))
+        assert _drive_engine(chunked, prompts, 8) == \
+            _drive_engine(engine(), prompts, 8)
+        assert sorted(calls) == sorted([16, 16, 8, 16, 16, 13])
+
+        parked = engine(prefix_cache_slots=3)
+        first = _drive_engine(parked, prompts, 6)
+        follow = [np.concatenate([p, np.asarray(o, np.int32),
+                                  rng.integers(3, 512, 4).astype(np.int32)])
+                  for p, o in zip(prompts, first)]
+        got = _drive_engine(parked, follow, 8)
+        assert parked.stats()["engine_prefix_cache_hits"] == 3
+        assert got == _drive_engine(engine(), follow, 8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_a_chunk_of_128_rows_launches_k5_at_every_projection(gen):
+    """A small --load-4bit model (int8 KV): each chunk forward of a
+    300-token prompt at chunk 128 (the last one partial, still 128 rows)
+    launches K5 once at each of the 2 layers' 4 projections."""
+    from competesmoe_tpu_torch.models.builder import (apply_load_4bit,
+                                                      build_llava)
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    model = apply_load_4bit(build_llava(
+        _small_cfg(torch.bfloat16, kv_quant="int8"), seed=4, device="cuda"))
+    engine = DecodeEngine(model, n_slots=2, max_len=512, prefill_chunk=128,
+                          run_thread=False)
+    launches, chunk_prefill = [], engine._chunk_prefill
+    k5 = tmatvec.quant_small_m_matmul_int4
+
+    def counted(ids, mask):
+        before = k5.launches
+        out = chunk_prefill(ids, mask)
+        launches.append(k5.launches - before)
+        return out
+
+    engine._chunk_prefill = counted
+    prompt = np.random.default_rng(5).integers(3, 512, 300).astype(np.int32)
+    toks = _drive_engine(engine, [prompt], 4)[0]
+    assert launches == [4 * 2] * 3
+    assert len(toks) == 4 and all(0 <= t < 512 for t in toks)

@@ -536,25 +536,19 @@ def test_engine_sampling_and_cancellation(tiny_engine_model):
 
 
 def test_unported_engine_options_raise(tiny_engine_model):
+    """Tensor- and expert-parallel engines wait for ROADMAP §1 item 1.7:
+    the engine refuses a mesh and the worker --mesh and --ep-shards."""
     _, _, model = tiny_engine_model
-    for opts in (dict(prefix_cache_slots=2), dict(prefill_chunk=16),
-                 dict(spec_adaptive=True, spec_k=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.DecodeEngine(model, n_slots=2, max_len=64,
-                                 run_thread=False, **opts)
-    engine = tengine.DecodeEngine(model, n_slots=2, max_len=64,
-                                  run_thread=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.warmup()
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1.7"):
+        tengine.DecodeEngine(model, n_slots=2, max_len=64,
+                             run_thread=False, mesh=object())
     with pytest.raises(ValueError):
         tengine.DecodeEngine(model, n_slots=2, max_len=64, run_thread=False,
                              spec_k=2, pipeline_depth=2)
     from competesmoe_tpu_torch.serve.model_worker import main
-    for flag in (["--mesh", "1x8"], ["--ep-shards", "2"],
-                 ["--engine-prefill-chunk", "64"],
-                 ["--engine-prefix-cache", "4"], ["--spec-adaptive"],
-                 ["--engine-warmup", "64"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    for flag in (["--mesh", "1x8"], ["--ep-shards", "2"]):
+        with pytest.raises(SystemExit,
+                           match="not ported .ROADMAP §1 item 1.7"):
             main(["--tokenizer", "unused", "--device", "cpu"] + flag)
 
 
