@@ -33,7 +33,12 @@ the check and back): two tower experts swapped by the converter,
 skipped by the loader. Three more are planted in the engine's features
 (ENGINE_FAULTS): the unpark's suffix written one position late, the
 final chunk's logits taken at the chunk's last slot, and the park key
-without the pixel hash. The script
+without the pixel hash. Four more are planted in the captured decode
+programs and the windowed read (CAPTURE_FAULTS): admission rebinding the
+per-slot temperature and top_p tensors instead of writing into the
+captured buffers, a captured step leaving the cache's pos buffer
+unadvanced, the window's slice one key late against its mask, and the
+launch accounting counting the capture only. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -63,7 +68,10 @@ without the pixel hash. The script
        (random int4 weights, FEATURES' engine: turn 2 against its parked
        row's continuation), honest first. The other two do not show
        there: its prompts carry no image, and the phase's long prompt
-       fills its last chunk.
+       fills its last chunk;
+     - capture faults: `small_captured_check` (a small int4 model's
+       engine and solo streams captured against eager, its launches
+       through replays, windowed against full decoding), honest first.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -315,6 +323,58 @@ ENGINE_FAULTS = {
     "chunk_logits_at_last_slot": _chunk_logits_at_last_slot,
     "park_key_without_pixel_hash": _park_key_without_pixels,
 }
+def _temps_rebound():
+    """Admission rebinds the per-slot temperature and top_p tensors (as
+    the engine did before its steps were captured) instead of writing
+    into the buffers a captured step reads."""
+    from competesmoe_tpu_torch.serve import engine
+    real = engine.DecodeEngine._insert
+
+    def planted(self, *args):
+        self._temps_dev = self._temps_dev.clone()
+        self._topps_dev = self._topps_dev.clone()
+        return real(self, *args)
+    return engine.DecodeEngine, "_insert", planted
+
+
+def _pos_unadvanced_in_capture():
+    """A captured step returns its advanced positions in a new tensor and
+    leaves the cache's pos buffer where it was (eager steps advance it)."""
+    import torch
+
+    from competesmoe_tpu_torch.models import decoder
+    real = decoder.DecoderLM.forward
+
+    def planted(self, *args, pos_in_place=False, **kwargs):
+        return real(self, *args, pos_in_place=pos_in_place and not
+                    torch.cuda.is_current_stream_capturing(), **kwargs)
+    return decoder.DecoderLM, "forward", planted
+
+
+def _window_one_key_late():
+    """The windowed read takes slots 1..w instead of 0..w-1: off by one
+    key against the mask."""
+    from competesmoe_tpu_torch.models import decoder
+    return decoder, "_window", lambda t, w: t[:, 1:w + 1]
+
+
+def _capture_counted_only():
+    """The launch accounting keeps the counts a capture made and adds
+    nothing at replays."""
+    from competesmoe_tpu_torch.utils import cuda_graph
+    return cuda_graph, "take_back_launches", lambda run, wrappers: (run(),
+                                                                    [])
+
+
+# Python faults of the captured decode programs and the windowed read,
+# each a function -> (object, attribute, planted value), caught by
+# chip_smoke.small_captured_check
+CAPTURE_FAULTS = {
+    "insert_rebinds_temps": _temps_rebound,
+    "captured_pos_unadvanced": _pos_unadvanced_in_capture,
+    "window_one_key_late": _window_one_key_late,
+    "launches_counted_at_capture_only": _capture_counted_only,
+}
 # the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
 FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
@@ -479,6 +539,26 @@ def engine_features_ok(fault=None):
             setattr(*undo)
 
 
+def captured_ok(fault=None):
+    """(passed, message) of chip_smoke's small captured-programs check,
+    with the CAPTURE_FAULTS fault `fault` planted for its duration. Any
+    exception counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = CAPTURE_FAULTS[fault]()
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        r = cs.small_captured_check(0)
+        return True, f"passes (window logits gap {r['window_logits_gap']:.4g})"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
 def small_engine_ok(kind: str):
     """(passed, message) of chip_smoke's small served-model check."""
     try:
@@ -622,6 +702,19 @@ def main():
             if ok:
                 failures.append(f"fault {name} passed the engine-features "
                                 f"check")
+        ok, msg = captured_ok()
+        report["honest_captured"] = msg
+        cs.log(f"honest small captured check: {msg}")
+        if not ok:
+            failures.append(f"honest captured check: {msg}")
+        for name in CAPTURE_FAULTS:
+            ok, msg = captured_ok(name)
+            report["faults"][name] = dict(failed={"captured": not ok},
+                                          captured=msg)
+            cs.log(f"{name}: small captured check -> {_verdict(ok)} "
+                   f"({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the captured check")
         model = cs.build_served("int4", 0, "cuda")
         ok, msg = full_multiturn_ok(model)
         report["honest_full_multiturn"] = msg

@@ -119,10 +119,35 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      holds chunked prefill and the prefix cache on a small int4 model
      against engines without them (chip_faults.py plants three faults
      against it);
- 10. with --profile: torch.profiler over two more training steps (with
+ 10. captured decode programs: every serving step above replays a CUDA
+     graph (utils/cuda_graph.py: the engine's step_plain, step_nucleus,
+     spec_plain and spec_nucleus, the solo scan and verify programs), and
+     launch counts add each replay's launches. Before 6,
+     `small_captured_check` holds a small int4 model's engine (spec_k 3;
+     pipeline 2) and solo streams, greedy and sampled, captured against
+     eager token for token, its K5 launches through replays against its
+     forwards, and windowed against full decoding (chip_faults.py plants
+     four faults against it). After 6, the 5.1B solo decode in
+     SOLO_CASES (greedy and sampled from a seed, with and without 4
+     drafts verified a forward), captured and eager (equal tokens; tok/s
+     of each; every solo capture's seconds and graph-pool bytes), and one
+     profiled replay of the decode step must show qmm4_kernel 4 x 32
+     times. After each engine of 6 and 8, its 12 requests through two
+     engines of its flags stepped in this thread from one seed, captured
+     and eager: equal streams, tok/s of each, the captures' seconds and
+     pool bytes, and one profiled replay of step_plain showing the kind's
+     kernel 4 x 32 times. In 9, plain ticks of 8 live slots at max_len
+     512 and 2048, captured and eager: host and kernel ms, copy kernels'
+     ms. Then the window A/B at the decoder (JAX's tools/bench_decode.py
+     --window): one int4 decode step of 8 rows over a 2048-slot cache
+     with about 300 live positions, captured with attn_window 384 and
+     without, timed from replays with one profiled replay each: equal
+     tokens, logits within 3%;
+ 11. with --profile: torch.profiler over two more training steps (with
      K1's and K2's shares of a step by name), over decode steps of the
-     served model and over engine ticks (with K3's, K4's or K5's share;
-     device busy share and the kernels that take the time).
+     served model and over engine ticks, captured and eager (with K3's,
+     K4's or K5's share; device busy share and the kernels that take the
+     time), and over 9's two speculation mixes.
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -131,6 +156,7 @@ kernels JSON, the card line and the result JSON.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -219,16 +245,10 @@ def card_line() -> str:
 
 
 def wrappers():
-    """The kernel wrappers by name; each carries its `launches` count."""
-    from competesmoe_tpu_torch.ops import flash_attention as fa
-    from competesmoe_tpu_torch.ops import gmm_fused, matvec
-    return {"quant_small_m_matmul_int4": matvec.quant_small_m_matmul_int4,
-            "small_m_matmul": matvec.small_m_matmul,
-            "quant_small_m_matmul": matvec.quant_small_m_matmul,
-            "gmm2_fused_aligned": gmm_fused.gmm2_fused_aligned,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+    """The kernel wrappers by name; each carries its `launches` count (a
+    captured program's replays add its launches: utils/cuda_graph.py)."""
+    from competesmoe_tpu_torch.utils.cuda_graph import kernel_wrappers
+    return kernel_wrappers()
 
 
 def reset_counts():
@@ -771,6 +791,26 @@ TRAIN_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
                 "K1 (without its weight casts)": ("gmm2_kernel",)}
 ENGINE_GROUPS = {"K3": ("mm_bf16_kernel",), "K4": ("qmm8_kernel",),
                  "K5": ("qmm4_kernel",)}
+# PyTorch's copy and conversion kernels (the attention's one bf16 copy of
+# each layer's K and V, among others)
+COPY_GROUP = {"copy kernels": ("copy_kernel",)}
+
+
+@contextlib.contextmanager
+def profiled(enabled: bool):
+    """torch.profiler over the block when `enabled` (yields it), else
+    nothing (yields None)."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
 
 
 def _busy(prof, wall, steps, what, groups=None):
@@ -1075,15 +1115,27 @@ def model_prompt(seed: int, vocab: int):
     return ids, px
 
 
-def greedy_run(model, ids, px, n: int):
-    """`n` greedy tokens through stream_generate: (tokens [1, n], seconds
-    to the first chunk, seconds from it to the last)."""
+def greedy_run(model, ids, px, n: int, temperature: float = 0.0,
+               top_p: float = 1.0, seed=None, cuda_graphs: bool = True,
+               speculative: int = 0):
+    """`n` tokens through stream_generate, greedy unless `temperature`
+    (drawn from a generator seeded with `seed`), verifying `speculative`
+    prompt-lookup drafts a forward when above 0: (tokens [1, n], seconds
+    to the first chunk, seconds from it to the last). On the card the
+    decode and verify steps replay captured programs unless
+    cuda_graphs=False."""
+    import torch
+
     from competesmoe_tpu_torch.models.llava import stream_generate
 
+    gen = (None if seed is None
+           else torch.Generator(device=model.device).manual_seed(seed))
     t_start = time.perf_counter()
     chunks, t_first = [], None
     for c in stream_generate(model, ids, px, max_new_tokens=n,
-                             temperature=0.0):
+                             temperature=temperature, top_p=top_p,
+                             generator=gen, cuda_graphs=cuda_graphs,
+                             speculative=speculative):
         if t_first is None:
             t_first = time.perf_counter()
         chunks.append(c)
@@ -1100,7 +1152,9 @@ def phase_model(seed: int, model, want_tokens=None, new_tokens: int = 32):
     checkpoint)."""
     cfg = model.cfg
     ids, px = model_prompt(seed, cfg.decoder.vocab_size)
-    greedy_run(model, ids, px, 4)            # warm-up: lazy inits
+    # warm-up: lazy inits, and the captures of the request's bucket (one
+    # scan program per chunk size)
+    greedy_run(model, ids, px, new_tokens)
     reset_counts()                           # main path starts here
     toks, ttft, rest = greedy_run(model, ids, px, new_tokens)
     counts = read_counts()                   # main path ends here
@@ -1123,40 +1177,141 @@ def phase_model(seed: int, model, want_tokens=None, new_tokens: int = 32):
         f"launches {launches} = {launches // steps} per decode step")
     log(f"tokens: {toks[0].tolist()} (equal to the writer's: "
         f"{want_tokens is not None})")
+    # one profiled replay of the captured one-step program holds the
+    # kernels a forward launches
+    per_replay = replay_kernel_count(solo_program(model, ("scan", 1)),
+                                     "qmm4_kernel")
+    if per_replay != 4 * L:
+        raise AssertionError(f"a profiled replay of the solo decode step "
+                             f"launched qmm4_kernel {per_replay} times, not "
+                             f"4 x {L}")
+    log(f"generate: one profiled replay of the captured decode step shows "
+        f"qmm4_kernel {per_replay} times (4 x {L})")
     return launches, dict(ttft_ms=ttft * 1e3, decode_tok_s=tok_s,
                           ms_per_token=rest / steps * 1e3,
-                          decode_steps=steps, layers=L)
+                          decode_steps=steps, layers=L,
+                          qmm4_per_replay=per_replay)
 
 
-def profile_decode(model, seed: int, steps: int = 8):
-    """torch.profiler over `steps` decode steps of the served model: host
-    wall time per step, device kernel time per step (so the device's busy
+def solo_program(model, head: tuple):
+    """The first captured solo program whose key starts with `head`
+    (models/llava.py `_SoloCaches`)."""
+    solo = model._solo_caches
+    return next(prog for key, prog in solo.programs.items()
+                if key[1:1 + len(head)] == head)[-1]
+
+
+def replay_kernels(program):
+    """{kernel name: (launches, device µs)} of one replay of the captured
+    `program`, as torch.profiler traces the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        program()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            out[ev.key] = (ev.count, dev_us)
+    return out
+
+
+def replay_kernel_count(program, fragment: str) -> int:
+    """The launches of kernels whose names hold `fragment` in one replay of
+    the captured `program`."""
+    return sum(n for key, (n, _) in replay_kernels(program).items()
+               if fragment in key)
+
+
+# the solo cases held captured against eager: (tag, temperature, top_p,
+# drafts verified a forward)
+SOLO_CASES = (("greedy", 0.0, 1.0, 0), ("sampled", 0.8, 0.9, 0),
+              ("speculative 4", 0.0, 1.0, 4),
+              ("speculative 4 sampled", 0.8, 0.9, 4))
+
+
+def solo_vs_eager(model, seed: int, new_tokens: int = 32):
+    """The solo phase's prompt through stream_generate in SOLO_CASES
+    (sampled ones from a generator seeded with `seed`): the captured
+    programs (a first run captures what the case needs: scan programs,
+    and verify programs under speculation) and the eager steps
+    (cuda_graphs=False) on the same card give equal tokens; returns each
+    side's decode tok/s and every solo capture's seconds and pool
+    bytes."""
+    ids, px = model_prompt(seed, model.cfg.decoder.vocab_size)
+    res = {}
+    for tag, temp, top_p, spec in SOLO_CASES:
+        greedy_run(model, ids, px, new_tokens, temp, top_p, seed,
+                   speculative=spec)
+        runs = {graphs: greedy_run(model, ids, px, new_tokens, temp, top_p,
+                                   seed, cuda_graphs=graphs,
+                                   speculative=spec)
+                for graphs in (False, True)}
+        eager, captured = runs[False][0], runs[True][0]
+        if not np.array_equal(eager, captured):
+            raise AssertionError(f"solo {tag}: captured tokens "
+                                 f"{captured[0].tolist()} != eager "
+                                 f"{eager[0].tolist()}")
+        res[tag] = {("captured" if g else "eager"): dict(
+            ttft_ms=r[1] * 1e3, decode_tok_s=(new_tokens - 1) / r[2])
+            for g, r in runs.items()}
+        log(f"solo {tag} ({card_line()}): captured and eager tokens equal; "
+            f"decode {res[tag]['captured']['decode_tok_s']:.2f} tok/s "
+            f"captured, {res[tag]['eager']['decode_tok_s']:.2f} eager")
+    res["programs"] = [
+        dict(program=f"{key[1]}{list(key[2:])}", seconds=got[-1].seconds,
+             pool_bytes=got[-1].pool_bytes)
+        for key, got in model._solo_caches.programs.items()]
+    if not any(r["program"].startswith("verify") for r in res["programs"]):
+        raise AssertionError("the speculative solo runs never verified a "
+                             "draft through a captured verify program")
+    log("solo programs captured: " + ", ".join(
+        f"{r['program']} {r['seconds']:.2f} s {r['pool_bytes'] / 2**20:.0f} "
+        f"MiB" for r in res["programs"]))
+    return res
+
+
+def profile_decode(model, seed: int, steps: int = 8,
+                   cuda_graphs: bool = True):
+    """torch.profiler over `steps` greedy decode steps of the served model
+    as the solo path runs them (`make_scan_decode` one step at a time over
+    a solo cache; captured programs unless cuda_graphs=False): host wall
+    time per step, device kernel time per step (so the device's busy
     share) and the kernels that take it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from competesmoe_tpu_torch.models.decoder import KVCache
+    from competesmoe_tpu_torch.models.llava import (_prefill, _solo_caches,
+                                                    make_scan_decode)
 
     rng = np.random.default_rng(seed)
     vocab = model.cfg.decoder.vocab_size
-    ids = torch.as_tensor(rng.integers(3, vocab, (1, 32)), device="cuda")
-    cache = KVCache.create(model.language_model.cfg, 1, 128, "cuda")
-    with torch.no_grad():
-        out = model(ids, None, cache=cache)
-        tok = out.logits[:, -1].argmax(-1)
-        for _ in range(2):                     # warm-up steps
-            out = model(tok[:, None], None, cache=out.cache)
-            tok = out.logits[:, -1].argmax(-1)
+    ids = rng.integers(3, vocab, (1, 32))
+    solo = _solo_caches(model)
+    cache = solo.take(model, 1, 128)
+    step = make_scan_decode(model, 1, cuda_graphs=cuda_graphs)
+    try:
+        last, _ = _prefill(model, ids, None, np.ones_like(ids), 128, cache)
+        tok = last.argmax(-1)
+        for _ in range(2):                     # warm-up (and capture)
+            tok = step(tok, cache)[0][:, 0]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                out = model(tok[:, None], None, cache=out.cache)
-                tok = out.logits[:, -1].argmax(-1)
+                tok = step(tok, cache)[0][:, 0]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    return _busy(prof, wall, steps, "decode")
+    finally:
+        solo.give_back(cache)
+    what = "captured" if cuda_graphs else "eager"
+    return _busy(prof, wall, steps, f"decode ({what})")
 
 
 def start_worker(generate_fn, extra_status_fn=None):
@@ -1446,25 +1601,44 @@ def small_m_summary(rows, name, launches, max_err, m):
 
 class ForwardRows:
     """Records (batch, length) of every forward of a decoder while
-    `active`, from a forward pre-hook: the forwards a phase must account
-    for."""
+    `active`: the forwards a phase must account for. One forward pre-hook
+    a decoder, installed with its first recorder and kept, hands each
+    forward to the recorders attached at that moment; a forward seen
+    while a step is captured is handed over at each replay of the
+    captured program instead (`on_replay`). So a recorder must exist on
+    a decoder before its programs are captured: it sees the replays of
+    every program captured since the decoder's first recorder."""
 
     def __init__(self, decoder):
         self.rows = []
         self.active = True
-        self._h = decoder.register_forward_pre_hook(self._hook,
-                                                    with_kwargs=True)
+        self._recorders = decoder.__dict__.get("_forward_recorders")
+        if self._recorders is None:
+            self._recorders = decoder.__dict__["_forward_recorders"] = []
+            decoder.register_forward_pre_hook(
+                functools.partial(ForwardRows._hook, self._recorders),
+                with_kwargs=True)
+        self._recorders.append(self)
 
-    def _hook(self, module, args, kwargs):
-        if not self.active:
-            return
+    @staticmethod
+    def _hook(recorders, module, args, kwargs):
+        from competesmoe_tpu_torch.utils.cuda_graph import on_replay
         x = args[0] if args and args[0] is not None else (
             kwargs.get("input_ids") if kwargs.get("input_ids") is not None
             else kwargs["inputs_embeds"])
-        self.rows.append((int(x.shape[0]), int(x.shape[1])))
+        row = (int(x.shape[0]), int(x.shape[1]))
+
+        def record():
+            for rec in list(recorders):
+                if rec.active:
+                    rec.rows.append(row)
+        if not on_replay(record):
+            record()
 
     def remove(self):
-        self._h.remove()
+        self.active = False
+        if self in self._recorders:
+            self._recorders.remove(self)
 
 
 def matvec_launches(decoder, rows) -> int:
@@ -1634,9 +1808,14 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32, model=None):
     order = [2, 0, 3, 1, 4, 5, 6, 7, 8, 9, 10, 11]  # images among the first
 
     engine = make_engine(model, 8, 512, speculative=spec, engine_pipeline=2)
-    # warm-up: one short request (lazy inits, the first kernel loads)
-    list(engine.submit(reqs[2][0][:24], max_new_tokens=4))
+    # the recorder exists before the captures (it sees their replays)
     fw = ForwardRows(model.language_model)
+    fw.active = False
+    # warm-up, as the worker's --engine-warmup 32: lazy inits, the first
+    # kernel loads, and the captures of the engine's step programs
+    w = engine.warmup(prompt_buckets=(32,))
+    log(f"engine {kind}: warmup captured {w['captured']} in "
+        f"{w['seconds']} s")
     results, first_done = {}, threading.Event()
 
     def client(i):
@@ -1654,6 +1833,7 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32, model=None):
         first_done.set()
 
     reset_counts()                           # main path starts here
+    fw.active = True
     t_start = time.perf_counter()
     threads = [threading.Thread(target=client, args=(i,)) for i in order[:8]]
     for th in threads:
@@ -1698,7 +1878,7 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32, model=None):
         launches_per_tick=matvec_launches(model.language_model, ticks)
         / max(len(ticks), 1),
         prefill_rows=sorted({b * t for b, t in fw.rows if b != 8}),
-        stats=stats)
+        stats=stats, captured=w["captured"])
     log(f"engine {kind} ({card_line()}): 12 requests, {n_tok} tokens in "
         f"{wall:.2f} s = {n_tok / wall:.1f} tok/s aggregate; TTFT p50 "
         f"{summary['ttft_p50_ms']:.1f} ms, max {ttft[-1] * 1e3:.1f} ms; "
@@ -1711,9 +1891,278 @@ def phase_engine(kind: str, seed: int, new_tokens: int = 32, model=None):
     return model, summary
 
 
-def profile_engine(model, kind: str, seed: int, ticks: int = 8):
+# the sampling of phase_engine's 12 requests: 6 greedy, one at
+# temperature 0.7, one at 0.7 with top_p 0.9, then 4 greedy
+SAMPLING = [(0.0, 1.0)] * 6 + [(0.7, 1.0), (0.7, 0.9)] + [(0.0, 1.0)] * 4
+
+
+def engine_vs_eager(model, kind: str, seed: int, new_tokens: int = 32):
+    """phase_engine's 12 requests through two engines of this kind's
+    flags (8 slots, max_len 512; int4 and int8 --speculative 4, bf16
+    pipeline 2), stepped in this thread from the same seed after
+    warmup(32): one replaying its captured programs, one eager
+    (cuda_graphs=False). Every stream, greedy and sampled, must be equal
+    token for token. Returns each side's tok/s, ticks and wall time; then
+    one profiled replay of the captured plain step must show the kind's
+    kernel 4 x 32 times."""
+    import torch
+
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    spec = 0 if kind == "bf16" else 4
+    vocab = model.cfg.decoder.vocab_size
+    L = model.cfg.decoder.num_hidden_layers
+    rng = np.random.default_rng(seed + 7)
+    reqs = engine_requests(rng, vocab, 6, 2, 224)
+    reqs += engine_requests(rng, vocab, 4, 0, 224)
+    res, streams = {}, {}
+    for graphs in (False, True):
+        engine = DecodeEngine(model, n_slots=8, max_len=512, spec_k=spec,
+                              pipeline_depth=1 if spec else 2,
+                              run_thread=False, cuda_graphs=graphs,
+                              rng_seed=seed)
+        engine.warmup(prompt_buckets=(32,))
+        made = [engine._make_request(ids, px, max_new_tokens=new_tokens,
+                                     temperature=t, top_p=p, eos_ids=[2])
+                for (ids, px), (t, p) in zip(reqs, SAMPLING)]
+        torch.cuda.synchronize()
+        t0, ticks = time.perf_counter(), 0
+        while not all(r.done for r in made) and ticks < 100 * new_tokens:
+            engine._tick()
+            ticks += 1
+        engine._tick()                 # deliver what a pipeline holds
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams[graphs] = [list(r.emitted) for r in made]
+        n = sum(len(x) for x in streams[graphs])
+        side = "captured" if graphs else "eager"
+        res[side] = dict(tokens=n, ticks=ticks, wall_s=wall, tok_s=n / wall)
+        if graphs:
+            fragment = {"bf16": "mm_bf16_kernel", "int8": "qmm8_kernel",
+                        "int4": "qmm4_kernel"}[kind]
+            per_replay = replay_kernel_count(engine._programs["step_plain"],
+                                             fragment)
+            if per_replay != 4 * L:
+                raise AssertionError(f"engine {kind}: a profiled replay of "
+                                     f"step_plain launched {fragment} "
+                                     f"{per_replay} times, not 4 x {L}")
+            res["programs"] = {name: dict(seconds=prog.seconds,
+                                          pool_bytes=prog.pool_bytes)
+                               for name, prog in engine._programs.items()}
+            res[f"{fragment}_per_replay"] = per_replay
+        engine.shutdown()
+        del engine
+        free_card()
+    if streams[True] != streams[False]:
+        bad = [i for i, (a, b) in enumerate(zip(streams[True],
+                                                  streams[False])) if a != b]
+        raise AssertionError(f"engine {kind}: captured streams differ from "
+                             f"eager ones at requests {bad}")
+    log(f"engine {kind} captured vs eager ({card_line()}): 12 streams equal "
+        f"(2 sampled); {res['captured']['tok_s']:.1f} tok/s captured, "
+        f"{res['eager']['tok_s']:.1f} eager ({res['captured']['ticks']} / "
+        f"{res['eager']['ticks']} ticks); programs "
+        + ", ".join(f"{k} {v['seconds']:.2f} s {v['pool_bytes'] / 2**20:.0f}"
+                    f" MiB" for k, v in res["programs"].items()))
+    return res
+
+
+def small_captured_check(seed: int):
+    """A small --load-4bit model (int8 KV; SMALL_HF's projections tile K5)
+    on the card, captured programs against the eager path:
+    1. DecodeEngine(n_slots=4, max_len=160) with spec_k 3, then with
+       pipeline depth 2: 6 requests (greedy, temperature and nucleus rows;
+       two admitted once slots retire) give equal streams captured and
+       eager from the same seed, and the captured run's K5 launches equal
+       4 x 2 x the viable forwards it recorded (replays included);
+    2. stream_generate in SOLO_CASES (greedy and sampled, with and
+       without 4 drafts verified a forward; a seeded generator), 16
+       tokens of a repeating prompt: captured equal to eager;
+    3. the windowed KV read at the decoder: prompts of 30-40 tokens in a
+       256-slot cache, 6 greedy steps with attn_window 64 and without:
+       equal tokens, logits within 3% of the largest (`logits_gap`)."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import KVCache
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    model = build_served("int4", seed, "cuda", small=True)
+    L = model.cfg.decoder.num_hidden_layers
+    vocab = model.cfg.decoder.vocab_size
+    rng = np.random.default_rng(seed + 3)
+    reqs = engine_requests(rng, vocab, 6, 0, 28, lengths=(10, 40))
+    sampling = [(0.0, 1.0), (0.8, 1.0), (0.0, 1.0), (0.9, 0.8), (0.0, 1.0),
+                (1.0, 1.0)]
+    for opts in (dict(spec_k=3), dict(pipeline_depth=2)):
+        streams = {}
+        for graphs in (False, True):
+            engine = DecodeEngine(model, n_slots=4, max_len=160,
+                                  run_thread=False, cuda_graphs=graphs,
+                                  rng_seed=seed, **opts)
+            fw = ForwardRows(model.language_model)
+            counts0 = read_counts()
+            made = [engine._make_request(ids, px, max_new_tokens=12,
+                                         temperature=t, top_p=p)
+                    for (ids, px), (t, p) in zip(reqs, sampling)]
+            for _ in range(600):
+                if all(r.done for r in made):
+                    break
+                engine._tick()
+            engine._tick()
+            fw.remove()
+            streams[graphs] = [list(r.emitted) for r in made]
+            counts = {k: v - counts0[k] for k, v in read_counts().items()}
+            want = matvec_launches(model.language_model, fw.rows)
+            if graphs and (counts["quant_small_m_matmul_int4"] != want
+                           or sum(counts.values()) != want):
+                raise AssertionError(f"small captured engine {opts}: "
+                                     f"launches {counts}, K5 must be {want}"
+                                     f" (4 x {L} x viable forwards)")
+            engine.shutdown()
+        if streams[True] != streams[False]:
+            raise AssertionError(f"small captured engine {opts}: streams "
+                                 f"{streams[True]} != eager "
+                                 f"{streams[False]}")
+    ids = reqs[0][0][None]                    # a repeating phrase
+    for _, temp, top_p, spec in SOLO_CASES:
+        runs = [greedy_run(model, ids, None, 16, temp, top_p, seed,
+                           cuda_graphs=graphs, speculative=spec)[0]
+                for graphs in (False, True, True)]
+        if not all(np.array_equal(r, runs[0]) for r in runs):
+            raise AssertionError(f"small captured solo (temperature {temp},"
+                                 f" top_p {top_p}, speculative {spec}): "
+                                 f"{runs}")
+    lm = model.language_model
+    lens = rng.integers(30, 41, 2)
+    x = np.zeros((2, int(lens.max())), np.int64)
+    mask = np.zeros_like(x)
+    for i, n in enumerate(lens):
+        x[i, :n] = rng.integers(3, vocab, n)
+        mask[i, :n] = 1
+    runs = {}
+    with torch.no_grad():
+        for window in (None, 64):
+            cache = KVCache.create(lm.cfg, 2, 256, "cuda")
+            logits, cache, _ = lm(torch.as_tensor(x, device="cuda"),
+                                  attention_mask=torch.as_tensor(
+                                      mask, device="cuda"), cache=cache)
+            tok = logits[torch.arange(2, device="cuda"),
+                         torch.as_tensor(lens - 1, device="cuda")].argmax(-1)
+            rows, toks = [], []
+            for _ in range(6):
+                logits, cache, _ = lm(tok[:, None], cache=cache,
+                                      attn_window=window)
+                rows.append(logits[:, 0].float().cpu())
+                tok = logits[:, 0].argmax(-1)
+                toks.append(tok.cpu())
+            runs[window] = (torch.stack(toks), torch.stack(rows))
+    gap, tol = logits_gap(runs[64][1], runs[None][1])
+    if not torch.equal(runs[64][0], runs[None][0]) or not gap <= tol:
+        raise AssertionError(f"small windowed decode: tokens "
+                             f"{runs[64][0].tolist()} vs "
+                             f"{runs[None][0].tolist()}, logits gap {gap} "
+                             f"(3%: {tol})")
+    log(f"small captured check (card, int4, 2 layers): engine streams "
+        f"equal captured and eager (spec_k 3; pipeline 2), K5 launches "
+        f"through replays as the forwards need; solo streams (greedy, "
+        f"sampled, speculative) equal; windowed decode tokens equal, "
+        f"logits gap {gap:.4g} (3%: {tol:.4g})")
+    del model
+    free_card()
+    return dict(window_logits_gap=gap, window_tol=tol)
+
+
+# the decoder's windowed KV read at the 5.1B geometry (JAX's
+# tools/bench_decode.py --window): rows, cache slots, live prompt lengths
+WINDOW_AB = dict(rows=8, max_len=2048, lengths=(290, 311))
+
+
+def phase_window(model, seed: int, reps: int = 20):
+    """JAX's `tools/bench_decode.py --window` A/B on the card, at the
+    decoder of `model` (the served --load-4bit --kv-quant int8 5.1B): 8
+    rows of a 2048-slot cache hold about 300 live positions (prompts of
+    290-310 tokens); one greedy decode step is captured twice, reading
+    the whole cache and with attn_window = the live prefix plus the step,
+    rounded up to 128. Each replay repeats the same step (the cache's pos
+    is not advanced), timed on the device (median of `reps` replays),
+    with the kernels of one profiled replay (total and copy kernels). The
+    tokens must be equal and the logits within 3% of the largest."""
+    import torch
+
+    from competesmoe_tpu_torch.models.decoder import KVCache
+    from competesmoe_tpu_torch.utils.cuda_graph import capture
+
+    lm = model.language_model
+    vocab = model.cfg.decoder.vocab_size
+    rng = np.random.default_rng(seed + 13)
+    B = WINDOW_AB["rows"]
+    lens = rng.integers(*WINDOW_AB["lengths"], B)
+    x = np.zeros((B, int(lens.max())), np.int64)
+    mask = np.zeros_like(x)
+    for i, n in enumerate(lens):
+        x[i, :n] = rng.integers(3, vocab, n)
+        mask[i, :n] = 1
+    window = -(-(int(lens.max()) + 1) // 128) * 128
+    cache = KVCache.create(lm.cfg, B, WINDOW_AB["max_len"], "cuda")
+    with torch.no_grad():
+        logits, cache, _ = lm(torch.as_tensor(x, device="cuda"),
+                              attention_mask=torch.as_tensor(mask,
+                                                             device="cuda"),
+                              cache=cache)
+        cur = logits[torch.arange(B, device="cuda"),
+                     cache.pos - 1].argmax(-1)
+    res, outs = dict(card=card_line(), rows=B, max_len=cache.max_len,
+                     live=lens.tolist(), window=window), {}
+    for name, win in (("full", None), ("window", window)):
+        def step(win=win):
+            with torch.no_grad():
+                out, _, _ = lm(cur[:, None], cache=cache, attn_window=win)
+            return out[:, 0].argmax(-1), out[:, 0].float()
+
+        program = capture(step)
+        program()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            program()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        kernels = replay_kernels(program)
+        outs[name] = [t.clone().cpu() for t in program.outputs]
+        res[name] = dict(
+            ms=statistics.median(s.elapsed_time(e) for s, e in pairs),
+            kernel_ms=sum(us for _, us in kernels.values()) / 1e3,
+            copy_ms=sum(us for k, (_, us) in kernels.items()
+                        if "copy_kernel" in k) / 1e3,
+            capture_s=program.seconds, pool_bytes=program.pool_bytes)
+        del program
+    gap, tol = logits_gap(outs["window"][1], outs["full"][1])
+    res.update(tokens_equal=bool(torch.equal(outs["window"][0],
+                                             outs["full"][0])),
+               logits_gap=gap, logits_tol=tol)
+    log(f"window A/B ({res['card']}): int4 decode step, {B} rows, cache "
+        f"{cache.max_len}, live {int(lens.min())}-{int(lens.max())}: "
+        f"{res['full']['ms']:.3f} ms reading the whole cache "
+        f"({res['full']['copy_ms']:.3f} ms of copies), "
+        f"{res['window']['ms']:.3f} ms with attn_window {window} "
+        f"({res['window']['copy_ms']:.3f} ms of copies); tokens "
+        f"{'equal' if res['tokens_equal'] else 'DIFFER'}, logits gap "
+        f"{gap:.4g} (3%: {tol:.4g})")
+    if not res["tokens_equal"] or not gap <= tol:
+        raise AssertionError(f"window A/B: tokens {outs['window'][0]} vs "
+                             f"{outs['full'][0]}, logits gap {gap} > {tol}")
+    return res
+
+
+def profile_engine(model, kind: str, seed: int, ticks: int = 8,
+                   cuda_graphs: bool = True):
     """torch.profiler over `ticks` engine ticks of 8 live slots (driven in
-    this thread): host wall time per tick, device kernel time per tick."""
+    this thread; captured programs unless cuda_graphs=False): host wall
+    time per tick, device kernel time per tick."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1721,7 +2170,8 @@ def profile_engine(model, kind: str, seed: int, ticks: int = 8):
 
     spec = 0 if kind == "bf16" else 4
     engine = DecodeEngine(model, n_slots=8, max_len=512, spec_k=spec,
-                          pipeline_depth=1 if spec else 2, run_thread=False)
+                          pipeline_depth=1 if spec else 2, run_thread=False,
+                          cuda_graphs=cuda_graphs)
     rng = np.random.default_rng(seed + 9)
     for ids, px in engine_requests(rng, model.cfg.decoder.vocab_size, 8, 0,
                                    224, lengths=(20, 40)):
@@ -1738,7 +2188,9 @@ def profile_engine(model, kind: str, seed: int, ticks: int = 8):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     engine.shutdown()
-    return _busy(prof, wall, ticks, f"engine {kind}", ENGINE_GROUPS)
+    what = "captured" if cuda_graphs else "eager"
+    return _busy(prof, wall, ticks, f"engine {kind} ({what})",
+                 ENGINE_GROUPS)
 
 
 def phase_engine_server(model):
@@ -2084,17 +2536,19 @@ def longest_gap_ms(engine, shorts, long_req, max_new_short: int,
     return lout[0]["tokens"], max(gaps) * 1e3, (t1 - t0) * 1e3
 
 
-def tick_cost(model, max_len: int, seed: int, ticks: int = 8):
+def tick_cost(model, max_len: int, seed: int, ticks: int = 8,
+              cuda_graphs: bool = True):
     """torch.profiler over `ticks` plain engine ticks with 8 live slots at
     `max_len` (each tick ends in its tokens' read, which waits for the
-    device): host and device-kernel ms per tick (`_busy`)."""
+    device; captured programs unless cuda_graphs=False): host and
+    device-kernel ms per tick, and the copy kernels' share (`_busy`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from competesmoe_tpu_torch.serve.engine import DecodeEngine
 
     engine = DecodeEngine(model, n_slots=8, max_len=max_len,
-                          run_thread=False)
+                          run_thread=False, cuda_graphs=cuda_graphs)
     rng = np.random.default_rng(seed)
     for ids, px in text_prompts(rng, model.cfg.decoder.vocab_size, 8,
                                 (20, 40)):
@@ -2111,7 +2565,9 @@ def tick_cost(model, max_len: int, seed: int, ticks: int = 8):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     engine.shutdown()
-    return _busy(prof, wall, ticks, f"engine-tick (max_len {max_len})")
+    what = "captured" if cuda_graphs else "eager"
+    return _busy(prof, wall, ticks,
+                 f"engine-tick (max_len {max_len}, {what})", COPY_GROUP)
 
 
 def route_gap(model, seed: int):
@@ -2202,7 +2658,7 @@ def multiturn_check(model, engine, rng, path):
     return res
 
 
-def phase_engine_features(seed: int, model):
+def phase_engine_features(seed: int, model, profile: bool = False):
     """The serving slice's engine features on `model` (the 5.1B checkpoint
     loaded with --load-4bit --kv-quant int8), through engines built as
     the worker builds them with FEATURES' flags:
@@ -2221,7 +2677,8 @@ def phase_engine_features(seed: int, model):
        unchunked engine's, and the longest gap of a live stream with and
        without chunking;
     4. adaptive speculation: 8 repetitive and 8 random prompts, each mix
-       on a fresh engine: tok/s and suppressed verify ticks;
+       on a fresh engine: tok/s and suppressed verify ticks (with
+       `profile`, torch.profiler over each mix: its device busy share);
     5. the controller, a worker on the warmed engine and the OpenAI API
        over HTTP on 127.0.0.1: 3 chat completions (one streamed), their
        text against the engine's own output for the rendered prompts.
@@ -2257,10 +2714,11 @@ def phase_engine_features(seed: int, model):
         w = engine.warmup(prompt_buckets=WARMUP_BUCKETS)
         res["burst_after_warmup"] = burst_ttft(engine, burst,
                                                "burst (after warmup)")
-    res["warmup"] = dict(programs=w["programs"], seconds=w["seconds"])
+    res["warmup"] = dict(programs=w["programs"], seconds=w["seconds"],
+                         captured=w["captured"])
     log(f"engine features ({res['card']}): warmup "
         f"{len(w['programs'])} programs in {w['seconds']} s: "
-        f"{w['programs']}")
+        f"{w['programs']}; captured {w['captured']}")
     log(f"engine features: 8-request burst TTFT p50/max "
         f"{res['burst_no_warmup']['ttft_p50_ms']:.1f}/"
         f"{res['burst_no_warmup']['ttft_max_ms']:.1f} ms on a fresh engine "
@@ -2310,7 +2768,7 @@ def phase_engine_features(seed: int, model):
              "random": text_prompts(rng, vocab, 8, (40, 120))}
     for mix, reqs in mixes.items():
         eng = features_engine(model)
-        with path.window(eng):
+        with path.window(eng), profiled(profile) as prof:
             t0 = time.perf_counter()
             threads, out = timed_clients(eng, reqs, 48)
             out = join_clients(eng, threads, out, f"{mix} mix")
@@ -2325,6 +2783,9 @@ def phase_engine_features(seed: int, model):
             tokens_per_verify=st["engine_spec_tokens_per_step"],
             tps_verify=st["engine_spec_tps_verify"],
             tps_plain=st["engine_spec_tps_plain"])
+        if prof is not None:
+            res["adaptive"][mix]["profile"] = _busy(
+                prof, wall, 1, f"{mix} mix (the whole run)", ENGINE_GROUPS)
         log(f"engine features: {mix} mix, 8 x 48 tokens: "
             f"{n / wall:.1f} tok/s, {st['engine_spec_verify_calls']} "
             f"verify ticks ({st['engine_spec_tokens_per_step']} tokens "
@@ -2356,12 +2817,16 @@ def phase_engine_features(seed: int, model):
     log(f"engine features: K5 launches on the main path {want_k5} = 4 x "
         f"{L} x {want_k5 // (4 * L)} viable forwards of {len(rows_fw)} (M: "
         f"{res['rows']}); phase {res['seconds']:.1f} s")
-    res["tick"] = {ml: tick_cost(model, ml, seed) for ml in (512, 2048)}
+    res["tick"] = {f"{ml} {what}": tick_cost(model, ml, seed,
+                                             cuda_graphs=what == "captured")
+                   for ml in (512, 2048) for what in ("captured", "eager")}
     res["route_gap"] = route_gap(model, seed)
     log(f"engine features: a plain tick with 8 live slots: host "
         + ", ".join(f"{t['wall_ms_per_step']:.1f} ms with "
-                    f"{t['device_ms_per_step']:.2f} ms of kernels at "
-                    f"max_len {ml}" for ml, t in res["tick"].items())
+                    f"{t['device_ms_per_step']:.2f} ms of kernels "
+                    f"({t['groups']['copy kernels']['ms_per_step']:.2f} ms "
+                    f"of copies, {8e3 / t['wall_ms_per_step']:.1f} tok/s) "
+                    f"at max_len {key}" for key, t in res["tick"].items())
         + f"; one prompt's logits through K5 (100 rows) and the plain "
         f"int4 formula (200 rows) apart by {res['route_gap'][0]:.4g} (3%: "
         f"{res['route_gap'][1]:.4g})")
@@ -2615,22 +3080,32 @@ def main():
     small_model_check(a.seed)
     small = [small_engine_check("int4", a.seed)]
     small_engine_features_check(a.seed)
+    graphs = dict(card=card, small=small_captured_check(a.seed))
     model, want_tokens = phase_checkpoint(a.seed)
     k5_launches, summary = phase_model(a.seed, model, want_tokens)
+    graphs["solo"] = solo_vs_eager(model, a.seed)
     phase_server(model)
     if a.profile:
-        summary["profile"] = profile_decode(model, a.seed)
+        summary["profile"] = {
+            what: profile_decode(model, a.seed,
+                                 cuda_graphs=what == "captured")
+            for what in ("captured", "eager")}
     print("model_summary " + json.dumps(dict(summary, card=card)),
           flush=True)
     # the same int4 model through the engine: K5 at M 8, 40 and prefill
     # groups
     engines = {}
     _, engines["int4"] = phase_engine("int4", a.seed, model=model)
+    graphs["engine_int4"] = engine_vs_eager(model, "int4", a.seed)
     if a.profile:
-        engines["int4"]["profile"] = profile_engine(model, "int4", a.seed)
+        engines["int4"]["profile"] = {
+            what: profile_engine(model, "int4", a.seed,
+                                 cuda_graphs=what == "captured")
+            for what in ("captured", "eager")}
     # the same model through the engine's features
-    features = phase_engine_features(a.seed, model)
+    features = phase_engine_features(a.seed, model, a.profile)
     print("engine_features_summary " + json.dumps(features), flush=True)
+    graphs["window"] = phase_window(model, a.seed)
     del model
     free_card()
     small += [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
@@ -2638,12 +3113,17 @@ def main():
         model, engines[kind] = phase_engine(kind, a.seed)
         if kind == "int8":
             phase_engine_server(model)
+        graphs[f"engine_{kind}"] = engine_vs_eager(model, kind, a.seed)
         if a.profile:
-            engines[kind]["profile"] = profile_engine(model, kind, a.seed)
+            engines[kind]["profile"] = {
+                what: profile_engine(model, kind, a.seed,
+                                     cuda_graphs=what == "captured")
+                for what in ("captured", "eager")}
         del model
         free_card()
     print("engine_summary " + json.dumps(dict(small=small, card=card,
                                               **engines)), flush=True)
+    print("graphs_summary " + json.dumps(graphs), flush=True)
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",

@@ -11,9 +11,13 @@ Every int4 projection at a decode shape goes through K5 of
 `ops/matvec.py`. With `matvec_kernel`, the bf16 projections (`PallasDense`)
 go through K3 and the int8 ones (`QuantDense`) through K4 at the shapes
 the kernels take, on CUDA tensors. All other contractions are plain tensor
-code with float32 accumulation, as JAX leaves them to XLA. The KV cache
-is updated in place (the JAX version returns a new buffer; here the
-in-place write saves a copy of the cache per step).
+code with float32 accumulation, as JAX leaves them to XLA; on the card the
+attention's operands stay at the cache's width (bf16, or int8 converted
+to bf16 in the layer's one copy of K and of V). `attn_window` reads only
+the first slots of the cache, as JAX's does. The KV cache is updated in
+place (the JAX version returns a new buffer; here the in-place write
+saves a copy of the cache per step), and so, on request, are its
+positions (a captured step's state must stay where it is).
 """
 
 from __future__ import annotations
@@ -379,12 +383,14 @@ class DecoderAttention(nn.Module):
 
     def forward(self, x, cos, sin, mask=None,
                 cache: Optional[KVCache] = None, cache_idx=None,
-                layer_idx: int = 0):
+                layer_idx: int = 0, attn_window: Optional[int] = None):
         """mask: [B, Tq, Tk] bool (True = attend). With a cache, this
         layer writes its K/V at `cache_idx` [B, T] (pad tokens point at
-        the dump slot max_len-1) and attends over its whole cache slice.
-        Decode attention is plain matmul + softmax, as JAX leaves it to
-        XLA."""
+        the dump slot max_len-1) and attends over its cache slice, cut to
+        its first `attn_window` slots when that is below max_len (the
+        windowed KV read: every valid position lies below the window, so
+        the keys cut off are masked ones). Decode attention is plain
+        matmul + softmax, as JAX leaves it to XLA."""
         cfg = self.cfg
         B, T, _ = x.shape
         h, hk, p = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -411,26 +417,66 @@ class DecoderAttention(nn.Module):
                 cache.k[layer_idx][b_idx, cache_idx] = k
                 cache.v[layer_idx][b_idx, cache_idx] = v
             k, v = cache.k[layer_idx], cache.v[layer_idx]
+            if attn_window is not None and attn_window < k.shape[1]:
+                k, v = _window(k, attn_window), _window(v, attn_window)
+                if k_scale is not None:
+                    k_scale = _window(k_scale, attn_window)
+                    v_scale = _window(v_scale, attn_window)
 
         # GQA: group the query heads per KV head instead of repeating K/V
-        rep = h // hk
-        q = q.reshape(B, T, hk, rep, p)
-        scores = torch.einsum("bqhrd,bkhd->bhrqk", q.float(),
-                              k.to(q.dtype).float())
-        if k_scale is not None:
-            scores = scores * k_scale.float().movedim(1, -1)[
-                :, :, None, None, :]
-        scores = scores / math.sqrt(p)
-        if mask is not None:
-            scores = scores.masked_fill(~mask[:, None, None], -1e30)
-        probs = torch.softmax(scores, dim=-1)
-        if v_scale is not None:
-            probs = probs * v_scale.float().movedim(1, -1)[
-                :, :, None, None, :]
-        probs = probs.to(x.dtype)
-        out = torch.einsum("bhrqk,bkhd->bqhrd", probs.float(),
-                           v.to(x.dtype).float()).to(x.dtype)
+        q = q.reshape(B, T, hk, h // hk, p)
+        out = _attend(q, k, v, k_scale, v_scale, mask, x.dtype)
         return self.o_proj(out.reshape(B, T, h * p))
+
+
+def _window(t: torch.Tensor, attn_window: int) -> torch.Tensor:
+    """The first `attn_window` slots of a layer's cache slice [B, S, ...]
+    (a view: the attention's one copy of K and V reads only these)."""
+    return t[:, :attn_window]
+
+
+def _mm_f32(a, b):
+    """Batched a @ b with float32 accumulation and a float32 result. On
+    the card bf16 operands stay at their width (bmm's out_dtype); the CPU
+    widens them first (its bmm has no out_dtype), which rounds nothing:
+    every product of two bf16 values is exact in float32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _attend(q, k, v, k_scale, v_scale, mask, dtype):
+    """Attention of q [B, T, hk, rep, p] over k, v [B, S, hk, p], JAX's
+    einsums with preferred_element_type=float32: K and V (int8 converted
+    to `dtype`, or as stored) are copied once each into the [B, hk, S, p]
+    layout a batched product reads, the int8 scales fold into the scores
+    and the probabilities, and the products accumulate in float32, so no
+    float32 copy of the cache is made. Returns [B, T, hk, rep, p] in
+    `dtype`."""
+    B, T, hk, rep, p = q.shape
+    S = k.shape[1]
+
+    def heads_major(t):
+        # the layer's one copy of K or V: the conversion and the permute
+        # in one kernel
+        out = torch.empty((B, hk, S, p), dtype=dtype, device=t.device)
+        return out.copy_(t.permute(0, 2, 1, 3)).view(B * hk, S, p)
+
+    kb, vb = heads_major(k), heads_major(v)
+    qb = q.to(dtype).permute(0, 2, 3, 1, 4).reshape(B * hk, rep * T, p)
+    scores = _mm_f32(qb, kb.transpose(1, 2)).view(B, hk, rep, T, S)
+    if k_scale is not None:
+        scores = scores * k_scale.float().movedim(1, -1)[
+            :, :, None, None, :]
+    scores = scores / math.sqrt(p)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.float().movedim(1, -1)[:, :, None, None, :]
+    probs = probs.to(dtype).view(B * hk, rep * T, S)
+    out = _mm_f32(probs, vb).to(dtype).view(B, hk, rep, T, p)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 class DecoderMLP(nn.Module):
@@ -466,10 +512,10 @@ class DecoderLayer(nn.Module):
         self.mlp = DecoderMLP(cfg, device)
 
     def forward(self, x, cos, sin, mask=None, cache=None, cache_idx=None,
-                layer_idx: int = 0):
+                layer_idx: int = 0, attn_window: Optional[int] = None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask=mask,
                                cache=cache, cache_idx=cache_idx,
-                               layer_idx=layer_idx)
+                               layer_idx=layer_idx, attn_window=attn_window)
         h = self.post_attention_layernorm(x)
         return x + self.mlp(h), zero_aux(h)
 
@@ -479,7 +525,15 @@ class DecoderLM(nn.Module):
 
     forward modes: full sequence without a cache ([B, T] inputs), prefill
     with a cache, and decode (T = 1) against the cache. `inputs_embeds`
-    bypasses the embedding (the LLaVA image splice feeds embeddings)."""
+    bypasses the embedding (the LLaVA image splice feeds embeddings).
+
+    With a cache, `attn_window` (below max_len) makes every layer attend
+    over the cache's first `attn_window` slots only, the mask built over
+    as many keys; the caller's contract is pos + T <= attn_window, and
+    then the tokens are those of the whole cache. `pos_in_place` advances
+    `cache.pos` in place and returns `cache` itself, so a captured step
+    writes the new positions into the same buffer; otherwise the returned
+    cache holds a new pos tensor."""
 
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -507,7 +561,9 @@ class DecoderLM(nn.Module):
 
     def forward(self, input_ids=None, *, inputs_embeds=None,
                 attention_mask=None, position_ids=None,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None,
+                attn_window: Optional[int] = None,
+                pos_in_place: bool = False):
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
@@ -530,6 +586,10 @@ class DecoderLM(nn.Module):
             qpos = cache.pos[:, None] + torch.clamp(cum, min=0)
             if position_ids is None:
                 position_ids = qpos
+            if attn_window is not None and attn_window < kv_len:
+                # the windowed read's keys; validity is the caller's
+                # contract (pos + T <= attn_window)
+                kv_len = attn_window
             mask = (torch.arange(kv_len, device=dev)[None, None]
                     <= qpos[:, :, None])
         else:
@@ -544,7 +604,8 @@ class DecoderLM(nn.Module):
         total_aux = torch.zeros((), dtype=torch.float32, device=dev)
         auxes: List[MoEAux] = []
         for li, layer in enumerate(self.layers):
-            x, aux = layer(x, cos, sin, mask, cache, cache_idx, li)
+            x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
+                           attn_window)
             total_aux = total_aux + aux.aux_loss
             auxes.append(aux)
 
@@ -563,6 +624,11 @@ class DecoderLM(nn.Module):
                        if attention_mask is not None
                        else torch.full((B,), T, dtype=torch.long,
                                        device=dev))
-            new_cache = dataclasses.replace(cache, pos=cache.pos + advance)
+            if pos_in_place:
+                cache.pos.add_(advance)
+                new_cache = cache
+            else:
+                new_cache = dataclasses.replace(cache,
+                                                pos=cache.pos + advance)
         return logits, new_cache, {"total_aux_loss": total_aux,
                                    "layers": auxes}

@@ -14,6 +14,7 @@ step-by-step distribution. Random draws come from explicit
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch.nn as nn
 
 from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..device import resolve_device
+from ..utils.cuda_graph import capture, copy_from_host
 from .decoder import DecoderConfig, DecoderLM, KVCache
 from .projector import ProjectorConfig, VisionProjector
 from .vision import SiglipSMoEVisionTower, VisionConfig
@@ -159,7 +161,10 @@ class LlavaModel(nn.Module):
 
     def forward(self, input_ids, pixel_values=None, labels=None,
                 attention_mask=None, *, step=None, train=False,
-                return_id_experts=False, cache=None) -> LlavaOutput:
+                return_id_experts=False, cache=None,
+                pos_in_place: bool = False) -> LlavaOutput:
+        """`pos_in_place`: with a cache, advance its pos in place (see
+        DecoderLM.forward)."""
         if labels is not None:
             raise NotImplementedError("the training loss is not ported "
                                       "yet (ROADMAP: multimodal training)")
@@ -168,7 +173,7 @@ class LlavaModel(nn.Module):
         if pixel_values is None:
             logits, new_cache, _ = lm(torch.clamp(input_ids, min=0),
                                       attention_mask=attention_mask,
-                                      cache=cache)
+                                      cache=cache, pos_in_place=pos_in_place)
             return LlavaOutput(logits=logits, loss=None, aux_mlp=zero,
                                aux_clip=zero, cache=new_cache)
 
@@ -189,7 +194,8 @@ class LlavaModel(nn.Module):
             sp_mask, sp_pos = sp_mask[:, :maxlen], sp_pos[:, :maxlen]
         logits, new_cache, _ = lm(
             inputs_embeds=embeds, attention_mask=sp_mask,
-            position_ids=sp_pos if cache is None else None, cache=cache)
+            position_ids=sp_pos if cache is None else None, cache=cache,
+            pos_in_place=pos_in_place)
         return LlavaOutput(
             logits=logits, loss=None, aux_mlp=p_aux.aux_loss,
             aux_clip=aux_clip, labels=sp_labels, aux_llm=zero,
@@ -275,24 +281,21 @@ def sample_token(logits: torch.Tensor,
 
 @torch.no_grad()
 def _prefill(model: LlavaModel, input_ids, pixel_values, attention_mask,
-             max_len: int):
+             max_len: int, cache: Optional[KVCache] = None):
+    """Prefill into `cache` (a fresh one of `max_len` slots when None;
+    its pos advances in place)."""
     dev = model.device
     B = input_ids.shape[0]
-    cache = KVCache.create(model.language_model.cfg, B, max_len, dev)
+    if cache is None:
+        cache = KVCache.create(model.language_model.cfg, B, max_len, dev)
     ids = torch.as_tensor(input_ids, dtype=torch.long, device=dev)
     mask = torch.as_tensor(attention_mask, device=dev)
     px = (torch.as_tensor(pixel_values, dtype=torch.float32, device=dev)
           if pixel_values is not None else None)
     out = model(ids, px, attention_mask=mask, cache=cache,
-                return_id_experts=px is not None)
+                return_id_experts=px is not None, pos_in_place=True)
     last = out.logits[torch.arange(B, device=dev), out.cache.pos - 1]
     return last, out
-
-
-@torch.no_grad()
-def _decode_step(model: LlavaModel, token: torch.Tensor, cache: KVCache):
-    out = model(token[:, None], None, cache=cache)
-    return out.logits[:, 0], out.cache
 
 
 def _host(tokens: torch.Tensor) -> np.ndarray:
@@ -300,20 +303,128 @@ def _host(tokens: torch.Tensor) -> np.ndarray:
     return tokens.cpu().numpy().astype(np.int32)
 
 
+# ---------------------------------------------------------------------------
+# The solo path's captured decode programs
+# ---------------------------------------------------------------------------
+
+class _SoloCaches:
+    """The solo path's KV caches on the card and the decode programs
+    captured over them (one set per model). A request takes a cache of its
+    (batch, max_len) bucket for its whole generation and gives it back at
+    the end. The cache stays allocated across requests because its
+    addresses are baked into its programs, so a second request of the
+    bucket replays them without a capture; a bucket holds more than one
+    cache only while its requests overlap (the worker's
+    --limit-model-concurrency). Each cache's programs share one graph
+    pool: they never run at the same time."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.free: Dict[Tuple[int, int], List[KVCache]] = {}
+        self.owned: Dict[int, KVCache] = {}
+        self.programs: Dict[tuple, Any] = {}
+        self.pools: Dict[int, Any] = {}
+
+    def take(self, model: LlavaModel, batch: int, max_len: int) -> KVCache:
+        with self.lock:
+            free = self.free.setdefault((batch, max_len), [])
+            if free:
+                cache = free.pop()
+            else:
+                cache = KVCache.create(model.language_model.cfg, batch,
+                                       max_len, model.device)
+                self.owned[id(cache)] = cache
+                self.pools[id(cache)] = torch.cuda.graph_pool_handle()
+        cache.pos.zero_()
+        return cache
+
+    def give_back(self, cache: KVCache) -> None:
+        with self.lock:
+            self.free[(cache.k.shape[1], cache.max_len)].append(cache)
+
+    def program(self, cache: KVCache, key: tuple, build):
+        """The program `key` over `cache`, captured by `build(pool)` at its
+        first use."""
+        if self.owned.get(id(cache)) is not cache:
+            raise ValueError("a captured decode runs over a cache of the "
+                             "solo path's own (stream_generate, generate)")
+        full = (id(cache),) + key
+        got = self.programs.get(full)
+        if got is None:
+            got = self.programs[full] = build(self.pools[id(cache)])
+        return got
+
+
+_SOLO_LOCK = threading.Lock()
+
+
+def _solo_caches(model: LlavaModel) -> _SoloCaches:
+    with _SOLO_LOCK:
+        solo = getattr(model, "_solo_caches", None)
+        if solo is None:
+            solo = model._solo_caches = _SoloCaches()
+    return solo
+
+
+def _captured(model: LlavaModel, cuda_graphs: bool) -> bool:
+    return cuda_graphs and model.device.type == "cuda"
+
+
+def _drawing_from(program, own: torch.Generator, device: torch.device,
+                  generator: Optional[torch.Generator]):
+    """Replay `program`, whose draws come from its own generator `own`, as
+    if it drew from `generator` (the device's default one when None, as
+    torch.rand without one): `own` takes the caller's seed and offset
+    before the replay and hands the advanced offset back after it, so
+    the draws and the caller's generator follow the eager steps. Both are
+    host-side values: nothing synchronises."""
+    if generator is None:
+        generator = torch.cuda.default_generators[device.index or 0]
+    own.set_state(generator.get_state())
+    out = program()
+    generator.set_state(own.get_state())
+    return out
+
+
 def make_scan_decode(model: LlavaModel, n_tokens: int,
-                     temperature: float = 0.0, top_p: float = 1.0):
+                     temperature: float = 0.0, top_p: float = 1.0,
+                     cuda_graphs: bool = True):
     """fn(first_token [B], cache, generator) -> (tokens [B, n_tokens],
-    cache): n_tokens decode steps with sampling on the device, a plain
-    loop where JAX scans on the device."""
+    cache): n_tokens decode steps with sampling on the device; cache.pos
+    advances in place. On the card (unless cuda_graphs=False) the steps
+    replay a program captured over `cache`, which must be one of the solo
+    path's own (`stream_generate`, `generate`), one program per (cache,
+    n_tokens, temperature, top_p) whatever generator the caller draws
+    from, as JAX jits one scan per (model, n_tokens, temperature, top_p);
+    elsewhere they run eagerly in a plain loop."""
+
+    def steps(token, cache, generator):
+        toks = []
+        for _ in range(n_tokens):
+            out = model(token[:, None], None, cache=cache, pos_in_place=True)
+            token = sample_token(out.logits[:, 0], generator, temperature,
+                                 top_p)
+            toks.append(token)
+        return torch.stack(toks, dim=1)
 
     @torch.no_grad()
     def decode(first_token, cache, generator=None):
-        token, toks = first_token, []
-        for _ in range(n_tokens):
-            logits, cache = _decode_step(model, token, cache)
-            token = sample_token(logits, generator, temperature, top_p)
-            toks.append(token)
-        return torch.stack(toks, dim=1), cache
+        if not _captured(model, cuda_graphs):
+            return steps(first_token, cache, generator), cache
+        dev = first_token.device
+
+        def build(pool):
+            cur = torch.zeros_like(first_token)
+            own = torch.Generator(device=dev)
+            return cur, own, capture(lambda: steps(cur, cache, own),
+                                     state=(cur, cache.pos),
+                                     generators=(own,), pool=pool)
+
+        cur, own, program = _solo_caches(model).program(
+            cache, ("scan", n_tokens, temperature, top_p), build)
+        cur.copy_(first_token)
+        toks = _drawing_from(program, own, dev, generator)
+        return toks.clone(), cache
     return decode
 
 
@@ -366,22 +477,65 @@ def verify_step(model: LlavaModel, tokens: torch.Tensor, cache: KVCache,
                 nucleus: bool = False):
     """Speculative verification, greedy and sampled (JAX's
     make_verify_step and make_sampled_verify_step in one):
-    (toks [B, 1+k], n_acc [B], cache'). `tokens` is each row's current
-    token followed by k drafts; one forward writes all 1+k positions' K/V,
-    `speculative_accept` decides per row by its temperature, and the
-    returned cache advances pos by 1 + n_acc only: the rejected tail sits
-    beyond pos, is never attended, and is overwritten by the next step."""
-    pos0 = cache.pos
-    out = model(tokens, None, cache=cache)
+    (toks [B, 1+k], n_acc [B]). `tokens` is each row's current token
+    followed by k drafts; one forward writes all 1+k positions' K/V,
+    `speculative_accept` decides per row by its temperature, and cache.pos
+    advances in place by 1 + n_acc only: the rejected tail sits beyond
+    pos, is never attended, and is overwritten by the next step."""
+    out = model(tokens, None, cache=cache, pos_in_place=True)
     toks, n_acc = speculative_accept(out.logits, tokens[:, 1:], temps, topps,
                                      generator, nucleus=nucleus)
-    return toks, n_acc, dataclasses.replace(out.cache, pos=pos0 + 1 + n_acc)
+    cache.pos.sub_(tokens.shape[1] - 1 - n_acc)
+    return toks, n_acc
+
+
+def _make_verify(model: LlavaModel, cache: KVCache, spec: int,
+                 temperature: float, top_p: float,
+                 generator: Optional[torch.Generator], cuda_graphs: bool):
+    """fn(tokens np [1, 1+spec]) -> (toks np [1+spec], n_acc): the solo
+    path's verify step over `cache`. On the card it replays a program
+    captured per (cache, spec, nucleus), temperature and top_p riding in
+    device buffers as JAX's sampled verify takes them at run time, and its
+    draws following `generator` (`_drawing_from`)."""
+    dev = model.device
+    nucleus = temperature > 0.0 and top_p < 1.0
+    if not _captured(model, cuda_graphs):
+        temps = torch.full((1,), temperature, device=dev)
+        topps = torch.full((1,), top_p, device=dev)
+
+        def eager(tokens):
+            got, n_acc = verify_step(
+                model, torch.as_tensor(tokens, dtype=torch.long, device=dev),
+                cache, temps, topps, generator, nucleus=nucleus)
+            return _host(got)[0], int(n_acc[0])
+        return eager
+    def build(pool):
+        toks = torch.zeros((1, 1 + spec), dtype=torch.long, device=dev)
+        temps = torch.zeros((1,), device=dev)
+        topps = torch.ones((1,), device=dev)
+        own = torch.Generator(device=dev)
+        return toks, temps, topps, own, capture(
+            lambda: verify_step(model, toks, cache, temps, topps, own,
+                                nucleus=nucleus),
+            state=(cache.pos,), generators=(own,), pool=pool)
+
+    toks, temps, topps, own, program = _solo_caches(model).program(
+        cache, ("verify", spec, nucleus), build)
+
+    def replay(tokens):
+        copy_from_host(toks, tokens)
+        temps.fill_(temperature)
+        topps.fill_(top_p)
+        got, n_acc = _drawing_from(program, own, dev, generator)
+        return _host(got)[0], int(n_acc[0])
+    return replay
 
 
 def _spec_chunks(model: LlavaModel, input_ids: np.ndarray,
                  cur: torch.Tensor, cache: KVCache, max_new: int, spec: int,
                  temperature: float = 0.0, top_p: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cuda_graphs: bool = True):
     """Speculative decode loop (B == 1): yields np [1, n] chunks of new
     tokens after the first. Prompt-lookup drafts come from
     serve/speculative.py; an iteration with no recurring n-gram takes a
@@ -389,8 +543,9 @@ def _spec_chunks(model: LlavaModel, input_ids: np.ndarray,
     from ..serve.speculative import ngram_draft
 
     dev = model.device
-    temps1 = torch.full((1,), temperature, device=dev)
-    topps1 = torch.full((1,), top_p, device=dev)
+    verify = _make_verify(model, cache, spec, temperature, top_p, generator,
+                          cuda_graphs)
+    step = make_scan_decode(model, 1, temperature, top_p, cuda_graphs)
     hist = [int(t) for t in input_ids[0].tolist() if int(t) >= 0]
     cur_i = int(cur[0])
     hist.append(cur_i)
@@ -398,16 +553,12 @@ def _spec_chunks(model: LlavaModel, input_ids: np.ndarray,
     while produced < max_new:
         draft = ngram_draft(hist, spec)
         if draft is None:
-            logits, cache = _decode_step(
-                model, torch.tensor([cur_i], device=dev), cache)
-            emit = _host(sample_token(logits, generator, temperature, top_p))
+            toks, cache = step(torch.tensor([cur_i], device=dev), cache,
+                               generator)
+            emit = _host(toks)[0]
         else:
-            toks = torch.as_tensor(np.concatenate([[cur_i], draft])[None],
-                                   dtype=torch.long, device=dev)
-            got, n_acc, cache = verify_step(
-                model, toks, cache, temps1, topps1, generator,
-                nucleus=temperature > 0.0 and top_p < 1.0)
-            emit = _host(got)[0, : int(n_acc[0]) + 1]
+            got, n_acc = verify(np.concatenate([[cur_i], draft])[None])
+            emit = got[: n_acc + 1]
         emit = emit[: max_new - produced]
         produced += len(emit)
         cur_i = int(emit[-1])
@@ -415,8 +566,11 @@ def _spec_chunks(model: LlavaModel, input_ids: np.ndarray,
         yield emit[None].astype(np.int32).copy()
 
 
-def _setup(model, input_ids, pixel_values, attention_mask, max_new_tokens,
-           spec, pad_to_bucket):
+def _bucketed(model, input_ids, pixel_values, attention_mask,
+              max_new_tokens, spec, pad_to_bucket):
+    """(ids, mask, cache length) of a request: the prompt padded to its
+    bucket, and room for the image tokens, the new tokens and the drafts
+    (rounded up to 128 with the bucket)."""
     input_ids, attention_mask, L = _pad_prompt_bucket(
         input_ids, attention_mask, pad_to_bucket)
     P = model.cfg.num_image_tokens if pixel_values is not None else 0
@@ -424,7 +578,7 @@ def _setup(model, input_ids, pixel_values, attention_mask, max_new_tokens,
     max_len = prompt_len + max_new_tokens + spec
     if pad_to_bucket:
         max_len = -(-max_len // 128) * 128
-    return _prefill(model, input_ids, pixel_values, attention_mask, max_len)
+    return input_ids, attention_mask, max_len
 
 
 def stream_generate(model: LlavaModel, input_ids: np.ndarray,
@@ -435,7 +589,7 @@ def stream_generate(model: LlavaModel, input_ids: np.ndarray,
                     stop_token_ids: Optional[List[int]] = None,
                     generator: Optional[torch.Generator] = None,
                     chunk_max: int = 8, speculative: int = 0,
-                    pad_to_bucket: bool = True):
+                    pad_to_bucket: bool = True, cuda_graphs: bool = True):
     """Incremental generation: yields np.ndarray token chunks [B, n] as
     they are produced (first chunk right after prefill). Chunk sizes
     follow 1, 1, 2, 4, ..., chunk_max. Rows stop after a stop/eos token;
@@ -444,61 +598,74 @@ def stream_generate(model: LlavaModel, input_ids: np.ndarray,
 
     speculative=K > 0 (B == 1 only; ignored otherwise) verifies K
     prompt-lookup drafts per forward and yields 1..K+1 tokens per chunk
-    after the first."""
+    after the first.
+
+    On the card the decode and verify steps replay captured CUDA graphs
+    (`make_scan_decode`) over a cache the model keeps for the request's
+    bucket; cuda_graphs=False runs them eagerly, the same function."""
     B = input_ids.shape[0]
     spec = int(speculative) if (speculative and B == 1) else 0
     orig_ids = np.asarray(input_ids)      # unpadded: the drafts' history
-    last_logits, out = _setup(model, input_ids, pixel_values,
-                              attention_mask, max_new_tokens, spec,
-                              pad_to_bucket)
-    cache = out.cache
-    stops = set(stop_token_ids or [])
-    if eos_token_id is not None:
-        stops.add(int(eos_token_id))
-    stop_arr = np.asarray(sorted(stops)) if stops else None
+    ids, mask, max_len = _bucketed(model, input_ids, pixel_values,
+                                   attention_mask, max_new_tokens, spec,
+                                   pad_to_bucket)
+    solo = _solo_caches(model) if _captured(model, cuda_graphs) else None
+    cache = solo.take(model, B, max_len) if solo else None
+    try:
+        last_logits, out = _prefill(model, ids, pixel_values, mask, max_len,
+                                    cache)
+        cache = out.cache
+        stops = set(stop_token_ids or [])
+        if eos_token_id is not None:
+            stops.add(int(eos_token_id))
+        stop_arr = np.asarray(sorted(stops)) if stops else None
 
-    def cut(chunk: np.ndarray, finished: np.ndarray):
-        if stop_arr is None:
-            return chunk, finished, False
-        for b in range(chunk.shape[0]):
-            if finished[b]:
-                chunk[b, :] = stop_arr[0]
-                continue
-            hits = np.isin(chunk[b], stop_arr)
-            if hits.any():
-                fi = int(hits.argmax())
-                chunk[b, fi + 1:] = chunk[b, fi]
-                finished[b] = True
-        return chunk, finished, bool(finished.all())
+        def cut(chunk: np.ndarray, finished: np.ndarray):
+            if stop_arr is None:
+                return chunk, finished, False
+            for b in range(chunk.shape[0]):
+                if finished[b]:
+                    chunk[b, :] = stop_arr[0]
+                    continue
+                hits = np.isin(chunk[b], stop_arr)
+                if hits.any():
+                    fi = int(hits.argmax())
+                    chunk[b, fi + 1:] = chunk[b, fi]
+                    finished[b] = True
+            return chunk, finished, bool(finished.all())
 
-    cur = sample_token(last_logits, generator, temperature, top_p)
-    finished = np.zeros(B, bool)
-    produced = 1
-    chunk_np, finished, done = cut(_host(cur[:, None]), finished)
-    yield chunk_np
-    if done:
-        return
-    if spec:
-        for emit in _spec_chunks(model, orig_ids, cur, cache,
-                                 max_new_tokens, spec, temperature, top_p,
-                                 generator):
-            chunk_np, finished, done = cut(emit, finished)
-            yield chunk_np
-            if done:
-                return
-        return
-    size = 1
-    while produced < max_new_tokens:
-        n = min(size, max_new_tokens - produced)
-        toks, cache = make_scan_decode(model, n, temperature, top_p)(
-            cur, cache, generator)
-        cur = toks[:, -1]
-        produced += n
-        chunk_np, finished, done = cut(_host(toks), finished)
+        cur = sample_token(last_logits, generator, temperature, top_p)
+        finished = np.zeros(B, bool)
+        produced = 1
+        chunk_np, finished, done = cut(_host(cur[:, None]), finished)
         yield chunk_np
         if done:
             return
-        size = min(size * 2, chunk_max)
+        if spec:
+            for emit in _spec_chunks(model, orig_ids, cur, cache,
+                                     max_new_tokens, spec, temperature,
+                                     top_p, generator, cuda_graphs):
+                chunk_np, finished, done = cut(emit, finished)
+                yield chunk_np
+                if done:
+                    return
+            return
+        size = 1
+        while produced < max_new_tokens:
+            n = min(size, max_new_tokens - produced)
+            toks, cache = make_scan_decode(model, n, temperature, top_p,
+                                           cuda_graphs)(cur, cache,
+                                                        generator)
+            cur = toks[:, -1]
+            produced += n
+            chunk_np, finished, done = cut(_host(toks), finished)
+            yield chunk_np
+            if done:
+                return
+            size = min(size * 2, chunk_max)
+    finally:
+        if solo:
+            solo.give_back(cache)
 
 
 def generate(model: LlavaModel, input_ids: np.ndarray,
@@ -508,52 +675,64 @@ def generate(model: LlavaModel, input_ids: np.ndarray,
              top_p: float = 1.0, eos_token_id: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
              stop_token_ids: Optional[List[int]] = None,
-             speculative: int = 0, pad_to_bucket: bool = True
+             speculative: int = 0, pad_to_bucket: bool = True,
+             cuda_graphs: bool = True
              ) -> Tuple[np.ndarray, LlavaOutput]:
     """Prefill + decode; returns (generated ids [B, <= max_new_tokens],
     the prefill output with routing telemetry). Decoding stops once every
     row has produced a stop/eos token. speculative=K (B == 1 and more than
-    one new token only) verifies K prompt-lookup drafts per forward."""
+    one new token only) verifies K prompt-lookup drafts per forward. On
+    the card the steps replay captured programs, as in `stream_generate`
+    (cuda_graphs=False: eagerly)."""
     B = input_ids.shape[0]
     spec = int(speculative) if (speculative and B == 1
                                 and max_new_tokens > 1) else 0
     orig_ids = np.asarray(input_ids)
-    last_logits, out = _setup(model, input_ids, pixel_values,
-                              attention_mask, max_new_tokens, spec,
-                              pad_to_bucket)
-    cache = out.cache
-    stops = set(stop_token_ids or [])
-    if eos_token_id is not None:
-        stops.add(int(eos_token_id))
-    cur = sample_token(last_logits, generator, temperature, top_p)
-    if spec:
-        parts = [_host(cur[:, None])]
-        if not (stops and int(parts[0][0, 0]) in stops):
-            for emit in _spec_chunks(model, orig_ids, cur, cache,
-                                     max_new_tokens, spec, temperature,
-                                     top_p, generator):
-                parts.append(emit)
-                if stops and np.isin(emit, list(stops)).any():
+    ids, mask, max_len = _bucketed(model, input_ids, pixel_values,
+                                   attention_mask, max_new_tokens, spec,
+                                   pad_to_bucket)
+    solo = _solo_caches(model) if _captured(model, cuda_graphs) else None
+    cache = solo.take(model, B, max_len) if solo else None
+    try:
+        last_logits, out = _prefill(model, ids, pixel_values, mask, max_len,
+                                    cache)
+        cache = out.cache
+        stops = set(stop_token_ids or [])
+        if eos_token_id is not None:
+            stops.add(int(eos_token_id))
+        cur = sample_token(last_logits, generator, temperature, top_p)
+        if spec:
+            parts = [_host(cur[:, None])]
+            if not (stops and int(parts[0][0, 0]) in stops):
+                for emit in _spec_chunks(model, orig_ids, cur, cache,
+                                         max_new_tokens, spec, temperature,
+                                         top_p, generator, cuda_graphs):
+                    parts.append(emit)
+                    if stops and np.isin(emit, list(stops)).any():
+                        break
+            all_toks = np.concatenate(parts, axis=1)
+            if stops:
+                stop_mask = np.isin(all_toks, list(stops))
+                first_stop = np.where(stop_mask.any(1), stop_mask.argmax(1),
+                                      all_toks.shape[1])
+                all_toks = all_toks[:, :min(int(first_stop.max()) + 1,
+                                            all_toks.shape[1])]
+            return all_toks, out
+        step = make_scan_decode(model, 1, temperature, top_p, cuda_graphs)
+        tokens = []
+        finished = np.zeros(input_ids.shape[0], bool)
+        for _ in range(max_new_tokens):
+            cur_np = _host(cur)
+            tokens.append(cur_np)
+            if stops:
+                finished |= np.isin(cur_np, list(stops))
+                if finished.all():
                     break
-        all_toks = np.concatenate(parts, axis=1)
-        if stops:
-            stop_mask = np.isin(all_toks, list(stops))
-            first_stop = np.where(stop_mask.any(1), stop_mask.argmax(1),
-                                  all_toks.shape[1])
-            all_toks = all_toks[:, :min(int(first_stop.max()) + 1,
-                                        all_toks.shape[1])]
-        return all_toks, out
-    tokens = []
-    finished = np.zeros(input_ids.shape[0], bool)
-    for _ in range(max_new_tokens):
-        cur_np = _host(cur)
-        tokens.append(cur_np)
-        if stops:
-            finished |= np.isin(cur_np, list(stops))
-            if finished.all():
+            if len(tokens) == max_new_tokens:
                 break
-        if len(tokens) == max_new_tokens:
-            break
-        logits, cache = _decode_step(model, cur, cache)
-        cur = sample_token(logits, generator, temperature, top_p)
-    return np.stack(tokens, axis=1), out
+            toks, cache = step(cur, cache, generator)
+            cur = toks[:, 0]
+        return np.stack(tokens, axis=1), out
+    finally:
+        if solo:
+            solo.give_back(cache)

@@ -42,7 +42,15 @@ gives serving that batching dynamically:
   chunk per tick into a 1-row staging cache, with a decode step for the
   live slots between chunks, so one long prompt does not stall every
   stream for its whole prefill; image prompts keep grouped admission;
-- `warmup()` drives tiny requests through every path serving reaches.
+- `warmup()` drives tiny requests through every path serving reaches;
+- on the card each tick's device step replays a captured CUDA graph (the
+  counterpart of JAX's jitted programs `_step_plain`, `_step_nucleus`,
+  `_spec_plain` and `_spec_nucleus`), captured at its first use over the
+  engine's persistent cache and its static state: the current tokens,
+  the per-slot temperature and top_p, the positions and the drafts.
+  Admission, unparks, park flushes and chunked prefill stay eager and
+  write into those buffers in place. `cuda_graphs=False` runs the same
+  step eagerly, for comparison; on the CPU it always runs eagerly.
 
 Random draws come from one `torch.Generator` on the model's device, seeded
 by `rng_seed`. Tensor- and expert-parallel engines (`mesh`) are not ported
@@ -64,6 +72,7 @@ import torch
 from ..constants import IMAGE_TOKEN_INDEX
 from ..models.decoder import KVCache
 from ..models.llava import _prefill, sample_rows, verify_step
+from ..utils.cuda_graph import Program, capture, copy_from_host
 
 _UNPORTED = "not ported yet (ROADMAP §1 item 1.7: {})"
 
@@ -103,7 +112,9 @@ class DecodeEngine:
 
     submit() enqueues a request and returns an iterator of token ids that
     streams as the engine decodes; the engine thread owns every device
-    call. run_thread=False leaves stepping to the caller (`_tick()`)."""
+    call, captures and replays included. run_thread=False leaves stepping
+    to the caller (`_tick()`). cuda_graphs=False runs the ticks' steps
+    eagerly on the card (the comparison for the captured programs)."""
 
     def __init__(self, model, n_slots: int = 8, max_len: int = 2048,
                  steps_per_call: int = 1, rng_seed: int = 0,
@@ -112,7 +123,7 @@ class DecodeEngine:
                  draft_fn=None, prefill_chunk: int = 0,
                  spec_adaptive: bool = False,
                  spec_probe_interval: int = 32, clock=time.monotonic,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1, cuda_graphs: bool = True):
         if mesh is not None:
             raise NotImplementedError(_UNPORTED.format(
                 "tensor- and expert-parallel engines"))
@@ -162,6 +173,15 @@ class DecodeEngine:
         self._topps = np.ones((n_slots,), np.float32)
         self._temps_dev = self._dev(self._temps)
         self._topps_dev = self._dev(self._topps)
+        # the verify step's drafts, written before each verify tick
+        self._drafts_dev = (torch.zeros((n_slots, self._spec_k),
+                                        dtype=torch.long, device=self.device)
+                            if self._spec_k else None)
+        # the captured step programs by JAX's names (see _step); their
+        # graphs share one memory pool: they run one at a time
+        self._graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self._programs: Dict[str, Program] = {}
+        self._graph_pool = None
         # chunked prefill: the in-flight long prompt, the queue behind it
         # and its 1-row staging cache
         self._pf_chunk_n = int(prefill_chunk)
@@ -202,13 +222,13 @@ class DecodeEngine:
     # -- host <-> device without synchronising the stream -----------------
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the model's device. On a card the copy goes
-        through pinned memory and does not block: a plain copy would
-        synchronise the stream, and so wait for every queued tick."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A host array in a new tensor on the model's device, copied
+        without synchronising the stream (`copy_from_host`)."""
+        arr = np.ascontiguousarray(arr)
+        out = torch.empty(arr.shape, dtype=torch.from_numpy(arr).dtype,
+                          device=self.device)
+        copy_from_host(out, arr)
+        return out
 
     def _to_host(self, t: torch.Tensor):
         """(host copy, event) started now; `_read` waits for it."""
@@ -292,8 +312,8 @@ class DecodeEngine:
         c.pos[idx] = rows.pos[:nb]
         self._temps[slots] = temps
         self._topps[slots] = topps
-        self._temps_dev = self._dev(self._temps)
-        self._topps_dev = self._dev(self._topps)
+        copy_from_host(self._temps_dev, self._temps)
+        copy_from_host(self._topps_dev, self._topps)
         toks = sample_rows(last, self._dev(temps), self._dev(topps),
                            self._gen, nucleus=True)
         self._cur[idx] = toks
@@ -661,17 +681,9 @@ class DecodeEngine:
                 self._spec_record("verify", self._tokens_emitted - before,
                                   t0)
                 return
-        cur, cache, toks = self._cur, self._cache, []
-        for _ in range(self.steps_per_call):
-            out = self.model(cur[:, None], None, cache=cache)
-            cur = sample_rows(out.logits[:, 0], self._temps_dev,
-                              self._topps_dev, self._gen, nucleus)
-            cache = out.cache
-            toks.append(cur)
-        self._cur, self._cache = cur, cache
+        toks = self._step("step", nucleus)
         before = self._tokens_emitted
-        self._inflight.append((*self._to_host(torch.stack(toks, dim=1)),
-                               dict(self._live)))
+        self._inflight.append((*self._to_host(toks), dict(self._live)))
         if len(self._inflight) >= self._pipeline_depth:
             self._drain_one()
         if self._spec_k:
@@ -683,6 +695,55 @@ class DecodeEngine:
             self._spec_record("verify" if tried_verify else "plain",
                               self._tokens_emitted - before, t0,
                               instant_up=not tried_verify)
+
+    def _decode_steps(self, nucleus: bool) -> torch.Tensor:
+        """`steps_per_call` decode steps over every slot with sampling on
+        the device: the current tokens and the positions advance in place.
+        Returns the tokens [n_slots, steps_per_call]."""
+        cur, toks = self._cur, []
+        for _ in range(self.steps_per_call):
+            out = self.model(cur[:, None], None, cache=self._cache,
+                             pos_in_place=True)
+            cur = sample_rows(out.logits[:, 0], self._temps_dev,
+                              self._topps_dev, self._gen, nucleus)
+            toks.append(cur)
+        self._cur.copy_(cur)
+        return torch.stack(toks, dim=1)
+
+    def _verify(self, nucleus: bool):
+        """One verify forward over every slot's [cur, k drafts]
+        (`verify_step` keeps each slot's verified prefix live); the current
+        tokens advance in place. Returns (toks [n_slots, 1+k], n_acc)."""
+        toks, n_acc = verify_step(
+            self.model, torch.cat([self._cur[:, None], self._drafts_dev],
+                                  dim=1),
+            self._cache, self._temps_dev, self._topps_dev, self._gen,
+            nucleus=nucleus)
+        self._cur.copy_(torch.gather(toks, 1, n_acc[:, None])[:, 0])
+        return toks, n_acc
+
+    def _step(self, kind: str, nucleus: bool):
+        """The tick's device step, `kind` 'step' (`_decode_steps`) or
+        'spec' (`_verify`), with or without the nucleus filter. On the card
+        it replays the program of JAX's name (`step_plain`,
+        `step_nucleus`, `spec_plain`, `spec_nucleus`), captured at its first
+        use (warmup() reaches every one serving does); elsewhere, or with
+        cuda_graphs=False, it runs eagerly."""
+        def run():
+            return (self._decode_steps(nucleus) if kind == "step"
+                    else self._verify(nucleus))
+
+        if not self._graphs:
+            return run()
+        name = f"{kind}_{'nucleus' if nucleus else 'plain'}"
+        program = self._programs.get(name)
+        if program is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            program = self._programs[name] = capture(
+                run, state=(self._cur, self._cache.pos),
+                generators=(self._gen,), pool=self._graph_pool)
+        return program()
 
     def _drain_one(self):
         """Read the oldest in-flight call and emit its tokens to the
@@ -761,14 +822,10 @@ class DecodeEngine:
 
     def _tick_spec(self, drafts: np.ndarray, nucleus: bool):
         """Speculative step: verify every slot's drafts in ONE forward
-        over [cur, k drafts] (`verify_step` keeps each slot's verified
-        prefix live) and emit the accepted run per slot."""
-        toks, n_acc, self._cache = verify_step(
-            self.model, torch.cat([self._cur[:, None], self._dev(drafts)],
-                                  dim=1),
-            self._cache, self._temps_dev, self._topps_dev, self._gen,
-            nucleus=nucleus)
-        self._cur = torch.gather(toks, 1, n_acc[:, None])[:, 0]
+        over [cur, k drafts] (`_verify`) and emit the accepted run per
+        slot."""
+        copy_from_host(self._drafts_dev, drafts)
+        toks, n_acc = self._step("spec", nucleus)
         toks = self._read(*self._to_host(toks))            # [n_slots, 1+k]
         n_acc = self._read(*self._to_host(n_acc))
         self._spec_calls += 1
@@ -854,14 +911,16 @@ class DecodeEngine:
         """Drive tiny requests through every path serving reaches, so no
         live request pays a first use.
 
-        Eager PyTorch compiles no programs, but the first launch of each
-        path still costs: on the card, the first call of a kernel builds
-        its library (`_kernels.build`, an nvcc run per source), the first
-        matmul of prefill rows above the small-M kernels' M 128 creates
-        the cuBLAS handle and picks its algorithm, and the caching
-        allocator reserves the blocks of each new shape. The requests go
-        through the NORMAL admission and step path, so the shapes are
-        exactly those of serving:
+        On the card the ticks' device steps are captured CUDA graphs, and
+        warmup's ticks capture every one serving reaches (JAX's warmup
+        compiles the same programs). The rest of the first launch of each
+        path costs too: the first call of a kernel builds its library
+        (`_kernels.build`, an nvcc run per source), the first matmul of
+        prefill rows above the small-M kernels' M 128 creates the cuBLAS
+        handle and picks its algorithm, and the caching allocator reserves
+        the blocks of each new shape. The requests go through the NORMAL
+        admission and step path, so the shapes are exactly those of
+        serving:
 
         - a burst prefill and splice per (prompt bucket, pow-2 burst rows
           up to max_prefill_batch); `_hold_admission` makes each burst
@@ -878,8 +937,10 @@ class DecodeEngine:
 
         Afterwards draft_fn and spec_adaptive are restored, the park slots
         cleared and stats() reset, so telemetry counts real traffic only.
-        Returns {"programs": [...], "seconds": float}, with the program
-        names of the JAX engine's warmup.
+        Returns {"programs": [...], "seconds": float, "captured": {...}}:
+        the paths under the program names of the JAX engine's warmup, and
+        the captured step programs by JAX's names with each capture's
+        seconds and graph-pool bytes (empty off the card).
         """
         t0 = time.monotonic()
         span = max(2, self.cfg.decoder.vocab_size - 12)
@@ -1028,7 +1089,10 @@ class DecodeEngine:
             self._tokens_emitted = 0
             self._started = time.monotonic()
         return {"programs": programs,
-                "seconds": round(time.monotonic() - t0, 3)}
+                "seconds": round(time.monotonic() - t0, 3),
+                "captured": {name: {"seconds": round(p.seconds, 3),
+                                    "pool_bytes": p.pool_bytes}
+                             for name, p in self._programs.items()}}
 
     def stats(self) -> dict:
         """Slot and throughput telemetry, merged into /worker_get_status

@@ -433,6 +433,9 @@ def main(argv=None):
             w = engine.warmup(prompt_buckets=buckets)
             print(f"engine warmup: {len(w['programs'])} programs in "
                   f"{w['seconds']} s", flush=True)
+            if w["captured"]:
+                print(f"engine programs captured: {w['captured']}",
+                      flush=True)
         gen_fn = engine_generate_fn(adapter, engine)
         concurrency = max(a.limit_model_concurrency, a.engine_slots)
         extra_status = engine.stats

@@ -5,7 +5,10 @@ and int8 small-M matmuls) and the routing of `PallasDense` and the int8
 `QuantDense` with `matvec_kernel`; K1 (fused grouped ReLU double GEMM) and
 its pipeline's gradients; K2 (causal flash attention, forward, dK/dV and
 dQ) at small shapes and the 154M shape; a checkpoint loaded on the card
-(the golden tiny checkpoint's digests, and K5 under --load-4bit).
+(the golden tiny checkpoint's digests, and K5 under --load-4bit); and
+serving's decode programs captured as CUDA graphs against the eager path
+on small int4 and int8 models (engine and solo streams token for token,
+launches through replays, a capture that fails raising).
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -833,3 +836,186 @@ def test_a_chunk_of_128_rows_launches_k5_at_every_projection(gen):
     toks = _drive_engine(engine, [prompt], 4)[0]
     assert launches == [4 * 2] * 3
     assert len(toks) == 4 and all(0 <= t < 512 for t in toks)
+
+
+# ---------------------------------------------------------------------------
+# Serving's decode programs as captured CUDA graphs, against the eager path
+# ---------------------------------------------------------------------------
+
+def _served_small(kind: str):
+    """A small model as the worker serves it: --load-4bit (K5) or
+    --load-8bit with matvec_kernel (K4), both with an int8 KV cache."""
+    from competesmoe_tpu_torch.models.builder import (apply_load_4bit,
+                                                      apply_load_8bit,
+                                                      build_llava)
+    if kind == "int4":
+        return apply_load_4bit(build_llava(
+            _small_cfg(torch.bfloat16, kv_quant="int8"), seed=6,
+            device="cuda"))
+    return apply_load_8bit(build_llava(
+        _small_cfg(torch.bfloat16, kv_quant="int8", matvec_kernel=True),
+        seed=6, device="cuda"))
+
+
+# greedy, temperature and nucleus rows in one engine
+SAMPLING = ((0.0, 1.0), (0.8, 1.0), (0.0, 1.0), (0.9, 0.8), (0.0, 1.0),
+            (1.0, 1.0))
+
+
+def _prompts(seed: int, lengths):
+    """Prompts whose n-grams recur (the drafts hit)."""
+    rng = np.random.default_rng(seed)
+    return [np.resize(rng.integers(3, 512, int(rng.integers(3, 6))), n)
+            .astype(np.int32) for n in lengths]
+
+
+def _engine_streams(model, graphs: bool, rounds, max_new: int = 10, **kw):
+    """Each round's prompts through one DecodeEngine(run_thread=False),
+    ticked until every request is done; returns (streams, engine)."""
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    engine = DecodeEngine(model, run_thread=False, cuda_graphs=graphs,
+                          rng_seed=3, **kw)
+    ptrs = _static_ptrs(engine)
+    streams = []
+    for prompts in rounds:
+        prompts = prompts(streams) if callable(prompts) else prompts
+        reqs = [engine._make_request(p, max_new_tokens=max_new,
+                                     temperature=t, top_p=tp)
+                for p, (t, tp) in zip(prompts, SAMPLING)]
+        for _ in range(60 * max_new):
+            if all(r.done for r in reqs):
+                break
+            engine._tick()
+        assert all(r.done for r in reqs)
+        streams += [list(r.emitted) for r in reqs]
+    assert _static_ptrs(engine) == ptrs
+    return streams, engine
+
+
+def _static_ptrs(engine):
+    return [t.data_ptr() for t in (engine._cur, engine._temps_dev,
+                                   engine._topps_dev, engine._cache.pos)]
+
+
+def _follow_ups(prompts):
+    """A round of turn-2 prompts: each first-round prompt, its answer and
+    4 more tokens (a prefix-cache hit)."""
+    def make(streams):
+        return [np.concatenate([p, np.asarray(s, np.int32),
+                                np.asarray([7, 8, 9, 10], np.int32)])
+                for p, s in zip(prompts, streams[:len(prompts)])]
+    return make
+
+
+ENGINE_CASES = {
+    "plain": dict(n_slots=4, max_len=160),
+    "verify": dict(n_slots=4, max_len=160, spec_k=3),
+    "pipeline2": dict(n_slots=4, max_len=160, pipeline_depth=2),
+    "chunks_and_unparks": dict(n_slots=4, max_len=256, prefill_chunk=16,
+                               prefix_cache_slots=4),
+}
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8"])
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_captured_engine_streams_equal_eager(gen, kind, case):
+    """The engine replaying its captured step programs gives the eager
+    engine's streams token for token on the same card and seed: greedy,
+    temperature and nucleus rows; verify ticks; pipeline depth 2; and
+    chunked prefill (prompts of 40 tokens at chunk 16) and prefix-cache
+    unparks (turn-2 follow-ups) between captured ticks. The cache
+    positions, current tokens and sampling buffers keep their storage."""
+    model = _served_small(kind)
+    kw = ENGINE_CASES[case]
+    rounds = [_prompts(1, (12, 30, 9, 21, 17, 25))]
+    if case == "chunks_and_unparks":
+        rounds = [_prompts(2, (40, 12, 45, 9)),
+                  _follow_ups(_prompts(2, (40, 12, 45, 9)))]
+    eager, _ = _engine_streams(model, False, rounds, **kw)
+    got, engine = _engine_streams(model, True, rounds, **kw)
+    assert got == eager
+    assert ("spec_nucleus" if case == "verify" else "step_nucleus") \
+        in engine._programs
+    if case == "chunks_and_unparks":
+        assert engine.stats()["engine_prefix_cache_hits"] == 4
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8"])
+@pytest.mark.parametrize("temperature,top_p,spec", [
+    (0.0, 1.0, 0), (0.8, 1.0, 0), (0.9, 0.8, 0), (0.0, 1.0, 3),
+    (0.8, 0.9, 3)])
+def test_captured_solo_streams_equal_eager(gen, kind, temperature, top_p,
+                                           spec):
+    """stream_generate replaying its captured scan and verify programs
+    gives the eager tokens under the same seeded generator, on the first
+    request of a bucket (which captures) and on the next (which only
+    replays)."""
+    from competesmoe_tpu_torch.models.llava import stream_generate
+
+    model = _served_small(kind)
+    ids = _prompts(4, (23,))[0][None]
+    runs = []
+    for graphs in (False, True, True):
+        g = torch.Generator(device="cuda").manual_seed(11)
+        runs.append(np.concatenate(list(stream_generate(
+            model, ids, None, max_new_tokens=20, temperature=temperature,
+            top_p=top_p, generator=g, speculative=spec,
+            cuda_graphs=graphs)), axis=1))
+    assert runs[0].shape == (1, 20)
+    assert np.array_equal(runs[1], runs[0])
+    assert np.array_equal(runs[2], runs[0])
+
+
+def test_replays_count_their_launches(gen):
+    """A captured tick adds the launches its graph holds to the kernel's
+    count at every replay (4 projections x 2 layers of K5), and the
+    capture itself adds none."""
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    model = _served_small("int4")
+    engine = DecodeEngine(model, n_slots=2, max_len=64, run_thread=False)
+    for p in _prompts(5, (10, 12)):
+        engine._make_request(p, max_new_tokens=12)
+    k5 = tmatvec.quant_small_m_matmul_int4
+    before = k5.launches
+    engine._tick()                       # admission, then the capture
+    program = engine._programs["step_plain"]
+    assert program.launches == [(k5, 4 * 2)]
+    # the admission's prefill (2 x 32 rows), the warm-up step and one
+    # replay: the capture itself launched nothing
+    assert k5.launches - before == 3 * 4 * 2
+    before = k5.launches
+    for _ in range(5):
+        engine._tick()
+    torch.cuda.synchronize()
+    assert k5.launches - before == 5 * 4 * 2
+
+
+def test_a_capture_that_fails_raises(gen, monkeypatch):
+    """A kernel wrapper that fails under capture makes the engine's tick
+    and the solo decode raise: no step runs eagerly instead (the request
+    has its first token, from the eager admission, and no other)."""
+    from competesmoe_tpu_torch.models.llava import stream_generate
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    model = _served_small("int4")
+    real = tdec.quant_small_m_matmul_int4
+
+    def failing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted capture failure")
+        return real(*args)
+
+    monkeypatch.setattr(tdec, "quant_small_m_matmul_int4", failing)
+    engine = DecodeEngine(model, n_slots=2, max_len=64, run_thread=False)
+    req = engine._make_request(_prompts(6, (10,))[0], max_new_tokens=8)
+    with pytest.raises(RuntimeError, match="planted capture failure"):
+        for _ in range(3):
+            engine._tick()
+    assert len(req.emitted) == 1 and not engine._programs
+    chunks = stream_generate(model, _prompts(6, (10,))[0][None], None,
+                             max_new_tokens=8)
+    next(chunks)                         # the eager prefill's token
+    with pytest.raises(RuntimeError, match="planted capture failure"):
+        next(chunks)
