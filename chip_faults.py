@@ -26,7 +26,11 @@ rank, two neighbouring outputs exchanged in the epilogue (tile rows g and
 g + 8), and the scale skipped on the first block of outputs. K1's faults: the tiles
 of expert 0 written as zeros, the relu skipped on the second 64 columns
 of h, and the expert of the next tile taken for the second half of a
-256-row tile (a block takes half a tile). Three more faults are planted
+256-row tile (a block takes half a tile). K1's backward faults
+(csrc/gmm2_bwd.cu): the relu mask dropped from dh, padding rows' slot
+gradients not zeroed, the last tile of each expert's group skipped in dW,
+and dW stored without its bf16 rounding. A router fault (ROUTER_FAULTS,
+swapped in and back): smoe_sigmoid's weights left unnormalised. Three more faults are planted
 in the Python of the checkpoint path (CHECKPOINT_FAULTS, swapped in for
 the check and back): two tower experts swapped by the converter,
 `gate_kernel` taken without its transpose, and the second of two shards
@@ -42,8 +46,9 @@ launch accounting counting the capture only. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
-     weights, for seeds 0-4 (the readings behind SMALL_LM_LOSS_TOL and
-     SMALL_LM_GRAD_TOL);
+     weights (the CPU taking the card's top-k choices), for each of its
+     six routers and seeds 0-4 (the readings behind SMALL_LM_LOSS_TOL,
+     SMALL_LM_GRAD_TOL, SMALL_LM_FLIP_SHARE and SMALL_LM_FLIP_GAP);
   2. loads each faulty library in place of the honest one and runs the
      checks of chip_smoke.py that should catch it:
      - K2 faults: `k2_compare` at every K2 shape, each tensor judged by
@@ -51,6 +56,9 @@ launch accounting counting the capture only. The script
        (2^-6 or 2^-5 x the largest |plain|);
      - K1 faults: `k1_compare` at the 154M layer shape and at
        chip_smoke's K1 check shapes (ES 256, 384, 512);
+     - K1 backward faults: `k1_bwd_compare` on the edge groups, at the
+       check shapes and at the 154M layer shape, honest first;
+     - the router fault: `router_weights_check`, honest first;
      - small-LM faults: `small_lm_gaps` of 3 steps (seed 0) against the
        CPU;
      - K3, K4 and K5 faults: `small_m_compare` at the four decode
@@ -164,6 +172,29 @@ FAULTS = {
         [("        const int e = tile_expert[row0 / kTile];",
           "        const int e = tile_expert[(row0 + kTile / 2) / kTile];")],
         ("k1",)),
+    # K1's backward (csrc/gmm2_bwd.cu). Taking the relu mask from the f32
+    # accumulator instead of the bf16-rounded h is no fault to plant:
+    # rounding to nearest keeps the sign, and bf16 keeps f32's exponent
+    # range, so the two masks are the same bits
+    "k1bwd_relu_mask_dropped": (
+        "gmm2_bwd",
+        [("          acc[n][i] = (hmask >> (4 * n + i)) & 1 ? round_bf16(acc[n][i]) : 0.0f;",
+          "          acc[n][i] = round_bf16(acc[n][i]);")],
+        ("k1_bwd",)),
+    "k1bwd_padding_do_not_zeroed": (
+        "gmm2_bwd",
+        [("  if (!valid) return make_uint4(0u, 0u, 0u, 0u);\n", "")],
+        ("k1_bwd",)),
+    "k1bwd_dw_skips_last_tile": (
+        "gmm2_bwd",
+        [("  const int n_steps = (n + 63) / 64;",
+          "  const int n_steps = max(0, ((n + 255) / 256 - 1) * 4);")],
+        ("k1_bwd",)),
+    "k1bwd_dw_not_rounded": (
+        "gmm2_bwd",
+        [("          make_float2(round_bf16(acc[nt][2 * h]), round_bf16(acc[nt][2 * h + 1]));",
+          "          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);")],
+        ("k1_bwd",)),
     "k3_skips_last_k_split": (
         "matvec_small_m",
         [("  const int k_end = min(K, k_begin + chunk);",
@@ -283,6 +314,42 @@ def _second_shard_skipped(loader, builder):
 # builder) -> (module, attribute, planted value), caught by
 # chip_smoke.small_checkpoint_check (the first step of the checkpoint
 # phase)
+def _unnormalised_sigmoid_route(self, x, logits):
+    """PretrainSigmoidNorm.route with its weights left unnormalised."""
+    from competesmoe_tpu_torch.ops import routing as R
+    weights, sel, _ = R.topk_sigmoid(logits, self.topk)
+    return weights, sel, R.sigmoid(logits)
+
+
+# name -> fn(pretrain_layers module) -> (object, attribute, planted value):
+# router faults, swapped in for `router_weights_check` and back
+ROUTER_FAULTS = {
+    "router_weights_unnormalised":
+        lambda pl: (pl.PretrainSigmoidNorm, "route",
+                    _unnormalised_sigmoid_route),
+}
+
+
+def router_ok(fault=None):
+    """(passed, message) of chip_smoke's router weights check, with the
+    ROUTER_FAULTS fault `fault` planted for its duration."""
+    from competesmoe_tpu_torch.moe import pretrain_layers
+
+    undo = None
+    if fault is not None:
+        obj, attr, planted = ROUTER_FAULTS[fault](pretrain_layers)
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        cs.router_weights_check(0)
+        return True, "passes"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+
+
 CHECKPOINT_FAULTS = {
     "tower_experts_swapped": _swap_tower_experts,
     "gate_kernel_not_transposed": _gate_not_transposed,
@@ -416,6 +483,7 @@ def use_library(src: str, path=None):
     if path is not None:
         lib = ctypes.CDLL(str(path))
         {"flash_attn": fa._bind, "gmm2_fused": gf._bind,
+         "gmm2_bwd": gf._bind_bwd,
          "matvec_small_m": mv._bind_small_m, "matvec_int4": mv._bind}[src](lib)
         _kernels._LIBS[src] = lib
 
@@ -449,6 +517,17 @@ def k34_rows(name: str):
             err, tol, repeats, _, _ = cs.small_m_compare(name, g, m, k, n)
             rows.append(dict(proj=label, m=m, max_abs_err=err, tol=tol,
                              repeats=repeats, ok=err <= tol and repeats))
+    return rows
+
+
+def k1_bwd_rows():
+    """`k1_bwd_compare` on the edge groups, at the K1 check shapes and at
+    the 154M layer shape: one row per shape and gradient."""
+    rows = []
+    checks = cs.k1_bwd_checks(0) + [("the 154M layer", cs.k1_bwd_compare(
+        *cs.k1_bwd_inputs(0, cs.K1_SHAPE)))]
+    for label, part in checks:
+        rows += [dict(r, shape=label) for r in part]
     return rows
 
 
@@ -589,29 +668,48 @@ def main():
                f"{time.perf_counter() - t0:.1f} s")
 
         ref0 = init0 = None
-        for seed in SEEDS:
-            cpu = cs.small_lm_task(seed, "cpu")
-            init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
-            card_rows = cs.small_lm_steps(cs.small_lm_task(seed, "cuda",
-                                                           init))
-            ref = cs.small_lm_steps(cpu)
-            gaps = cs.small_lm_gaps(ref, card_rows)
-            if seed == 0:
-                ref0, init0 = ref, init
-            report["honest_small_lm"].append(dict(seed=seed, steps=gaps))
-            cs.log(f"honest small LM seed {seed}: flips "
-                   f"{[d['flips'] for d in gaps]}, loss gaps "
-                   f"{_g(gaps, 'loss_gap')}, "
-                   f"grad_norm gaps "
-                   f"{_g(gaps, 'grad_gap')}")
-            if not all(d["ok"] for d in gaps):
-                failures.append(f"honest small LM, seed {seed}: {gaps}")
+        for router in cs.SMALL_LM_ROUTERS:
+            flags = ["-moe_name", router]
+            for seed in SEEDS:
+                cpu = cs.small_lm_task(seed, "cpu", flags=flags)
+                init = {k: v.clone()
+                        for k, v in cpu.model.state_dict().items()}
+                choices = []
+                with cs.routed_as(record=choices):
+                    card_rows = cs.small_lm_steps(
+                        cs.small_lm_task(seed, "cuda", init, flags))
+                with cs.routed_as(replay=choices) as seen:
+                    ref = cs.small_lm_steps(cpu)
+                gaps = cs.small_lm_gaps(ref, card_rows)
+                if seed == 0 and router == "competesmoe":
+                    ref0, init0 = ref, init
+                share = seen["flipped"] / seen["rows"]
+                report["honest_small_lm"].append(dict(
+                    router=router, seed=seed, steps=gaps, topk=seen))
+                cs.log(f"honest small LM {router} seed {seed}: flips "
+                       f"{[d['flips'] for d in gaps]}, loss gaps "
+                       f"{_g(gaps, 'loss_gap')}, grad_norm gaps "
+                       f"{_g(gaps, 'grad_gap')}; top-k rows the CPU would "
+                       f"choose otherwise {seen['flipped']} of "
+                       f"{seen['rows']}, score gap {seen['gap']:.3g}")
+                if not (all(d["ok"] for d in gaps)
+                        and share <= cs.SMALL_LM_FLIP_SHARE
+                        and seen["gap"] <= cs.SMALL_LM_FLIP_GAP[router]):
+                    failures.append(f"honest small LM {router}, seed "
+                                    f"{seed}: {gaps} {seen}")
         hs = [d for r in report["honest_small_lm"] for d in r["steps"]]
-        cs.log(f"honest small LM over seeds {list(SEEDS)}: largest loss gap "
+        ts = [dict(r["topk"], limit=cs.SMALL_LM_FLIP_GAP[r["router"]])
+              for r in report["honest_small_lm"]]
+        cs.log(f"honest small LM over seeds {list(SEEDS)} and routers "
+               f"{list(cs.SMALL_LM_ROUTERS)}: largest loss gap "
                f"{max(d['loss_gap'] for d in hs):.3g} (tol "
                f"{cs.SMALL_LM_LOSS_TOL}), largest grad_norm gap "
                f"{max(d['grad_gap'] for d in hs):.3g} (tol "
-               f"{cs.SMALL_LM_GRAD_TOL})")
+               f"{cs.SMALL_LM_GRAD_TOL}), largest share of top-k rows "
+               f"chosen otherwise "
+               f"{max(t['flipped'] / t['rows'] for t in ts):.3%} (limit "
+               f"{cs.SMALL_LM_FLIP_SHARE:.0%}), largest score gap over "
+               f"its router's limit {max(t['gap'] / t['limit'] for t in ts):.3g}")
 
         for kind, name in cs.SERVED_KERNEL.items():
             rows = k34_rows(name)
@@ -622,6 +720,13 @@ def main():
                    f"small {kind} engine check {msg}")
             if not (ok and all(r["ok"] for r in rows)):
                 failures.append(f"honest {name}: {rows} {msg}")
+        rows = k1_bwd_rows()
+        report["honest_k1_bwd"] = rows
+        cs.log(f"honest K1 backward: largest off share "
+               f"{max(r['off_share'] for r in rows):.2e} (allowed "
+               f"{cs.K1_BWD_OFF_SHARE})")
+        if not all(r["ok"] for r in rows):
+            failures.append(f"honest K1 backward: {rows}")
 
         for name, (src, _, checks) in FAULTS.items():
             use_library(src, libs[name])
@@ -643,6 +748,15 @@ def main():
                     cs.log(f"{name}: K1 at {r['shape']} max_abs_err "
                            f"{r['max_abs_err']:.4g}, tol {r['tol']:.4g}, "
                            f"repeats {r['repeats']} -> {_verdict(r['ok'])}")
+            if "k1_bwd" in checks:
+                rows["k1_bwd"] = k1_bwd_rows()
+                failed["k1_bwd"] = not all(r["ok"] for r in rows["k1_bwd"])
+                for r in rows["k1_bwd"]:
+                    cs.log(f"{name}: K1 backward at {r['shape']} "
+                           f"{r['tensor']} max_abs_err "
+                           f"{r['max_abs_err']:.4g}, off share "
+                           f"{r['off_share']:.2e}, bf16 "
+                           f"{r['bf16_rounded']} -> {_verdict(r['ok'])}")
             if "small_lm" in checks:
                 gaps = cs.small_lm_gaps(ref0, cs.small_lm_steps(
                     cs.small_lm_task(0, "cuda", init0)))
@@ -675,6 +789,18 @@ def main():
                 if not f:
                     failures.append(f"fault {name} passed the {check} check")
 
+        ok, msg = router_ok()
+        report["honest_router"] = msg
+        cs.log(f"honest router weights check: {msg}")
+        if not ok:
+            failures.append(f"honest router weights check: {msg}")
+        for name in ROUTER_FAULTS:
+            ok, msg = router_ok(name)
+            report["faults"][name] = dict(failed={"router": not ok},
+                                          router=msg)
+            cs.log(f"{name}: router weights check -> {_verdict(ok)} ({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the router check")
         ok, msg = checkpoint_ok()
         report["honest_checkpoint"] = msg
         cs.log(f"honest small checkpoint check: {msg}")

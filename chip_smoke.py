@@ -31,6 +31,17 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        expert weights rounded to bf16, a cast inside its timed call), and
        for correctness only at ES 256, 384 and 512 (K1_CHECK_SHAPES: h
        in 64 to 128 registers); run twice it gives the same bytes;
+     - K1's backward (csrc/gmm2_bwd.cu: gmm2_bwd_dx, which recomputes h
+       and writes dxs and the bf16 hr and dh, and gmm2_bwd_dw, which sums
+       each expert's dkeys and dvalues and rounds them to bf16 once), held
+       with the per-token sums against fused_grouped_ffn_kv_bwd_reference
+       (JAX's ragged_dot VJP) on groups of 0, 1, 255, 256 and 257 rows,
+       at K1_CHECK_SHAPES and at the 154M layer (at most K1_BWD_OFF_SHARE
+       of a gradient's elements beyond 2^-7 |plain| + 2^-9 max|plain|,
+       none beyond 2^-4 max|plain|; dkeys and dvalues bf16 values; two
+       runs give the same bytes); timed at the 154M layer beside their
+       plain versions, their bounds and torch._grouped_mm on the same
+       products;
      - K2, causal flash attention forward, dK/dV and dQ, at B 64, h 4,
        T 1024, p 82 (the 154M shape), at B 8, h 4, T 256, p 64, and at the
        shapes that take the kernels' other paths (a ragged last tile, odd
@@ -42,22 +53,34 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        `scaled_dot_product_attention` forward and forward + backward
        (CUDA graphs, as the kernels) as the library yardstick, and beside
        the plain `delta = rowsum(dO * o)` that precedes the two kernels;
-  4. small LM: a CompeteSMoE LM with d_model 128, 2 layers, 8 experts of
-     128, top-2 and head size 82 takes 3 optimizer steps from the same
-     weights on the card (K1, K2) and on the CPU (plain versions), with
-     0, 2 and 1 competing layers; losses agree within SMALL_LM_LOSS_TOL
-     and grad_norm within SMALL_LM_GRAD_TOL of the CPU's (a few times the
+  4. routers and small LMs: every pretrain router's weights sum to 1 per
+     token on the card; then a small LM with d_model 128, 2 layers, 8
+     experts of 128, top-2 and head size 82, for CompeteSMoE and each of
+     the five other routers, takes 3 optimizer steps from the same
+     weights on the card (K1 and its backward kernels, K2) and on the CPU
+     (plain versions), CompeteSMoE with 0, 2 and 1 competing layers; the
+     CPU takes the card's top-k choices, and the rows where it would have
+     chosen otherwise must be at most SMALL_LM_FLIP_SHARE of them, each
+     within SMALL_LM_FLIP_GAP of its own choice; losses agree within
+     SMALL_LM_LOSS_TOL and grad_norm within SMALL_LM_GRAD_TOL of the
+     CPU's (a few times the
      gaps seen over several seeds, and planted kernel faults exceed them:
-     chip_faults.py); then on the card 2 steps, a save through the task's
-     Saver, a fresh task that resumes from it and the third step: losses
-     and grad norms equal the uninterrupted run's, bit for bit;
+     chip_faults.py); then on the card 2 steps of the CompeteSMoE LM, a
+     save through the task's Saver, a fresh task that resumes from it and
+     the third step: losses and grad norms equal the uninterrupted run's,
+     bit for bit;
   5. LM training (main path of the training slice): the 154M CompeteSMoE
      configuration of sweeps/slimpajama_moe_no_attmoe_154M_competesmoe.yaml
      at full width and depth with -moe.impl fused and
      -transformer.attn_backend flash, through the CLI's task, for 8 steps
      at batch 64 x 1024 (one microbatch) from step 0 of its flip schedule;
-     losses finite, and per step K1 launches = 16 - competing layers and
-     16 launches of each K2 kernel;
+     losses finite, and per step K1 and each of its two backward kernels
+     launch 16 - competing layers times, each K2 kernel 16 times; then the
+     two other routers with 154M sweeps, field for field
+     (sweeps/slimpajama_moe_no_attmoe_154M_deepseekv3.yaml and
+     sweeps/slimpajama_moe_no_attmoe_154M_final.yaml, smoe_sigmoid) with
+     the same two flags, 4 steps each, K1, its backward kernels and K2 at
+     all 16 layers of every step (ms/step, tokens/s, peak memory);
   6. checkpoint and serving (main paths of the checkpoint and serving
      slices): a small model written in two shards and reloaded (bf16 and
      --load-4bit) equal to its writer, tensor for tensor; then
@@ -144,7 +167,10 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      without, timed from replays with one profiled replay each: equal
      tokens, logits within 3%;
  11. with --profile: torch.profiler over two more training steps (with
-     K1's and K2's shares of a step by name), over decode steps of the
+     K1's, its backward's and K2's shares of a step by name, the float32
+     GEMM kernels', and, through profiler ranges around their forward and
+     backward, the competition step's dense pass and the float32
+     lm_head), over decode steps of the
      served model and over engine ticks, captured and eager (with K3's,
      K4's or K5's share; device busy share and the kernels that take the
      time), and over 9's two speculation mixes.
@@ -203,17 +229,64 @@ K1_SHAPE = dict(T=65536, D=512, E=64, ES=128, k=8)
 K1_CHECK_SHAPES = (dict(T=1024, D=256, E=8, ES=256, k=2),
                    dict(T=1024, D=128, E=8, ES=384, k=2),
                    dict(T=768, D=256, E=8, ES=512, k=2))
+# K1's backward, for correctness only, beside K1_CHECK_SHAPES: a layer
+# whose groups take the tiles' edges (k 1)
+K1_BWD_EDGES = dict(T=1025, D=256, E=8, ES=128, k=1,
+                    counts=(0, 1, 255, 256, 257, 0, 128, 128))
+# K1's backward against fused_grouped_ffn_kv_bwd_reference: both compute
+# the same bf16 roundings, so most elements agree bit for bit; a few round
+# the other way where float32 sums in another order straddle a bf16
+# rounding (and a relu mask flips where h rounds that close to 0), and
+# their consumers carry it. At most this share of a gradient's elements
+# may be off by more than 2^-7 |plain| + 2^-9 max|plain|, and none by more
+# than 2^-4 max|plain|; dkeys and dvalues must hold bf16 values. The
+# honest kernels read at most 1.3e-5 (dX at the 154M layer; 0 elsewhere),
+# and the planted faults that this rule catches 0.28 or more
+# (chip_faults.py); one wrong 64 x 128 tile of dkeys at the 154M layer is
+# 2e-3
+K1_BWD_OFF_SHARE = 1e-4
 # (B, h, T, p): the 154M shape (timed), then correctness only: 16-byte
 # copies; a ragged last tile; odd p (plain loads); p 128; T below one tile
 K2_SHAPES = ((64, 4, 1024, 82), (8, 4, 256, 64), (2, 2, 200, 82),
              (2, 1, 130, 33), (1, 2, 320, 128), (1, 1, 40, 82))
 LM_STEPS = 8                       # 154M training steps of the main path
+# the two other routers with 154M sweeps, field for field, with the two
+# kernel flags: sweeps/slimpajama_moe_no_attmoe_154M_deepseekv3.yaml and
+# sweeps/slimpajama_moe_no_attmoe_154M_final.yaml (smoe_sigmoid, MoEUT's
+# baseline); on the synthetic corpus, ROUTER_STEPS steps each
+_SWEEP_154M_COMMON = (
+    "-task synthetic_transformer -balance_loss_coef 0.01 -state_size 512 "
+    "-transformer.encoder_n_layers 16 -transformer.n_heads 4 -dropout 0.0 "
+    "-lr 0.00025 -lm.unroll 1024 -grad_clip 0.1 -amp 1 "
+    "-save_interval 10000 -stop_after 100000 -moe.n_experts 64 "
+    "-moe.expert_size 128 -pkm.n_heads 8 -lr_sched.type cos "
+    "-transformer.head_projection_size 82 "
+    "-transformer.universal.group_size 16 -wd 0.01 -batch_size 64 "
+    "-n_microbatch 1 -lm.eval.enabled 0 -moe.impl fused "
+    "-transformer.attn_backend flash").split()
+ROUTER_SWEEPS = {name: ["-moe_name", name] + _SWEEP_154M_COMMON
+                 for name in ("deepseekv3", "smoe_sigmoid")}
+ROUTER_STEPS = 4
 # small LM, card against CPU per step: |loss gap| (absolute) and
 # |grad_norm gap| / grad_norm; a few times the largest honest gaps that
 # chip_faults.py reads over seeds 0-4 (PERF.md), and below the gaps of
 # its planted faults
 SMALL_LM_LOSS_TOL = 5e-3
 SMALL_LM_GRAD_TOL = 2e-3
+# the CPU takes the card's top-k choices (`routed_as`). Of a router's
+# top-k rows over the 3 steps at most SMALL_LM_FLIP_SHARE may be rows where
+# the CPU's own scores pick another set (honest readings of chip_faults.py
+# over seeds 0-4: at most 1.28%, CompeteSMoE; 0.78% for the others), and
+# on each such row the CPU's score of the card's weakest choice must lie
+# within SMALL_LM_FLIP_GAP[router] x |the CPU's k-th best score| below
+# that k-th best: a power of two 3 to 5 times the router's largest honest
+# reading (0.0078, 0.0131, 0.166, 0.0166, 0.0597, 0.0094 in this order:
+# XMoE's cosine gate at temperature 0.3 turns a few bf16 roundings of its
+# logits into a large step of probability)
+SMALL_LM_FLIP_SHARE = 0.04
+SMALL_LM_FLIP_GAP = {"competesmoe": 2.0 ** -5, "smoe_sigmoid": 2.0 ** -4,
+                     "xmoe": 2.0 ** -1, "smoe_perturbed": 2.0 ** -4,
+                     "deepseekv2": 2.0 ** -2, "deepseekv3": 2.0 ** -5}
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
     "quant_small_m_matmul_int4": ("competesmoe_tpu_torch/csrc/matvec_int4.cu",
@@ -224,6 +297,11 @@ KERNELS = {
                              "competesmoe_tpu/ops/matvec.py:90"),
     "gmm2_fused_aligned": ("competesmoe_tpu_torch/csrc/gmm2_fused.cu",
                            "competesmoe_tpu/ops/gmm_fused.py:67"),
+    # K1's backward: XLA's ragged_dot VJP in JAX (no Pallas backward)
+    "gmm2_bwd_dx": ("competesmoe_tpu_torch/csrc/gmm2_bwd.cu",
+                    "competesmoe_tpu/ops/gmm_fused.py:223"),
+    "gmm2_bwd_dw": ("competesmoe_tpu_torch/csrc/gmm2_bwd.cu",
+                    "competesmoe_tpu/ops/gmm_fused.py:223"),
     "flash_attention_fwd": ("competesmoe_tpu_torch/csrc/flash_attn.cu",
                             "competesmoe_tpu/models/lm.py:255"),
     "flash_attention_bwd_dkv": ("competesmoe_tpu_torch/csrc/flash_attn.cu",
@@ -328,8 +406,8 @@ def k1_inputs(seed: int, shape=K1_SHAPE):
     logits += torch.linspace(3.0, 0.0, E, device="cuda")
     logits[:, E - 4:] = float("-inf")
     sel = logits.topk(k, dim=-1).indices
-    _, tok, tile_expert, _ = gf.aligned_layout(sel, E)
-    return (x[tok], keys, values, tile_expert,
+    lay = gf.aligned_layout_full(sel, E)
+    return (x[lay.tok_padded], keys, values, lay.tile_expert,
             torch.bincount(sel.reshape(-1), minlength=E))
 
 
@@ -393,6 +471,196 @@ def phase_k1(seed: int, reps: int = 20):
                 E=E, ES=ES, k=k, empty_experts=int((sizes == 0).sum()),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def k1_bwd_inputs(seed: int, shape):
+    """The backward's operands: (x [T, D] bf16, sel [T, k], weights [T, k]
+    f32, keys, values f32, g [T, D] bf16), the LM's weight scales; skewed
+    groups with 4 empty experts as `k1_inputs`, or, with `counts` in the
+    shape, exactly counts[e] rows for expert e (k 1)."""
+    import torch
+
+    T, D, E, ES, k = (shape[n] for n in ("T", "D", "E", "ES", "k"))
+    g = torch.Generator(device="cuda").manual_seed(seed + 303)
+    scale = (2.0 / 16) ** 0.5            # the LM's MoE weight_scale
+    x = torch.randn(T, D, generator=g, device="cuda").to(torch.bfloat16)
+    keys = torch.randn(E, D, ES, generator=g, device="cuda") * (
+        D ** -0.5 * scale)
+    values = torch.randn(E, ES, D, generator=g, device="cuda") * (
+        (E * ES) ** -0.5 * scale)
+    if "counts" in shape:
+        ids = torch.repeat_interleave(
+            torch.arange(E, device="cuda"),
+            torch.tensor(shape["counts"], device="cuda"))
+        sel = ids[torch.randperm(T * k, generator=g, device="cuda")]
+        sel = sel.reshape(T, k)
+    else:
+        logits = torch.randn(T, E, generator=g, device="cuda")
+        logits += torch.linspace(3.0, 0.0, E, device="cuda")
+        logits[:, E - 4:] = float("-inf")
+        sel = logits.topk(k, dim=-1).indices
+    w = torch.softmax(torch.randn(T, k, generator=g, device="cuda"), -1)
+    gout = torch.randn(T, D, generator=g, device="cuda").to(torch.bfloat16)
+    return x, sel, w, keys, values, gout
+
+
+def k1_bwd_compare(x, sel, w, keys, values, g):
+    """K1's backward on the card (the forward's layout and bf16 weights,
+    `gmm2_bwd_dx` then `gmm2_bwd_dw`, the per-token sums) against
+    `fused_grouped_ffn_kv_bwd_reference` on the same inputs: one row per
+    gradient with max_abs_err, top (max |plain|), off_share (the share of
+    elements off by more than 2^-7 |plain| + 2^-9 top), repeats (a second
+    run gave the same bytes), bf16_rounded (dkeys and dvalues hold bf16
+    values) and ok (off_share <= K1_BWD_OFF_SHARE, max_abs_err <= 2^-4
+    top, repeats, bf16_rounded)."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    _, lay, gathered, k16, v16 = gf._forward(x, sel, w, keys, values)
+    got = gf.fused_grouped_ffn_kv_bwd(x, sel, w, lay, gathered, k16, v16, g)
+    again = gf.fused_grouped_ffn_kv_bwd(x, sel, w, lay, gathered, k16, v16,
+                                        g)
+    want = gf.fused_grouped_ffn_kv_bwd_reference(x, sel, w, keys, values, g)
+    torch.cuda.synchronize()
+    rows = []
+    for name, a, b, c in zip(("dx", "dweights", "dkeys", "dvalues"), got,
+                             want, again):
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        if not torch.isfinite(diff).all():
+            diff = torch.full_like(diff, float("inf"))
+        err = float(diff.max())
+        off = float((diff > 2.0 ** -7 * b.abs() + 2.0 ** -9 * top)
+                    .float().mean())
+        repeats = torch.equal(a, c.float())
+        rounded = name not in ("dkeys", "dvalues") or torch.equal(
+            a, a.to(torch.bfloat16).float())
+        rows.append(dict(tensor=name, max_abs_err=err, top=top,
+                         off_share=off, repeats=repeats,
+                         bf16_rounded=rounded,
+                         ok=(off <= K1_BWD_OFF_SHARE
+                             and err <= 2.0 ** -4 * top and repeats
+                             and rounded)))
+    return rows
+
+
+def k1_bwd_checks(seed: int):
+    """`k1_bwd_compare` on the edge groups and at every K1 check shape:
+    (label, rows) pairs."""
+    out = []
+    for shape in (K1_BWD_EDGES,) + K1_CHECK_SHAPES:
+        label = ("groups of 0, 1, 255, 256, 257 rows" if "counts" in shape
+                 else f"ES {shape['ES']}")
+        out.append((label, k1_bwd_compare(*k1_bwd_inputs(seed, shape))))
+    return out
+
+
+def _log_bwd_rows(label, rows):
+    for r in rows:
+        log(f"K1 backward {label}: {r['tensor']:8s} max_abs_err "
+            f"{r['max_abs_err']:.4g} (max |plain| {r['top']:.4g}), "
+            f"off share {r['off_share']:.2e}, repeats {r['repeats']}, "
+            f"bf16 {r['bf16_rounded']}")
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"K1's backward at {label} disagrees with "
+                             f"fused_grouped_ffn_kv_bwd_reference: {rows}")
+
+
+def grouped_mm_ms(xs, do, k16, v16, hr, dh, aoff, reps: int):
+    """torch._grouped_mm on the products of each backward kernel, in ms
+    (CUDA-graph replays): dX's three (h = xs keys, dh = do values^T, dxs
+    = dh keys^T) and dW's two (xs^T dh, hr^T do) over the aligned rows.
+    (None, None, why) where this torch lacks it or refuses them."""
+    import torch
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, None, "torch._grouped_mm is absent"
+    offs = aoff[1:].to(torch.int32)
+    kt = k16.transpose(1, 2).contiguous()
+    vt = v16.transpose(1, 2).contiguous()
+
+    def dx_products():
+        fn(xs, k16, offs=offs)
+        fn(fn(do, vt, offs=offs), kt, offs=offs)
+
+    def dw_products():
+        fn(xs.t(), dh, offs=offs)
+        fn(hr.t(), do, offs=offs)
+
+    try:
+        return (time_launches(dx_products, [()], reps),
+                time_launches(dw_products, [()], reps), None)
+    except Exception as e:  # noqa: BLE001 - a yardstick only
+        return None, None, f"{type(e).__name__}: {str(e)[:160]}"
+
+
+def phase_k1_bwd(seed: int, reps: int = 20):
+    """K1's two backward kernels against the plain backward, on the edge
+    groups and the check shapes, then at the 154M layer shape, where each
+    kernel is timed (CUDA-graph replays) beside its plain version, its
+    bound and torch._grouped_mm on its products."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    for label, rows in k1_bwd_checks(seed):
+        _log_bwd_rows(label, rows)
+    D, E, ES, k = (K1_SHAPE[n] for n in ("D", "E", "ES", "k"))
+    x, sel, w, keys, values, g = k1_bwd_inputs(seed, K1_SHAPE)
+    rows = k1_bwd_compare(x, sel, w, keys, values, g)
+    _log_bwd_rows("the 154M layer", rows)
+    err = {r["tensor"]: r["max_abs_err"] for r in rows}
+    _, lay, _, k16, v16 = gf._forward(x, sel, w, keys, values)
+    slot, aoff, gsize = lay.slot_padded, lay.aoff, lay.gsize
+    wflat = w.to(torch.bfloat16).reshape(-1).contiguous()
+    xs = x[lay.tok_padded]
+    dx_args = (xs, g, slot, wflat, k16, v16, lay.tile_expert, aoff, gsize, k)
+    dxs, hr, dh = gf.gmm2_bwd_dx(*dx_args)
+    dw_args = (xs, hr, dh, g, slot, wflat, lay.tile_expert, aoff, gsize, k)
+    S = xs.shape[0]
+    valid = int(sel.numel())
+    do = gf._slot_grads(S, g, slot, wflat, k, lay.tile_expert, aoff, gsize,
+                        torch.bfloat16)
+    lib_dx, lib_dw, why = grouped_mm_ms(xs, do, k16, v16, hr, dh, lay.aoff,
+                                        reps)
+    if why:
+        log(f"K1 backward library yardstick n/a: {why}")
+    del do
+    out = {}
+    # bytes: each input read once and each output written once, over the
+    # rows each kernel reads: dX every padded row (it computes them all:
+    # xs, slot, the bf16 weights, g and wflat; dxs, hr, dh), dW each
+    # expert's rows rounded up to its 64-row steps (xs, hr, dh, slot; g,
+    # wflat; dkeys, dvalues in float32); operations: the products' 2 x
+    # rows x D x ES each, over every padded row for dX and over the rows
+    # that hold slots for dW
+    small = wflat.numel() * 2 + g.numel() * 2
+    dw_rows = int(((gsize.long() + 63) // 64 * 64).sum())
+    for name, fn, plain_fn, args, nbytes, ops, lib, e in (
+            ("gmm2_bwd_dx", gf.gmm2_bwd_dx, gf.gmm2_bwd_dx_reference,
+             dx_args, xs.numel() * 2 + S * 4 + small + 2 * k16.numel() * 2
+             + xs.numel() * 2 + 2 * S * ES * 2, 3 * 2.0 * S * D * ES,
+             lib_dx, err["dx"]),
+            ("gmm2_bwd_dw", gf.gmm2_bwd_dw, gf.gmm2_bwd_dw_reference,
+             dw_args, dw_rows * (D * 2 + 2 * ES * 2 + 4) + small
+             + 2 * E * D * ES * 4, 2 * 2.0 * valid * D * ES, lib_dw,
+             max(err["dkeys"], err["dvalues"]))):
+        ms = time_launches(fn, [args] * 4, reps)
+        plain_ms = time_launches(plain_fn, [args], 5)
+        bound_ms, bound_by = bound(nbytes, ops)
+        out[name] = dict(name=name, rows=S, D=D, E=E, ES=ES, k=k,
+                         max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib, library_why=why)
+        log(f"K1 backward {name} [S'={S}, D={D}] E={E} ES={ES}: kernel "
+            f"{ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f} us  "
+            f"_grouped_mm {'n/a' if lib is None else f'{lib * 1e3:.1f} us'}"
+            f"  bound {bound_ms * 1e3:.1f} us ({bound_by})  "
+            f"{bound_ms / ms:.1%} of bound")
+    return out
 
 
 def _sdpa_ms(q, k, v, do, reps: int):
@@ -627,41 +895,152 @@ def small_lm_gaps(cpu_rows, card_rows):
     return out
 
 
+# the routers the small LM check runs: CompeteSMoE (with its competition
+# steps) and the five other pretrain routers (no competition)
+SMALL_LM_ROUTERS = ("competesmoe", "smoe_sigmoid", "xmoe", "smoe_perturbed",
+                    "deepseekv2", "deepseekv3")
+
+
+@contextlib.contextmanager
+def routed_as(record=None, replay=None):
+    """Every top-k choice of the port's routers (`ops.routing.top_k`, which
+    each router and the competition step call once a forward) appended
+    to `record`, or, with `replay`, taken from it in the same order: the
+    scores' own choice is computed and compared, then the recorded
+    indices are used, with their scores gathered (so gradients flow as
+    through top_k). Yields a dict: rows (of every replayed choice),
+    flipped (rows whose expert set differs) and gap (the largest, over
+    flipped rows, of the scores' k-th best less their score of the
+    replayed set's weakest expert, over |the k-th best|)."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import routing
+
+    honest = routing.top_k
+    calls = iter(replay) if replay is not None else None
+    seen = dict(rows=0, flipped=0, gap=0.0)
+
+    def top_k(scores, k):
+        values, idx = honest(scores, k)
+        if record is not None:
+            record.append(idx.detach().cpu())
+        if calls is not None:
+            want = next(calls).to(idx.device)
+            same = (torch.sort(want, -1).values
+                    == torch.sort(idx, -1).values).all(-1)
+            got = torch.gather(scores, -1, want)
+            with torch.no_grad():
+                kth = values[..., -1].float()
+                gap = (kth - got.float().min(-1).values) / kth.abs()
+                seen["rows"] += same.numel()
+                seen["flipped"] += int((~same).sum())
+                if not same.all():
+                    seen["gap"] = max(seen["gap"], float(gap[~same].max()))
+            idx, values = want, got
+        return values, idx
+
+    routing.top_k = top_k
+    try:
+        yield seen
+    finally:
+        routing.top_k = honest
+
+
 def small_lm_check():
-    """A small CompeteSMoE LM of the 154M kind takes 3 optimizer steps on
-    the card (K1, K2) and on the CPU (plain versions) from the same
-    weights and batches (seed 0); steps 0-2 have 0, 2 and 1 competing
-    layers. Per step the loss agrees within SMALL_LM_LOSS_TOL and
-    grad_norm within SMALL_LM_GRAD_TOL (bf16 activations; K1 rounds the
-    f32 expert weights to bf16, K2 rounds P and dS)."""
-    cpu = small_lm_task(0, "cpu")
+    """`small_lm_router_check` for every router of SMALL_LM_ROUTERS:
+    {router: per-step gaps}."""
+    return {name: small_lm_router_check(name) for name in SMALL_LM_ROUTERS}
+
+
+def small_lm_router_check(name: str):
+    """A small LM of the 154M kind with router `name` takes 3 optimizer
+    steps on the card (K1 and its backward kernels, K2) and on the CPU
+    (plain versions) from the same weights and batches (seed 0); for
+    CompeteSMoE steps 0-2 have 0, 2 and 1 competing layers. Per step the
+    loss agrees within SMALL_LM_LOSS_TOL and grad_norm within
+    SMALL_LM_GRAD_TOL (bf16 activations; K1 rounds the f32 expert weights
+    to bf16, K2 rounds P and dS). The CPU takes the card's top-k choices
+    (`routed_as`): a gate whose top scores lie within a rounding of each
+    other (bf16 probabilities, a cosine gate at temperature 0.3) may pick
+    another expert on the other device, a discrete change no tolerance of
+    the kernels covers; the rows where the CPU would have picked another
+    set are counted: at most SMALL_LM_FLIP_SHARE of the rows, each within
+    SMALL_LM_FLIP_GAP[name] of the CPU's own choice. For CompeteSMoE the
+    Saver's save and restore is held too."""
+    flags = ["-moe_name", name]
+    cpu = small_lm_task(0, "cpu", flags=flags)
     init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
-    gpu = small_lm_task(0, "cuda", init)
+    gpu = small_lm_task(0, "cuda", init, flags)
+    choices = []
     counts0 = read_counts()
-    card = small_lm_steps(gpu)
+    with routed_as(record=choices):
+        card = small_lm_steps(gpu)
     counts = {k: v - counts0[k] for k, v in read_counts().items()}
-    small_lm_resume_check(init, card)
-    ref = small_lm_steps(cpu)
+    if name == "competesmoe":
+        small_lm_resume_check(init, card)
+    with routed_as(replay=choices) as seen:
+        ref = small_lm_steps(cpu)
     gaps = small_lm_gaps(ref, card)
     for c, g, d in zip(ref, card, gaps):
-        log(f"small LM step (flips {d['flips']}): loss card "
+        log(f"small LM {name} step (flips {d['flips']}): loss card "
             f"{g['loss/total']:.6f} cpu {c['loss/total']:.6f} (gap "
             f"{d['loss_gap']:.3g}, tol {SMALL_LM_LOSS_TOL}); grad_norm card "
             f"{g['grad_norm']:.6f} cpu {c['grad_norm']:.6f} (gap "
             f"{d['grad_gap']:.3g} of it, tol {SMALL_LM_GRAD_TOL})")
+    share = seen["flipped"] / seen["rows"]
+    log(f"small LM {name}: in {len(choices)} top-k choices of 3 steps "
+        f"({seen['rows']} rows), the CPU would have picked another set in "
+        f"{seen['flipped']} rows ({share:.3%}, limit "
+        f"{SMALL_LM_FLIP_SHARE:.0%}); it took the card's; the CPU's k-th "
+        f"best score lies above its score of the card's weakest choice by "
+        f"at most {seen['gap']:.3g} of it (limit "
+        f"{SMALL_LM_FLIP_GAP[name]:.3g})")
+    if not (share <= SMALL_LM_FLIP_SHARE
+            and seen["gap"] <= SMALL_LM_FLIP_GAP[name]):
+        raise AssertionError(f"small LM {name}: the card chose another "
+                             f"top-k set than the CPU on {share:.3%} of the "
+                             f"rows, with a score gap of {seen['gap']:.3g}")
     if not all(d["ok"] for d in gaps):
-        raise AssertionError(f"small LM disagrees: {gaps}")
+        raise AssertionError(f"small LM {name} disagrees: {gaps}")
     flips = [d["flips"] for d in gaps]
-    if flips != [0, 2, 1]:
-        raise AssertionError(f"small LM: flip counts {flips} != [0, 2, 1]")
-    want = {"gmm2_fused_aligned": sum(2 - f for f in flips),
-            "flash_attention_fwd": 6, "flash_attention_bwd_dkv": 6,
-            "flash_attention_bwd_dq": 6, "quant_small_m_matmul_int4": 0,
-            "small_m_matmul": 0, "quant_small_m_matmul": 0}
+    if flips != ([0, 2, 1] if name == "competesmoe" else [0, 0, 0]):
+        raise AssertionError(f"small LM {name}: flip counts {flips}")
+    fused = sum(2 - f for f in flips)
+    want = {"gmm2_fused_aligned": fused, "gmm2_bwd_dx": fused,
+            "gmm2_bwd_dw": fused, "flash_attention_fwd": 6,
+            "flash_attention_bwd_dkv": 6, "flash_attention_bwd_dq": 6,
+            "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+            "quant_small_m_matmul": 0}
     if counts != want:
-        raise AssertionError(f"small LM launches {counts} != {want}")
-    log(f"small LM: card launches {counts}")
+        raise AssertionError(f"small LM {name} launches {counts} != {want}")
+    log(f"small LM {name}: card launches {counts}")
+    for d in gaps:
+        d.update(topk_rows=seen["rows"], topk_flips=seen["flipped"],
+                 topk_gap=seen["gap"])
     return gaps
+
+
+def router_weights_check(seed: int):
+    """Every pretrain router's routing weights on the card sum to 1 per
+    token (DeepSeek-V3: its routed_scaling_factor), within bf16 rounding
+    (2^-6), from random bf16 inputs through the layer's own gate."""
+    import torch
+
+    from competesmoe_tpu_torch.moe.registry import PRETRAIN_MOE_REGISTRY
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 404)
+    x = torch.randn(4, 64, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    for name, cls in sorted(PRETRAIN_MOE_REGISTRY.items()):
+        layer = cls(128, 8, 128, 2, device="cuda")
+        layer.reset_parameters(g)
+        with torch.no_grad():
+            weights, sel, _ = layer.route(x, layer.compute_gate(x))
+        want = getattr(layer, "routed_scaling_factor", 1.0)
+        err = float((weights.float().sum(-1) - want).abs().max())
+        log(f"router {name}: weights sum to {want} within {err:.3g}")
+        if not err <= 2.0 ** -6 * want or sel.shape[-1] != 2:
+            raise AssertionError(f"router {name}: weights sum off by {err}")
 
 
 def small_lm_resume_check(init, card):
@@ -700,26 +1079,45 @@ def small_lm_resume_check(init, card):
 
 
 def phase_lm(seed: int, steps: int = LM_STEPS):
-    """The training slice's main path: the 154M configuration through the
-    CLI's task for `steps` steps from step 0, one microbatch per step."""
+    """The training slice's main path: the 154M CompeteSMoE configuration
+    through the CLI's task for `steps` steps from step 0, one microbatch
+    per step."""
+    return train_154m("competesmoe", SWEEP_154M, seed, steps)
+
+
+def phase_router(name: str, seed: int, steps: int = ROUTER_STEPS):
+    """A router's 154M sweep (ROUTER_SWEEPS) through the CLI's task for
+    `steps` steps: K1, its backward kernels and K2 at every layer."""
+    return train_154m(name, ROUTER_SWEEPS[name], seed, steps)
+
+
+def train_154m(name: str, flags, seed: int, steps: int):
+    """`steps` training steps of the 154M configuration `flags` (router
+    `name`) through the CLI's task from step 0. Losses must be finite, the
+    logged flips must equal the schedule's (none without one), and per
+    step K1 and each of its backward kernels launch 16 - competing layers
+    times, each K2 kernel 16 times, every other kernel never."""
     import torch
 
-    run = REPO / "runs" / "chip_smoke" / "lm154m"
+    run = REPO / "runs" / "chip_smoke" / f"lm154m_{name}"
     (run / "log_trainer.jsonl").unlink(missing_ok=True)
     t0 = time.perf_counter()
-    task = _task(SWEEP_154M + [
+    task = _task(flags + [
         "-seed", str(seed), "-device", "cuda", "-run_dir", str(run.parent),
         "-name", run.name, "-log_interval", "1", "-valid_interval", "0"])
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in task.model.parameters())
     L = task.cfg.n_layers
-    log(f"lm: {n_params / 1e6:.2f}M parameters, {L} layers, built on the "
-        f"card in {time.perf_counter() - t0:.1f} s")
-    flips = [sum(task.schedule.is_flip(li, s) for li in range(L))
-             for s in range(steps)]
-    if not (min(flips) == 0 < max(flips)):
-        raise AssertionError(f"steps 0..{steps - 1} need a competing and "
-                             f"a non-competing step; flips {flips}")
+    log(f"lm {name}: {n_params / 1e6:.2f}M parameters, {L} layers, built "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    if task.schedule is not None:
+        flips = [sum(task.schedule.is_flip(li, s) for li in range(L))
+                 for s in range(steps)]
+        if not (min(flips) == 0 < max(flips)):
+            raise AssertionError(f"steps 0..{steps - 1} need a competing "
+                                 f"and a non-competing step; flips {flips}")
+    else:
+        flips = [0] * steps
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                            # main path starts here
     t0 = time.perf_counter()
@@ -731,64 +1129,172 @@ def phase_lm(seed: int, steps: int = LM_STEPS):
     recs = [json.loads(line) for line in
             (run / "log_trainer.jsonl").read_text().splitlines()]
     if [r["step"] for r in recs] != list(range(steps)):
-        raise AssertionError(f"lm: logged steps {[r['step'] for r in recs]}")
+        raise AssertionError(f"lm {name}: logged steps "
+                             f"{[r['step'] for r in recs]}")
     for r, f in zip(recs, flips):
         if not math.isfinite(r["loss/total"]):
-            raise AssertionError(f"lm: non-finite loss at step {r['step']}")
+            raise AssertionError(f"lm {name}: non-finite loss at step "
+                                 f"{r['step']}")
         if int(r["competesmoe/n_flip_layers"]) != f:
-            raise AssertionError(f"lm: step {r['step']} flips "
+            raise AssertionError(f"lm {name}: step {r['step']} flips "
                                  f"{r['competesmoe/n_flip_layers']} != {f}")
-    want = {"gmm2_fused_aligned": sum(L - f for f in flips),
-            "flash_attention_fwd": L * steps,
+    fused = sum(L - f for f in flips)
+    want = {"gmm2_fused_aligned": fused, "gmm2_bwd_dx": fused,
+            "gmm2_bwd_dw": fused, "flash_attention_fwd": L * steps,
             "flash_attention_bwd_dkv": L * steps,
             "flash_attention_bwd_dq": L * steps,
             "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
             "quant_small_m_matmul": 0}
     if counts != want:
-        raise AssertionError(f"lm launches {counts} != {want}")
+        raise AssertionError(f"lm {name} launches {counts} != {want}")
     ms = [r["timing/ms_per_step_wall"] for r in recs]
     tokens = task.a.batch_size * task.a.lm.unroll
     steady = statistics.median(ms[1:])        # the first step warms up
     for r, f in zip(recs, flips):
-        log(f"lm step {r['step']}: flips {f}, loss {r['loss/total']:.4f} "
-            f"(ce {r['loss/ce']:.4f}), grad_norm {r['grad_norm']:.4f}, "
-            f"agreement {r['competesmoe/router_agreement']:.3f}, "
-            f"{r['timing/ms_per_step_wall']:.1f} ms")
+        log(f"lm {name} step {r['step']}: flips {f}, loss "
+            f"{r['loss/total']:.4f} (ce {r['loss/ce']:.4f}), grad_norm "
+            f"{r['grad_norm']:.4f}, {r['timing/ms_per_step_wall']:.1f} ms")
     summary = dict(
-        params=n_params, steps=steps, flips=flips,
+        router=name, params=n_params, steps=steps, flips=flips,
         launches=counts, wall_s=wall, ms_per_step=ms,
         ms_per_step_median_after_first=steady,
         ms_per_step_no_flip=[m for m, f in zip(ms[1:], flips[1:]) if not f],
         ms_per_step_flip=[m for m, f in zip(ms[1:], flips[1:]) if f],
         tokens_per_s=tokens / (steady / 1e3), peak_mem_gib=peak / 2 ** 30,
         losses=[r["loss/total"] for r in recs])
-    log(f"lm: {steps} steps in {wall:.1f} s; median {steady:.1f} ms/step "
-        f"after the first ({summary['tokens_per_s']:.0f} tok/s); peak "
-        f"memory {summary['peak_mem_gib']:.2f} GiB; launches {counts}")
+    log(f"lm {name}: {steps} steps in {wall:.1f} s; median {steady:.1f} "
+        f"ms/step after the first ({summary['tokens_per_s']:.0f} tok/s); "
+        f"peak memory {summary['peak_mem_gib']:.2f} GiB; launches {counts}")
     return task, summary
 
 
 def profile_train(task, steps: int = 2):
     """torch.profiler over `steps` more training steps: wall time, device
-    kernel time (so the busy share) and the kernels that take it."""
+    kernel time (so the busy share), the kernels that take it, and the
+    device time of TRAIN_RANGES (each function wrapped, for the window, so
+    that its forward and its backward run inside profiler ranges)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with train_ranges(task), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         task.train(n_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, steps, "train", TRAIN_GROUPS)
+    return _busy(prof, wall, steps, "train", TRAIN_GROUPS,
+                 [label for label, _ in TRAIN_RANGES])
 
 
 # kernel-name fragments whose device time a profile sums by label
 TRAIN_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
                                              "flash_bwd_dq_kernel"),
                 "K2 forward": ("flash_fwd_kernel",),
-                "K1 (without its weight casts)": ("gmm2_kernel",)}
+                "K1 (without its weight casts)": ("gmm2_kernel",),
+                "K1 backward (dX + dW)": ("gmm2_bwd_dx_kernel",
+                                          "gmm2_bwd_dw_kernel")}
+# (label, where): the functions whose device time a training profile
+# reads through ranges, forward and backward: the competition step's
+# dense all-experts pass (float32 products) and the float32 lm_head
+TRAIN_RANGES = (("competition dense pass", "expert_compute.dense_all_experts_kv"),
+                ("lm_head (float32)", "model.output"))
+# fragments of the names of cuBLAS / CUTLASS GEMM kernels on 16-bit
+# operands; a GEMM kernel whose name holds none takes float32 ones
+LOW_PRECISION = ("bf16", "f16", "hgemm", "bgemm", "s16816", "h16816")
+
+
+@functools.lru_cache(maxsize=None)
+def _range_mark():
+    """An identity autograd function that opens a profiler range when the
+    gradient of a ranged function's output arrives and closes it when the
+    last of its inputs' gradients has been computed: the function's
+    backward, in a range of its own."""
+    import torch
+    from torch.autograd.profiler import record_function
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, state, side):
+            ctx.state, ctx.side = state, side
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            st = ctx.state
+            if ctx.side == "out" and st.get("range") is None:
+                st["range"] = record_function(st["label"] + " (backward)")
+                st["range"].__enter__()
+            elif ctx.side == "in":
+                st["left"] -= 1
+                if st["left"] == 0 and st.get("range") is not None:
+                    st["range"].__exit__(None, None, None)
+            return grad, None, None
+
+    return Mark
+
+
+def _ranged(fn, label: str):
+    """`fn` with its forward in the profiler range `label` and its
+    backward in `label (backward)`."""
+    import torch
+    from torch.autograd.profiler import record_function
+
+    mark = _range_mark()
+
+    def run(*args, **kwargs):
+        st = {"label": label, "left": 0}
+
+        def mark_in(a):
+            if torch.is_tensor(a) and a.requires_grad and \
+                    torch.is_grad_enabled():
+                st["left"] += 1
+                return mark.apply(a, st, "in")
+            return a
+
+        args = [mark_in(a) for a in args]
+        with record_function(label):
+            out = fn(*args, **kwargs)
+
+        def mark_out(t):
+            if torch.is_tensor(t) and t.requires_grad and \
+                    torch.is_grad_enabled():
+                return mark.apply(t, st, "out")
+            return t
+
+        if isinstance(out, tuple):
+            return tuple(mark_out(t) for t in out)
+        return mark_out(out)
+
+    return run
+
+
+@contextlib.contextmanager
+def train_ranges(task):
+    """TRAIN_RANGES wrapped for the block (module attributes and the
+    model's output head), and put back after it."""
+    from competesmoe_tpu_torch.ops import expert_compute
+
+    undo = []
+    for label, where in TRAIN_RANGES:
+        owner, attr = where.split(".")
+        obj = {"expert_compute": expert_compute,
+               "model": task.model}[owner]
+        if owner == "model":
+            obj = getattr(obj, attr)
+            attr = "forward"
+        undo.append((obj, attr, obj.__dict__.get(attr)))
+        setattr(obj, attr, _ranged(getattr(obj, attr), label))
+    try:
+        yield
+    finally:
+        for obj, attr, old in reversed(undo):
+            if old is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, old)
+
+
 ENGINE_GROUPS = {"K3": ("mm_bf16_kernel",), "K4": ("qmm8_kernel",),
                  "K5": ("qmm4_kernel",)}
 # PyTorch's copy and conversion kernels (the attention's one bf16 copy of
@@ -813,18 +1319,39 @@ def profiled(enabled: bool):
         torch.cuda.synchronize()
 
 
-def _busy(prof, wall, steps, what, groups=None):
+def _busy(prof, wall, steps, what, groups=None, ranges=()):
     """Wall and device-kernel ms per step of a profiled window, the busy
     share, the 12 kernels that take the most device time, and, for each
     label of `groups`, the device time of the kernels whose names hold
-    one of its fragments (ms per step and share of the step's wall time)."""
+    one of its fragments (ms per step and share of the step's wall time);
+    for each label of `ranges`, the device time of the kernels launched
+    inside its profiler ranges, forward and backward (`_ranged`), and, in
+    a training profile, the float32 GEMM kernels' time."""
     import torch
-    kernels = []
+    kernels, in_ranges = [], {}
+    labels = set(ranges) | {label + " (backward)" for label in ranges}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        # a range's mirror on the device timeline is no kernel
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.key not in labels:
             kernels.append((dev_us, ev.count, ev.key))
+    # a range's kernels: the device time of the kernels launched inside it
+    # (its CPU event's total, one event a call); its span: how long its
+    # mirror on the device timeline lasts, gaps included (key_averages
+    # would merge the two)
+    for ev in (prof.events() if labels else ()):
+        if ev.name in labels:
+            label = ev.name.replace(" (backward)", "")
+            part = "backward" if ev.name.endswith("(backward)") \
+                else "forward"
+            if ev.device_type != torch.autograd.DeviceType.CPU:
+                part += " span"
+            sums = in_ranges.setdefault(label, {})
+            sums[part] = sums.get(part, 0.0) + (
+                ev.device_time_total if hasattr(ev, "device_time_total")
+                else ev.cuda_time_total)
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3 / steps
     wall_ms = wall * 1e3 / steps
@@ -842,8 +1369,26 @@ def _busy(prof, wall, steps, what, groups=None):
                             share_of_device=ms / busy_ms)
         log(f"  {label}: {ms:.3f} ms/step = {ms / wall_ms:.1%} of the step, "
             f"{ms / busy_ms:.1%} of its device time")
+    ranged = {}
+    for label in ranges:
+        part = {k: v / 1e3 / steps for k, v in in_ranges.get(label,
+                                                              {}).items()}
+        fwd, bwd = part.get("forward", 0.0), part.get("backward", 0.0)
+        ranged[label] = dict(part, ms_per_step=fwd + bwd)
+        log(f"  range {label}: kernels {fwd + bwd:.3f} ms/step (forward "
+            f"{fwd:.3f}, backward {bwd:.3f}); spans on the device: forward "
+            f"{part.get('forward span', 0.0):.3f}, backward "
+            f"{part.get('backward span', 0.0):.3f}")
+    if ranges:
+        f32 = sum(d for d, _, n in kernels if "gemm" in n.lower()
+                  and not any(f in n.lower() for f in LOW_PRECISION))
+        named["float32 GEMMs (by kernel name)"] = dict(
+            ms_per_step=f32 / 1e3 / steps,
+            share_of_wall=f32 / 1e3 / steps / wall_ms,
+            share_of_device=f32 / 1e3 / steps / busy_ms)
+        log(f"  float32 GEMM kernels: {f32 / 1e3 / steps:.3f} ms/step")
     return dict(wall_ms_per_step=wall_ms, device_ms_per_step=busy_ms,
-                busy_share=busy_ms / wall_ms, groups=named,
+                busy_share=busy_ms / wall_ms, groups=named, ranges=ranged,
                 top=[dict(ms_per_step=d / 1e3 / steps,
                           launches_per_step=c // steps, kernel=n[:120])
                      for d, c, n in kernels[:12]])
@@ -1180,7 +1725,7 @@ def phase_model(seed: int, model, want_tokens=None, new_tokens: int = 32):
     # one profiled replay of the captured one-step program holds the
     # kernels a forward launches
     per_replay = replay_kernel_count(solo_program(model, ("scan", 1)),
-                                     "qmm4_kernel")
+                                     "qmm4_kernel", 4 * L)
     if per_replay != 4 * L:
         raise AssertionError(f"a profiled replay of the solo decode step "
                              f"launched qmm4_kernel {per_replay} times, not "
@@ -1221,11 +1766,19 @@ def replay_kernels(program):
     return out
 
 
-def replay_kernel_count(program, fragment: str) -> int:
+def replay_kernel_count(program, fragment: str, want: int) -> int:
     """The launches of kernels whose names hold `fragment` in one replay of
-    the captured `program`."""
-    return sum(n for key, (n, _) in replay_kernels(program).items()
-               if fragment in key)
+    the captured `program`. The profiler now and then loses kernel records
+    of a replay (once 95 of 128, where 16 profiled replays of the same
+    program in a run of their own each showed 128), so a replay that shows
+    fewer than `want` is profiled again, up to 3 times; a replay cannot
+    launch fewer nodes than it captured, and more is never retried."""
+    for _ in range(3):
+        n = sum(c for key, (c, _) in replay_kernels(program).items()
+                if fragment in key)
+        if n >= want:
+            break
+    return n
 
 
 # the solo cases held captured against eager: (tag, temperature, top_p,
@@ -1941,7 +2494,7 @@ def engine_vs_eager(model, kind: str, seed: int, new_tokens: int = 32):
             fragment = {"bf16": "mm_bf16_kernel", "int8": "qmm8_kernel",
                         "int4": "qmm4_kernel"}[kind]
             per_replay = replay_kernel_count(engine._programs["step_plain"],
-                                             fragment)
+                                             fragment, 4 * L)
             if per_replay != 4 * L:
                 raise AssertionError(f"engine {kind}: a profiled replay of "
                                      f"step_plain launched {fragment} "
@@ -3069,13 +3622,21 @@ def main():
         "k5_library": library_why["K5"] or "torch._weight_int4pack_mm"}),
         flush=True)
     k1 = phase_k1(a.seed)
+    k1_bwd = phase_k1_bwd(a.seed)
     k2 = phase_k2(a.seed)
-    small_lm_check()
+    router_weights_check(a.seed)
+    small_lm = small_lm_check()
     task, lm = phase_lm(a.seed)
     if a.profile:
         lm["profile"] = profile_train(task)
     del task
     free_card()
+    lm["routers"] = {}
+    for name in ROUTER_SWEEPS:
+        task, lm["routers"][name] = phase_router(name, a.seed)
+        del task
+        free_card()
+    lm["small_lm"] = small_lm
     print("lm_summary " + json.dumps(dict(lm, card=card)), flush=True)
     small_model_check(a.seed)
     small = [small_engine_check("int4", a.seed)]
@@ -3131,7 +3692,8 @@ def main():
                  + features["launches"], 1),
                 ("small_m_matmul", engines["bf16"]["launches"], 8),
                 ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
-    for row in [k1] + [k2[n] for n in ("flash_attention_fwd",
+    for row in [k1, k1_bwd["gmm2_bwd_dx"], k1_bwd["gmm2_bwd_dw"]] + [
+            k2[n] for n in ("flash_attention_fwd",
                                        "flash_attention_bwd_dkv",
                                        "flash_attention_bwd_dq")]:
         rows.append(dict(name=row["name"],

@@ -2,7 +2,8 @@
 // Hopper (sm_90a):
 //     out[r, :] = bf16( bf16(relu(xs[r, :] @ keys[e])) @ values[e] )
 // where e = tile_expert[r / 256]: the rows are laid out so that each
-// 256-row tile belongs to one expert (ops/gmm_fused.py `aligned_layout`).
+// 256-row tile belongs to one expert (ops/gmm_fused.py
+// `aligned_layout_full`).
 //
 // Replaces the Pallas TPU kernel competesmoe_tpu/ops/gmm_fused.py
 // `gmm2_fused_aligned` / `_gmm2_kernel`.
@@ -90,19 +91,6 @@ struct Geo {
   static constexpr int BARS = STAGES * SLOT;
   static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
 };
-
-// Four 32-bit words across a quad of lanes (t = lane & 3), transposed:
-// before, lane t holds word t of the quad's four 8-column n-tiles, v[i]
-// from n-tile i; after, lane t holds the four words of n-tile t, in order.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-  const bool b0 = t & 1, b1 = t & 2;
-  uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? v[0] : v[1], 1);
-  uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? v[2] : v[3], 1);
-  if (b0) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
-  r0 = __shfl_xor_sync(0xffffffffu, b1 ? v[0] : v[2], 2);
-  r1 = __shfl_xor_sync(0xffffffffu, b1 ? v[1] : v[3], 2);
-  if (b1) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
-}
 
 template <int HC>
 __global__ void __launch_bounds__(Geo<HC>::THREADS, 1)
@@ -244,7 +232,7 @@ gmm2_kernel(const __grid_constant__ CUtensorMap xmap,   // xs [S, D]
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             v[i] = tiles::pack_bf16(acc[4 * j + i][2 * h], acc[4 * j + i][2 * h + 1]);
-          quad_transpose(v, t);
+          tiles::quad_transpose(v, t);
           *reinterpret_cast<uint4*>(out_rows + (size_t)8 * h * D + d * kChunk +
                                     8 * (4 * j + t)) =
               make_uint4(v[0], v[1], v[2], v[3]);

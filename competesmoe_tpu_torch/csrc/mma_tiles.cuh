@@ -275,6 +275,19 @@ __device__ __forceinline__ void as_a(uint32_t (&a)[KS][4],
   }
 }
 
+// Four 32-bit words across a quad of lanes (t = lane & 3), transposed:
+// before, lane t holds word t of the quad's four 8-column n-tiles, v[i]
+// from n-tile i; after, lane t holds the four words of n-tile t, in order.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const bool b0 = t & 1, b1 = t & 2;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? v[0] : v[1], 1);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? v[2] : v[3], 1);
+  if (b0) { v[0] = r0; v[2] = r1; } else { v[1] = r0; v[3] = r1; }
+  r0 = __shfl_xor_sync(0xffffffffu, b1 ? v[0] : v[2], 2);
+  r1 = __shfl_xor_sync(0xffffffffu, b1 ? v[1] : v[3], 2);
+  if (b1) { v[0] = r0; v[1] = r1; } else { v[2] = r0; v[3] = r1; }
+}
+
 // ---- the tile layout ---------------------------------------------------------
 
 constexpr int kTileRows = 64;

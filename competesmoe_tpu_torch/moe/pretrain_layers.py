@@ -1,11 +1,19 @@
 """The pretrain tree's MoE layers with MoEUT-style stacked keys/values
 experts and ReLU activation (port of competesmoe_tpu/moe/pretrain_layers.py:
-`MoEUTBase`, `PretrainSMoE` and `PretrainCompeteSMoE`).
+`MoEUTBase` and the seven routers `PretrainSMoE`, `PretrainSigmoidNorm`,
+`PretrainXMoE`, `PretrainPerturbed`, `PretrainDeepSeekV2`,
+`PretrainDeepSeekV3` and `PretrainCompeteSMoE`). Every router's experts
+are relu keys/values without a bias, so `impl='fused'` takes K1 on the
+card for all of them.
 
 Parameters keep the JAX layout, which K1 reads as it is: `w_gate` [E, d],
 `keys` [E, d, expert_size], `values` [E, expert_size, v] (plus `bias`
-[E, expert_size] and `o_bias` [v] with `bias=True`). Layers return
-`(output, MoEAux)` with the JAX aux-loss key names.
+[E, expert_size] and `o_bias` [v] with `bias=True`); the cosine routers
+add `expert_sel` [E/2, d] and `expert_embeddings` [E, E/2], the DeepSeek
+ones the shared expert's `keys_shared` [1, d, es] and `values_shared`
+[1, es, v] (and V3 `e_score_correction_bias` [E], declared and unused,
+as in JAX). Layers return `(output, MoEAux)` with the JAX aux-loss key
+names.
 
 CompeteSMoE's competition step: JAX picks the branch with a `lax.cond` on
 the flip schedule inside the compiled step. Here the schedule is host data,
@@ -96,14 +104,14 @@ class MoEUTBase(nn.Module):
         weights, sel, gate_softmax = R.topk_softmax(logits, self.topk)
         return R.normalize_weights(weights, x.dtype), sel, gate_softmax
 
-    def ffn(self, x3d, sel, weights):
+    def ffn(self, x3d, sel, weights, with_o_bias: bool = True):
         b, n, d = x3d.shape
         out = ec.moe_ffn_kv(
             x3d.reshape(b * n, d), sel.reshape(b * n, -1),
             weights.reshape(b * n, -1).to(x3d.dtype), self.keys, self.values,
             activation=self.activation, b1=self.bias, impl=self.impl)
         out = out.reshape(b, n, self.out_dim)
-        if self.o_bias is not None:
+        if with_o_bias and self.o_bias is not None:
             out = out + self.o_bias.to(out.dtype)
         return out
 
@@ -132,6 +140,175 @@ class MoEUTBase(nn.Module):
 @register_pretrain_moe("smoe")
 class PretrainSMoE(MoEUTBase):
     """Vanilla softmax top-k on CVMM-style experts (ref smoe.py:38-264)."""
+
+
+@register_pretrain_moe("smoe_sigmoid")
+class PretrainSigmoidNorm(MoEUTBase):
+    """MoEUT sigmoid selection: top-k over sigmoid(logits), normalized
+    (ref smoeut_norm.py:36-150); `gate_softmax` of the aux is the
+    sigmoid."""
+
+    def route(self, x, logits):
+        weights, sel, _ = R.topk_sigmoid(logits, self.topk)
+        return (R.normalize_weights(weights, x.dtype), sel,
+                R.sigmoid(logits))
+
+
+class _PretrainCosineBase(MoEUTBase):
+    """Cosine gate over a reduced projection (ref xmoe.py:37-155):
+    `expert_sel` [E/2, d] projects x, `expert_embeddings` [E, E/2]
+    (orthogonal at gain 0.32 when theta is 0, else N(0, 0.02)) are
+    rescaled to norm 1.5 / (norm + theta) without a gradient through the
+    scale; softmax at `temperature`, top-k, softmax of the k."""
+
+    theta = 0.0
+    temperature = 0.3
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        red = self.n_experts // 2
+        kw = dict(device=self.keys.device, dtype=torch.float32)
+        self.expert_sel = nn.Parameter(torch.empty(red, self.dmodel, **kw))
+        self.expert_embeddings = nn.Parameter(
+            torch.empty(self.n_experts, red, **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, g: torch.Generator) -> None:
+        super().reset_parameters(g)
+        t = self.expert_sel
+        t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                * self.dmodel ** -0.5 * self.weight_scale)
+        t = self.expert_embeddings
+        if self.theta == 0.0:
+            nn.init.orthogonal_(t, gain=0.32, generator=g)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                    * 0.02)
+
+    def compute_gate(self, x):
+        reduced = x @ self.expert_sel.t().to(x.dtype)
+        emb = self.expert_embeddings
+        norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+        emb_n = emb * (1.5 / (norm + self.theta)).detach()
+        if self.theta > 0.0:
+            xf = reduced.float()
+            xn = xf / (torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+                       + self.theta)
+            logits = (xn @ emb_n.float().t()).to(reduced.dtype)
+        else:
+            logits = R.cosine_logits(reduced, emb_n)
+        return R.make_finite(logits)
+
+    def route(self, x, logits):
+        gate_softmax = R.softmax_f32(logits / self.temperature).to(x.dtype)
+        raw, sel = R.top_k(gate_softmax, self.topk)
+        weights = torch.softmax(raw.float(), dim=-1).to(x.dtype)
+        return weights, sel, gate_softmax
+
+
+@register_pretrain_moe("xmoe")
+class PretrainXMoE(_PretrainCosineBase):
+    """XMoE on CVMM-style experts (ref xmoe.py:37-226)."""
+
+
+@register_pretrain_moe("smoe_perturbed")
+class PretrainPerturbed(_PretrainCosineBase):
+    """Perturbed cosine gating, theta=0.1 (ref smoe_perturbed.py:39-226)."""
+
+    theta = 0.1
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in a's dtype with float32 accumulation: one bf16 matmul on
+    the card (cuBLAS accumulates in float32), widened operands on the
+    CPU."""
+    if a.device.type == "cuda":
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+class _SharedExpertBase(MoEUTBase):
+    """DeepSeek-style routed experts + an always-on shared expert
+    (ref deepseekv2.py:38-181, deepseekv3.py:39-190): `keys_shared` [1, d,
+    es] and `values_shared` [1, es, v], es = expert_size x
+    n_shared_experts, computed as two dense bf16 products (JAX computes
+    them outside Pallas)."""
+
+    def __init__(self, *args, n_shared_experts: int = 1,
+                 routed_scaling_factor: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.n_shared_experts = n_shared_experts
+        self.routed_scaling_factor = routed_scaling_factor
+        es = self.expert_size * n_shared_experts
+        kw = dict(device=self.keys.device, dtype=torch.float32)
+        self.keys_shared = nn.Parameter(torch.empty(1, self.dmodel, es, **kw))
+        self.values_shared = nn.Parameter(torch.empty(1, es, self.out_dim,
+                                                      **kw))
+
+    @torch.no_grad()
+    def reset_parameters(self, g: torch.Generator) -> None:
+        super().reset_parameters(g)
+        es = self.keys_shared.shape[-1]
+        for t, std in ((self.keys_shared, self.dmodel ** -0.5),
+                       (self.values_shared, es ** -0.5)):
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                    * std * self.weight_scale)
+
+    def _shared_out(self, x):
+        h = torch.relu(_mm(x, self.keys_shared[0].to(x.dtype)))
+        return _mm(h, self.values_shared[0].to(x.dtype))
+
+    def forward(self, x, *, step=None, train: bool = False,
+                return_id_experts: bool = False, flips=None):
+        logits = self.compute_gate(x)
+        weights, sel, gate_softmax = self.route(x, logits)
+        out = self.ffn(x, sel, weights, with_o_bias=False)
+        out = out + self._shared_out(x)
+        if self.o_bias is not None:
+            out = out + self.o_bias.to(out.dtype)
+        aux = zero_aux(x)
+        if train:
+            bal = self._ebalance(logits, train)
+            aux = MoEAux(aux_loss=bal, losses={"mlp_ebalance": bal.detach()})
+        if return_id_experts:
+            aux.gate_softmax = gate_softmax.detach()
+            aux.selected_experts = sel
+        return out, aux
+
+
+@register_pretrain_moe("deepseekv2")
+class PretrainDeepSeekV2(_SharedExpertBase):
+    """Top-k over raw logits, softmax-over-top-k weights, + shared expert
+    (ref deepseekv2.py:147-181)."""
+
+    def route(self, x, logits):
+        weights, sel, gate_softmax = R.topk_logits_softmax_weights(
+            logits, self.topk)
+        return weights.to(x.dtype), sel, gate_softmax
+
+
+@register_pretrain_moe("deepseekv3")
+class PretrainDeepSeekV3(_SharedExpertBase):
+    """Sigmoid scoring, normalized with a +1e-20 denominator, scaled by
+    routed_scaling_factor, + shared expert (ref deepseekv3.py:142-190).
+    `e_score_correction_bias` [E] is declared for checkpoint parity and,
+    as in the reference's forward, not applied."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.e_score_correction_bias = nn.Parameter(torch.empty(
+            self.n_experts, device=self.keys.device, dtype=torch.float32))
+
+    @torch.no_grad()
+    def reset_parameters(self, g: torch.Generator) -> None:
+        super().reset_parameters(g)
+        self.e_score_correction_bias.zero_()
+
+    def route(self, x, logits):
+        weights, sel = R.top_k(R.sigmoid(logits), self.topk)
+        denom = weights.sum(dim=-1, keepdim=True) + 1e-20
+        weights = weights / denom * self.routed_scaling_factor
+        return weights, sel, R.softmax_f32(logits)
 
 
 @register_pretrain_moe("competesmoe")

@@ -1,6 +1,6 @@
 """String-keyed registry of the multimodal MoE layers (port of
-competesmoe_tpu/moe/registry.py; the pretrain zoo's registry waits for
-the LM training slice)."""
+competesmoe_tpu/moe/registry.py), and of the pretrain tree's seven
+routers (`moe/pretrain_layers.py`)."""
 
 from __future__ import annotations
 
@@ -51,5 +51,4 @@ def get_pretrain_moe(name: str) -> Type:
     except KeyError:
         raise ValueError(
             f"Unknown pretrain MoE {name!r}. Registered: "
-            f"{', '.join(sorted(PRETRAIN_MOE_REGISTRY))} (the other "
-            "pretrain routers are ROADMAP open item 1.1)") from None
+            f"{', '.join(sorted(PRETRAIN_MOE_REGISTRY))}") from None

@@ -51,15 +51,20 @@ def sort_by_expert(sel: torch.Tensor, n_experts: int) -> GroupedSel:
     k = sel.shape[-1]
     sel_flat = sel.reshape(-1).long()
     perm = torch.argsort(sel_flat, stable=True)
+    # counted by a scatter-add, not torch.bincount, whose CUDA version
+    # reads the largest id back to the host
+    sizes = torch.zeros(n_experts, dtype=torch.int64, device=sel.device)
+    sizes.index_add_(0, sel_flat, torch.ones_like(sel_flat))
     return GroupedSel(perm=perm, inv_perm=torch.argsort(perm),
                       token_ids=perm // k, sel_sorted=sel_flat[perm],
-                      group_sizes=torch.bincount(sel_flat,
-                                                 minlength=n_experts))
+                      group_sizes=sizes)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with float32 accumulation, output in a.dtype."""
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    """a @ b with float32 accumulation, output in a.dtype, b rounded to
+    a.dtype first: JAX's `_ragged_dot` (bf16 activations against f32
+    weights, output in the activations' dtype), as XLA computes it."""
+    return torch.matmul(a.float(), b.to(a.dtype).float()).to(a.dtype)
 
 
 def combine_topk(expert_outputs: torch.Tensor, sel: torch.Tensor,

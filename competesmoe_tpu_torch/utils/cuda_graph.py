@@ -60,6 +60,8 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "small_m_matmul": matvec.small_m_matmul,
             "quant_small_m_matmul": matvec.quant_small_m_matmul,
             "gmm2_fused_aligned": gmm_fused.gmm2_fused_aligned,
+            "gmm2_bwd_dx": gmm_fused.gmm2_bwd_dx,
+            "gmm2_bwd_dw": gmm_fused.gmm2_bwd_dw,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}

@@ -3,7 +3,9 @@ versions, with the wrappers' input checks: K5 (packed-int4 decode matmul)
 and the decode-shape routing of the int4 `QuantDense`; K3 and K4 (bf16
 and int8 small-M matmuls) and the routing of `PallasDense` and the int8
 `QuantDense` with `matvec_kernel`; K1 (fused grouped ReLU double GEMM) and
-its pipeline's gradients; K2 (causal flash attention, forward, dK/dV and
+its pipeline's gradients; K1's two backward kernels against the plain
+backward (edge groups, every ES, the 154M layer), bit-for-bit repeats
+without a host sync, and their input checks; K2 (causal flash attention, forward, dK/dV and
 dQ) at small shapes and the 154M shape; a checkpoint loaded on the card
 (the golden tiny checkpoint's digests, and K5 under --load-4bit); and
 serving's decode programs captured as CUDA graphs against the eager path
@@ -345,8 +347,8 @@ def _k1_case(g, T, D, E, ES, k, skew):
     (65536, 512, 64, 128, 8, False)])
 def test_k1_kernel_matches_plain(gen, T, D, E, ES, k, skew):
     x, sel, w, keys, values = _k1_case(gen, T, D, E, ES, k, skew)
-    _, tok, tile_expert, _ = tgmm.aligned_layout(sel, E)
-    xs = x[tok]
+    lay = tgmm.aligned_layout_full(sel, E)
+    xs, tile_expert = x[lay.tok_padded], lay.tile_expert
     before = tgmm.gmm2_fused_aligned.launches
     got = tgmm.gmm2_fused_aligned(xs, keys, values, tile_expert)
     torch.cuda.synchronize()
@@ -361,8 +363,8 @@ def test_k1_repeats_bit_for_bit(gen, T, D, E, ES, k, skew):
     """K1 sums in a fixed order (no atomics): two runs give the same
     bytes, in the skewed case (ES 256) and at the 154M layer shape."""
     x, sel, w, keys, values = _k1_case(gen, T, D, E, ES, k, skew)
-    _, tok, tile_expert, _ = tgmm.aligned_layout(sel, E)
-    xs = x[tok]
+    lay = tgmm.aligned_layout_full(sel, E)
+    xs, tile_expert = x[lay.tok_padded], lay.tile_expert
     a = tgmm.gmm2_fused_aligned(xs, keys, values, tile_expert)
     b = tgmm.gmm2_fused_aligned(xs, keys, values, tile_expert)
     torch.cuda.synchronize()
@@ -371,8 +373,8 @@ def test_k1_repeats_bit_for_bit(gen, T, D, E, ES, k, skew):
 
 def test_k1_pipeline_and_gradients_match_the_cpu(gen):
     """The fused MoE FFN on the card (K1) against the grouped path on the
-    CPU from the same bf16 inputs; its backward (a plain recompute)
-    against the grouped path's gradients."""
+    CPU from the same bf16 inputs; its backward (the two kernels of
+    csrc/gmm2_bwd.cu) against the grouped path's gradients."""
     x, sel, w, keys, values = _k1_case(gen, 384, 128, 8, 128, 2, False)
     leaves = [t.clone().requires_grad_() for t in (x, w, keys, values)]
     out = tgmm.fused_grouped_ffn_kv(leaves[0], sel, *leaves[1:])
@@ -410,8 +412,8 @@ def test_fused_moe_ffn_refuses_experts_k1_cannot_run(gen):
 
 def test_k1_rejects_what_it_does_not_take(gen):
     x, sel, w, keys, values = _k1_case(gen, 256, 128, 4, 128, 2, False)
-    _, tok, te, _ = tgmm.aligned_layout(sel, 4)
-    xs = x[tok]
+    lay = tgmm.aligned_layout_full(sel, 4)
+    xs, te = x[lay.tok_padded], lay.tile_expert
     with pytest.raises(TypeError):
         tgmm.gmm2_fused_aligned(xs.float(), keys, values, te)
     with pytest.raises(TypeError):
@@ -423,6 +425,110 @@ def test_k1_rejects_what_it_does_not_take(gen):
                                 values[:, :64].contiguous(), te)
     with pytest.raises(ValueError):
         tgmm.gmm2_fused_aligned(xs, keys, values, te.cpu())
+
+
+# ---------------------------------------------------------------------------
+# K1's backward (csrc/gmm2_bwd.cu) against fused_grouped_ffn_kv_bwd_reference
+#
+# Both sides compute the same bf16 roundings with float32 sums in other
+# orders: at most 1e-4 of a gradient's elements may be off by more than
+# 2^-7 |plain| + 2^-9 max|plain|, none by more than 2^-4 max|plain|
+# (chip_smoke.py's K1_BWD_OFF_SHARE rule); dkeys and dvalues hold bf16
+# values.
+# ---------------------------------------------------------------------------
+
+def _bwd_case(g, T, D, E, ES, k, counts=None):
+    x, sel, w, keys, values = _k1_case(g, T, D, E, ES, k, False)
+    if counts is not None:
+        ids = torch.repeat_interleave(torch.arange(E, device="cuda"),
+                                      torch.tensor(counts, device="cuda"))
+        sel = ids[torch.randperm(T * k, generator=g, device="cuda")]
+        sel = sel.reshape(T, k)
+    gout = torch.randn(T, D, generator=g, device="cuda").to(torch.bfloat16)
+    return x, sel, w.float(), keys, values, gout
+
+
+def _card_backward(x, sel, w, keys, values, gout):
+    leaves = [t.clone().requires_grad_() for t in (x, w, keys, values)]
+    out = tgmm.fused_grouped_ffn_kv(leaves[0], sel, *leaves[1:])
+    return torch.autograd.grad(out, leaves, gout)
+
+
+@pytest.mark.parametrize("T,D,E,ES,k,counts", [
+    (1025, 256, 8, 128, 1, (0, 1, 255, 256, 257, 0, 128, 128)),
+    (512, 256, 8, 256, 2, None), (256, 128, 8, 384, 2, None),
+    (768, 256, 8, 512, 2, None), (65536, 512, 64, 128, 8, None)])
+def test_k1_backward_kernels_match_plain(gen, T, D, E, ES, k, counts):
+    case = _bwd_case(gen, T, D, E, ES, k, counts)
+    before = (tgmm.gmm2_bwd_dx.launches, tgmm.gmm2_bwd_dw.launches)
+    got = _card_backward(*case)
+    torch.cuda.synchronize()
+    assert (tgmm.gmm2_bwd_dx.launches, tgmm.gmm2_bwd_dw.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tgmm.fused_grouped_ffn_kv_bwd_reference(*case)
+    for name, a, b in zip(("dx", "dweights", "dkeys", "dvalues"), got,
+                          want):
+        assert a.dtype == b.dtype, name
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        off = float((diff > 2.0 ** -7 * b.abs() + 2.0 ** -9 * top)
+                    .float().mean())
+        assert off <= 1e-4 and float(diff.max()) <= 2.0 ** -4 * top, (
+            name, off, float(diff.max()), top)
+    for t in got[2:]:
+        assert torch.equal(t, t.bfloat16().float())
+    if counts is not None:       # experts without rows: zero gradients
+        for e in (0, 5):
+            assert not got[2][e].any() and not got[3][e].any()
+
+
+def test_k1_backward_repeats_and_does_not_sync(gen):
+    """No atomics: two backward passes give the same bytes. The backward
+    on the card asks the host to wait for nothing (a synchronising call
+    raises under the sync debug mode)."""
+    x, sel, w, keys, values, gout = _bwd_case(gen, 65536, 512, 64, 128, 8)
+    leaves = [t.clone().requires_grad_() for t in (x, w, keys, values)]
+    out = tgmm.fused_grouped_ffn_kv(leaves[0], sel, *leaves[1:])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b = torch.autograd.grad(out, leaves, gout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k1_backward_rejects_what_it_does_not_take(gen):
+    x, sel, w, keys, values, gout = _bwd_case(gen, 256, 128, 4, 128, 2)
+    lay = tgmm.aligned_layout_full(sel, 4)
+    slot, aoff, gsize = lay.slot_padded, lay.aoff, lay.gsize
+    wflat = w.bfloat16().reshape(-1).contiguous()
+    xs = x[lay.tok_padded]
+    k16, v16 = keys.bfloat16(), values.bfloat16()
+    ok = dict(xs=xs, g=gout, slot=slot, wflat=wflat, keys=k16, values=v16,
+              tile_expert=lay.tile_expert, aoff=aoff, gsize=gsize, k=2)
+    dxs, hr, dh = tgmm.gmm2_bwd_dx(**ok)
+    for bad, err in ((dict(xs=xs.float()), TypeError),
+                     (dict(keys=keys), TypeError),
+                     (dict(slot=slot.long()), TypeError),
+                     (dict(xs=xs[:200]), ValueError),
+                     (dict(tile_expert=lay.tile_expert.cpu()), ValueError),
+                     (dict(keys=k16[..., :64].contiguous(),
+                           values=v16[:, :64].contiguous()), ValueError)):
+        with pytest.raises(err):
+            tgmm.gmm2_bwd_dx(**dict(ok, **bad))
+    dw = dict(xs=xs, hr=hr, dh=dh, g=gout, slot=slot, wflat=wflat,
+              tile_expert=lay.tile_expert, aoff=aoff, gsize=gsize, k=2)
+    tgmm.gmm2_bwd_dw(**dw)
+    for bad, err in ((dict(hr=hr.float()), TypeError),
+                     (dict(dh=dh[:, :64].contiguous()), ValueError),
+                     (dict(g=gout[:, :64].contiguous()), ValueError),
+                     (dict(aoff=aoff.cpu()), ValueError)):
+        with pytest.raises(err):
+            tgmm.gmm2_bwd_dw(**dict(dw, **bad))
 
 
 # ---------------------------------------------------------------------------

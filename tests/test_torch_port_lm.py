@@ -150,9 +150,9 @@ def test_fused_pipeline_matches_jax_interpret(skew):
     and empty groups; the aligned layout arrays are bit-identical."""
     x, sel, w, keys, values = _kv_inputs(skew=skew)
     jgs, jtok, jte, jshift = jgmm._aligned_layout(jnp.asarray(sel), 8)
-    tgs, ttok, tte, tshift = tgmm.aligned_layout(t(sel), 8)
-    for a, b in ((jtok, ttok), (jte, tte), (jshift, tshift),
-                 (jgs.inv_perm, tgs.inv_perm)):
+    lay = tgmm.aligned_layout_full(t(sel), 8)
+    for a, b in ((jtok, lay.tok_padded), (jte, lay.tile_expert),
+                 (jshift, lay.shift), (jgs.inv_perm, lay.gs.inv_perm)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     want = jgmm.fused_grouped_ffn_kv_fwd(
         *map(jnp.asarray, (x, sel, w, keys, values)), interpret=True)
@@ -213,17 +213,25 @@ _LAYER_ARGS = JMoEArgs(hybrid=True, router_theta=0.2, router_loss_coef=0.001,
                        max_compete_in_iter=3)
 
 
-@pytest.mark.parametrize("name,step", [("competesmoe", 0),
-                                       ("competesmoe", 1), ("smoe", 0)])
+@pytest.mark.parametrize("name,step", [
+    ("competesmoe", 0), ("competesmoe", 1), ("smoe", 0), ("smoe_sigmoid", 0),
+    ("xmoe", 0), ("smoe_perturbed", 0), ("deepseekv2", 0),
+    ("deepseekv3", 0)])
 def test_pretrain_layer_matches_jax(name, step):
     """Output, selection, every aux key and the gradients, on a step
     where the layer competes (competesmoe, step 1) and where it does not
-    (step 0)."""
+    (step 0), for every router of the pretrain tree (a parameter a router
+    leaves unused gets zeros in JAX and no gradient here)."""
     flips = np.array([False, True, False])
     rng = np.random.default_rng(5)
     x = rng.normal(size=(2, 12, 32)).astype(np.float32)
     jcls = {"competesmoe": jpl.PretrainCompeteSMoE,
-            "smoe": jpl.PretrainSMoE}[name]
+            "smoe": jpl.PretrainSMoE,
+            "smoe_sigmoid": jpl.PretrainSigmoidNorm,
+            "xmoe": jpl.PretrainXMoE,
+            "smoe_perturbed": jpl.PretrainPerturbed,
+            "deepseekv2": jpl.PretrainDeepSeekV2,
+            "deepseekv3": jpl.PretrainDeepSeekV3}[name]
     jl = jcls(dmodel=32, n_experts=8, expert_size=16, n_heads=2,
               args=_LAYER_ARGS, weight_scale=0.7)
     params = jl.init(jax.random.PRNGKey(1), jnp.asarray(x))
@@ -242,7 +250,8 @@ def test_pretrain_layer_matches_jax(name, step):
     xt = t(x).requires_grad_()
     tout, taux = tl(xt, step=step, train=True, return_id_experts=True, **kw)
     loss = (tout ** 2).sum() + taux.aux_loss
-    grads = torch.autograd.grad(loss, [xt, *tl.parameters()])
+    grads = torch.autograd.grad(loss, [xt, *tl.parameters()],
+                                allow_unused=True)
     close(jout, tout.detach())
     close(jaux.aux_loss, taux.aux_loss.detach())
     np.testing.assert_array_equal(np.asarray(jaux.selected_experts),
@@ -256,6 +265,7 @@ def test_pretrain_layer_matches_jax(name, step):
     close(jgrads[1], grads[0])
     want = from_jax_params(jax.tree_util.tree_map(np.asarray, jgrads[0]))
     for (pname, _), g in zip(tl.named_parameters(), grads[1:]):
+        g = torch.zeros_like(want[pname]) if g is None else g
         close(want[pname], g, rtol=1e-4, atol=1e-5)
 
 

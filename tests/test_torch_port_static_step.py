@@ -145,6 +145,7 @@ def test_every_kernel_wrapper_is_accounted():
     assert set(wrappers.values()) == {
         matvec.quant_small_m_matmul_int4, matvec.small_m_matmul,
         matvec.quant_small_m_matmul, gmm_fused.gmm2_fused_aligned,
+        gmm_fused.gmm2_bwd_dx, gmm_fused.gmm2_bwd_dw,
         flash_attention.flash_attention_fwd,
         flash_attention.flash_attention_bwd_dkv,
         flash_attention.flash_attention_bwd_dq}
