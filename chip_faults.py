@@ -28,8 +28,12 @@ of expert 0 written as zeros, the relu skipped on the second 64 columns
 of h, and the expert of the next tile taken for the second half of a
 256-row tile (a block takes half a tile). K1's backward faults
 (csrc/gmm2_bwd.cu): the relu mask dropped from dh, padding rows' slot
-gradients not zeroed, the last tile of each expert's group skipped in dW,
-and dW stored without its bf16 rounding. A router fault (ROUTER_FAULTS,
+gradients not zeroed (dX), the last tile of an expert's rows in a group
+skipped in dW, dW stored without its bf16 rounding, an expert's second
+partial tile dropped by dW's second pass, its partials added in an order
+that changes from run to run, dW's gather leaving the last 16-byte chunk
+of each row zero, and every persistent dX block computing its previous
+unit again in place of its last one. A router fault (ROUTER_FAULTS,
 swapped in and back): smoe_sigmoid's weights left unnormalised. Three more faults are planted
 in the Python of the checkpoint path (CHECKPOINT_FAULTS, swapped in for
 the check and back): two tower experts swapped by the converter,
@@ -178,22 +182,76 @@ FAULTS = {
     # range, so the two masks are the same bits
     "k1bwd_relu_mask_dropped": (
         "gmm2_bwd",
-        [("          acc[n][i] = (hmask >> (4 * n + i)) & 1 ? round_bf16(acc[n][i]) : 0.0f;",
+        [("          acc[n][i] = (hmask[c] >> (4 * n + i)) & 1 ? round_bf16(acc[n][i]) : 0.0f;",
           "          acc[n][i] = round_bf16(acc[n][i]);")],
         ("k1_bwd",)),
+    # dX's do on padding rows: copied (not zero) and weighted
     "k1bwd_padding_do_not_zeroed": (
         "gmm2_bwd",
-        [("  if (!valid) return make_uint4(0u, 0u, 0u, 0u);\n", "")],
+        [("        valid |= uint32_t(p - lo < n) << j;",
+          "        valid |= 1u << j;"),
+         ("        w_row[h] = p - lo < n ? __bfloat162float(wflat[slot[p]]) : 0.0f;",
+          "        w_row[h] = __bfloat162float(wflat[slot[p]]);")],
         ("k1_bwd",)),
+    # dW leaves out the last 256-row tile of an expert's rows in a group
+    # (where the group holds more than one of its tiles)
     "k1bwd_dw_skips_last_tile": (
         "gmm2_bwd",
-        [("  const int n_steps = (n + 63) / 64;",
-          "  const int n_steps = max(0, ((n + 255) / 256 - 1) * 4);")],
+        [("    const int end = min(t1 * kTile, aoff[e] + gsize[e]);",
+          "    const int end = t1 == c1 && t1 - t0 > 1 ? (t1 - 1) * kTile\n"
+          "                                            : min(t1 * kTile, aoff[e] + gsize[e]);")],
         ("k1_bwd",)),
     "k1bwd_dw_not_rounded": (
         "gmm2_bwd",
-        [("          make_float2(round_bf16(acc[nt][2 * h]), round_bf16(acc[nt][2 * h + 1]));",
-          "          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);")],
+        [("            v0 = round_bf16(v0);\n            v1 = round_bf16(v1);\n", "")],
+        ("k1_bwd",)),
+    # the second pass drops an expert's second partial tile
+    "k1bwd_dw_drops_a_partial": (
+        "gmm2_bwd",
+        [("      for (int j = first + 1; j < groups && group_start(j, A, groups) < c1; ++j) {",
+          "      for (int j = first + 2; j < groups && group_start(j, A, groups) < c1; ++j) {")],
+        ("k1_bwd",)),
+    # the second pass adds an expert's partials first to last or last to
+    # first, as its clock falls: another order from run to run
+    "k1bwd_dw_partials_any_order": (
+        "gmm2_bwd",
+        [("""      sum = *reinterpret_cast<const float4*>(
+          ws + dw_partial(first * T + tau, grad, 1) + i);
+      for (int j = first + 1; j < groups && group_start(j, A, groups) < c1; ++j) {
+        if (group_start(j + 1, A, groups) == group_start(j, A, groups)) continue;
+        const float4 v = *reinterpret_cast<const float4*>(
+            ws + dw_partial(j * T + tau, grad, 0) + i);""",
+          """      int last = first;
+      for (int j = first + 1; j < groups && group_start(j, A, groups) < c1; ++j) last = j;
+      const bool rev = (clock64() >> 5) & 1;
+      for (int q = 0; q <= last - first; ++q) {
+        const int j = rev ? last - q : first + q;
+        if (j > first && group_start(j + 1, A, groups) == group_start(j, A, groups)) continue;
+        const float4 v = *reinterpret_cast<const float4*>(
+            ws + dw_partial(j * T + tau, grad, j == first ? 1 : 0) + i);""")],
+        ("k1_bwd",)),
+    # dW's gather leaves the last 16-byte chunk of each row it copies zero
+    "k1bwd_gather_skips_last_chunk": (
+        "gmm2_bwd",
+        [("            g + (size_t)((s * kdiv) >> 32) * D + col, row + r - lo_e < n_e);",
+          "            g + (size_t)((s * kdiv) >> 32) * D + col, row + r - lo_e < n_e && ch != 15);")],
+        ("k1_bwd",)),
+    # every persistent dX block computes its previous unit again in place
+    # of its last one (reads that unit's rows, writes the last one's)
+    "k1bwd_dx_skips_last_unit": (
+        "gmm2_bwd",
+        [("      const int row0 = u * kDxRows;",
+          "      const int row0 = (u + (int)gridDim.x >= units && u >= (int)gridDim.x\n"
+          "                            ? u - (int)gridDim.x : u) * kDxRows;"),
+         ("        (size_t)u * kDxRows + 64 * cw + 16 * (warp % 4) + g8;",
+          "        (size_t)u * kDxRows + 64 * cw + 16 * (warp % 4) + g8;\n"
+          "    const int ui = u + (int)gridDim.x >= units && u >= (int)gridDim.x\n"
+          "                       ? u - (int)gridDim.x : u;\n"
+          "    const size_t in_row = my_row - (size_t)(u - ui) * kDxRows;"),
+         ("      const int e = tile_expert[u * kDxRows / kTile];",
+          "      const int e = tile_expert[ui * kDxRows / kTile];"),
+         ("        const int p = static_cast<int>(my_row) + 8 * h;",
+          "        const int p = static_cast<int>(in_row) + 8 * h;")],
         ("k1_bwd",)),
     "k3_skips_last_k_split": (
         "matvec_small_m",

@@ -39,9 +39,11 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
        at K1_CHECK_SHAPES and at the 154M layer (at most K1_BWD_OFF_SHARE
        of a gradient's elements beyond 2^-7 |plain| + 2^-9 max|plain|,
        none beyond 2^-4 max|plain|; dkeys and dvalues bf16 values; two
-       runs give the same bytes); timed at the 154M layer beside their
-       plain versions, their bounds and torch._grouped_mm on the same
-       products;
+       runs give the same bytes); at the 154M layer one backward under
+       torch.cuda.set_sync_debug_mode("error") (no host synchronisation);
+       timed at the 154M layer beside their plain versions, their bounds
+       and torch._grouped_mm on the same products, then again under
+       balanced routing (K1_BALANCED, printed only);
      - K2, causal flash attention forward, dK/dV and dQ, at B 64, h 4,
        T 1024, p 82 (the 154M shape), at B 8, h 4, T 256, p 64, and at the
        shapes that take the kernels' other paths (a ragged last tile, odd
@@ -80,7 +82,10 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      (sweeps/slimpajama_moe_no_attmoe_154M_deepseekv3.yaml and
      sweeps/slimpajama_moe_no_attmoe_154M_final.yaml, smoe_sigmoid) with
      the same two flags, 4 steps each, K1, its backward kernels and K2 at
-     all 16 layers of every step (ms/step, tokens/s, peak memory);
+     all 16 layers of every step (ms/step, tokens/s, peak memory); each
+     of the three cells then takes two more steps under torch.profiler
+     (`profile_cell`, printed only: K1's backward kernels' ms a step, the
+     steps' ms and losses, and `profile_train`'s busy share and kernels);
   6. checkpoint and serving (main paths of the checkpoint and serving
      slices): a small model written in two shards and reloaded (bf16 and
      --load-4bit) equal to its writer, tensor for tensor; then
@@ -166,11 +171,7 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      with about 300 live positions, captured with attn_window 384 and
      without, timed from replays with one profiled replay each: equal
      tokens, logits within 3%;
- 11. with --profile: torch.profiler over two more training steps (with
-     K1's, its backward's and K2's shares of a step by name, the float32
-     GEMM kernels', and, through profiler ranges around their forward and
-     backward, the competition step's dense pass and the float32
-     lm_head), over decode steps of the
+ 11. with --profile: torch.profiler over decode steps of the
      served model and over engine ticks, captured and eager (with K3's,
      K4's or K5's share; device busy share and the kernels that take the
      time), and over 9's two speculation mixes.
@@ -241,10 +242,13 @@ K1_BWD_EDGES = dict(T=1025, D=256, E=8, ES=128, k=1,
 # may be off by more than 2^-7 |plain| + 2^-9 max|plain|, and none by more
 # than 2^-4 max|plain|; dkeys and dvalues must hold bf16 values. The
 # honest kernels read at most 1.3e-5 (dX at the 154M layer; 0 elsewhere),
-# and the planted faults that this rule catches 0.28 or more
-# (chip_faults.py); one wrong 64 x 128 tile of dkeys at the 154M layer is
-# 2e-3
+# and the planted faults that this rule catches 0.031 or more (dW's gather
+# skipping a row's last 16 bytes; the others 0.088 or more; chip_faults.py);
+# one wrong 64 x 128 tile of dkeys at the 154M layer is 2e-3
 K1_BWD_OFF_SHARE = 1e-4
+# K1's backward timed a second time at the 154M layer, printed only: routing
+# that favours no expert (no bias on the gate logits, no empty expert)
+K1_BALANCED = dict(K1_SHAPE, balanced=True)
 # (B, h, T, p): the 154M shape (timed), then correctness only: 16-byte
 # copies; a ragged last tile; odd p (plain loads); p 128; T below one tile
 K2_SHAPES = ((64, 4, 1024, 82), (8, 4, 256, 64), (2, 2, 200, 82),
@@ -476,8 +480,9 @@ def phase_k1(seed: int, reps: int = 20):
 def k1_bwd_inputs(seed: int, shape):
     """The backward's operands: (x [T, D] bf16, sel [T, k], weights [T, k]
     f32, keys, values f32, g [T, D] bf16), the LM's weight scales; skewed
-    groups with 4 empty experts as `k1_inputs`, or, with `counts` in the
-    shape, exactly counts[e] rows for expert e (k 1)."""
+    groups with 4 empty experts as `k1_inputs`, or, with `balanced` in the
+    shape, gate logits without a bias, or, with `counts` in the shape,
+    exactly counts[e] rows for expert e (k 1)."""
     import torch
 
     T, D, E, ES, k = (shape[n] for n in ("T", "D", "E", "ES", "k"))
@@ -496,8 +501,9 @@ def k1_bwd_inputs(seed: int, shape):
         sel = sel.reshape(T, k)
     else:
         logits = torch.randn(T, E, generator=g, device="cuda")
-        logits += torch.linspace(3.0, 0.0, E, device="cuda")
-        logits[:, E - 4:] = float("-inf")
+        if not shape.get("balanced"):
+            logits += torch.linspace(3.0, 0.0, E, device="cuda")
+            logits[:, E - 4:] = float("-inf")
         sel = logits.topk(k, dim=-1).indices
     w = torch.softmax(torch.randn(T, k, generator=g, device="cuda"), -1)
     gout = torch.randn(T, D, generator=g, device="cuda").to(torch.bfloat16)
@@ -597,11 +603,50 @@ def grouped_mm_ms(xs, do, k16, v16, hr, dh, aoff, reps: int):
         return None, None, f"{type(e).__name__}: {str(e)[:160]}"
 
 
+def k1_bwd_args(x, sel, w, keys, values, g):
+    """The two backward kernels' operands over the forward's layout: (dX's
+    arguments, dW's arguments with hr and dh from one dX launch, the
+    layout, the forward's bf16 keys and values)."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    k = sel.shape[-1]
+    _, lay, _, k16, v16 = gf._forward(x, sel, w, keys, values)
+    slot, aoff, gsize = lay.slot_padded, lay.aoff, lay.gsize
+    wflat = w.to(torch.bfloat16).reshape(-1).contiguous()
+    xs = x[lay.tok_padded]
+    dx_args = (xs, g, slot, wflat, k16, v16, lay.tile_expert, aoff, gsize, k)
+    _, hr, dh = gf.gmm2_bwd_dx(*dx_args)
+    dw_args = (xs, hr, dh, g, slot, wflat, lay.tile_expert, aoff, gsize, k)
+    return dx_args, dw_args, lay, k16, v16
+
+
+def k1_bwd_sync_free(x, sel, w, keys, values, g):
+    """One call of the backward on the card (`fused_grouped_ffn_kv_bwd`)
+    under torch.cuda.set_sync_debug_mode("error"): raises if anything in
+    it makes the host wait for the card."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    _, lay, gathered, k16, v16 = gf._forward(x, sel, w, keys, values)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gf.fused_grouped_ffn_kv_bwd(x, sel, w, lay, gathered, k16, v16, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def phase_k1_bwd(seed: int, reps: int = 20):
     """K1's two backward kernels against the plain backward, on the edge
-    groups and the check shapes, then at the 154M layer shape, where each
-    kernel is timed (CUDA-graph replays) beside its plain version, its
-    bound and torch._grouped_mm on its products."""
+    groups and the check shapes, then at the 154M layer shape, where the
+    backward must not synchronise with the host and each kernel is timed
+    (CUDA-graph replays) beside its plain version, its bound and
+    torch._grouped_mm on its products; then both kernels are timed again
+    under balanced routing (K1_BALANCED, printed only)."""
     import torch
 
     from competesmoe_tpu_torch.ops import gmm_fused as gf
@@ -612,14 +657,13 @@ def phase_k1_bwd(seed: int, reps: int = 20):
     x, sel, w, keys, values, g = k1_bwd_inputs(seed, K1_SHAPE)
     rows = k1_bwd_compare(x, sel, w, keys, values, g)
     _log_bwd_rows("the 154M layer", rows)
+    k1_bwd_sync_free(x, sel, w, keys, values, g)
+    log("K1 backward at the 154M layer under set_sync_debug_mode('error'): "
+        "no host synchronisation")
     err = {r["tensor"]: r["max_abs_err"] for r in rows}
-    _, lay, _, k16, v16 = gf._forward(x, sel, w, keys, values)
-    slot, aoff, gsize = lay.slot_padded, lay.aoff, lay.gsize
-    wflat = w.to(torch.bfloat16).reshape(-1).contiguous()
-    xs = x[lay.tok_padded]
-    dx_args = (xs, g, slot, wflat, k16, v16, lay.tile_expert, aoff, gsize, k)
-    dxs, hr, dh = gf.gmm2_bwd_dx(*dx_args)
-    dw_args = (xs, hr, dh, g, slot, wflat, lay.tile_expert, aoff, gsize, k)
+    dx_args, dw_args, lay, k16, v16 = k1_bwd_args(x, sel, w, keys, values, g)
+    xs, _, slot, wflat, _, _, _, aoff, gsize, _ = dx_args
+    _, hr, dh = dw_args[:3]
     S = xs.shape[0]
     valid = int(sel.numel())
     do = gf._slot_grads(S, g, slot, wflat, k, lay.tile_expert, aoff, gsize,
@@ -659,7 +703,17 @@ def phase_k1_bwd(seed: int, reps: int = 20):
             f"{ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f} us  "
             f"_grouped_mm {'n/a' if lib is None else f'{lib * 1e3:.1f} us'}"
             f"  bound {bound_ms * 1e3:.1f} us ({bound_by})  "
-            f"{bound_ms / ms:.1%} of bound")
+            f"{bound_ms / ms:.1%} of bound"
+            + ("" if lib is None else f"  {ms / lib:.3f} x _grouped_mm"))
+    del dx_args, dw_args, lay, xs, hr, dh
+    dx_args, dw_args, _, _, _ = k1_bwd_args(*k1_bwd_inputs(seed, K1_BALANCED))
+    gsize = dx_args[8]
+    for name, fn, args in (("gmm2_bwd_dx", gf.gmm2_bwd_dx, dx_args),
+                           ("gmm2_bwd_dw", gf.gmm2_bwd_dw, dw_args)):
+        out[name]["balanced_ms"] = time_launches(fn, [args] * 4, reps)
+        log(f"K1 backward {name} under balanced routing (groups "
+            f"{int(gsize.min())}..{int(gsize.max())} rows): kernel "
+            f"{out[name]['balanced_ms'] * 1e3:.1f} us (printed only)")
     return out
 
 
@@ -1187,13 +1241,39 @@ def profile_train(task, steps: int = 2):
                  [label for label, _ in TRAIN_RANGES])
 
 
+def profile_cell(task, name: str):
+    """Printed only: `profile_train` over two more steps of a training
+    cell, with K1's backward kernels' device ms a step, the profiled
+    steps' wall ms and their losses (the run's log)."""
+    prof = profile_train(task)
+    log_path = REPO / "runs" / "chip_smoke" / f"lm154m_{name}" \
+        / "log_trainer.jsonl"
+    recs = [json.loads(line)
+            for line in log_path.read_text().splitlines()][-2:]
+    k1b = {label: prof["groups"][label]["ms_per_step"]
+           for label in ("K1 backward dX", "K1 backward dW (both passes)")}
+    prof["steps"] = [dict(step=r["step"], loss=r["loss/total"],
+                          ms=r["timing/ms_per_step_wall"]) for r in recs]
+    log(f"lm {name} profiled steps {[r['step'] for r in recs]}: K1 "
+        f"backward dX {k1b['K1 backward dX']:.3f} ms/step, dW "
+        f"{k1b['K1 backward dW (both passes)']:.3f} ms/step; losses "
+        f"{[round(r['loss/total'], 4) for r in recs]}; "
+        f"{[round(r['timing/ms_per_step_wall'], 1) for r in recs]} ms "
+        f"(printed only)")
+    return prof
+
+
 # kernel-name fragments whose device time a profile sums by label
 TRAIN_GROUPS = {"K2 backward (dK/dV + dQ)": ("flash_bwd_dkv_kernel",
                                              "flash_bwd_dq_kernel"),
                 "K2 forward": ("flash_fwd_kernel",),
                 "K1 (without its weight casts)": ("gmm2_kernel",),
                 "K1 backward (dX + dW)": ("gmm2_bwd_dx_kernel",
-                                          "gmm2_bwd_dw_kernel")}
+                                          "gmm2_bwd_dw_kernel",
+                                          "gmm2_bwd_dw_sum_kernel"),
+                "K1 backward dX": ("gmm2_bwd_dx_kernel",),
+                "K1 backward dW (both passes)": ("gmm2_bwd_dw_kernel",
+                                                 "gmm2_bwd_dw_sum_kernel")}
 # (label, where): the functions whose device time a training profile
 # reads through ranges, forward and backward: the competition step's
 # dense all-experts pass (float32 products) and the float32 lm_head
@@ -3627,13 +3707,13 @@ def main():
     router_weights_check(a.seed)
     small_lm = small_lm_check()
     task, lm = phase_lm(a.seed)
-    if a.profile:
-        lm["profile"] = profile_train(task)
+    lm["profile"] = profile_cell(task, "competesmoe")
     del task
     free_card()
     lm["routers"] = {}
     for name in ROUTER_SWEEPS:
         task, lm["routers"][name] = phase_router(name, a.seed)
+        lm["routers"][name]["profile"] = profile_cell(task, name)
         del task
         free_card()
     lm["small_lm"] = small_lm

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Design variants of K5 against the kernel as built (one CUDA GPU).
+"""Design variants of K5 and of K1's backward against the kernels as
+built (one CUDA GPU).
 
-    python3 chip_variants.py
+    python3 chip_variants.py [--only k5|k1bwd]
 
-A variant is either an edit of csrc/matvec_int4.cu, compiled from an
+K5. A variant is either an edit of csrc/matvec_int4.cu, compiled from an
 edited copy in a temporary directory as chip_faults.py compiles its
 faults (the checkout's sources are not touched), or a changed attribute
 of ops/matvec.py (a geometry the wrapper passes to the kernel). Every
@@ -33,11 +34,47 @@ are wrong by construction), show what bounds the kernel:
 - and, for scale, a tiny PyTorch kernel a graph node (the floor of any
   launch in these CUDA graphs).
 
+K1's backward (csrc/gmm2_bwd.cu: gmm2_bwd_dx, gmm2_bwd_dw). A variant is
+an edit of the source, compiled the same way, first held to chip_smoke.py's
+`k1_bwd_compare` (the edge groups, the check shapes and the 154M layer),
+then timed with the kernel as built in turns at the 154M layer as
+chip_smoke.py times it (its own kernel only):
+
+- `dw_ring_3`: dW's ring of 3 stages instead of 2;
+- `dw_step_32`, `dw_step_32_ring_4`: dW's stages of 32 rows instead of
+  64, 2 or 4 of them;
+- `dw_dv_one_wait`: dvalues' products of a stage waited for once, not
+  after each k-step;
+- `dw_gather_l2_256`: dW's gather copies with a 256-byte L2 prefetch;
+- `dw_groups_half`: half as many groups (each over twice the rows: fewer
+  partial tiles, coarser balance, half the card);
+- `dw_gather_tma_rows`: dW's gather of g's rows by the copy engine
+  (one-row tensor-map boxes of 64 columns that land in the 128-byte
+  swizzle by their address) instead of 16-byte cp.async copies;
+- `dx_ring_6`: dX's ring of 6 stages instead of 4.
+
+Readings (wrong results by construction, not checked):
+
+- `dw_copy_stream`, `dx_copy_stream`: the kernel's copies, gathers and
+  stores with no products (the bare copy stream);
+- `dw_no_gather`: dW without its gather of g's rows, what the gather
+  costs; `dw_copy_stream_no_gather` without both;
+- `dw_do_by_copy` and `dx_writes_do`: do written once by dX and read by
+  dW's copy engine instead of gathered twice: dW reading a [S', D] bf16
+  operand by tensor-map boxes (xs's, the same bytes) in place of its
+  gather, and dX also writing each scaled do register (into dxs, the
+  same bytes);
+- `dw_cycles`: dW's phases in one block, clock64() sums a stage (each
+  consumer warpgroup: waiting for the stage, computing; the producer:
+  waiting for a slot, issuing).
+
 It prints one line per variant and reading and a `variants` JSON line,
-and exits non-zero if a variant or the kernel as built fails its check.
+and exits non-zero if a variant or a kernel as built fails its check.
 """
 
+import argparse
 import json
+import re
 import shutil
 import sys
 import tempfile
@@ -144,28 +181,253 @@ READINGS = {
 M_TIMED = (1, 8, 40, 128)
 
 
-def edited_sources(tmp: Path):
-    """Write and compile the edited copies; returns name -> library."""
+def _in_kernel(kernel: str, fn):
+    """An edit of gmm2_bwd.cu applied to one kernel's part of the text: dX
+    (up to the dW section) or dW (from it)."""
+    def edit(text):
+        cut = text.index("// ---- dW ----")
+        if kernel == "dx":
+            return fn(text[:cut]) + text[cut:]
+        return text[:cut] + fn(text[cut:])
+    return edit
+
+
+def _no_products(part: str) -> str:
+    out, n = re.subn(r"tiles::Wgmma(SS|RS)<64>::template run<[^;]*;", ";",
+                     part)
+    if n == 0:
+        raise AssertionError("no products to take out")
+    return out
+
+
+_DW_GATHER = """        tiles::cp_async16_zfill(
+            st + G::DO + (ch / 8) * kDwBox + 2 * tiles::block_offset<64>(r, 8 * (ch % 8)),
+            g + (size_t)((s * kdiv) >> 32) * D + col, row + r - lo_e < n_e);
+"""
+_DW_EXPECT = "        tiles::mbar_expect(&ring.full[sl], 6 * kDwBox);\n"
+# dW's gather by the copy engine: one-row tensor-map boxes of g (64
+# columns, 128 bytes, landing in the 128-byte swizzle by their address)
+_TMA_ROWS = [
+    ("""                   const __grid_constant__ CUtensorMap dhmap,  // dh [S, ES]
+                   const bf16* __restrict__ g, const int* __restrict__ slot,
+                   const bf16* __restrict__ wflat,
+                   const int* __restrict__ aoff_g,""",
+     """                   const __grid_constant__ CUtensorMap dhmap,  // dh [S, ES]
+                   const __grid_constant__ CUtensorMap gmap,
+                   const bf16* __restrict__ g, const int* __restrict__ slot,
+                   const bf16* __restrict__ wflat,
+                   const int* __restrict__ aoff_g,"""),
+    ("""      !tma::bf16_map(&dhmap, dh, S, ES, kDwStep))""",
+     """      !tma::bf16_map(&dhmap, dh, S, ES, kDwStep) ||
+      !tma::bf16_map(&gmap, g, S, D, 1))"""),
+    ("  CUtensorMap xmap, hmap, dhmap;\n  if (!tma::bf16_map(&xmap, xs, S, D, kDwStep)",
+     "  CUtensorMap xmap, hmap, dhmap, gmap;\n  if (!tma::bf16_map(&xmap, xs, S, D, kDwStep)"),
+    ("      xmap, hmap, dhmap, static_cast<const bf16*>(g),",
+     "      xmap, hmap, dhmap, gmap, static_cast<const bf16*>(g),"),
+    ("    uint64_t once = 0;\n    if (tid == 0) {\n      tma::prefetch(&xmap);",
+     "    uint64_t once = tma::evict_first();\n    if (tid == 0) {\n      tma::prefetch(&xmap);"),
+    (_DW_GATHER, """        if (ch % 8 == 0)
+          tma::box(st + G::DO + (ch / 8) * kDwBox + 128 * r, &gmap, col,
+                   static_cast<int>((s * kdiv) >> 32), &ring.full[sl], once);
+"""),
+    ("""#pragma unroll
+      for (int j = 0; j < PASSES; ++j) {
+        const int r = r0 + 2 * j;""", """      if (ch % 8 == 0)   // expect_tx without an arrival
+        asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::
+                     "r"(tiles::smem_u32(&ring.full[sl])), "r"(PASSES * 128) : "memory");
+#pragma unroll
+      for (int j = 0; j < PASSES; ++j) {
+        const int r = r0 + 2 * j;"""),
+]
+
+_DV_ONE_WAIT = ("""          tiles::WgmmaRS<64>::template run<24, 1>(acc, a[1], b1 + 128 * kk);
+          tiles::wgmma_commit();
+          tiles::wgmma_wait<0>();   // a is rewritten by the next k-step
+""", """          tiles::WgmmaRS<64>::template run<24, 1>(acc, a[1], b1 + 128 * kk);
+""")
+
+
+def _gather_asm(qualifiers: str) -> str:
+    """dW's gather copy with other cp.async qualifiers (an L2 prefetch
+    size)."""
+    return f"""        asm volatile("cp.async.cg.shared.global{qualifiers} [%0], [%1], 16, %2;" ::
+                     "r"(tiles::smem_u32(st + G::DO + (ch / 8) * kDwBox +
+                                         2 * tiles::block_offset<64>(r, 8 * (ch % 8)))),
+                     "l"(__cvta_generic_to_global(g + (size_t)((s * kdiv) >> 32) * D + col)),
+                     "r"(row + r - lo_e < n_e ? 16 : 0) : "memory");
+"""
+
+
+# name -> (kernel timed, edits of csrc/gmm2_bwd.cu)
+K1BWD_VARIANTS = {
+    "dw_gather_l2_256": ("dw", [(_DW_GATHER, _gather_asm(".L2::256B"))]),
+    "dw_ring_3": ("dw", [("  static constexpr int STAGES = 2;\n",
+                          "  static constexpr int STAGES = 3;\n")]),
+    "dw_step_32": ("dw", [("constexpr int kDwStep = 64; ", "constexpr int kDwStep = 32; ")]),
+    "dw_step_32_ring_4": ("dw", [
+        ("constexpr int kDwStep = 64; ", "constexpr int kDwStep = 32; "),
+        ("  static constexpr int STAGES = 2;\n", "  static constexpr int STAGES = 4;\n")]),
+    "dw_groups_half": ("dw", [("  const int groups = sms / dw_tiles(D, ES);",
+                               "  const int groups = sms / dw_tiles(D, ES) / 2;")]),
+    "dw_gather_tma_rows": ("dw", _TMA_ROWS),
+    # a k-step's do registers kept apart (a[kk]), one wait a stage
+    "dw_dv_one_wait": ("dw", [
+        _DV_ONE_WAIT,
+        ("""      } else {
+        const uint64_t a0 = tiles::block_desc<64>(st + G::XS / 2);""", """        tiles::wgmma_commit();
+        tiles::wgmma_wait<0>();
+      } else {
+        const uint64_t a0 = tiles::block_desc<64>(st + G::XS / 2);""")]),
+    "dx_ring_6": ("dx", [("  static constexpr int STAGES = 4;\n",
+                          "  static constexpr int STAGES = 6;\n")]),
+}
+K1BWD_READINGS = {
+    "dw_copy_stream": ("dw", [_in_kernel("dw", _no_products)]),
+    "dx_copy_stream": ("dx", [_in_kernel("dx", _no_products)]),
+    "dw_no_gather": ("dw", [(_DW_GATHER, "")]),
+    "dw_copy_stream_no_gather": ("dw", [(_DW_GATHER, ""),
+                                        _in_kernel("dw", _no_products)]),
+    "dw_do_by_copy": ("dw", [
+        (_DW_GATHER, ""),
+        (_DW_EXPECT, """        tiles::mbar_expect(&ring.full[sl], 8 * kDwBox);
+        for (int b = 0; b < 2; ++b)
+          tma::box(st + G::DO + b * kDwBox, &xmap, mt * kDwBM + b * 64, row,
+                   &ring.full[sl], once);
+""")]),
+    "dx_writes_do": ("dx", [
+        ("""            a[kk][i] = scale_pair(a[kk][i], w_row[i & 1], w_row[i & 1]);
+""", """            a[kk][i] = scale_pair(a[kk][i], w_row[i & 1], w_row[i & 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<uint32_t*>(
+                dxs + (my_row + 8 * (i & 1)) * D + kd * 64 + 16 * kk + 2 * t +
+                8 * (i >> 1)) = a[kk][i];
+""")]),
+}
+
+# dW's phases in one block of group 5 (its first tile), summed over its
+# stages with clock64() into a device array that gmm2_bwd_dw_cycles reads:
+# each consumer warpgroup's waiting for a stage and computing (dkeys at 0,
+# dvalues at 8; stages at 2 and 10; the whole loop at 3 and 11), the
+# producer's waiting for a slot and issuing (4, 5)
+_CYCLES_BLOCK = 5 * 4
+_CYCLES = [
+    ('#include "tensor_maps.cuh"\n',
+     '#include "tensor_maps.cuh"\n\n__device__ unsigned long long gmm2_dw_cycles[16];\n'
+     f"#define CYC_ON (blockIdx.x == {_CYCLES_BLOCK})\n"),
+    ("""      const int sl = ring.consume();
+      unsigned char* stage = smem + sl * G::SLOT;
+""", """      const long long c0 = clock64();
+      const int sl = ring.consume();
+      const long long c1 = clock64();
+      unsigned char* stage = smem + sl * G::SLOT;
+"""),
+    ("""      tiles::pin(acc);
+      ring.release(sl, lane);
+""", """      tiles::pin(acc);
+      if ((tid & 127) == 0 && CYC_ON) {
+        unsigned long long* pc = gmm2_dw_cycles + (is_dv ? 8 : 0);
+        pc[0] += c1 - c0; pc[1] += clock64() - c1; pc[2] += 1;
+      }
+      ring.release(sl, lane);
+"""),
+    ("""  const bool is_dv = cw == 1;
+  Piece p;
+""", """  const bool is_dv = cw == 1;
+  const long long cstart = clock64();
+  Piece p;
+"""),
+    ("""
+}
+
+// The second pass: block (e, tile, gradient).""", """
+  if ((tid & 127) == 0 && CYC_ON)
+    gmm2_dw_cycles[(is_dv ? 8 : 0) + 3] += clock64() - cstart;
+}
+
+// The second pass: block (e, tile, gradient)."""),
+    ("""      const int sl = ring.produce();
+      unsigned char* st = smem + sl * G::SLOT;
+      if (tid == 0) {""", """      const long long c0 = clock64();
+      const int sl = ring.produce();
+      const long long c1 = clock64();
+      unsigned char* st = smem + sl * G::SLOT;
+      if (tid == 0) {"""),
+    ("""      tiles::cp_async_mbar_arrive(&ring.full[sl]);
+""", """      tiles::cp_async_mbar_arrive(&ring.full[sl]);
+      if (tid == 0 && CYC_ON) {
+        gmm2_dw_cycles[4] += c1 - c0;
+        gmm2_dw_cycles[5] += clock64() - c1;
+      }
+"""),
+    (lambda text: text + """
+extern "C" int gmm2_bwd_dw_cycles(void* out, int clear) {
+  if (clear) {
+    static const unsigned long long zero[16] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(gmm2_dw_cycles, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(out, gmm2_dw_cycles, sizeof(gmm2_dw_cycles)));
+}
+"""),
+]
+
+
+def dw_cycles(lib_path, dw_args):
+    """One launch of gmm2_bwd_dw built with _CYCLES: per-stage cycles of
+    its phases in a dkeys and a dvalues block (group 5)."""
+    import ctypes
+
+    import torch
+
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    cf.use_library("gmm2_bwd", lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.gmm2_bwd_dw_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    gf.gmm2_bwd_dw(*dw_args)
+    torch.cuda.synchronize()
+    lib.gmm2_bwd_dw_cycles(None, 1)
+    gf.gmm2_bwd_dw(*dw_args)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 16)()
+    lib.gmm2_bwd_dw_cycles(ctypes.addressof(buf), 0)
+    cf.use_library("gmm2_bwd", None)
+    out = dict(producer_wait=buf[4] / max(buf[2], 1),
+               producer_issue=buf[5] / max(buf[2], 1))
+    for kind, o in (("dkeys", 0), ("dvalues", 8)):
+        n = max(buf[o + 2], 1)
+        out[kind] = dict(stages=buf[o + 2], wait=buf[o] / n,
+                         compute=buf[o + 1] / n, loop=buf[o + 3])
+    return out
+
+
+def _edited(src: str, name: str, edits):
+    text = src
+    for edit in edits:
+        if callable(edit):
+            text = edit(text)
+            continue
+        old, new = edit
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: the edited text occurs "
+                                 f"{text.count(old)} times")
+        text = text.replace(old, new)
+    return text
+
+
+def edited_sources(tmp: Path, source: str, changes):
+    """Write and compile the edited copies of csrc/<source>.cu (name ->
+    edits, or (edits, attributes)); returns name -> library."""
     from competesmoe_tpu_torch import _kernels
 
-    src = (_kernels.CSRC / "matvec_int4.cu").read_text()
+    src = (_kernels.CSRC / f"{source}.cu").read_text()
     jobs, libs = [], {}
-    for name, change in {**VARIANTS, **READINGS}.items():
+    for name, change in changes.items():
         edits = change[0] if isinstance(change, tuple) else change
         if isinstance(edits, dict):
             continue
-        text = src
-        for edit in edits:
-            if callable(edit):
-                text = edit(text)
-                continue
-            old, new = edit
-            if text.count(old) != 1:
-                raise AssertionError(f"{name}: the edited text occurs "
-                                     f"{text.count(old)} times")
-            text = text.replace(old, new)
         path = tmp / f"{name}.cu"
-        path.write_text(text)
+        path.write_text(_edited(src, name, edits))
         libs[name] = tmp / f"lib{name}.so"
         jobs.append((path, libs[name]))
     _kernels.compile_sources(jobs, verbose=True)
@@ -229,7 +491,60 @@ def _us(runs):
     return [[round(t[m], 2) for m in M_TIMED] for t in runs]
 
 
+def k1_bwd_ok():
+    """chip_smoke's K1-backward checks: the edge groups, the check shapes
+    and the 154M layer."""
+    rows = [r for _, part in cs.k1_bwd_checks(0) for r in part]
+    rows += cs.k1_bwd_compare(*cs.k1_bwd_inputs(0, cs.K1_SHAPE))
+    return all(r["ok"] for r in rows)
+
+
+def k1_bwd_variants(report, failures):
+    """Every K1-backward variant and reading against the kernels as built,
+    in turns, at the 154M layer (µs of the kernel each edits)."""
+    from competesmoe_tpu_torch.ops import gmm_fused as gf
+
+    if not k1_bwd_ok():
+        failures.append("K1's backward as built fails its check")
+    dx_args, dw_args, _, _, _ = cs.k1_bwd_args(*cs.k1_bwd_inputs(
+        0, cs.K1_SHAPE))
+    timed = {"dx": (gf.gmm2_bwd_dx, dx_args), "dw": (gf.gmm2_bwd_dw, dw_args)}
+    changes = {**K1BWD_VARIANTS, **K1BWD_READINGS}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_variants_k1bwd_"))
+    try:
+        libs = edited_sources(tmp, "gmm2_bwd", {
+            **{n: c[1] for n, c in changes.items()}, "dw_cycles": _CYCLES})
+        report["dw_cycles"] = dw_cycles(libs["dw_cycles"], dw_args)
+        cs.log(f"dW cycles a stage in a block of group 5: "
+               f"{json.dumps(report['dw_cycles'])}")
+        for name, (kernel, _) in changes.items():
+            fn, args = timed[kernel]
+            us = lambda: cs.time_launches(fn, [args] * 4, 20) * 1e3  # noqa: E731
+            built = [us()]
+            cf.use_library("gmm2_bwd", libs[name])
+            ok = k1_bwd_ok() if name in K1BWD_VARIANTS else None
+            variant = [us(), us()]
+            cf.use_library("gmm2_bwd", None)
+            built.append(us())
+            kind = "variants" if name in K1BWD_VARIANTS else "readings"
+            report[kind][name] = dict(kernel=kernel, ok=ok,
+                                      variant_us=variant, as_built_us=built)
+            verdict = ("not checked" if ok is None
+                       else "pass" if ok else "FAIL")
+            cs.log(f"{name}: checks {verdict}; {kernel} at the 154M layer "
+                   f"{[round(t, 1) for t in variant]} µs, as built "
+                   f"{[round(t, 1) for t in built]} µs")
+            if ok is False:
+                failures.append(f"variant {name} fails its check")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("k5", "k1bwd"),
+                    help="run one kernel's variants (default: both)")
+    a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
@@ -237,17 +552,26 @@ def main():
     from competesmoe_tpu_torch import _kernels
     from competesmoe_tpu_torch.ops import matvec
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     cs.log(f"device: {card}")
-    _kernels.build(["matvec_int4"])
-    ops = k5_operands(torch.Generator(device="cuda").manual_seed(5))
     report = dict(card=card, variants={}, readings={})
     failures = []
+    if a.only != "k5":
+        _kernels.build(["gmm2_fused", "gmm2_bwd"])
+        k1_bwd_variants(report, failures)
+    if a.only == "k1bwd":
+        print("variants " + json.dumps(report), flush=True)
+        for f in failures:
+            print(f"chip_variants: {f}", file=sys.stderr)
+        return 1 if failures else 0
+    _kernels.build(["matvec_int4"])
+    ops = k5_operands(torch.Generator(device="cuda").manual_seed(5))
     if not k5_ok():
         failures.append("the kernel as built fails its check")
     tmp = Path(tempfile.mkdtemp(prefix="chip_variants_"))
     try:
-        libs = edited_sources(tmp)
+        libs = edited_sources(tmp, "matvec_int4", {**VARIANTS, **READINGS})
         for name in list(VARIANTS) + list(READINGS):
             times = lambda: four_projections(  # noqa: E731
                 matvec.quant_small_m_matmul_int4, ops)

@@ -1,7 +1,10 @@
 // Warpgroup-level building blocks for Hopper kernels that issue their own
 // tensor-core instructions (wgmma, sm_90a) on bf16 tiles in shared memory:
-//   * copies from global to shared memory: 4-byte cp.async in groups, and
-//     bulk copies by the copy engine counted on an mbarrier;
+//   * copies from global to shared memory: 4-byte cp.async in groups,
+//     16-byte cp.async with zero fill whose landing an mbarrier counts,
+//     and bulk copies by the copy engine counted on an mbarrier;
+//   * ldmatrix (a k-step's A registers from a tile) and setmaxnreg (a
+//     warpgroup handing registers to another);
 //   * a cluster's barrier (whole, or its two halves), reads and writes of
 //     another block's shared memory, and the host side of a launch whose
 //     grid's y extent is one cluster;
@@ -61,6 +64,25 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// One asynchronous 16-byte copy from global to shared memory through L2
+// (both addresses 16-byte aligned); 16 zero bytes instead where `valid` is
+// false (the source is then not read).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread issued before it has
+// landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -91,6 +113,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
+               : "memory");
+}
+
+// `n` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, uint32_t n) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(n)
                : "memory");
 }
 
@@ -225,6 +255,39 @@ __device__ __forceinline__ void sts128(void* p, uint32_t a, uint32_t b,
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(smem_u32(p)),
                "r"(a), "r"(b), "r"(c), "r"(d)
                : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into registers (ldmatrix):
+// lane L gives the address of row L % 8 of matrix L / 8 (16 bytes); r[i]
+// is matrix i, lane 4 g + t holding row g, columns 2t and 2t + 1 (with
+// `trans`, column g, rows 2t and 2t + 1). On a tile of the layout below,
+// K-major (rows = M, columns = K), matrices (rows 0-7, k 0-7), (8-15, 0-7),
+// (0-7, 8-15), (8-15, 8-15) are the A registers of a k-step; MN-major
+// (rows = K), the same four with rows and columns exchanged, with `trans`.
+template <bool Trans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (Trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+
+// A warpgroup gives back registers (down to N a thread) or takes more (up
+// to N) from the SM's pool (sm_90a); every warp of the warpgroup calls it.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Store a word to shared memory where `pred` is not 0 (a predicated store,

@@ -347,8 +347,10 @@ def _bind_bwd(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gmm2_bwd_dx_launch.argtypes = [p] * 12 + [i] * 5 + [p]
     lib.gmm2_bwd_dx_launch.restype = i
-    lib.gmm2_bwd_dw_launch.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.gmm2_bwd_dw_launch.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.gmm2_bwd_dw_launch.restype = i
+    lib.gmm2_bwd_dw_workspace.argtypes = [i, i]
+    lib.gmm2_bwd_dw_workspace.restype = ctypes.c_longlong
 
 
 def _check_bwd(xs, g, slot, wflat, aoff, gsize, k, *more):
@@ -424,8 +426,11 @@ def gmm2_bwd_dw(xs, hr, dh, g, slot, wflat, tile_expert, aoff, gsize,
                 k: int):
     """K1's backward, second kernel: (dkeys [E, D, ES], dvalues [E, ES, D])
     float32, each expert's sums over its rows rounded to bf16 once
-    (`gmm2_bwd_dx` gives hr and dh). Deterministic. On the CPU the plain
-    version."""
+    (`gmm2_bwd_dx` gives hr and dh). Deterministic. On the card two
+    launches (the sums, then the addition of the partial tiles where an
+    expert's rows were split across blocks) over a float32 workspace
+    allocated here, sized from D, ES and the card; one `.launches` a call.
+    On the CPU the plain version."""
     if xs.device.type == "cpu":
         return gmm2_bwd_dw_reference(xs, hr, dh, g, slot, wflat,
                                      tile_expert, aoff, gsize, k)
@@ -437,14 +442,21 @@ def gmm2_bwd_dw(xs, hr, dh, g, slot, wflat, tile_expert, aoff, gsize,
             or ES % 128 or ES > 512 or S < TILE):
         raise ValueError(f"bad shapes hr {tuple(hr.shape)}, dh "
                          f"{tuple(dh.shape)} for xs {tuple(xs.shape)}")
+    if E > 512:
+        raise ValueError(f"K1's dW kernel takes at most 512 experts, got {E}")
+    if wflat.numel() % 2 or wflat.data_ptr() % 4:
+        # the kernel copies a weight as the aligned 4-byte word holding it
+        wflat = torch.cat([wflat, wflat.new_zeros(wflat.numel() % 2)])
     lib = _kernels.load("gmm2_bwd", _bind_bwd)
     dkeys = torch.empty(E, D, ES, device=xs.device)
     dvalues = torch.empty(E, ES, D, device=xs.device)
+    ws = torch.empty(lib.gmm2_bwd_dw_workspace(D, ES), device=xs.device)
     rc = lib.gmm2_bwd_dw_launch(
         xs.data_ptr(), hr.data_ptr(), dh.data_ptr(), g.data_ptr(),
         slot.data_ptr(), wflat.data_ptr(), aoff.data_ptr(),
-        gsize.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(), S, D, ES,
-        E, k, torch.cuda.current_stream(xs.device).cuda_stream)
+        gsize.data_ptr(), dkeys.data_ptr(), dvalues.data_ptr(),
+        ws.data_ptr(), S, D, ES, E, k,
+        torch.cuda.current_stream(xs.device).cuda_stream)
     _kernels.check(rc, "gmm2 backward dW")
     gmm2_bwd_dw.launches += 1
     return dkeys, dvalues

@@ -4,8 +4,9 @@ and the decode-shape routing of the int4 `QuantDense`; K3 and K4 (bf16
 and int8 small-M matmuls) and the routing of `PallasDense` and the int8
 `QuantDense` with `matvec_kernel`; K1 (fused grouped ReLU double GEMM) and
 its pipeline's gradients; K1's two backward kernels against the plain
-backward (edge groups, every ES, the 154M layer), bit-for-bit repeats
-without a host sync, and their input checks; K2 (causal flash attention, forward, dK/dV and
+backward (edge groups, every ES, the 154M layer, experts cut by dW's row
+groups or ending on their boundaries), bit-for-bit repeats without a host
+sync, and their input checks; K2 (causal flash attention, forward, dK/dV and
 dQ) at small shapes and the 154M shape; a checkpoint loaded on the card
 (the golden tiny checkpoint's digests, and K5 under --load-4bit); and
 serving's decode programs captured as CUDA graphs against the eager path
@@ -481,6 +482,57 @@ def test_k1_backward_kernels_match_plain(gen, T, D, E, ES, k, counts):
     if counts is not None:       # experts without rows: zero gradients
         for e in (0, 5):
             assert not got[2][e].any() and not got[3][e].any()
+
+
+def _dw_groups(D, ES):
+    """The number of row groups of gmm2_bwd_dw's grid on this card: one
+    block an SM, (D / 128) (ES / 128) blocks a group."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return max(1, sms // ((D // 128) * (ES // 128)))
+
+
+def _edge_counts(case, T, E, D, ES):
+    """Rows a expert (k 1) for the splits of gmm2_bwd_dw's row groups:
+    `big`, one expert with all rows but one each for the others (its rows
+    cut by every group boundary); `aligned`, every expert a whole number
+    of 256-row tiles with one tile a group, so that each expert's rows end
+    exactly where a group's do."""
+    if case == "big":
+        return (T - (E - 1),) + (1,) * (E - 1)
+    groups = _dw_groups(D, ES)
+    tiles = [groups // E + (e < groups % E) for e in range(E)]
+    return tuple(256 * n for n in tiles)
+
+
+@pytest.mark.parametrize("case,T,D,E,ES", [
+    ("big", 20000, 512, 8, 128), ("aligned", None, 256, 8, 128),
+    ("big", 3000, 512, 8, 512)])
+def test_k1_backward_splits_experts_across_row_groups(gen, case, T, D, E,
+                                                      ES):
+    """gmm2_bwd_dw's row groups cut an expert that holds nearly all rows
+    (its partial sums added in group order), meet experts whose rows end
+    exactly on a group boundary, and ES 512 with D 512: the backward
+    against the plain one by K1_BWD_OFF_SHARE's rule, dkeys and dvalues
+    bf16 values, and a second run the same bytes."""
+    counts = _edge_counts(case, T or 0, E, D, ES)
+    T = sum(counts)
+    case_ = _bwd_case(gen, T, D, E, ES, 1, counts)
+    got = _card_backward(*case_)
+    again = _card_backward(*case_)
+    torch.cuda.synchronize()
+    want = tgmm.fused_grouped_ffn_kv_bwd_reference(*case_)
+    for name, a, b, c in zip(("dx", "dweights", "dkeys", "dvalues"), got,
+                             want, again):
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        off = float((diff > 2.0 ** -7 * b.abs() + 2.0 ** -9 * top)
+                    .float().mean())
+        assert off <= 1e-4 and float(diff.max()) <= 2.0 ** -4 * top, (
+            name, off, float(diff.max()), top)
+        assert torch.equal(a, c.float()), name
+    for t in got[2:]:
+        assert torch.equal(t, t.bfloat16().float())
 
 
 def test_k1_backward_repeats_and_does_not_sync(gen):

@@ -362,7 +362,7 @@ def test_port_imports_no_jax():
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "competesmoe_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "chip_faults.py",
-              REPO / "chip_variants.py"]
+              REPO / "chip_variants.py", REPO / "chip_train_profile.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
