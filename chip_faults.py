@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
-    python3 chip_faults.py
+    python3 chip_faults.py [--only mm]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -46,7 +46,11 @@ programs and the windowed read (CAPTURE_FAULTS): admission rebinding the
 per-slot temperature and top_p tensors instead of writing into the
 captured buffers, a captured step leaving the cache's pos buffer
 unadvanced, the window's slice one key late against its mask, and the
-launch accounting counting the capture only. The script
+launch accounting counting the capture only. Five more are planted in
+the multimodal training path (MM_TRAIN_FAULTS): the competition step's
+router loss 0, one clip over all groups instead of one a group, nu
+quantized without its sqrt, the image token's label kept over its image
+block, and microbatch gradients summed without the 1/n. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -83,7 +87,12 @@ launch accounting counting the capture only. The script
        fills its last chunk;
      - capture faults: `small_captured_check` (a small int4 model's
        engine and solo streams captured against eager, its launches
-       through replays, windowed against full decoding), honest first.
+       through replays, windowed against full decoding), honest first;
+     - multimodal training faults: `small_mm_train_check` (card against
+       CPU, the probes of the step's parts, the resume), honest first,
+       after the honest card-vs-CPU gaps over seeds 0-4 (the readings
+       behind SMALL_MM_LOSS_TOL, SMALL_MM_GRAD_TOL, SMALL_MM_FLIP_SHARE
+       and SMALL_MM_FLIP_GAP). `--only mm` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -440,6 +449,154 @@ def _park_key_without_pixels(engine):
     return engine.DecodeEngine, "_px_hash", staticmethod(lambda px: None)
 
 
+def _routerloss_zero():
+    """The competition step distils nothing: the router loss is 0."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import losses
+    return losses, "router_mse_loss", lambda a, b: torch.zeros(
+        (), dtype=torch.float32, device=a.device)
+
+
+def _one_global_clip():
+    """The three groups clipped by one norm over all gradients, then each
+    group's Adam without its own clip."""
+    import dataclasses
+
+    from competesmoe_tpu_torch.train import lm_trainer, mm_task
+
+    def planted(self, params, grads, state):
+        names = list(params)
+        clipped = lm_trainer.clip_by_global_norm(
+            [grads[k] for k in names], 1.0)
+        g = dict(zip(names, clipped))
+        for grp, c in self.groups.items():
+            if state.get(grp) is None:
+                continue
+            mine = {k: p for k, p in params.items()
+                    if mm_task.param_group(k) == grp}
+            lm_trainer.apply_adam_(mine, g, state[grp],
+                                   dataclasses.replace(c, grad_clip=0.0),
+                                   self.schedules[grp])
+    return mm_task.MMOptimizer, "apply", planted
+
+
+def _nu_without_sqrt():
+    """nu quantized as is, not as sqrt(nu) (dequantization still
+    squares)."""
+    import torch
+
+    from competesmoe_tpu_torch.train import quant_opt
+
+    def planted(x, block=quant_opt.BLOCK):
+        rb, d = quant_opt._blocked(x.float(), block)
+        scale = rb.amax(dim=-1) / 255.0
+        q = torch.round(rb / torch.clamp(scale, min=1e-30)[..., None])
+        return quant_opt.QuantLeaf(
+            q=quant_opt._unblocked(q.to(torch.uint8), d).contiguous(),
+            scale=scale)
+    return quant_opt, "quantize_sqrt", planted
+
+
+def _image_labels_kept():
+    """The image token's label spread over its image block instead of
+    IGNORE (one image per row)."""
+    from competesmoe_tpu_torch.models import llava
+    honest = llava.splice_image_tokens
+
+    def planted(input_ids, text_embeds, image_features, labels=None,
+                attention_mask=None, image_token_index=-200):
+        sp = honest(input_ids, text_embeds, image_features, labels,
+                    attention_mask, image_token_index)
+        if labels is not None:
+            P = image_features.shape[-2]
+            for b, p in (input_ids == image_token_index).nonzero().tolist():
+                sp["labels"][b, p:p + P] = labels[b, p]
+        return sp
+    return llava, "splice_image_tokens", planted
+
+
+def _microbatches_unscaled():
+    """Microbatch gradients summed but not scaled by 1/n."""
+    from competesmoe_tpu_torch.train import mm_task
+    honest = mm_task.accumulate_grads
+
+    def planted(forward, params, batch, n_microbatch, buffers):
+        grads, metrics = honest(forward, params, batch, n_microbatch,
+                                buffers)
+        if n_microbatch > 1:
+            for g in grads.values():
+                g.mul_(n_microbatch)
+        return grads, metrics
+    return mm_task, "accumulate_grads", planted
+
+
+# Python faults of the multimodal training path, each a function ->
+# (object, attribute, planted value), caught by
+# chip_smoke.small_mm_train_check
+MM_TRAIN_FAULTS = {
+    "routerloss_zero": _routerloss_zero,
+    "one_global_clip": _one_global_clip,
+    "nu_without_sqrt": _nu_without_sqrt,
+    "image_labels_kept": _image_labels_kept,
+    "microbatches_unscaled": _microbatches_unscaled,
+}
+
+
+def mm_train_ok(fault=None):
+    """(passed, message) of chip_smoke's small multimodal training checks,
+    with the MM_TRAIN_FAULTS fault `fault` planted for their duration.
+    Any exception counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = MM_TRAIN_FAULTS[fault]()
+        undo = (obj, attr, getattr(obj, attr))
+        setattr(obj, attr, planted)
+    try:
+        cs.small_mm_train_check(0)
+        return True, "passes"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def mm_train_faults(report, failures):
+    """The honest small multimodal card-vs-CPU gaps over SEEDS (the
+    readings behind SMALL_MM_LOSS_TOL, SMALL_MM_GRAD_TOL,
+    SMALL_MM_FLIP_SHARE and SMALL_MM_FLIP_GAP), then every MM_TRAIN_FAULTS
+    plant against small_mm_train_check, honest first."""
+    report["honest_small_mm"] = []
+    for seed in SEEDS:
+        try:
+            gaps = cs.small_mm_card_vs_cpu(seed)
+        except Exception as e:  # noqa: BLE001
+            failures.append(f"honest small mm seed {seed}: {e}")
+            continue
+        report["honest_small_mm"].append(dict(seed=seed, steps=gaps))
+    hs = [d for r in report["honest_small_mm"] for d in r["steps"]]
+    if hs:
+        cs.log(f"honest small mm over seeds {list(SEEDS)}: largest loss gap "
+               f"{max(d['loss_gap'] for d in hs):.3g}, grad_norm gap "
+               f"{max(d['grad_gap'] for d in hs):.3g}, top-k share "
+               f"{max(d['topk_share'] for d in hs):.3%}, score gap "
+               f"{max(d['topk_gap'] for d in hs):.3g}")
+    ok, msg = mm_train_ok()
+    report["honest_mm_train"] = msg
+    cs.log(f"honest small mm train checks: {msg}")
+    if not ok:
+        failures.append(f"honest small mm train checks: {msg}")
+    for name in MM_TRAIN_FAULTS:
+        ok, msg = mm_train_ok(name)
+        report["faults"][name] = dict(failed={"mm_train": not ok},
+                                      mm_train=msg)
+        cs.log(f"{name}: small mm train checks -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the mm train checks")
+
+
 # Python faults of the engine's features, each a function of the engine
 # module -> (object, attribute, planted value), caught by
 # chip_smoke.small_engine_features_check
@@ -717,9 +874,13 @@ def main():
     card = cs.card_line()
     cs.log(f"device: {card}")
     t0 = time.perf_counter()
+    failures, report = [], dict(card=card, honest_small_lm=[], faults={})
+    if sys.argv[1:] == ["--only", "mm"]:
+        # the multimodal training path runs none of the kernels
+        mm_train_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
-    failures, report = [], dict(card=card, honest_small_lm=[], faults={})
     try:
         libs = build_faults(tmp)
         cs.log(f"build: honest and {len(libs)} faulty libraries in "
@@ -916,8 +1077,13 @@ def main():
                                 f"multi-turn check")
         del model
         cs.free_card()
+        mm_train_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return _finish(report, failures, t0)
+
+
+def _finish(report, failures, t0):
     print("faults " + json.dumps(report), flush=True)
     for f in failures:
         print(f"chip_faults: {f}", file=sys.stderr)

@@ -174,7 +174,25 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
  11. with --profile: torch.profiler over decode steps of the
      served model and over engine ticks, captured and eager (with K3's,
      K4's or K5's share; device busy share and the kernels that take the
-     time), and over 9's two speculation mixes.
+     time), over 9's two speculation mixes, and over the last step of 12;
+ 12. multimodal training (main path of the multimodal training slice),
+     after the card is freed: a small model (SMALL_HF, bf16) takes 3 sft
+     steps on the card and on the CPU from the same weights and batch,
+     with 8-bit moments and 1 microbatch, then bf16 moments and 2
+     (SMALL_MM_RUNS), the CPU taking the card's top-k choices; losses and
+     grad norms within SMALL_MM_LOSS_TOL and SMALL_MM_GRAD_TOL, routerloss
+     > 0 exactly on the competing layers; probes of the step's parts
+     (`mm_probes`: microbatch scaling, per-group clipping, 8-bit moments,
+     labels over image blocks); a resume through cli.train_mm.train equal
+     bit for bit to an uninterrupted run; then CompeteSMoE-5.1B at full
+     width and depth, random bf16 weights from --seed, through
+     cli.train_mm.train with the sft recipe's flags (MM_FULL_FLAGS: rows
+     of 2048, grad-accum 2, remat, 8-bit moments) for MM_STEPS steps of
+     MM_BATCH rows on a stated schedule, then MM_LORA_STEPS LoRA steps:
+     per step wall ms, tokens/s, losses, grad_norm, the competing layers
+     and their routerloss, peak GiB; every number finite, the three
+     parameter groups move, and no launch of K1-K5 (none lies on the
+     path; `mm_train_summary` line).
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -3661,6 +3679,546 @@ def small_engine_features_check(seed: int, device: str = "cuda"):
         "against engines without them): passed")
 
 
+# ---------------------------------------------------------------------------
+# Multimodal training (main path of the multimodal training slice)
+# ---------------------------------------------------------------------------
+
+# The 5.1B sft run, as cli/train_mm takes it: the recipe's flags
+# (scripts/train/phi35mini/siglip/sft.sh: stage sft, 4 experts top-2,
+# lr 4e-6, warmup 0.03, rows padded to 2048) with --grad-accum 2 --bf16
+# --remat --opt-state-8bit, at MM_BATCH rows a step (the recipe's 5 rows do
+# not split into 2 microbatches), for MM_STEPS steps. The schedule is
+# stated, not the recipe's: MM_STEPS steps in all (the LR's cosine and the
+# flip schedule span them), rate_flip 0.5 with up to 28 competing layers a
+# step (the 27 tower layers and the projector), schedule seed MM_SEED; it
+# makes 13, 11, 13 and 14 tower layers compete on steps 0-3 and the
+# projector on steps 0, 1 and 3.
+MM_BATCH = 4
+MM_STEPS = 4
+MM_SEED = 3
+MM_LORA_STEPS = 2
+MM_FULL_FLAGS = (
+    "--stage sft --model-max-length 2048 --grad-accum 2 --bf16 --remat "
+    "--opt-state-8bit --learning-rate 4e-6 --warmup-ratio 0.03 "
+    "--rate-flip 0.5 --max-compete-in-iter 28 --save-interval 0 "
+    "--log-interval 1").split()
+# small multimodal model, card against CPU per step (bf16 weights): |loss
+# gap| (absolute) and |grad_norm gap| / grad_norm, a few times the largest
+# honest gaps chip_faults.py reads over seeds 0-4 (PERF.md); the CPU takes
+# the card's top-k choices (`routed_as`): at most SMALL_MM_FLIP_SHARE of
+# the rows may be ones where the CPU's own scores pick another set, each
+# within SMALL_MM_FLIP_GAP of its own k-th best
+SMALL_MM_LOSS_TOL = 5e-3
+SMALL_MM_GRAD_TOL = 5e-3
+SMALL_MM_FLIP_SHARE = 0.08
+SMALL_MM_FLIP_GAP = 2.0 ** -5
+# (8-bit moments, microbatches) of the small card-vs-CPU runs
+SMALL_MM_RUNS = ((True, 1), (False, 2))
+
+
+class ChatTok(WordTok):
+    """WordTok with a BOS (id 1) before every encoding and chat markers
+    (<|user|>, <|end|>, ...) as words of their own, the properties of the
+    Phi-3.5 tokenizer that preprocess_phi35's round arithmetic relies on;
+    pad id 0."""
+
+    bos_token_id = 1
+    pad_token_id = 0
+    _WORDS = __import__("re").compile(r"<\|[a-z]+\|>|\S+?(?=<\|)|\S+")
+
+    def __call__(self, text):
+        ids = [1] + self.__class__.__bases__[0].__call__(
+            self, " ".join(self._WORDS.findall(text))).input_ids
+        return type("Enc", (), {"input_ids": ids})()
+
+
+class MMConversations:
+    """LLaVA-format conversations from a seed, tokenized by the dataset's
+    own preprocessor (`preprocess_phi35`) with `tok` (a ChatTok): rows
+    with an image
+    carry seeded pixels in [-1, 1] (the processor's range), every
+    `text_every`-th row has none. The dataset protocol `cli.train_mm.train`
+    takes: `__len__`, `__getitem__`, `modality_lengths`."""
+
+    def __init__(self, tok, n: int, words: tuple, image_size: int,
+                 seed: int, max_len: int, text_every: int = 3):
+        rng = np.random.default_rng(seed)
+        vocab = [f"w{i}" for i in range(400)]
+        self.tok, self.max_len, self.size = tok, max_len, image_size
+        self.seed = seed
+        self.records = []
+        for i in range(n):
+            def say(lo, hi):
+                return " ".join(rng.choice(vocab, int(rng.integers(lo, hi))))
+            image = i % text_every != text_every - 1
+            conv = [{"from": "human",
+                     "value": ("<image>\n" if image else "") + say(*words)},
+                    {"from": "gpt", "value": say(*words)},
+                    {"from": "human", "value": say(*words)},
+                    {"from": "gpt", "value": say(*words)}]
+            self.records.append((conv, image))
+
+    def __len__(self):
+        return len(self.records)
+
+    @property
+    def modality_lengths(self):
+        return [sum(len(c["value"].split()) for c in conv) * (1 if im else -1)
+                for conv, im in self.records]
+
+    def __getitem__(self, i):
+        from competesmoe_tpu_torch.data.mm_data import preprocess_phi35
+        conv, image = self.records[i]
+        d = preprocess_phi35([conv], self.tok, has_image=image,
+                             model_max_length=self.max_len)
+        out = {"input_ids": d["input_ids"][0], "labels": d["labels"][0]}
+        if image:
+            rng = np.random.default_rng((self.seed, i))
+            out["image"] = rng.uniform(
+                -1, 1, (self.size, self.size, 3)).astype(np.float32)
+        return out
+
+
+def mm_args(flags, out_dir):
+    from competesmoe_tpu_torch.cli.train_mm import build_argparser
+    return build_argparser().parse_args(list(flags)
+                                        + ["--output-dir", str(out_dir)])
+
+
+def small_mm_config():
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B,
+                                                      llava_config_from_hf)
+    return llava_config_from_hf(dict(HF_5P1B, **SMALL_HF), "llava_phi",
+                                torch.bfloat16)
+
+
+def small_mm_batch(seed: int, vocab: int = 512, rows: int = 4,
+                   length: int = 40):
+    """Rows alternate image (sentinel at 2) and text-only (a zero image, as
+    the collator pads one), so the two halves of the batch hold as many
+    supervised labels each; the first 4 labels of a row are masked."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, vocab, (rows, length)).astype(np.int64)
+    labels = ids.copy()
+    labels[:, :4] = -100
+    px = rng.uniform(-1, 1, (rows, 28, 28, 3)).astype(np.float32)
+    for r in range(0, rows, 2):
+        ids[r, 2] = -200
+        labels[r, 2] = -100
+        px[r + 1] = 0.0
+    return {"input_ids": ids, "labels": labels,
+            "attention_mask": np.ones((rows, length), np.int64),
+            "images": px}
+
+
+def small_mm_steps(model, state_8bit: bool, n_micro: int, batch,
+                   steps: int = 3):
+    """`steps` sft steps of mm_task's step on `model`'s device from step
+    0: each step's metrics as floats (per-layer ones as lists)."""
+    from competesmoe_tpu_torch.train.mm_task import (
+        MMTrainConfig, MMTrainState, batch_to, build_mm_schedules,
+        make_mm_optimizer, make_mm_train_step)
+    tcfg = MMTrainConfig(stage="sft", learning_rate=1e-3, warmup_ratio=0.0,
+                         total_steps=10, rate_flip=0.5,
+                         max_compete_in_iter=3, schedule_seed=1,
+                         opt_state_8bit=state_8bit)
+    model.set_flip_schedules(*build_mm_schedules(model.cfg, tcfg))
+    opt = make_mm_optimizer(tcfg)
+    state = MMTrainState.create(model, opt)
+    step = make_mm_train_step(model, opt, n_microbatch=n_micro)
+    rows = []
+    for _ in range(steps):
+        state, m = step(state, batch_to(batch, model.device))
+        rows.append({k: (v.tolist() if v.numel() > 1 else float(v))
+                     for k, v in m.items()})
+    return rows
+
+
+def _competed(row):
+    return [li for li, c in enumerate(row["vision/is_comp"]) if c] + (
+        ["projector"] if row["projector/is_comp"] else [])
+
+
+def _routerloss_on_flips(row, what: str):
+    """routerloss > 0 exactly on the layers that competed."""
+    rl = list(row["vision/routerloss"]) + [row["projector/routerloss"]]
+    comp = list(row["vision/is_comp"]) + [row["projector/is_comp"]]
+    if [r > 0 for r in rl] != [c > 0 for c in comp]:
+        raise AssertionError(f"{what}: routerloss {rl} where the layers "
+                             f"competed {comp}")
+
+
+def small_mm_card_vs_cpu(seed: int):
+    """A small multimodal model (SMALL_HF, bf16) takes 3 sft steps on the
+    card and on the CPU from the same weights and batch, for each of
+    SMALL_MM_RUNS; the CPU takes the card's top-k choices. Returns the
+    per-step gaps."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import build_llava
+    from competesmoe_tpu_torch.models.llava import LlavaModel
+
+    cfg = small_mm_config()
+    cpu0 = build_llava(cfg, seed=seed, device="cpu")
+    init = {k: v.clone() for k, v in cpu0.state_dict().items()}
+    batch = small_mm_batch(seed)
+    out = []
+    for state_8bit, n_micro in SMALL_MM_RUNS:
+        what = f"small mm train (8-bit {state_8bit}, accum {n_micro})"
+        card = LlavaModel(cfg, device="cuda")
+        card.load_state_dict(init)
+        cpu = LlavaModel(cfg, device="cpu")
+        cpu.load_state_dict(init)
+        choices = []
+        with routed_as(record=choices):
+            got = small_mm_steps(card, state_8bit, n_micro, batch)
+        with routed_as(replay=choices) as seen:
+            want = small_mm_steps(cpu, state_8bit, n_micro, batch)
+        share = seen["flipped"] / seen["rows"]
+        for i, (g, c) in enumerate(zip(got, want)):
+            _routerloss_on_flips(g, f"{what} card step {i}")
+            dl = abs(g["loss/total"] - c["loss/total"])
+            dg = abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+            ok = (dl <= SMALL_MM_LOSS_TOL and dg <= SMALL_MM_GRAD_TOL
+                  and _competed(g) == _competed(c)
+                  and math.isfinite(g["loss/total"]))
+            log(f"{what} step {i} (competed {_competed(g)}): loss card "
+                f"{g['loss/total']:.6f} cpu {c['loss/total']:.6f} (gap "
+                f"{dl:.3g}, tol {SMALL_MM_LOSS_TOL}); grad_norm card "
+                f"{g['grad_norm']:.6f} cpu {c['grad_norm']:.6f} (gap "
+                f"{dg:.3g}, tol {SMALL_MM_GRAD_TOL})")
+            out.append(dict(run=what, step=i, competed=_competed(g),
+                            loss_gap=dl, grad_gap=dg, ok=ok,
+                            topk_share=share, topk_gap=seen["gap"]))
+            if not ok:
+                raise AssertionError(f"{what} step {i}: card and CPU "
+                                     f"disagree: {out[-1]}")
+        log(f"{what}: the CPU would have picked another top-k set in "
+            f"{seen['flipped']} of {seen['rows']} rows ({share:.3%}, limit "
+            f"{SMALL_MM_FLIP_SHARE:.0%}), score gap {seen['gap']:.3g} "
+            f"(limit {SMALL_MM_FLIP_GAP:.3g})")
+        if not (share <= SMALL_MM_FLIP_SHARE
+                and seen["gap"] <= SMALL_MM_FLIP_GAP):
+            raise AssertionError(f"{what}: top-k choices part on {share:.3%}"
+                                 f" of the rows, gap {seen['gap']:.3g}")
+        if not any(_competed(g) for g in got):
+            raise AssertionError(f"{what}: no step competed")
+        del card, cpu
+        free_card()
+    return out
+
+
+def mm_probes(seed: int):
+    """Checks of the training step's parts on the card, each against its
+    definition: (1) microbatches: a batch of two halves with as many
+    supervised labels each gives grad_norm within 5% with 1 and with 2
+    microbatches (the mean of the halves' gradients); (2) the optimizer
+    clips each group by its own norm: with eps 1e6 the first update is
+    -lr * clipped g / 1e6, held to g * min(1, 1 / |g_group|) per group;
+    (3) 8-bit moments: quantize-dequantize of nu is within half a code of
+    sqrt(nu) per element, of mu within half a code; (4) the loss ignores
+    image positions: labels that leave the image token unmasked come back
+    IGNORE over the whole image block."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import build_llava
+    from competesmoe_tpu_torch.train import quant_opt
+    from competesmoe_tpu_torch.train.lm_trainer import OptConfig
+    from competesmoe_tpu_torch.train.mm_task import MMOptimizer
+
+    cfg = small_mm_config()
+    model = build_llava(cfg, seed=seed, device="cuda")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = small_mm_batch(seed + 1)
+    norms = []
+    for n_micro in (1, 2):
+        model.load_state_dict(init)
+        norms.append(small_mm_steps(model, False, n_micro, batch,
+                                    steps=1)[0]["grad_norm"])
+    ratio = norms[1] / norms[0]
+    log(f"mm probe: grad_norm with 1 and 2 microbatches {norms} "
+        f"(ratio {ratio:.4f})")
+    if not abs(ratio - 1.0) <= 0.05:
+        raise AssertionError(f"microbatch gradients: grad_norm {norms}")
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    want_norm = {"projector": 4.0, "vision": 0.5, "decoder": 2.0}
+    names = {"projector": "mm_projector.w", "vision": "vision_tower.w",
+             "decoder": "language_model.w"}
+    params = {n: torch.zeros(64, device="cuda") for n in names.values()}
+    grads = {}
+    for grp, n in names.items():
+        v = torch.randn(64, generator=g, device="cuda")
+        grads[n] = v / v.norm() * want_norm[grp]
+    c = OptConfig(lr=1.0, lr_sched="constant", grad_clip=1.0,
+                  adam_eps=1e6)
+    opt = MMOptimizer({grp: c for grp in names})
+    opt.apply(params, grads, opt.init(params))
+    for grp, n in names.items():
+        want = grads[n] * min(1.0, 1.0 / want_norm[grp])
+        err = float((-params[n] * 1e6 - want).abs().max())
+        if not err <= 1e-3 * float(want.abs().max()):
+            raise AssertionError(f"optimizer: group {grp} update off its "
+                                 f"own clip by {err}")
+    log("mm probe: each group clipped by its own norm")
+
+    x = torch.rand(4, 1000, generator=g, device="cuda")
+    nu = 10.0 ** (-8 * x)
+    leaf = quant_opt.quantize_sqrt(nu, 256)
+    back = quant_opt.dequantize_sqrt(leaf, 256)
+    code = quant_opt._unblocked(
+        leaf.scale[..., None].expand(*leaf.scale.shape, 256), 1000)
+    if not bool(((back.sqrt() - nu.sqrt()).abs() <= 0.5001 * code).all()):
+        raise AssertionError("8-bit nu is not within half a code of "
+                             "sqrt(nu)")
+    mu = torch.randn(4, 1000, generator=g, device="cuda")
+    leaf = quant_opt.quantize_signed(mu, 256)
+    code = quant_opt._unblocked(
+        leaf.scale[..., None].expand(*leaf.scale.shape, 256), 1000)
+    if not bool(((quant_opt.dequantize_signed(leaf, 256) - mu).abs()
+                 <= 0.5001 * code).all()):
+        raise AssertionError("8-bit mu is not within half a code")
+    log("mm probe: 8-bit moments within half a code of sqrt(nu) and mu")
+
+    ids = torch.as_tensor(batch["input_ids"][:1], device="cuda")
+    labels = ids.clone()
+    labels[0, 2] = 7          # the image token left unmasked
+    px = torch.as_tensor(batch["images"][:1], device="cuda")
+    with torch.no_grad():
+        out = model(ids, px, labels=labels, train=False)
+    P = cfg.num_image_tokens
+    block = out.labels[0, 2:2 + P]
+    if not bool((block == -100).all()) or not torch.equal(
+            out.labels[0, 2 + P:], labels[0, 3:3 + out.labels.shape[1]
+                                          - 2 - P]):
+        raise AssertionError("the spliced labels keep image positions or "
+                             "move the text's")
+    log("mm probe: the image block's labels are ignored, the text's kept")
+    del model
+    free_card()
+    return dict(grad_norm_micro_ratio=ratio)
+
+
+def small_mm_resume_check(seed: int):
+    """The trainer's Saver on the card through cli.train_mm.train: a small
+    model takes 3 steps (sft, 8-bit moments, 2 microbatches, a checkpoint
+    every 2 steps); a run stopped after its checkpoint at step 2 and a
+    fresh model resumed from it (weights, 8-bit moments, step, sampler
+    position) take step 3. Every step's loss and grad_norm equal the
+    uninterrupted run's, bit for bit."""
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.cli.train_mm import train
+    from competesmoe_tpu_torch.models.builder import build_llava
+
+    cfg = small_mm_config()
+    tok = ChatTok(cfg.decoder.vocab_size)
+    data = MMConversations(tok, 6, (4, 12), 28, seed, 64)
+    flags = ["--stage", "sft", "--num-train-steps", "3", "--save-interval",
+             "2", "--opt-state-8bit", "--grad-accum", "2",
+             "--per-device-batch-size", "2", "--model-max-length", "64",
+             "--rate-flip", "0.5", "--max-compete-in-iter", "3",
+             "--learning-rate", "1e-3", "--warmup-ratio", "0",
+             "--seed", str(seed), "--log-interval", "100"]
+    init = build_llava(cfg, seed=seed, device="cuda").state_dict()
+
+    class Stop(Exception):
+        pass
+
+    def run(out_dir, stop_at=None, resume=False):
+        rows = []
+
+        def on_step(step, state, m, seconds):
+            rows.append([float(m["loss/total"]), float(m["grad_norm"])])
+            if step == stop_at:
+                raise Stop()
+
+        model = build_llava(cfg, seed=seed + 1, device="cuda")
+        model.load_state_dict(init)
+        try:
+            train(mm_args(flags + (["--resume"] if resume else []),
+                          out_dir), model, data, tok, on_step=on_step)
+        except Stop:
+            pass
+        return rows
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mm_resume_"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = run(tmp / "straight")
+        first = run(tmp / "resumed", stop_at=2)
+        second = run(tmp / "resumed", resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = first[:2] + second
+    log(f"small mm save/restore on the card: 2 steps, model-2, a fresh "
+        f"model resumed, 1 step: {got} (uninterrupted {straight})")
+    if got != straight:
+        raise AssertionError(f"small mm training after save/restore {got} "
+                             f"!= the uninterrupted run {straight}")
+
+
+def small_mm_train_check(seed: int):
+    """The small checks of the multimodal training path (chip_faults.py
+    plants faults against them)."""
+    gaps = small_mm_card_vs_cpu(seed)
+    probes = mm_probes(seed)
+    small_mm_resume_check(seed)
+    return dict(card_vs_cpu=gaps, **probes)
+
+
+def _mm_row(step, m, seconds, tokens, peak):
+    """One step's printed numbers; `peak` in bytes above what earlier
+    phases still hold."""
+    competed = [li for li, c in enumerate(m["vision/is_comp"].tolist())
+                if c] + (["projector"] if float(m["projector/is_comp"])
+                         else [])
+    rl = m["vision/routerloss"].tolist() + [float(m["projector/routerloss"])]
+    return dict(step=step, wall_ms=seconds * 1e3,
+                tokens_per_s=tokens / seconds,
+                loss=float(m["loss/total"]), aux_mlp=float(m["loss/aux_mlp"]),
+                aux_clip=float(m["loss/aux_clip"]),
+                grad_norm=float(m["grad_norm"]), competed=competed,
+                routerloss={str(c): rl[c if c != "projector" else -1]
+                            for c in competed},
+                routerloss_elsewhere=max(
+                    [r for i, r in enumerate(rl)
+                     if (i if i < len(rl) - 1 else "projector")
+                     not in competed] or [0.0]),
+                peak_gib=peak / 2 ** 30)
+
+
+def phase_mm_train(seed: int, lora: bool = True, profile: bool = False):
+    """The multimodal training slice's main path: CompeteSMoE-5.1B at full
+    width and depth, bf16 weights from `seed`, through cli.train_mm.train
+    with MM_FULL_FLAGS for MM_STEPS steps at MM_BATCH rows of 2048
+    positions, on conversations from `preprocess_phi35` (`ChatTok`; image
+    rows with seeded 224 px pixels, every third row text-only); then
+    MM_LORA_STEPS LoRA steps (r 128, alpha 256) on the trained model.
+    Every number finite; the projector's, the tower's and the decoder's
+    weights move; routerloss > 0 exactly on the layers that competed;
+    the tower competes on at least two steps and the projector too. No
+    kernel of K1-K5 lies on this path: every launch count stays 0. With
+    `profile`, torch.profiler takes the last full step (printed only:
+    busy share, the kernels that take the time)."""
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.cli.train_mm import train
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B, build_llava,
+                                                      llava_config_from_hf)
+
+    free_card()
+    held = torch.cuda.memory_allocated()
+    log(f"mm train: {held / 2 ** 30:.2f} GiB of device memory still held "
+        f"by earlier phases")
+    cfg = llava_config_from_hf(HF_5P1B, "llava_phi", torch.bfloat16)
+    t0 = time.perf_counter()
+    model = build_llava(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"mm train: 5.1B bf16 built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params")
+    probes = {
+        "projector": model.mm_projector.moelayer.experts_w1,
+        "vision": model.vision_tower.layers[0].moelayer.experts_w1,
+        "decoder": model.language_model.layers[0].self_attn.qkv_proj.weight}
+    before = {k: p.detach()[0, :64].clone() for k, p in probes.items()}
+    tok = ChatTok(cfg.decoder.vocab_size)
+    data = MMConversations(tok, 12, (150, 400), cfg.vision.image_size, seed,
+                           2048)
+    tokens = MM_BATCH * cfg.tokenizer_model_max_length
+    out = dict(card=card_line(), batch=MM_BATCH, steps=MM_STEPS,
+               flags=" ".join(MM_FULL_FLAGS), rows=[], lora_rows=[],
+               held_before_gib=held / 2 ** 30)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mm_"))
+
+    prof = []
+
+    def on_step(rows, profile_last=False):
+        def record(step, state, m, seconds):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_step[0]
+            row = _mm_row(step, m, wall, tokens,
+                          torch.cuda.max_memory_allocated() - held)
+            rows.append(row)
+            log(f"mm train step {step}: {json.dumps(row)}")
+            if prof:
+                prof.pop().__exit__(None, None, None)
+                out["profile"] = _busy(prof_ctx[0], wall, 1, "mm train")
+                log(f"mm train profile of step {step}: "
+                    f"{json.dumps(out['profile'])}")
+            elif profile_last and step == MM_STEPS - 2:
+                from torch.profiler import ProfilerActivity
+                prof_ctx[:] = [torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA])]
+                prof.append(prof_ctx[0])
+                prof_ctx[0].__enter__()
+            torch.cuda.reset_peak_memory_stats()
+            t_step[0] = time.perf_counter()
+        return record
+
+    prof_ctx = [None]
+
+    t_step = [0.0]
+    try:
+        reset_counts()
+        flags = MM_FULL_FLAGS + [
+            "--per-device-batch-size", str(MM_BATCH), "--num-train-steps",
+            str(MM_STEPS), "--seed", str(MM_SEED)]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_step[0] = time.perf_counter()
+        train(mm_args(flags, tmp / "full"), model, data, tok,
+              on_step=on_step(out["rows"], profile), final_save=False)
+        counts = read_counts()
+        if lora:
+            free_card()
+            torch.cuda.reset_peak_memory_stats()
+            t_step[0] = time.perf_counter()
+            train(mm_args(flags[:-4] + [
+                "--num-train-steps", str(MM_LORA_STEPS), "--seed",
+                str(MM_SEED), "--lora-enable", "--lora-r", "128",
+                "--lora-alpha", "256", "--learning-rate", "2e-4"],
+                tmp / "lora"), model, data, tok,
+                on_step=on_step(out["lora_rows"]), final_save=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in out["rows"] + out["lora_rows"]:
+        nums = [row[k] for k in ("loss", "aux_mlp", "aux_clip", "grad_norm")]
+        nums += list(row["routerloss"].values())
+        if not all(math.isfinite(v) for v in nums):
+            raise AssertionError(f"mm train: a number is not finite: {row}")
+    for row in out["rows"]:
+        if (any(v <= 0 for v in row["routerloss"].values())
+                or row["routerloss_elsewhere"] != 0):
+            raise AssertionError(f"mm train: routerloss is not > 0 exactly "
+                                 f"on the competing layers: {row}")
+    tower = sum(1 for r in out["rows"] if any(c != "projector"
+                                              for c in r["competed"]))
+    proj = sum(1 for r in out["rows"] if "projector" in r["competed"])
+    if tower < 2 or proj < 2:
+        raise AssertionError(f"mm train: the tower competed on {tower} and "
+                             f"the projector on {proj} steps (want >= 2)")
+    moved = {k: not torch.equal(before[k], p.detach()[0, :64])
+             for k, p in probes.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"mm train: weights did not move: {moved}")
+    if any(counts.values()):
+        raise AssertionError(f"mm train launched kernels: {counts}")
+    out["moved"] = moved
+    out["launches"] = counts
+    del model, probes
+    free_card()
+    return out
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -3765,6 +4323,10 @@ def main():
     print("engine_summary " + json.dumps(dict(small=small, card=card,
                                               **engines)), flush=True)
     print("graphs_summary " + json.dumps(graphs), flush=True)
+    free_card()
+    mm = dict(small=small_mm_train_check(a.seed))
+    mm.update(phase_mm_train(a.seed, profile=a.profile))
+    print("mm_train_summary " + json.dumps(mm), flush=True)
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",

@@ -19,6 +19,8 @@ stacked experts `experts_w1` [E, in, h] etc., the MoE `gate_kernel`
 [in, E], RMSNorm `weight`, the vision `position_embedding`, and the
 pretrain MoE's `keys` [E, d, ES], `values` [E, ES, d] and `w_gate` [E, d]
 (the layouts K1 reads).
+
+`from_jax_lora(tree)` carries a JAX LoRA factor tree across the same way.
 """
 
 from __future__ import annotations
@@ -80,4 +82,19 @@ def from_jax_params(tree) -> Dict[str, torch.Tensor]:
                 out[name] = _tensor(child)
 
     walk(tree, "")
+    return out
+
+
+def from_jax_lora(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA factor tree ({'a/b/.../kernel': {'a', 'b'}}, see
+    competesmoe_tpu/train/lora.py) keyed by the port's module names, for
+    `train.lora.LoRAParams.load_factors`. The factors keep their
+    [in, r] and [r, out] layouts."""
+    out = {}
+    for key, ab in tree.items():
+        parts = key.split("/")
+        if parts[-1] != "kernel":
+            raise ValueError(f"not a LoRA kernel path: {key!r}")
+        name = ".".join(_name(p) for p in parts[:-1])
+        out[name] = {"a": _tensor(ab["a"]), "b": _tensor(ab["b"])}
     return out

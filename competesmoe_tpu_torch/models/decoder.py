@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..moe.config import MoEArgs
@@ -123,7 +124,7 @@ def check_supported(cfg: DecoderConfig) -> None:
         "deferred_decode": cfg.deferred_decode,
         "cache_layout='per_layer'": cfg.cache_layout != "stacked",
         "norm_folded": cfg.norm_folded, "quant='w8a8'": cfg.quant == "w8a8",
-        "remat": cfg.remat, "moe_name (MoE decoder)": cfg.moe_name,
+        "moe_name (MoE decoder)": cfg.moe_name,
         "norm_type": cfg.norm_type != "rmsnorm",
         "mlp_type": cfg.mlp_type != "silu_glu",
     }
@@ -435,14 +436,40 @@ def _window(t: torch.Tensor, attn_window: int) -> torch.Tensor:
     return t[:, :attn_window]
 
 
+class _MatmulF32(torch.autograd.Function):
+    """a @ b (2-D or batched 3-D) with float32 accumulation and a float32
+    result: JAX's product of operands widened to float32 (or its einsum
+    with preferred_element_type=float32). On the card operands of one
+    low-precision dtype stay at their width (mm/bmm's out_dtype, which
+    has no autograd rule of its own); the CPU widens them first, which
+    rounds nothing: every product of two bf16 values is exact in float32.
+    The backward is JAX's: each operand's gradient is a float32 product
+    of the float32 cotangent with the other operand, rounded to the
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+            mm = torch.bmm if a.dim() == 3 else torch.mm
+            return mm(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def _mm_f32(a, b):
-    """Batched a @ b with float32 accumulation and a float32 result. On
-    the card bf16 operands stay at their width (bmm's out_dtype); the CPU
-    widens them first (its bmm has no out_dtype), which rounds nothing:
-    every product of two bf16 values is exact in float32."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+    """a @ b with float32 accumulation and a float32 result
+    (`_MatmulF32`)."""
+    return _MatmulF32.apply(a, b)
 
 
 def _attend(q, k, v, k_scale, v_scale, mask, dtype):
@@ -603,9 +630,17 @@ class DecoderLM(nn.Module):
 
         total_aux = torch.zeros((), dtype=torch.float32, device=dev)
         auxes: List[MoEAux] = []
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for li, layer in enumerate(self.layers):
-            x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
-                           attn_window)
+            if remat:
+                # one checkpoint per layer: its activations are recomputed
+                # in backward, only the layer's input stays
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    layer, x, cos, sin, mask, None, None, li, attn_window,
+                    use_reentrant=False)
+            else:
+                x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
+                               attn_window)
             total_aux = total_aux + aux.aux_loss
             auxes.append(aux)
 
@@ -616,7 +651,9 @@ class DecoderLM(nn.Module):
         elif cfg.quant:
             logits = self.lm_head(x.float())
         else:
-            logits = F.linear(x.float(), self.lm_head.weight.float())
+            logits = _mm_f32(x.reshape(-1, x.shape[-1]),
+                             self.lm_head.weight.t()).reshape(
+                                 *x.shape[:-1], -1)
 
         new_cache = None
         if cache is not None:

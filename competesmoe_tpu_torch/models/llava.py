@@ -8,7 +8,8 @@ to a power-of-two bucket, as the JAX version does. `speculative=K`
 verifies K prompt-lookup drafts per forward (`speculative_accept`): greedy
 tokens equal sequential greedy decoding, sampled ones follow the
 step-by-step distribution. Random draws come from explicit
-`torch.Generator`s. Training losses come with a later slice.
+`torch.Generator`s. With labels the forward returns the training loss
+(cross-entropy + the tower's and projector's aux losses).
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ class LlavaConfig:
     decoder: DecoderConfig = DecoderConfig()
     image_token_index: int = IMAGE_TOKEN_INDEX
     tokenizer_model_max_length: Optional[int] = 2048
+    # how multi-tile pixel batches [B, M, H, W, C] splice into the text:
+    # 'multi' gives each of a row's M image tokens one tile's features;
+    # 'anyres' concatenates the M tiles (an anyres grid) into one block
+    # at a single image token
+    image_splice: str = "multi"
 
     @property
     def num_image_tokens(self) -> int:
@@ -128,15 +134,27 @@ class LlavaOutput:
 class LlavaModel(nn.Module):
     """Vision tower -> projector -> decoder with image splice. Built on
     `cuda` unless `device` says otherwise; weights start uninitialised
-    (see models.builder.init_random_ and convert.from_jax_params)."""
+    (see models.builder.init_random_ and convert.from_jax_params).
+    `vision_flip_schedule` (a row per tower layer) and
+    `projector_flip_schedule` (one row) drive CompeteSMoE's competition
+    steps in training (`train.mm_task.build_mm_schedules`)."""
 
-    def __init__(self, cfg: LlavaConfig, device=None):
+    def __init__(self, cfg: LlavaConfig, device=None,
+                 vision_flip_schedule=None, projector_flip_schedule=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.vision_tower = SiglipSMoEVisionTower(cfg.vision, device)
         self.mm_projector = VisionProjector(cfg.projector, device)
         self.language_model = DecoderLM(cfg.decoder, device)
+        self.set_flip_schedules(vision_flip_schedule,
+                                projector_flip_schedule)
+
+    def set_flip_schedules(self, vision=None, projector=None) -> None:
+        """Install the competition schedules in place (a loaded model
+        trains without a second copy of its weights)."""
+        self.vision_tower.set_flip_schedule(vision)
+        self.mm_projector.set_flip_schedule(projector)
 
     @property
     def device(self) -> torch.device:
@@ -144,12 +162,15 @@ class LlavaModel(nn.Module):
 
     def encode_images(self, pixel_values, *, step=None, train=False,
                       return_id_experts=False):
-        """pixel_values [B, H, W, C] (one image per row) -> features
-        [B, P, D] ready for splice_image_tokens. Multi-tile batches
-        [B, M, H, W, C] wait for the anyres image mode."""
-        if pixel_values.dim() != 4:
-            raise NotImplementedError("multi-tile pixel batches are not "
-                                      "ported yet (anyres image mode)")
+        """pixel_values [B, H, W, C] (one image per row) or [B, M, H, W, C]
+        (M tiles or images per row, spliced per cfg.image_splice) ->
+        features [B, P, D], [B, M, P, D] ('multi') or [B, M*P, D]
+        ('anyres'), ready for splice_image_tokens."""
+        multi = pixel_values.dim() == 5
+        if multi:
+            B, M = pixel_values.shape[:2]
+            pixel_values = pixel_values.reshape(B * M,
+                                                *pixel_values.shape[2:])
         feats, aux_clip, v_auxes = self.vision_tower(
             pixel_values, step=step, train=train,
             return_id_experts=return_id_experts)
@@ -157,17 +178,23 @@ class LlavaModel(nn.Module):
         proj, p_aux = self.mm_projector(feats.to(dtype), step=step,
                                         train=train,
                                         return_id_experts=return_id_experts)
-        return proj.to(dtype), aux_clip, v_auxes, p_aux
+        proj = proj.to(dtype)
+        if multi:
+            P = proj.shape[1]
+            proj = proj.reshape(B, M, P, -1)
+            if self.cfg.image_splice == "anyres":
+                proj = proj.reshape(B, M * P, -1)
+        return proj, aux_clip, v_auxes, p_aux
 
     def forward(self, input_ids, pixel_values=None, labels=None,
                 attention_mask=None, *, step=None, train=False,
                 return_id_experts=False, cache=None,
                 pos_in_place: bool = False) -> LlavaOutput:
-        """`pos_in_place`: with a cache, advance its pos in place (see
-        DecoderLM.forward)."""
-        if labels is not None:
-            raise NotImplementedError("the training loss is not ported "
-                                      "yet (ROADMAP: multimodal training)")
+        """With `labels` the output carries the training loss: the
+        token-mean cross-entropy of the shifted, masked labels (image
+        positions and padding ignored) + aux_clip + the projector's
+        aux_loss + aux_llm. `pos_in_place`: with a cache, advance its pos
+        in place (see DecoderLM.forward)."""
         lm = self.language_model
         zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
         if pixel_values is None:
@@ -175,7 +202,8 @@ class LlavaModel(nn.Module):
                                       attention_mask=attention_mask,
                                       cache=cache, pos_in_place=pos_in_place)
             return LlavaOutput(logits=logits, loss=None, aux_mlp=zero,
-                               aux_clip=zero, cache=new_cache)
+                               aux_clip=zero, labels=labels,
+                               cache=new_cache)
 
         img_feats, aux_clip, v_auxes, p_aux = self.encode_images(
             pixel_values, step=step, train=train,
@@ -184,7 +212,7 @@ class LlavaModel(nn.Module):
         text_embeds = torch.where(
             (input_ids == self.cfg.image_token_index)[..., None],
             torch.zeros_like(text_embeds), text_embeds)
-        sp = splice_image_tokens(input_ids, text_embeds, img_feats, None,
+        sp = splice_image_tokens(input_ids, text_embeds, img_feats, labels,
                                  attention_mask, self.cfg.image_token_index)
         maxlen = self.cfg.tokenizer_model_max_length
         embeds, sp_labels = sp["embeds"], sp["labels"]
@@ -196,11 +224,21 @@ class LlavaModel(nn.Module):
             inputs_embeds=embeds, attention_mask=sp_mask,
             position_ids=sp_pos if cache is None else None, cache=cache,
             pos_in_place=pos_in_place)
+        # a MoE decoder (aux_llm) is not ported (check_supported refuses)
+        aux_llm = zero
+        loss = None
+        if labels is not None:
+            from .lm import lm_loss_fn
+            shift_labels = torch.where(
+                sp_mask[:, 1:], sp_labels[:, 1:],
+                torch.full_like(sp_labels[:, 1:], IGNORE_INDEX))
+            ce, _ = lm_loss_fn(logits[:, :-1], shift_labels, IGNORE_INDEX)
+            loss = ce + aux_clip + p_aux.aux_loss + aux_llm
         return LlavaOutput(
-            logits=logits, loss=None, aux_mlp=p_aux.aux_loss,
-            aux_clip=aux_clip, labels=sp_labels, aux_llm=zero,
-            vision_auxes=v_auxes if return_id_experts else None,
-            projector_aux=p_aux if return_id_experts else None,
+            logits=logits, loss=loss, aux_mlp=p_aux.aux_loss,
+            aux_clip=aux_clip, labels=sp_labels, aux_llm=aux_llm,
+            vision_auxes=v_auxes if return_id_experts or train else None,
+            projector_aux=p_aux if return_id_experts or train else None,
             cache=new_cache)
 
 

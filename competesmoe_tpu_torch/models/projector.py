@@ -68,6 +68,15 @@ class VisionProjector(nn.Module):
             raise NotImplementedError(
                 f"projector type {t!r} is not ported (mlpNx_gelu waits)")
 
+    def set_flip_schedule(self, schedule=None) -> None:
+        """Give a competing MoE layer row 0 of `schedule` (a one-row
+        moe.schedule.FlipSchedule) and its warm-up; None: no
+        competition."""
+        moe = getattr(self, "moelayer", None)
+        if hasattr(moe, "step_warm"):
+            moe.flip_schedule = schedule.flips[0] if schedule else None
+            moe.step_warm = schedule.step_warm if schedule else 0
+
     def forward(self, x, *, step=None, train=False, return_id_experts=False):
         t = self.cfg.projector_type
         if t == "moe":

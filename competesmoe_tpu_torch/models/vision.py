@@ -125,12 +125,17 @@ class VisionEncoderLayer(nn.Module):
         else:
             self.mlp = VisionMLP(cfg, device)
 
-    def forward(self, x, *, step=None, train=False, return_id_experts=False):
+    def forward(self, x, *, step=None, train=False, return_id_experts=False,
+                flips=None):
+        """`flips`: this layer's row of the flip schedule, for a competing
+        MoE layer."""
         x = x + self.self_attn(self.layer_norm1(x))
         h = self.layer_norm2(x)
         if self.cfg.moe_name is not None:
+            kw = {} if flips is None else {"flips": flips}
             out, aux = self.moelayer(h, step=step, train=train,
-                                     return_id_experts=return_id_experts)
+                                     return_id_experts=return_id_experts,
+                                     **kw)
         else:
             out, aux = self.mlp(h), zero_aux(h)
         return x + out, aux
@@ -168,19 +173,32 @@ class SiglipSMoEVisionTower(nn.Module):
                                       "(the CLIP tower waits)")
         device = resolve_device(device)
         self.cfg = cfg
+        self.flip_schedule = None
         self.embeddings = SiglipVisionEmbeddings(cfg, device)
         self.layers = nn.ModuleList(VisionEncoderLayer(cfg, device)
                                     for _ in range(cfg.num_hidden_layers))
+
+    def set_flip_schedule(self, schedule=None) -> None:
+        """Competition schedule of the tower (a moe.schedule.FlipSchedule
+        with a row per layer; None: no competition): each competing layer
+        takes its warm-up here and its row with each call."""
+        self.flip_schedule = schedule
+        for layer in self.layers:
+            moe = getattr(layer, "moelayer", None)
+            if hasattr(moe, "step_warm"):
+                moe.step_warm = schedule.step_warm if schedule else 0
 
     def forward(self, pixel_values, *, step=None, train=False,
                 return_id_experts=False):
         x = self.embeddings(pixel_values)
         penultimate = x
         auxes: List[MoEAux] = []
-        for layer in self.layers:
+        for li, layer in enumerate(self.layers):
+            flips = (self.flip_schedule.flips[li]
+                     if self.flip_schedule is not None else None)
             penultimate = x
             x, aux = layer(x, step=step, train=train,
-                           return_id_experts=return_id_experts)
+                           return_id_experts=return_id_experts, flips=flips)
             auxes.append(aux)
         total = sum((a.aux_loss for a in auxes),
                     torch.zeros((), dtype=torch.float32, device=x.device))

@@ -83,6 +83,18 @@ def gather_topk_outputs(expert_outputs: torch.Tensor,
     return torch.gather(expert_outputs, -2, idx)
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum in a's dtype with float32 accumulation (JAX's
+    `preferred_element_type=float32` then a cast to a's dtype). Operands
+    of one low-precision dtype on the card make one product at that width
+    (cuBLAS accumulates in float32), so neither a float32 GEMM nor float32
+    copies for autograd; otherwise the operands are widened first (a
+    bf16 x against float32 weights promotes to float32 in JAX too)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype != torch.float32:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
 def dense_all_experts_mlp2(x: torch.Tensor, w1: torch.Tensor,
                            b1: torch.Tensor, w2: torch.Tensor,
                            b2: torch.Tensor,
@@ -90,9 +102,9 @@ def dense_all_experts_mlp2(x: torch.Tensor, w1: torch.Tensor,
     """Run ALL experts on every token.
     x: [T, d]; w1: [E, d, h]; b1: [E, h]; w2: [E, h, v]; b2: [E, v]
     -> [T, E, v]"""
-    h = torch.einsum("td,edh->teh", x.float(), w1.float()).to(x.dtype)
+    h = _einsum("td,edh->teh", x, w1)
     h = activation(h + b1[None].to(h.dtype))
-    out = torch.einsum("teh,ehv->tev", h.float(), w2.float()).to(x.dtype)
+    out = _einsum("teh,ehv->tev", h, w2)
     return out + b2[None].to(out.dtype)
 
 
@@ -234,5 +246,55 @@ def competition_all_experts_kv(x: torch.Tensor, keys: torch.Tensor,
     from .routing import top_k
     outs = dense_all_experts_kv(x, keys, values, activation, b1=b1)
     affinity = F.softplus(outs).mean(dim=-1)
+    _, sel = top_k(affinity, topk)
+    return affinity, gather_topk_outputs(outs, sel), sel
+
+
+class _Softplus(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus` as XLA computes it: max(x, 0) + log1p(exp(-|x|)),
+    each step rounded to x's dtype (F.softplus rounds once, and differs
+    by a bf16 ulp on many bf16 inputs, enough to flip the top-2 of 4
+    affinities); its gradient g * exp(x - softplus(x)) in that dtype, as
+    jnp.logaddexp's rule."""
+    return _Softplus.apply(x)
+
+
+def affinity_mean(outs: torch.Tensor) -> torch.Tensor:
+    """mean(softplus(outs), -1) as jnp.mean computes it on a low-precision
+    input: the sum in float32, divided in float32, rounded to the input's
+    dtype once."""
+    sp = softplus(outs)
+    return (sp.float().sum(dim=-1) / sp.shape[-1]).to(outs.dtype)
+
+
+def competition_all_experts_mlp2(x: torch.Tensor, w1: torch.Tensor,
+                                 b1: torch.Tensor, w2: torch.Tensor,
+                                 b2: torch.Tensor, activation: Activation,
+                                 topk: int, impl: str = "auto"):
+    """Competition step for 2-layer Linear/act/Linear experts, replicated
+    layout: x [T, d] -> (affinity [T, E], topk_outputs [T, k, v],
+    sel [T, k]); affinity = mean(softplus(expert output)) per expert in
+    x's dtype, sel = top-k of the raw affinity, ties toward the lower
+    index."""
+    if impl == "ep":
+        raise NotImplementedError(
+            "impl='ep' (expert-parallel competition) is not ported: "
+            "ROADMAP open item 1.7, parallelism")
+    from .routing import top_k
+    outs = dense_all_experts_mlp2(x, w1, b1, w2, b2, activation)
+    affinity = affinity_mean(outs)
     _, sel = top_k(affinity, topk)
     return affinity, gather_topk_outputs(outs, sel), sel

@@ -83,6 +83,27 @@ class AdamState:
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
 
+    def direction(self, name: str, g: torch.Tensor, count: int, b1: float,
+                  b2: float, eps: float) -> torch.Tensor:
+        """Update `name`'s moments in place with `g` at Adam step `count`
+        (1-based) and return mu_hat / (sqrt(nu_hat) + eps). A moment of a
+        low-precision dtype is updated in float32 and rounded once into
+        its store."""
+        mu, nu = self.mu[name], self.nu[name]
+        c1 = 1.0 - b1 ** count
+        c2 = 1.0 - b2 ** count
+        if mu.dtype == torch.float32:
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            m, v = mu, nu
+        else:
+            g32 = g.float()
+            m = mu.float().mul_(b1).add_(g32, alpha=1.0 - b1)
+            v = nu.float().mul_(b2).addcmul_(g32, g32, value=1.0 - b2)
+            mu.copy_(m)
+            nu.copy_(v)
+        return (m / c1) / (torch.sqrt(v / c2) + eps)
+
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
@@ -101,19 +122,29 @@ class AdamState:
         self.count = int(d["count"])
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """optax.clip_by_global_norm: scale by max_norm / norm only when
+    norm >= max_norm (no epsilon)."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, t, t / norm.to(t.dtype) * max_norm)
+            for t in grads]
+
+
 class Optimizer:
     """clip_by_global_norm -> adam/adamw with the LR schedule (the optax
-    chain of `make_optimizer` in JAX)."""
+    chain of `make_optimizer` in JAX). `state_8bit` holds the moments
+    blockwise in 8 bits (train/quant_opt.py)."""
 
     def __init__(self, cfg: OptConfig):
-        if cfg.state_8bit:
-            raise NotImplementedError(
-                "state_8bit (blockwise-int8 Adam moments, train/quant_opt.py)"
-                " is not ported: ROADMAP open item 1.1")
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
+    def init(self, params: Dict[str, torch.Tensor], axes=None):
+        """`axes`: quant_opt.quant_axes of the model, for 8-bit moments."""
+        if self.cfg.state_8bit:
+            from .quant_opt import QuantAdamState
+            return QuantAdamState.init(params, axes=axes)
         return AdamState(
             count=0,
             mu={k: torch.zeros_like(p, dtype=torch.float32)
@@ -123,29 +154,34 @@ class Optimizer:
 
     @torch.no_grad()
     def apply(self, params: Dict[str, torch.Tensor],
-              grads: Dict[str, torch.Tensor], state: AdamState) -> None:
+              grads: Dict[str, torch.Tensor], state) -> None:
         """One update of `params` and `state` in place from `grads`
         (which have already been reduced over microbatches)."""
-        cfg = self.cfg
-        names = list(params)
-        g = [grads[k] for k in names]
-        if cfg.grad_clip > 0:
-            norm = global_norm(g)
-            keep = norm < cfg.grad_clip
-            g = [torch.where(keep, t, t / norm * cfg.grad_clip) for t in g]
-        count = state.count + 1
-        c1 = 1.0 - cfg.adam_b1 ** count
-        c2 = 1.0 - cfg.adam_b2 ** count
-        lr = self.schedule(state.count)
-        for k, gk in zip(names, g):
-            mu, nu, p = state.mu[k], state.nu[k], params[k]
-            mu.mul_(cfg.adam_b1).add_(gk, alpha=1.0 - cfg.adam_b1)
-            nu.mul_(cfg.adam_b2).addcmul_(gk, gk, value=1.0 - cfg.adam_b2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + cfg.adam_eps)
-            if cfg.weight_decay > 0:
-                u = u + cfg.weight_decay * p
-            p.add_(u, alpha=-lr)
-        state.count = count
+        apply_adam_(params, grads, state, self.cfg, self.schedule)
+
+
+@torch.no_grad()
+def apply_adam_(params: Dict[str, torch.Tensor],
+                grads: Dict[str, torch.Tensor], state, cfg: OptConfig,
+                schedule: Callable[[int], float]) -> None:
+    """clip (cfg.grad_clip > 0) -> adam(w) -> -lr(count) of one group of
+    parameters, in place, with `state` an AdamState or a QuantAdamState.
+    The direction is cast to the gradient's dtype, as optax's update
+    stays in it."""
+    names = list(params)
+    g = [grads[k] for k in names]
+    if cfg.grad_clip > 0:
+        g = clip_by_global_norm(g, cfg.grad_clip)
+    count = state.count + 1
+    lr = schedule(state.count)
+    for k, gk in zip(names, g):
+        p = params[k]
+        u = state.direction(k, gk, count, cfg.adam_b1, cfg.adam_b2,
+                            cfg.adam_eps).to(gk.dtype)
+        if cfg.weight_decay > 0:
+            u = u + cfg.weight_decay * p
+        p.add_(u, alpha=-lr)
+    state.count = count
 
 
 def make_optimizer(cfg: OptConfig) -> Optimizer:
@@ -165,8 +201,10 @@ class TrainState:
 
     @classmethod
     def create(cls, model: MoELanguageModel, optimizer: Optimizer):
+        from .quant_opt import quant_axes
         return cls(model=model,
-                   opt_state=optimizer.init(dict(model.named_parameters())),
+                   opt_state=optimizer.init(dict(model.named_parameters()),
+                                            axes=quant_axes(model)),
                    step=0)
 
 

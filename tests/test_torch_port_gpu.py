@@ -11,7 +11,9 @@ dQ) at small shapes and the 154M shape; a checkpoint loaded on the card
 (the golden tiny checkpoint's digests, and K5 under --load-4bit); and
 serving's decode programs captured as CUDA graphs against the eager path
 on small int4 and int8 models (engine and solo streams token for token,
-launches through replays, a capture that fails raising).
+launches through replays, a capture that fails raising); and multimodal
+training's float32 products of bf16 operands, train step (no host sync
+inside it) and LoRA step.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -1177,3 +1179,136 @@ def test_a_capture_that_fails_raises(gen, monkeypatch):
     next(chunks)                         # the eager prefill's token
     with pytest.raises(RuntimeError, match="planted capture failure"):
         next(chunks)
+
+
+# ---------------------------------------------------------------------------
+# multimodal training on the card
+# ---------------------------------------------------------------------------
+
+def test_float32_products_of_bf16_operands_on_the_card(gen):
+    """decoder._MatmulF32 (attention's products and the lm_head) on bf16
+    CUDA operands: one bf16 product with a float32 result, equal within
+    float32 reordering to the widened product, with JAX's gradients (the
+    float32 cotangent times the other operand, rounded to the operand's
+    dtype); expert_compute._einsum at bf16 within one bf16 rounding of the
+    widened einsum."""
+    a = torch.randn(4, 64, 96, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(4, 96, 80, generator=gen, device="cuda").bfloat16()
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    y = tdec._mm_f32(a, b)
+    assert y.dtype == torch.float32
+    want = torch.bmm(a.float(), b.float())
+    assert float((y.detach() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    g = torch.randn(y.shape, generator=gen, device="cuda")
+    y.backward(g)
+    ga = torch.bmm(g, b.float().transpose(1, 2)).bfloat16()
+    gb = torch.bmm(a.float().transpose(1, 2), g).bfloat16()
+    for got, ref in ((a.grad, ga), (b.grad, gb)):
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(ref.float().abs().max())
+    x = torch.randn(128, 64, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(4, 64, 32, generator=gen, device="cuda").bfloat16()
+    got = tec._einsum("td,edh->teh", x, w)
+    ref = torch.einsum("td,edh->teh", x.float(), w.float()).bfloat16()
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(ref.float().abs().max())
+
+
+def _small_mm_model():
+    from competesmoe_tpu_torch.models.builder import (
+        HF_5P1B, build_llava, llava_config_from_hf)
+    hf = dict(HF_5P1B, vocab_size=512, hidden_size=256,
+              intermediate_size=512, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=4,
+              mm_hidden_size=64,
+              vision_config=dict(hidden_size=64, intermediate_size=128,
+                                 num_hidden_layers=2, num_attention_heads=2,
+                                 image_size=28, patch_size=14))
+    cfg = llava_config_from_hf(hf, "llava_phi", torch.bfloat16)
+    import dataclasses
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, remat=True))
+    return build_llava(cfg, seed=0, device="cuda")
+
+
+def _small_mm_batch(gen):
+    ids = torch.randint(3, 512, (4, 40), generator=gen, device="cuda")
+    ids[::2, 2] = -200
+    labels = ids.clone()
+    labels[:, :4] = -100
+    labels[::2, 2] = -100
+    px = torch.rand(4, 28, 28, 3, generator=gen, device="cuda") * 2 - 1
+    return {"input_ids": ids, "labels": labels,
+            "attention_mask": torch.ones_like(ids), "images": px}
+
+
+def test_mm_train_step_on_the_card_reads_nothing_back(gen):
+    """Three sft steps of a small CompeteSMoE model (bf16, 8-bit moments,
+    2 microbatches, decoder remat): every metric finite, routerloss > 0
+    exactly on the competing layers, and steps 2-3 run under
+    torch.cuda.set_sync_debug_mode('error') (no host synchronisation
+    inside the step)."""
+    from competesmoe_tpu_torch.train.mm_task import (
+        MMTrainConfig, MMTrainState, build_mm_schedules, make_mm_optimizer,
+        make_mm_train_step)
+    model = _small_mm_model()
+    tcfg = MMTrainConfig(stage="sft", learning_rate=1e-3, warmup_ratio=0.0,
+                         total_steps=10, rate_flip=0.5,
+                         max_compete_in_iter=3, schedule_seed=1,
+                         opt_state_8bit=True)
+    vis, proj = build_mm_schedules(model.cfg, tcfg)
+    model.set_flip_schedules(vis, proj)
+    opt = make_mm_optimizer(tcfg)
+    state = MMTrainState.create(model, opt)
+    step = make_mm_train_step(model, opt, n_microbatch=2)
+    batch = _small_mm_batch(gen)
+    rows = []
+    for i in range(3):
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rows.append(m)
+    for i, m in enumerate(rows):
+        for k in ("loss/total", "loss/aux_mlp", "loss/aux_clip",
+                  "grad_norm"):
+            assert torch.isfinite(m[k]).all(), (i, k)
+        comp = m["vision/is_comp"].tolist() + [float(m["projector/is_comp"])]
+        rl = m["vision/routerloss"].tolist() + [
+            float(m["projector/routerloss"])]
+        want = [vis.is_flip(li, i) for li in range(vis.n_layers)] + [
+            proj.is_flip(0, i)]
+        assert comp == [float(w) for w in want]
+        assert [r > 0 for r in rl] == want
+
+
+def test_mm_lora_step_on_the_card_moves_only_the_factors(gen):
+    """Two LoRA steps (r 8) of the small model on the card: the factors
+    move, every model weight stays bit for bit, and the loss is finite."""
+    from competesmoe_tpu_torch.train.lm_trainer import (OptConfig,
+                                                        make_optimizer)
+    from competesmoe_tpu_torch.train.lora import (
+        init_lora_params, lora_scaling, make_mm_lora_train_step)
+    from competesmoe_tpu_torch.train.mm_task import MMTrainState
+    model = _small_mm_model()
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    lora = init_lora_params(model, 8, torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = make_optimizer(OptConfig(lr=1e-3, lr_sched="constant",
+                                   grad_clip=1.0))
+    state = MMTrainState.create(lora, opt)
+    step = make_mm_lora_train_step(model, opt, lora_scaling(8, 16.0),
+                                   n_microbatch=2)
+    batch = _small_mm_batch(gen)
+    for _ in range(2):
+        state, m = step(state, batch)
+        assert torch.isfinite(m["loss/total"])
+    assert any(float(b.abs().max()) > 0 for b in lora.b)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, base[k]), k

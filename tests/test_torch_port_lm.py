@@ -406,8 +406,10 @@ def test_lm_config_rules():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.MoELanguageModel(dataclasses.replace(tcfg, **{field: value}),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="quant_opt"):
-        ttrainer.make_optimizer(ttrainer.OptConfig(state_8bit=True))
+    # -opt.state_8bit is ported (tests/test_torch_port_quant_opt.py)
+    from competesmoe_tpu_torch.train.quant_opt import QuantAdamState
+    opt = ttrainer.make_optimizer(ttrainer.OptConfig(state_8bit=True))
+    assert isinstance(opt.init({"w": torch.zeros(64, 64)}), QuantAdamState)
 
 
 # ---------------------------------------------------------------------------

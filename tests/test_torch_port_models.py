@@ -195,7 +195,23 @@ def test_unported_decoder_options_raise():
     for change in (dict(use_alibi=True), dict(sliding_window=8),
                    dict(deferred_decode=True),
                    dict(cache_layout="per_layer"), dict(quant="w8a8"),
-                   dict(remat=True), dict(norm_folded=True),
-                   dict(moe_name="mixtral")):
+                   dict(norm_folded=True), dict(moe_name="mixtral")):
         with pytest.raises(NotImplementedError):
             tdec.DecoderLM(dataclasses.replace(cfg, **change), device="cpu")
+    # remat is ported: the same logits and gradients as without it
+    torch.manual_seed(0)
+    plain = tdec.DecoderLM(cfg, device="cpu")
+    for p in plain.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    remat = tdec.DecoderLM(dataclasses.replace(cfg, remat=True),
+                           device="cpu")
+    remat.load_state_dict(plain.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 7))
+    outs = []
+    for model in (plain, remat):
+        logits = model(ids)[0]
+        logits.square().sum().backward()
+        outs.append((logits.detach(), [p.grad for p in model.parameters()]))
+    close(outs[0][0], outs[1][0], rtol=1e-6, atol=1e-6)
+    for a, b in zip(outs[0][1], outs[1][1]):
+        close(a, b, rtol=1e-5, atol=1e-6)

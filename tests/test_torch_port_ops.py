@@ -139,11 +139,17 @@ def test_moe_layer_router_branch(name, act, return_ids):
 
 
 def test_competesmoe_training_schedule_raises():
+    """The competition step is ported (tests/test_torch_port_mm_competition
+    .py); its expert-parallel layout is not and raises with its ROADMAP
+    item."""
     from competesmoe_tpu_torch.moe import get_moe
     layer = get_moe("competesmoe")(8, 8, device="cpu",
                                    flip_schedule=np.ones(4, bool))
     tbuilder.init_random_(layer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _, aux = layer(torch.zeros(1, 2, 8), step=1, train=True)
+    assert float(aux.losses["is_comp"]) == 1.0
+    layer.impl = "ep"
+    with pytest.raises(NotImplementedError, match="ROADMAP open item 1.7"):
         layer(torch.zeros(1, 2, 8), step=1, train=True)
 
 
