@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
-    python3 chip_faults.py [--only mm]
+    python3 chip_faults.py [--only mm | --only eval]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -50,7 +50,13 @@ launch accounting counting the capture only. Five more are planted in
 the multimodal training path (MM_TRAIN_FAULTS): the competition step's
 router loss 0, one clip over all groups instead of one a group, nu
 quantized without its sqrt, the image token's label kept over its image
-block, and microbatch gradients summed without the 1/n. The script
+block, and microbatch gradients summed without the 1/n. Six more are
+planted in the eval path (EVAL_FAULTS, against chip_smoke's
+small_eval_check): the collator's restore dropped, each loglikelihood
+target scored one position late, the image token's P - 1 positions left
+out of the targets' offset, telemetry's top-1 counted from the second
+choice, padding clones scored (so a merge counts them), and the engine
+route's answers not cut at the eos. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -92,7 +98,10 @@ block, and microbatch gradients summed without the 1/n. The script
        CPU, the probes of the step's parts, the resume), honest first,
        after the honest card-vs-CPU gaps over seeds 0-4 (the readings
        behind SMALL_MM_LOSS_TOL, SMALL_MM_GRAD_TOL, SMALL_MM_FLIP_SHARE
-       and SMALL_MM_FLIP_GAP). `--only mm` runs this part alone.
+       and SMALL_MM_FLIP_GAP). `--only mm` runs this part alone;
+     - eval faults: `small_eval_check` (cli/eval_mm on a small --load-4bit
+       checkpoint, card and CPU), honest first. `--only eval` runs this
+       part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -657,6 +666,121 @@ CAPTURE_FAULTS = {
     "window_one_key_late": _window_one_key_late,
     "launches_counted_at_capture_only": _capture_counted_only,
 }
+def _edited(obj, name: str, text: str, replacement: str):
+    """(obj, name, planted): obj.name (a function or method) recompiled
+    from its source with `text`, which must occur once, replaced."""
+    import inspect
+    import textwrap
+    fn = obj.__dict__[name]
+    src = textwrap.dedent(inspect.getsource(fn))
+    if src.count(text) != 1:
+        raise AssertionError(f"plant text occurs {src.count(text)} times "
+                             f"in {name}: {text!r}")
+    env = dict(fn.__globals__)
+    exec(compile(src.replace(text, replacement),
+                 inspect.getsourcefile(fn), "exec"), env)
+    return obj, name, env[name]
+
+
+def _collator_restore_dropped():
+    """Answers handed back in the collator's sorted order."""
+    from competesmoe_tpu_torch.eval.collator import Collator
+    return Collator, "get_original", lambda self, results: list(results)
+
+
+def _ll_target_one_late():
+    """Each target token scored by the logits at its own position, not the
+    one before it."""
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    return _edited(TorchLlava, "loglikelihood",
+                   "pos = start + j - 1", "pos = start + j")
+
+
+def _image_offset_dropped():
+    """The image token's P - 1 extra positions left out of the targets'
+    offset."""
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    return _edited(TorchLlava, "loglikelihood",
+                   "off = P - 1 if has_image", "off = 0 if has_image")
+
+
+def _telemetry_top1_second_choice():
+    """Telemetry's top-1 histogram counted from each token's second
+    choice."""
+    from competesmoe_tpu_torch.eval import llava_adapter
+    return _edited(llava_adapter, "routing_telemetry",
+                   "np.bincount(sel[:, 0], minlength=n_exp)",
+                   "np.bincount(sel[:, 1], minlength=n_exp)")
+
+
+def _merge_counts_padded():
+    """A rank's padding clones scored beside its documents, so a merge
+    counts them."""
+    from competesmoe_tpu_torch.eval.task import ConfigurableTask
+    return _edited(ConfigurableTask, "score", "        if inst.padded:\n"
+                   "            continue\n", "")
+
+
+def _engine_eos_untrimmed():
+    """The engine route decodes its rows without cutting them at the eos
+    or stop id."""
+    from competesmoe_tpu_torch.eval.llava_adapter import TorchLlava
+    return _edited(TorchLlava, "_generate_until_engine",
+                   "return self._text(row)",
+                   "return self.tokenizer.decode(row).split('<|end|>')[0]"
+                   ".strip()")
+
+
+# Python faults of the eval path, each a function -> (object, attribute,
+# planted value), caught by chip_smoke.small_eval_check
+EVAL_FAULTS = {
+    "collator_restore_dropped": _collator_restore_dropped,
+    "ll_target_one_late": _ll_target_one_late,
+    "image_offset_dropped": _image_offset_dropped,
+    "telemetry_top1_second_choice": _telemetry_top1_second_choice,
+    "merge_counts_padded": _merge_counts_padded,
+    "engine_eos_untrimmed": _engine_eos_untrimmed,
+}
+
+
+def eval_ok(fault=None):
+    """(passed, message) of chip_smoke's small eval check, with the
+    EVAL_FAULTS fault `fault` planted for its duration. Any exception
+    counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = EVAL_FAULTS[fault]()
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        r = cs.small_eval_check(0)
+        return True, (f"passes (ll gap card vs CPU "
+                      f"{r['ll_card_vs_cpu_of_tol']:.4g} of its tolerance, parted "
+                      f"{r['card_vs_cpu_parted']})")
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def eval_faults(report, failures):
+    """The honest small eval check, then every EVAL_FAULTS plant against
+    it."""
+    ok, msg = eval_ok()
+    report["honest_eval"] = msg
+    cs.log(f"honest small eval check: {msg}")
+    if not ok:
+        failures.append(f"honest small eval check: {msg}")
+    for name in EVAL_FAULTS:
+        ok, msg = eval_ok(name)
+        report["faults"][name] = dict(failed={"eval": not ok}, eval=msg)
+        cs.log(f"{name}: small eval check -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the small eval check")
+
+
 # the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
 FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
@@ -879,6 +1003,10 @@ def main():
         # the multimodal training path runs none of the kernels
         mm_train_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "eval"]:
+        _kernels.build(["matvec_int4"])
+        eval_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1078,6 +1206,7 @@ def main():
         del model
         cs.free_card()
         mm_train_faults(report, failures)
+        eval_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

@@ -193,6 +193,26 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      and their routerloss, peak GiB; every number finite, the three
      parameter groups move, and no launch of K1-K5 (none lies on the
      path; `mm_train_summary` line).
+ 13. evaluation (main path of the eval slice), through cli/eval_mm.run
+     with a word-level stand-in tokenizer (EvalTok) and seeded arrays in
+     place of decoded images (ArrayImage: the card machine has no PIL):
+     before 6, `small_eval_check` writes a small --load-4bit model as a
+     checkpoint that the CLI loads on the card and on the CPU, and runs
+     generate_until solo and engine-backed, loglikelihood,
+     --return-id-experts and a two-rank --merge-dir merge on both (answers
+     card vs CPU and engine vs solo under the parting rule of 8,
+     loglikelihoods within 3% of the CPU's and against the model's own
+     label splice, telemetry against the router's recomputed choices, the
+     merge equal to the single run; chip_faults.py plants six faults
+     against it); after 10, on 6's loaded 5.1B model, `phase_eval`: 48
+     POPE-shaped documents with 224 px images (POPE's prompt, 16 new
+     tokens, exact_match) through solo batch 1 with --speculative 4 (the
+     reference answers), solo batch 4, --engine-slots 8 and solo batch 4
+     with --return-id-experts, and 32 yes/no loglikelihood documents (half
+     text-only) at batch 8; answers against the reference's under the
+     parting rule, telemetry on every tower layer and the projector,
+     loglikelihoods against the label splice, K5 launches = 4 x 32 x the
+     forwards whose rows it takes (`eval_summary` line).
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -4219,6 +4239,684 @@ def phase_mm_train(seed: int, lora: bool = True, profile: bool = False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Evaluation (cli/eval_mm): the lmms interface on the card
+# ---------------------------------------------------------------------------
+
+# words of POPE's questions, in order of length: a doc's context grows
+# with its index, so the collator's sort reverses the docs' order
+EVAL_OBJECTS = ("cat", "dog", "cake", "chair", "person", "bottle",
+                "handbag", "umbrella", "motorcycle", "dining table",
+                "traffic light", "baseball glove")
+# the small check's routes and its tasks (POPE's prompt and exact_match,
+# plus ANLS without its threshold: a score that moves with every answer)
+SMALL_EVAL_GEN_DOCS = 7
+SMALL_EVAL_LL_DOCS = 5
+SMALL_EVAL_NEW_TOKENS = 8
+# the 5.1B phase: POPE-shaped generation and a yes/no loglikelihood task
+EVAL_GEN_DOCS = 48
+EVAL_LL_DOCS = 32
+EVAL_LL_BATCH = 8
+EVAL_WARMUP_DOCS = 8
+# loglikelihood totals on the card against the CPU's: within 3% of the
+# CPU's magnitude. A route's totals against the label splice's on its
+# device: within 2 x 3% of the largest |logit| of the scored rows a
+# target token (3% of the largest logit is the engine checks' tolerance
+# for two forwards of other shapes; a log-probability moves by at most
+# twice its logits' largest move)
+EVAL_LL_TOL = 0.03
+EVAL_LOGIT_TOL = 0.03
+# the same at the 5.1B's full depth: forwards of other shapes part by up
+# to 7% of the largest logit there (PERF.md §6-7, the engine features)
+EVAL_FULL_LOGIT_TOL = 0.08
+
+
+class ArrayImage:
+    """The images' counterpart of WordTok: the card machine has no PIL, so
+    no image is decoded on the card. A seeded uint8 HWC array at the image
+    processor's size, which `ImageProcessorConfig.preprocess` reads as it
+    reads a PIL image: convert() returns the image itself, resize()
+    returns it at its own size and raises at any other."""
+
+    def __init__(self, seed: int, size: int):
+        rng = np.random.default_rng(seed)
+        self.array = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        self.size = (size, size)
+
+    def convert(self, mode):
+        return self
+
+    def resize(self, size, resample=None):
+        if tuple(size) != self.size:
+            raise ValueError(f"an ArrayImage of {self.size} cannot become "
+                             f"{tuple(size)}: no image is resized here")
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        return self.array if dtype is None else self.array.astype(dtype)
+
+
+class EvalTok(WordTok):
+    """WordTok as the eval adapter's tokenizer: phi's `<|...|>` markers are
+    words of their own, and every id decodes (an id that no word took as
+    `<id>`, which encodes back to that id), so an answer's text gives back
+    its tokens (`tokens_of`). `eos` sets the id that ends an answer."""
+
+    _WORDS = __import__("re").compile(r"<\|[a-z]+\|>|\S+?(?=<\|)|\S+")
+    _ID = __import__("re").compile(r"<(\d+)>")
+
+    def __init__(self, vocab_size: int, eos: int = 2):
+        super().__init__(vocab_size)
+        self.eos_token_id = eos
+
+    def __call__(self, text):
+        ids = []
+        for w in self._WORDS.findall(text):
+            m = self._ID.fullmatch(w)
+            ids += ([int(m.group(1))] if m
+                    else super().__call__(w).input_ids)
+        return type("Enc", (), {"input_ids": ids})()
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(self.inv.get(int(i), f"<{int(i)}>") for i in ids)
+
+    def tokens_of(self, text: str):
+        return self(text).input_ids
+
+
+def pope_docs(seed: int, n: int, size: int, text_every: int = 0):
+    """POPE-shaped documents: 'Is there a <object> in the image?' with a
+    yes/no answer and an ArrayImage of `size` px (every `text_every`-th doc
+    without one when text_every > 0); doc i's object is the i-th shortest
+    (cycling), so contexts grow with the index."""
+    rng = np.random.default_rng(seed)
+    return [{"question": f"Is there a {EVAL_OBJECTS[i % len(EVAL_OBJECTS)]}"
+                         f" in the image?",
+             "answer": str(rng.choice(["yes", "no"])),
+             "image": (None if text_every and i % text_every == 1
+                       else ArrayImage(seed * 1000 + i, size))}
+            for i in range(n)]
+
+
+def register_eval_tasks(prefix: str, gen_docs, ll_docs, anls: bool,
+                        new_tokens: int = 16):
+    """Register `<prefix>_gen` (POPE's registration with these docs: its
+    prompt suffix and exact_match; `new_tokens` new tokens, POPE's 16 by
+    default; ANLS without its threshold when `anls`) and `<prefix>_ll` (a
+    loglikelihood task on the same prompt scoring each doc's `target`,
+    accuracy = the greedy flag); returns their names."""
+    from competesmoe_tpu_torch.eval import register_task
+    from competesmoe_tpu_torch.eval import tasks_builtin  # noqa: F401
+    from competesmoe_tpu_torch.eval.task import get_task_config
+
+    pope = get_task_config("pope")
+    metrics = list(pope.metric_list) + ([{"metric": "anls",
+                                          "aggregation": "mean",
+                                          "threshold": 0.0}] if anls else [])
+    register_task(f"{prefix}_gen", dataclasses.replace(
+        pope, task=f"{prefix}_gen", dataset_path=None, docs=gen_docs,
+        metric_list=metrics,
+        generation_kwargs=dict(pope.generation_kwargs,
+                               max_new_tokens=new_tokens)))
+    register_task(f"{prefix}_ll", dataclasses.replace(
+        pope, task=f"{prefix}_ll", dataset_path=None, docs=ll_docs,
+        output_type="loglikelihood", doc_to_target=lambda d: d["target"],
+        generation_kwargs={}, filter_list=[],
+        metric_list=[{"metric": "accuracy", "aggregation": "mean"}]))
+    return f"{prefix}_gen", f"{prefix}_ll"
+
+
+def eval_args(**flags):
+    """cli/eval_mm's arguments: `flags` as --flag values (True: a bare
+    switch)."""
+    from competesmoe_tpu_torch.cli.eval_mm import parse_args
+    argv = []
+    for k, v in flags.items():
+        if v is False or v is None:
+            continue
+        argv.append("--" + k.replace("_", "-"))
+        if v is not True:
+            argv.append(str(v))
+    return parse_args(argv)
+
+
+def eval_run(tok, model=None, **flags):
+    """One cli/eval_mm run (printing the CLI's table), its results."""
+    from competesmoe_tpu_torch.cli.eval_mm import run
+    with contextlib.redirect_stdout(sys.stderr):
+        return run(eval_args(**flags), model=model, tokenizer=tok)[0]
+
+
+def texts(results, task):
+    """{doc_id: answer} of a generate_until task."""
+    return {s["doc_id"]: s["resps"][0] for s in results["samples"][task]}
+
+
+def doc_prompt(model, tok, task: str, doc_id: int):
+    """(prompt ids, pixels [1, H, W, 3] or None) of a task's document as
+    the adapter builds them."""
+    from competesmoe_tpu_torch.eval import TorchLlava
+    from competesmoe_tpu_torch.eval.task import get_task_config
+    from competesmoe_tpu_torch.multimodal.mm_utils import process_images
+    cfg = get_task_config(task)
+    doc = cfg.docs[doc_id]
+    vis = cfg.doc_to_visual(doc)
+    lm = TorchLlava(model, tok)
+    ids = np.asarray(lm._build_prompt(cfg.doc_to_text(doc), bool(vis)))
+    return ids, (process_images(vis[:1], lm.image_processor) if vis
+                 else None)
+
+
+def answers_part(model, tok, task, got, want, what: str):
+    """Two routes' answers {doc_id: text} to a task: for each document None
+    where the texts are equal; else their tokens may part only where the
+    reference's (`want`'s, on `model`) top-2 margin lies within the logit
+    tolerance (`reference_margin`), a stream that stops counting as
+    parting where it stops. Returns {doc_id: (step, margin, tol)} of the
+    parted documents, or raises."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: documents {sorted(got)} != "
+                             f"{sorted(want)}")
+    parted = {}
+    for d in sorted(want):
+        if got[d] == want[d]:
+            continue
+        a, b = tok.tokens_of(got[d]), tok.tokens_of(want[d])
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ids, px = doc_prompt(model, tok, task, d)
+        margin, tol = reference_margin(model, ids, px, b[:j])
+        if margin > tol:
+            raise AssertionError(
+                f"{what}, doc {d}: {got[d]!r} parts from {want[d]!r} at "
+                f"step {j} where the top-2 margin {margin:.4g} exceeds "
+                f"{tol:.4g}")
+        parted[d] = (j, round(margin, 5), round(tol, 5))
+    return parted
+
+
+def spliced_loglikelihood(model, tok, task: str, doc_id: int,
+                          logit_tol: float = EVAL_LOGIT_TOL):
+    """(total log-probability, greedy, tolerance) of a loglikelihood
+    document's target from the model's own label splice: prompt + target
+    as labels with the prompt ignored, each label scored by the logits one
+    position before it (the image token counts as its P positions). One
+    forward at batch 1, float32 log_softmax; the tolerance is 2 x
+    `logit_tol` x the largest |logit| of the scored rows a token."""
+    import torch
+
+    from competesmoe_tpu_torch.constants import IGNORE_INDEX
+    from competesmoe_tpu_torch.eval.task import get_task_config
+    ids, px = doc_prompt(model, tok, task, doc_id)
+    cfg = get_task_config(task)
+    target = tok(cfg.doc_to_target(cfg.docs[doc_id])).input_ids
+    dev = model.device
+    full = torch.as_tensor(np.concatenate([ids, target])[None], device=dev)
+    labels = torch.as_tensor([[IGNORE_INDEX] * len(ids) + target],
+                             device=dev)
+    with torch.no_grad():
+        out = model(full, None if px is None else torch.as_tensor(
+            px, device=dev), labels=labels)
+    lp = torch.log_softmax(out.logits[0, :-1].float(), -1)
+    lab = out.labels[0, 1:]
+    keep = lab != IGNORE_INDEX
+    if int(keep.sum()) != len(target):
+        raise AssertionError(f"{task} doc {doc_id}: the splice kept "
+                             f"{int(keep.sum())} of {len(target)} labels")
+    rows = out.logits[0, :-1][keep].float()
+    lp, lab = lp[keep], lab[keep]
+    return (float(lp.gather(-1, lab[:, None]).sum()),
+            bool((lp.argmax(-1) == lab).all()),
+            2 * logit_tol * float(rows.abs().max()) * len(target))
+
+
+def hold_loglikelihoods(got, want, what: str, greedy: bool = False):
+    """{doc_id: (ll, greedy)} against a reference's {doc_id: (ll, greedy)}
+    (tolerance EVAL_LL_TOL x |ll|) or {doc_id: (ll, greedy, tolerance)}:
+    finite and within the tolerance, and with `greedy` the same greedy
+    flags (a reference on the same device). Returns the largest gap in
+    units of its tolerance."""
+    worst = 0.0
+    for d, ref in want.items():
+        ll, is_greedy = ref[:2]
+        tol = ref[2] if len(ref) > 2 else EVAL_LL_TOL * abs(ll)
+        g = got[d][0]
+        gap = abs(g - ll) / max(tol, 1e-12)
+        if not (math.isfinite(g) and gap <= 1.0):
+            raise AssertionError(f"{what}, doc {d}: loglikelihood {g:.5g} "
+                                 f"against {ll:.5g} (gap {abs(g - ll):.4g} "
+                                 f"> tolerance {tol:.4g})")
+        if greedy and bool(got[d][1]) != is_greedy:
+            raise AssertionError(f"{what}, doc {d}: greedy {got[d][1]} "
+                                 f"against {is_greedy}")
+        worst = max(worst, gap)
+    return worst
+
+
+def lls(results, task):
+    """{doc_id: (ll, greedy)} of a loglikelihood task."""
+    return {s["doc_id"]: tuple(s["resps"][0])
+            for s in results["samples"][task]}
+
+
+def hold_telemetry(model, px, sample, what: str):
+    """A batch-1 answer's routing telemetry against the router's own
+    choices recomputed from the same pixels on `model`: per layer of the
+    tower and the projector, the top-1 (top-2) histogram is the
+    bincount of the first (second) largest gate probability, where a
+    token whose probabilities tie may count on either side (each such
+    token may move the L1 distance by 2); every histogram sums to the
+    routed tokens and every entropy lies in [0, ln E]. Returns the
+    layers checked."""
+    import torch
+    with torch.no_grad():
+        _, _, v_auxes, p_aux = model.encode_images(
+            torch.as_tensor(px, device=model.device), return_id_experts=True)
+    n = 0
+    for part, auxes in (("logs_metrics_vision", v_auxes),
+                        ("logs_metrics_mlp", [p_aux])):
+        tele = sample[part] or {}
+        if sorted(tele) != sorted(f"layer_{i}" for i in range(len(auxes))):
+            raise AssertionError(f"{what}: {part} has layers "
+                                 f"{sorted(tele)[:4]}, not {len(auxes)}")
+        for li, aux in enumerate(auxes):
+            rec = tele[f"layer_{li}"]
+            p = aux.gate_softmax.float().reshape(-1,
+                                                 aux.gate_softmax.shape[-1])
+            E = p.shape[-1]
+            vals, order = p.sort(-1, descending=True)
+            ties = [(vals[:, 0] == vals[:, 1]),
+                    (vals[:, 0] == vals[:, 1]) | (vals[:, 1] == vals[:, 2])]
+            for k, key in enumerate(("top1_hist", "top2_hist")):
+                want = torch.bincount(order[:, k], minlength=E).tolist()
+                dist = sum(abs(a - b) for a, b in zip(rec[key], want))
+                if dist > 2 * int(ties[k].sum()) or \
+                        sum(rec[key]) != p.shape[0]:
+                    raise AssertionError(
+                        f"{what}: {part} layer {li} {key} {rec[key]} "
+                        f"against the router's {want} ({int(ties[k].sum())}"
+                        f" tied tokens, {p.shape[0]} routed)")
+            if not 0.0 <= rec["entropy"] <= math.log(E) + 1e-6:
+                raise AssertionError(f"{what}: {part} layer {li} entropy "
+                                     f"{rec['entropy']} outside [0, ln {E}]")
+            n += 1
+    return n
+
+
+def merged_equal(merged, single, tasks, what: str):
+    """A two-rank merge against the single run: every metric within 1e-9
+    relative, every document's answer equal. (A bootstrap stderr resamples
+    the per-document scores in the order they come, rank by rank after a
+    merge, so the stderrs differ.)"""
+    for t in tasks:
+        a, b = merged["results"][t], single["results"][t]
+        if sorted(a) != sorted(b) or any(
+                abs(a[k] - b[k]) > 1e-9 * max(abs(b[k]), 1e-12)
+                for k in b if not k.endswith("_stderr")):
+            raise AssertionError(f"{what}: merged {t} {a} != single {b}")
+        # rank shards cross through JSON: compare both as JSON values
+        got, want = ({s["doc_id"]: json.loads(json.dumps(s["resps"]))
+                      for s in r["samples"][t]} for r in (merged, single))
+        if got != want:
+            raise AssertionError(f"{what}: merged {t} answers differ")
+    if merged.get("merged_ranks") != 2:
+        raise AssertionError(f"{what}: {merged.get('merged_ranks')} ranks "
+                             f"merged")
+
+
+def small_eval_check(seed: int):
+    """cli/eval_mm on a small --load-4bit --kv-quant int8 model (SMALL_HF,
+    written as a checkpoint to a temporary directory and loaded by the
+    CLI), on the card and on the CPU, with EvalTok (its eos: the token the
+    CPU's greedy answers emit most after their first, so answers stop
+    early) and ArrayImages. Tasks: 7 POPE-shaped docs (every third without
+    an image) and 5 loglikelihood docs, those of 0, 2 and 4 whose targets
+    are the CPU's own 3 greedy tokens. Routes on each device: solo (batch
+    2: generate_until, then loglikelihood), engine-backed (--engine-slots
+    2), batch 1 with --return-id-experts, and ranks 1 then 0 of two with
+    --merge-dir. Checks: no answer holds the eos; the card's answers equal
+    the CPU's or part only under the parting rule (`answers_part`, the
+    CPU model the reference); the engine's answers equal the solo route's
+    on each device (same rule); loglikelihood totals within EVAL_LL_TOL
+    of the CPU's, and each route's against the label splice on its device
+    (`spliced_loglikelihood`: the bound of EVAL_LOGIT_TOL, the same greedy
+    flags); the CPU's greedy targets score greedy; telemetry against the
+    router's own choices (`hold_telemetry`); the merge equal to the
+    batch-1 run; the card's routes launch K5 and no other kernel."""
+    import collections
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.eval import Instance, TorchLlava
+    from competesmoe_tpu_torch.eval.task import get_task_config
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B, build_llava,
+                                                      load_pretrained_model)
+    from competesmoe_tpu_torch.models.hf_export import save_hf_checkpoint
+
+    cfg = served_config("int4", small=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_small_eval_"))
+    t_start = time.perf_counter()
+    try:
+        writer = build_llava(cfg, seed, "cuda")
+        save_hf_checkpoint(writer, cfg, tmp / "ckpt",
+                           hf_config=dict(HF_5P1B, **SMALL_HF))
+        del writer
+        models = {dev: load_pretrained_model(tmp / "ckpt", load_4bit=True,
+                                             kv_quant="int8", device=dev)[1]
+                  for dev in ("cuda", "cpu")}
+        vocab, size = cfg.decoder.vocab_size, cfg.vision.image_size
+        tok = EvalTok(vocab)
+        gen_docs = pope_docs(seed, SMALL_EVAL_GEN_DOCS, size, text_every=3)
+        ll_docs = pope_docs(seed + 1, SMALL_EVAL_LL_DOCS, size,
+                            text_every=2)
+        for d in ll_docs:
+            d["target"] = f"{d['answer']} it is"
+        gen, ll = register_eval_tasks("small_eval", gen_docs, ll_docs, True,
+                                      SMALL_EVAL_NEW_TOKENS)
+        # the CPU's greedy answers at batch 1: the commonest token after
+        # an answer's first becomes the eos (answers then stop early), and
+        # the first 3 tokens of ll docs 0, 2 and 4 become their targets
+        probe = TorchLlava(models["cpu"], tok, max_new_tokens=3)
+        cfg_ll = get_task_config(ll)
+        reqs = [Instance(request_type="generate_until", arguments=(
+            cfg_ll.doc_to_text(d), {"max_new_tokens": k},
+            cfg_ll.doc_to_visual(d)), idx=0, metadata=("probe", i, 1))
+            for k, docs in ((SMALL_EVAL_NEW_TOKENS, gen_docs), (3, ll_docs))
+            for i, d in enumerate(docs)]
+        answers = [tok.tokens_of(a) for a in probe.generate_until(reqs)]
+        tok.eos_token_id = collections.Counter(
+            t for a in answers[:len(gen_docs)] for t in a[1:]
+        ).most_common(1)[0][0]
+        greedy_docs = []
+        for i in range(0, len(ll_docs), 2):
+            target = answers[len(gen_docs) + i]
+            if target and tok.eos_token_id not in target:
+                ll_docs[i]["target"] = tok.decode(target)
+                greedy_docs.append(i)
+        common_flags = dict(model_dir=tmp / "ckpt", load_4bit=True,
+                            kv_quant="int8",
+                            max_new_tokens=SMALL_EVAL_NEW_TOKENS,
+                            world_size=1, rank=0)
+        routes = {}
+        for dev in ("cuda", "cpu"):
+            flags = dict(common_flags, device=dev)
+            res = {}
+
+            def route(name, tasks, **more):
+                reset_counts()
+                out = eval_run(tok, tasks=",".join(tasks),
+                               output_path=tmp / f"{dev}_{name}.json",
+                               **dict(flags, **more))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    k5 = counts["quant_small_m_matmul_int4"]
+                    if k5 == 0 or sum(counts.values()) != k5:
+                        raise AssertionError(f"small eval {name} on the "
+                                             f"card: launches {counts}")
+                res[name] = out
+
+            route("solo", (gen, ll), batch_size=2)
+            route("engine", (gen,), engine_slots=2, engine_max_len=256)
+            route("telemetry", (gen, ll), batch_size=1,
+                  return_id_experts=True)
+            md = tmp / f"merge_{dev}"
+            for rank in (1, 0):
+                route(f"rank{rank}", (gen, ll), batch_size=1,
+                      world_size=2, rank=rank, merge_dir=md)
+            for name, r in res.items():      # answers stop before the eos
+                for d, text in texts(r, gen).items():
+                    if tok.eos_token_id in tok.tokens_of(text):
+                        raise AssertionError(f"small eval {name} ({dev}), "
+                                             f"doc {d}: {text!r} holds the "
+                                             f"eos")
+            if res["rank1"].get("partial_rank") != 1:
+                raise AssertionError("small eval: rank 1 did not return "
+                                     "its partial results")
+            merged_equal(res["rank0"], res["telemetry"], (gen, ll),
+                         f"small eval merge ({dev})")
+            # the engine's answers are the solo route's
+            parted = answers_part(models[dev], tok, gen,
+                                  texts(res["engine"], gen),
+                                  texts(res["solo"], gen),
+                                  f"small eval engine vs solo ({dev})")
+            res["engine_parted"] = parted
+            # each route's loglikelihoods against the label splice: totals
+            # within EVAL_LL_TOL, the same greedy flags
+            spliced = {d: spliced_loglikelihood(models[dev], tok, ll, d)
+                       for d in range(len(ll_docs))}
+            res["ll_gap_splice"] = max(
+                hold_loglikelihoods(lls(res[r], ll), spliced,
+                                    f"small eval {r} ll vs splice ({dev})",
+                                    greedy=True)
+                for r in ("solo", "telemetry"))
+            if dev == "cpu" and (len(greedy_docs) < 2 or not all(
+                    spliced[d][1] for d in greedy_docs)):
+                raise AssertionError(f"small eval: the CPU's greedy answers "
+                                     f"{[ll_docs[d]['target'] for d in greedy_docs]}"
+                                     f" do not score greedy in the splice")
+            # telemetry of each answer with an image
+            n_layers = 0
+            for s in res["telemetry"]["samples"][gen]:
+                _, px = doc_prompt(models[dev], tok, gen, s["doc_id"])
+                if px is not None:
+                    n_layers += hold_telemetry(
+                        models[dev], px, s,
+                        f"small eval telemetry ({dev}) doc {s['doc_id']}")
+            res["telemetry_layers"] = n_layers
+            routes[dev] = res
+        cpu, card = routes["cpu"], routes["cuda"]
+        for d in greedy_docs:
+            if not lls(cpu["solo"], ll)[d][1]:
+                raise AssertionError(f"small eval: ll doc {d}'s target "
+                                     f"{ll_docs[d]['target']!r}, the CPU's "
+                                     f"own greedy answer, is not greedy")
+        parted = {name: answers_part(models["cpu"], tok, gen,
+                                     texts(card[name], gen),
+                                     texts(cpu[name], gen),
+                                     f"small eval {name} card vs CPU")
+                  for name in ("solo", "engine", "telemetry")}
+        ll_gap = max(hold_loglikelihoods(lls(card[r], ll), lls(cpu[r], ll),
+                                         f"small eval {r} ll card vs CPU")
+                     for r in ("solo", "telemetry"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = dict(
+        seconds=time.perf_counter() - t_start, eos=tok.eos_token_id,
+        greedy_docs=greedy_docs,
+        card_vs_cpu_parted={k: len(v) for k, v in parted.items()},
+        engine_vs_solo_parted={dev: len(routes[dev]["engine_parted"])
+                               for dev in routes},
+        ll_card_vs_cpu_of_tol=ll_gap,
+        ll_vs_splice_of_tol={dev: routes[dev]["ll_gap_splice"]
+                          for dev in routes},
+        telemetry_layers={dev: routes[dev]["telemetry_layers"]
+                          for dev in routes})
+    log(f"small eval (card vs CPU, cli/eval_mm, --load-4bit): "
+        f"{json.dumps(summary)}")
+    free_card()
+    return summary
+
+
+def eval_route_stats(results, tasks, tok, model, seconds: float):
+    """Documents/s, generated tok/s, and for loglikelihood requests/s and
+    scored positions/s (each request's prompt + target rounded up to the
+    adapter's pad quantum, + P - 1 with an image) of one route."""
+    from competesmoe_tpu_torch.eval import TorchLlava
+    from competesmoe_tpu_torch.eval.task import get_task_config
+    docs = sum(len(results["samples"][t]) for t in tasks)
+    stats = dict(seconds=seconds, docs=docs, docs_s=docs / seconds)
+    gen = [t for t in tasks
+           if get_task_config(t).output_type == "generate_until"]
+    if gen:
+        n = sum(len(tok.tokens_of(s["resps"][0]))
+                for t in gen for s in results["samples"][t])
+        stats.update(generated_tokens=n, tok_s=n / seconds)
+    else:
+        lm = TorchLlava(model, tok)
+        P = model.cfg.num_image_tokens
+        positions = 0
+        for t in tasks:
+            cfg = get_task_config(t)
+            for doc in cfg.docs:
+                vis = cfg.doc_to_visual(doc)
+                n = len(lm._build_prompt(cfg.doc_to_text(doc), bool(vis))) \
+                    + len(tok(cfg.doc_to_target(doc)).input_ids)
+                positions += lm._quantize(n) + (P - 1 if vis else 0)
+        stats.update(requests_s=docs / seconds, positions=positions,
+                     positions_s=positions / seconds)
+    return stats
+
+
+def phase_eval(seed: int, model):
+    """The eval slice's main path at full width: `model` (the 5.1B
+    checkpoint loaded with --load-4bit --kv-quant int8) through
+    cli/eval_mm.run with EvalTok and ArrayImages (no image decoding on the
+    card). Tasks: EVAL_GEN_DOCS POPE-shaped documents with 224 px images
+    (POPE's registration: prompt suffix, max_new_tokens 16, exact_match)
+    and EVAL_LL_DOCS yes/no loglikelihood documents, half text-only.
+    Routes, each after an untimed one over its first EVAL_WARMUP_DOCS
+    documents (captures): solo at batch 1 with --speculative 4 (the
+    reference answers), solo at batch 4, --engine-slots 8, solo at batch 4
+    with --return-id-experts, and the loglikelihood task at batch
+    EVAL_LL_BATCH. Each route is a window of the main path (counts set to
+    0 as it opens, read as it closes; the decoder's forwards recorded
+    inside). Checks: every route's answers against the reference's
+    (equal, or parting under the parting rule); telemetry on every
+    answer, for every tower layer and the projector (histograms sum to
+    the routed tokens, entropies in [0, ln E]); every loglikelihood
+    total against the label splice within EVAL_FULL_LOGIT_TOL's bound
+    (`spliced_loglikelihood`); K5 launches = 4 x 32 per
+    forward whose rows it takes, the other kernels 0. Returns (K5
+    launches, the `eval_summary` dict)."""
+    import tempfile
+
+    import torch
+
+    L = model.cfg.decoder.num_hidden_layers
+    size = model.cfg.vision.image_size
+    tok = EvalTok(model.cfg.decoder.vocab_size)
+    ll_docs = pope_docs(seed + 5, EVAL_LL_DOCS, size, text_every=2)
+    for d in ll_docs:
+        d["target"] = d["answer"]
+    gen, ll = register_eval_tasks("card_eval",
+                                  pope_docs(seed + 4, EVAL_GEN_DOCS, size),
+                                  ll_docs, False)
+    # the solo programs captured so far predate this phase's recorder:
+    # drop them, so that every replay in the windows is recorded
+    model.__dict__.pop("_solo_caches", None)
+    free_card()
+    fw = ForwardRows(model.language_model)
+    fw.active = False
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    routes = {"solo_b1_spec4": dict(tasks=gen, batch_size=1, speculative=4),
+              "solo_b4": dict(tasks=gen, batch_size=4),
+              "engine_8": dict(tasks=gen, engine_slots=8,
+                               engine_max_len=512),
+              "solo_b4_telemetry": dict(tasks=gen, batch_size=4,
+                                        return_id_experts=True),
+              "loglikelihood_b8": dict(tasks=ll, batch_size=EVAL_LL_BATCH)}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    results, stats, counts = {}, {}, {}
+    try:
+        for name, flags in routes.items():  # captures and first launches
+            eval_run(tok, model, limit=EVAL_WARMUP_DOCS, world_size=1,
+                     rank=0, output_path=tmp / f"warm_{name}.json", **flags)
+        for name, flags in routes.items():
+            reset_counts()                   # a window of the main path
+            fw.active = True
+            t0 = time.perf_counter()
+            results[name] = eval_run(tok, model, world_size=1, rank=0,
+                                     output_path=tmp / f"{name}.json",
+                                     **flags)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            fw.active = False
+            for k, v in read_counts().items():   # the window closes
+                counts[k] = counts.get(k, 0) + v
+            stats[name] = eval_route_stats(results[name], [flags["tasks"]],
+                                           tok, model, seconds)
+    finally:
+        fw.remove()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    want = matvec_launches(model.language_model, fw.rows)
+    k5 = counts["quant_small_m_matmul_int4"]
+    if k5 != want or sum(counts.values()) != k5:
+        raise AssertionError(f"eval launches {counts}: K5 must be {want} "
+                             f"(4 x {L} x viable forwards), the others 0")
+    ref = texts(results["solo_b1_spec4"], gen)
+    if len(ref) != EVAL_GEN_DOCS:
+        raise AssertionError(f"eval: {len(ref)} answers of {EVAL_GEN_DOCS}")
+    agreement = {}
+    for name in ("solo_b4", "engine_8", "solo_b4_telemetry"):
+        got = texts(results[name], gen)
+        parted = answers_part(model, tok, gen, got, ref,
+                              f"eval {name} vs solo_b1_spec4")
+        agreement[name] = dict(
+            equal_share=sum(got[d] == ref[d] for d in ref) / len(ref),
+            parted=parted)
+    # telemetry: every answer (4 images a batch), every layer
+    n_tele = 0
+    for s in results["solo_b4_telemetry"]["samples"][gen]:
+        for part, want_layers in (("logs_metrics_vision",
+                                   model.cfg.vision.num_hidden_layers),
+                                  ("logs_metrics_mlp", 1)):
+            tele = s[part] or {}
+            if len(tele) != want_layers:
+                raise AssertionError(f"eval telemetry doc {s['doc_id']}: "
+                                     f"{part} has {len(tele)} layers, not "
+                                     f"{want_layers}")
+            for li, rec in tele.items():
+                n_exp = len(rec["top1_hist"])
+                tokens = sum(rec["top1_hist"])
+                if tokens % model.cfg.num_image_tokens or tokens == 0 or \
+                        sum(rec["top2_hist"]) != tokens or not (
+                        0.0 <= rec["entropy"] <= math.log(n_exp) + 1e-6):
+                    raise AssertionError(f"eval telemetry doc "
+                                         f"{s['doc_id']} {part} {li}: "
+                                         f"{rec}")
+                n_tele += 1
+    # loglikelihoods: finite and below 0, each against the label splice
+    got_ll = lls(results["loglikelihood_b8"], ll)
+    if len(got_ll) != EVAL_LL_DOCS or not all(
+            math.isfinite(v) and v < 0 for v, _ in got_ll.values()):
+        raise AssertionError(f"eval loglikelihoods {got_ll}")
+    splice_gap = hold_loglikelihoods(
+        got_ll, {d: spliced_loglikelihood(model, tok, ll, d,
+                                          EVAL_FULL_LOGIT_TOL)
+                 for d in got_ll}, "eval loglikelihood vs splice")
+    t_tele, t_plain = (stats["solo_b4_telemetry"]["seconds"],
+                       stats["solo_b4"]["seconds"])
+    summary = dict(
+        card=card_line(), images="ArrayImage: no image decoding on the card",
+        tokenizer="EvalTok (word-level stand-in)",
+        routes=stats, agreement={k: dict(v, parted={str(d): p for d, p in
+                                                    v["parted"].items()})
+                                 for k, v in agreement.items()},
+        return_id_experts_cost=t_tele / t_plain - 1,
+        telemetry_layers=n_tele, ll_vs_splice_of_tol=splice_gap,
+        k5_launches=k5, viable_forwards=want // (4 * L),
+        peak_gib=peak / 2 ** 30, base_gib=base / 2 ** 30,
+        exact_match={k: r["results"][gen]["exact_match"]
+                     for k, r in results.items() if gen in r["results"]},
+        ll_accuracy=results["loglikelihood_b8"]["results"][ll]["accuracy"],
+        seconds=time.perf_counter() - t_phase)
+    log(f"eval ({summary['card']}): " + "; ".join(
+        f"{k} {v['docs_s']:.2f} docs/s"
+        + (f", {v['tok_s']:.1f} tok/s" if "tok_s" in v else
+           f", {v['requests_s']:.2f} req/s, {v['positions_s']:.0f} pos/s")
+        for k, v in stats.items())
+        + f"; answers equal to solo_b1_spec4: "
+        + ", ".join(f"{k} {v['equal_share']:.0%}"
+                    for k, v in agreement.items())
+        + f"; K5 launches {k5} = 4 x {L} x {want // (4 * L)}")
+    return k5, summary
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -4280,6 +4978,7 @@ def main():
     small = [small_engine_check("int4", a.seed)]
     small_engine_features_check(a.seed)
     graphs = dict(card=card, small=small_captured_check(a.seed))
+    small_eval = small_eval_check(a.seed)
     model, want_tokens = phase_checkpoint(a.seed)
     k5_launches, summary = phase_model(a.seed, model, want_tokens)
     graphs["solo"] = solo_vs_eager(model, a.seed)
@@ -4305,6 +5004,9 @@ def main():
     features = phase_engine_features(a.seed, model, a.profile)
     print("engine_features_summary " + json.dumps(features), flush=True)
     graphs["window"] = phase_window(model, a.seed)
+    eval_k5, eval_summary = phase_eval(a.seed, model)
+    eval_summary["small"] = small_eval
+    print("eval_summary " + json.dumps(eval_summary), flush=True)
     del model
     free_card()
     small += [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
@@ -4331,7 +5033,7 @@ def main():
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",
                  k5_launches + engines["int4"]["launches"]
-                 + features["launches"], 1),
+                 + features["launches"] + eval_k5, 1),
                 ("small_m_matmul", engines["bf16"]["launches"], 8),
                 ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
     for row in [k1, k1_bwd["gmm2_bwd_dx"], k1_bwd["gmm2_bwd_dw"]] + [

@@ -13,7 +13,9 @@ serving's decode programs captured as CUDA graphs against the eager path
 on small int4 and int8 models (engine and solo streams token for token,
 launches through replays, a capture that fails raising); and multimodal
 training's float32 products of bf16 operands, train step (no host sync
-inside it) and LoRA step.
+inside it) and LoRA step; and the eval adapter: its engine route against
+its solo route, batched against unbatched loglikelihood, and K5 launched
+by generate_until under --load-4bit.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -1312,3 +1314,125 @@ def test_mm_lora_step_on_the_card_moves_only_the_factors(gen):
     assert any(float(b.abs().max()) > 0 for b in lora.b)
     for k, v in model.state_dict().items():
         assert torch.equal(v, base[k]), k
+
+
+# ---------------------------------------------------------------------------
+# The eval adapter on the card
+# ---------------------------------------------------------------------------
+
+class _EvalTok:
+    """Word tokenizer with ids from a word's crc32 (3..511), eos 2."""
+
+    bos_token_id = None
+    eos_token_id = 2
+    pad_token_id = 0
+
+    def __call__(self, text):
+        import zlib
+        ids = [3 + zlib.crc32(w.encode()) % 509 for w in text.split()]
+        return type("Enc", (), {"input_ids": ids})()
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{int(i)}" for i in ids if int(i) >= 3)
+
+
+class _Img:
+    """An image as the eval adapter reads it, without PIL: a uint8 HWC
+    array at the processor's size."""
+
+    def __init__(self, seed, size=28):
+        rng = np.random.default_rng(seed)
+        self.array = rng.integers(0, 255, (size, size, 3)).astype(np.uint8)
+        self.size = (size, size)
+
+    def convert(self, mode):
+        return self
+
+    def resize(self, size, resample=None):
+        assert tuple(size) == self.size
+        return self
+
+    def __array__(self, dtype=None, copy=None):
+        return self.array if dtype is None else self.array.astype(dtype)
+
+
+def _eval_requests(kind):
+    from competesmoe_tpu_torch.eval import Instance
+    rows = [("what color is this", [_Img(0)]), ("is this a cat", []),
+            ("a b c a b c a b", [_Img(1)]), ("count the shapes here", []),
+            ("red blue red blue", [])]
+    if kind == "generate_until":
+        return [Instance(request_type=kind,
+                         arguments=(q, {"max_new_tokens": 6}, v), idx=0,
+                         metadata=("gpu", i, 1))
+                for i, (q, v) in enumerate(rows)]
+    return [Instance(request_type=kind, arguments=(q, "yes no", v), idx=0,
+                     metadata=("gpu", i, 1)) for i, (q, v) in enumerate(rows)]
+
+
+def _float32_small():
+    from competesmoe_tpu_torch.models.builder import build_llava
+    return build_llava(_small_cfg(), seed=7, device="cuda")
+
+
+def test_eval_engine_route_equals_solo_route(gen):
+    """A small float32 model (TF32 off): generate_until through the
+    engine (2 slots; pipeline 1 and 2) gives the solo route's texts."""
+    from competesmoe_tpu_torch.eval import TorchLlava
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = _float32_small()
+        want = TorchLlava(model, _EvalTok(), batch_size=2).generate_until(
+            _eval_requests("generate_until"))
+        for pipeline in (1, 2):
+            lm = TorchLlava(model, _EvalTok(), batch_size=2, engine_slots=2,
+                            engine_max_len=256, engine_pipeline=pipeline)
+            try:
+                got = lm.generate_until(_eval_requests("generate_until"))
+            finally:
+                lm.close()
+            assert got == want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_eval_batched_loglikelihood_equals_unbatched(gen):
+    """A small float32 model (TF32 off): loglikelihood at batch 3 within
+    1e-5 relative of batch 1, with the same greedy flags."""
+    from competesmoe_tpu_torch.eval import TorchLlava
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = _float32_small()
+        batched = TorchLlava(model, _EvalTok(), batch_size=3).loglikelihood(
+            _eval_requests("loglikelihood"))
+        single = TorchLlava(model, _EvalTok(), batch_size=1).loglikelihood(
+            _eval_requests("loglikelihood"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for (a, ga), (b, gb) in zip(batched, single):
+        assert np.isfinite(a) and a < 0
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+        assert ga == gb
+
+
+def test_eval_generate_until_launches_k5_under_load_4bit(gen):
+    """generate_until of a small --load-4bit model launches K5 at the 2
+    layers' 4 projections of every decode step (and of prefills whose
+    rows it takes)."""
+    from competesmoe_tpu_torch.eval import TorchLlava
+
+    model = _served_small("int4")
+    lm = TorchLlava(model, _EvalTok(), batch_size=2)
+    k5 = tmatvec.quant_small_m_matmul_int4
+    before = k5.launches
+    texts = lm.generate_until(_eval_requests("generate_until"))
+    torch.cuda.synchronize()
+    launches = k5.launches - before
+    assert len(texts) == 5
+    # 3 batches (2, 2, 1 rows); each decodes at least one step unless
+    # every row stopped at its first token
+    assert launches > 0 and launches % (4 * 2) == 0

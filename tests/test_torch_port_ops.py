@@ -357,7 +357,8 @@ def test_port_imports_no_jax():
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'flax', 'competesmoe_tpu.', "
             "'safetensors', 'transformers')) or "
-            "k == 'competesmoe_tpu']\n"
+            "k == 'competesmoe_tpu' or k.split('.')[0] in "
+            "('PIL', 'yaml', 'wandb', 'datasets')]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -381,15 +382,17 @@ def test_port_sources_import_no_jax():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "flax", "optax",
                                     "competesmoe_tpu"), (path, name)
-        # the card machine has neither package: never at module level
+        # the card machine has none of these packages: never at module
+        # level (PIL, yaml and wandb are imported inside the functions of
+        # the eval harness that need them, datasets by a task without docs)
         for node in ast.parse(path.read_text()).body:
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = ([a.name for a in node.names]
                          if isinstance(node, ast.Import)
                          else [node.module or ""])
-                assert not any(n.split(".")[0] in ("safetensors",
-                                                   "transformers")
-                               for n in names), (path, names)
+                assert not any(n.split(".")[0] in (
+                    "safetensors", "transformers", "PIL", "yaml", "wandb",
+                    "datasets") for n in names), (path, names)
 
 
 def _entry_point(name):
