@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
-    python3 chip_faults.py [--only mm | --only eval]
+    python3 chip_faults.py [--only mm | --only eval | --only options]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -56,7 +56,12 @@ small_eval_check): the collator's restore dropped, each loglikelihood
 target scored one position late, the image token's P - 1 positions left
 out of the targets' offset, telemetry's top-1 counted from the second
 choice, padding clones scored (so a merge counts them), and the engine
-route's answers not cut at the eos. The script
+route's answers not cut at the eos. Six more are planted in the
+decoder's options (OPTION_FAULTS, against chip_smoke's
+small_options_check): the sliding window dropped on the cache path, the
+ALiBi slopes in reversed head order, deferred decode's self column left
+out, a per-layer cache's park copying the next layer's row, each norm
+folded twice, and w8a8's products summed in float32. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -101,7 +106,14 @@ route's answers not cut at the eos. The script
        and SMALL_MM_FLIP_GAP). `--only mm` runs this part alone;
      - eval faults: `small_eval_check` (cli/eval_mm on a small --load-4bit
        checkpoint, card and CPU), honest first. `--only eval` runs this
-       part alone.
+       part alone;
+     - option faults: `small_options_check` (the windowed CuMo-class
+       model's cache path against its no-cache path and the CPU, a small
+       MPT against an ALiBi forward written apart and its deferred decode
+       against its no-cache forward, folded copies against their
+       originals, per-layer and deferred engines against the stacked
+       engine through parks and unparks, w8a8's products against exact
+       ones), honest first. `--only options` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -781,6 +793,132 @@ def eval_faults(report, failures):
             failures.append(f"fault {name} passed the small eval check")
 
 
+def _window_dropped_on_cache_path():
+    """The sliding window left out of the mask whenever a KV cache is
+    given (prefill, decode, chunks, verify), kept without one."""
+    import dataclasses
+
+    from competesmoe_tpu_torch.models import decoder
+    real = decoder.DecoderLM.forward
+
+    def planted(self, *args, cache=None, **kwargs):
+        if cache is None:
+            return real(self, *args, **kwargs)
+        cfg = self.cfg
+        self.cfg = dataclasses.replace(cfg, sliding_window=None)
+        try:
+            return real(self, *args, cache=cache, **kwargs)
+        finally:
+            self.cfg = cfg
+    return decoder.DecoderLM, "forward", planted
+
+
+def _alibi_slopes_reversed():
+    """The ALiBi slopes given to the heads in reversed order."""
+    import torch
+
+    from competesmoe_tpu_torch.models import decoder
+
+    def planted(n_heads, n_kv, device):
+        s = decoder.alibi_slopes(n_heads)[::-1].copy()
+        return torch.as_tensor(s, device=device).reshape(
+            n_kv, n_heads // n_kv)
+    return decoder, "_alibi_slopes", planted
+
+
+def _deferred_self_column_dropped():
+    """Deferred decode attends over the cache alone: the current token's
+    own column (and its mask column) left out."""
+    from competesmoe_tpu_torch.models import decoder
+    real = decoder._attend
+
+    def planted(q, k, v, k_scale, v_scale, mask, dtype, self_kv=None,
+                alibi=None):
+        if self_kv is not None:
+            mask = mask[..., :-1]
+        return real(q, k, v, k_scale, v_scale, mask, dtype, alibi=alibi)
+    return decoder, "_attend", planted
+
+
+def _park_copies_the_next_layer():
+    """A per-layer cache's park copies each layer's row from the next
+    layer's buffer (layer L-1 from layer 0)."""
+    from competesmoe_tpu_torch.serve import engine
+    return _edited(engine.DecodeEngine, "_flush_parks",
+                   "zip(layer_parts(dst), layer_parts(src))",
+                   "zip(layer_parts(dst), layer_parts(src)[1:] "
+                   "+ layer_parts(src)[:1])")
+
+
+def _norm_folded_twice():
+    """Each norm's weight folded into its projections twice."""
+    from competesmoe_tpu_torch.models import decoder
+    real = decoder._fold_into_dense
+
+    def planted(proj, w):
+        real(proj, w)
+        real(proj, w)
+    return decoder, "_fold_into_dense", planted
+
+
+def _w8a8_float32_sums():
+    """w8a8's int8 product summed in float32 (then rounded to int32)."""
+    import torch
+
+    from competesmoe_tpu_torch.models import decoder
+    return decoder, "_int8_mm", lambda a, b: torch.round(
+        a.float() @ b.float()).to(torch.int32)
+
+
+# Python faults of the decoder's options, each a function -> (object,
+# attribute, planted value), caught by chip_smoke.small_options_check
+OPTION_FAULTS = {
+    "window_dropped_on_cache_path": _window_dropped_on_cache_path,
+    "alibi_slopes_reversed": _alibi_slopes_reversed,
+    "deferred_self_column_dropped": _deferred_self_column_dropped,
+    "per_layer_park_copies_next_layer": _park_copies_the_next_layer,
+    "norm_folded_twice": _norm_folded_twice,
+    "w8a8_float32_sums": _w8a8_float32_sums,
+}
+
+
+def options_ok(fault=None):
+    """(passed, message) of chip_smoke's small checks of the decoder's
+    options, with the OPTION_FAULTS fault `fault` planted for its
+    duration. Any exception counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = OPTION_FAULTS[fault]()
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        r = cs.small_options_check(0)
+        return True, f"passes ({json.dumps(r)[:200]})"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def option_faults(report, failures):
+    """The honest small option checks, then every OPTION_FAULTS plant
+    against them."""
+    ok, msg = options_ok()
+    report["honest_options"] = msg
+    cs.log(f"honest small option checks: {msg}")
+    if not ok:
+        failures.append(f"honest small option checks: {msg}")
+    for name in OPTION_FAULTS:
+        ok, msg = options_ok(name)
+        report["faults"][name] = dict(failed={"options": not ok},
+                                      options=msg)
+        cs.log(f"{name}: small option checks -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the small option checks")
+
+
 # the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
 FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
@@ -1007,6 +1145,10 @@ def main():
         _kernels.build(["matvec_int4"])
         eval_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "options"]:
+        _kernels.build(["matvec_int4"])
+        option_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1207,6 +1349,7 @@ def main():
         cs.free_card()
         mm_train_faults(report, failures)
         eval_faults(report, failures)
+        option_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

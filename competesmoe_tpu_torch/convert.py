@@ -13,7 +13,10 @@ MoELanguageModel, ...):
   * flax Embed `embedding`                -> nn.Embedding `weight`
   * `layers_<i>`, `blocks_<i>`            -> `layers.<i>`, `blocks.<i>`
 
-Everything a kernel reads keeps the JAX layout and passes through as is:
+Other names pass through as they are (`mlp_<i>` of an mlpNx_gelu
+projector, CLIP's `class_embedding` and `pre_layrnorm`, MPT's bias-free
+LayerNorm `weight`). Everything a kernel reads keeps the JAX layout and
+passes through as is:
 QuantDense `kernel_q` (packed [K/2, N] in int4 mode) and `scale`, the
 stacked experts `experts_w1` [E, in, h] etc., the MoE `gate_kernel`
 [in, E], RMSNorm `weight`, the vision `position_embedding`, and the

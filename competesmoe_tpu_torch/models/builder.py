@@ -213,14 +213,16 @@ _DECODER_QUANT_MODULES = ("qkv_proj", "q_proj", "k_proj", "v_proj",
 
 
 @torch.no_grad()
-def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
-                             ) -> nn.Module:
+def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8,
+                             w8a8: bool = False) -> nn.Module:
     """Replace the decoder's projections (nn.Linear, PallasDense among
     them) by QuantDense in place: per-output-channel symmetric int8, or
     with bits=4 int4 values in [-7, 7] nibble-packed in the split-half
-    layout (the lm_head stays int8). Every projection but the lm_head
-    keeps the decoder's `matvec_kernel`, as JAX's `_make_dense` passes it.
-    Updates `decoder.cfg.quant`."""
+    layout (the lm_head stays int8). `w8a8` (bits 8) keeps the same int8
+    weights and runs every projection, the lm_head too, in w8a8 mode,
+    as JAX's model with quant='w8a8' runs the tree this function makes.
+    Every projection but the lm_head keeps the decoder's `matvec_kernel`,
+    as JAX's `_make_dense` passes it. Updates `decoder.cfg.quant`."""
     qmax = 7 if bits == 4 else 127
     matvec = bool(getattr(getattr(decoder, "cfg", None), "matvec_kernel",
                           False))
@@ -234,9 +236,9 @@ def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
             w = child.weight.float().t()                     # [in, out]
             scale = torch.clamp(w.abs().amax(dim=0), min=1e-8) / mq
             q = torch.round(w / scale[None, :]).clamp(-mq, mq).to(torch.int8)
+            mode = "int4" if int4 else ("w8a8" if w8a8 else "int8")
             qd = QuantDense(child.in_features, child.out_features,
-                            mode="int4" if int4 else "int8",
-                            use_bias=child.bias is not None,
+                            mode=mode, use_bias=child.bias is not None,
                             device=w.device, dtype=child.weight.dtype,
                             matvec_kernel=matvec and name != "lm_head")
             qd.kernel_q.copy_(pack_int4(q) if int4 else q)
@@ -246,7 +248,8 @@ def quantize_decoder_to_int8(decoder: nn.Module, bits: int = 8
             setattr(parent, name, qd)
     if hasattr(decoder, "cfg"):
         decoder.cfg = dataclasses.replace(
-            decoder.cfg, quant="int4" if bits == 4 else "int8")
+            decoder.cfg,
+            quant="int4" if bits == 4 else ("w8a8" if w8a8 else "int8"))
     return decoder
 
 
@@ -353,13 +356,18 @@ def convert_llava_checkpoint(sd, cfg: LlavaConfig) -> Dict[str, torch.Tensor]:
 
 def _convert_plain_projector(sd, pcfg: ProjectorConfig
                              ) -> Dict[str, torch.Tensor]:
+    """A linear projector's `weight`/`bias`, or an mlpNx_gelu one's
+    Sequential Linears (`0.`, `2.`, ...) as `mlp_0`, `mlp_1`, ... in
+    Sequential order (JAX sorts the names as text, the same order below
+    ten layers)."""
     if pcfg.projector_type == "linear":
         return {"fc.weight": sd["weight"], "fc.bias": sd["bias"]}
-    if pcfg.projector_type == "identity":
-        return {}
-    raise NotImplementedError(
-        f"projector type {pcfg.projector_type!r} is not ported: ROADMAP §1 "
-        "item 1.2 (the mlpNx_gelu projector)")
+    seq = sorted((int(k.split(".")[0]) for k in sd if k.endswith(".weight")))
+    out = {}
+    for i, idx in enumerate(seq):
+        out[f"mlp_{i}.weight"] = sd[f"{idx}.weight"]
+        out[f"mlp_{i}.bias"] = sd[f"{idx}.bias"]
+    return out
 
 
 def merge_lora_checkpoint(base_sd, lora_path) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,15 @@
 """HF-style causal decoder (Phi-3.5 / llama family) in PyTorch (port of
 competesmoe_tpu/models/decoder.py).
 
-Covers what serving the CompeteSMoE-5.1B decoder needs: RMSNorm with an
-exact 1/sqrt, plain and Phi-3 longrope rotary tables, MHA/GQA with fused
-(`qkv_proj`/`gate_up_proj`) or split projections, the SiLU-gated MLP, a
-stacked KV cache (bf16 or int8 with per-(slot, head) scales) and
-weight-quantized projections (`QuantDense` int8 / packed int4).
+Covers every option of JAX's `DecoderConfig` but the MoE decoder
+(`moe_name`) and the sequence-parallel ring path: RMSNorm with an exact
+1/sqrt or MPT's bias-free LayerNorm (either may be folded into the next
+projection, `fold_norm_scales`), plain and Phi-3 longrope rotary tables
+or ALiBi, MHA/GQA with fused (`qkv_proj`/`gate_up_proj`) or split
+projections, the SiLU-gated or MPT's GELU MLP, a sliding window on every
+mask path, a stacked or per-layer KV cache (bf16 or int8 with per-(slot,
+head) scales), deferred decode writes, and weight-quantized projections
+(`QuantDense` int8 / packed int4 / w8a8).
 
 Every int4 projection at a decode shape goes through K5 of
 `ops/matvec.py`. With `matvec_kernel`, the bf16 projections (`PallasDense`)
@@ -71,7 +75,8 @@ class DecoderConfig:
     num_experts: int = 8
     num_selected: int = 2
     moe_args: MoEArgs = MoEArgs()
-    # 'int8' (w8a16) | 'int4' (packed w4a16; lm_head stays int8)
+    # 'int8' (w8a16) | 'int4' (packed w4a16; lm_head stays int8) |
+    # 'w8a8' (int8 weights, activations quantized per row; lm_head too)
     quant: Optional[str] = None
     # 'int8': K/V stored as int8 with per (layer, batch, slot, head) scales
     kv_quant: Optional[str] = None
@@ -118,41 +123,80 @@ def phi35_mini_config(dtype: torch.dtype = torch.bfloat16) -> DecoderConfig:
 
 
 def check_supported(cfg: DecoderConfig) -> None:
-    """Raise for decoder options this slice does not port."""
-    unported = {
-        "use_alibi": cfg.use_alibi, "sliding_window": cfg.sliding_window,
-        "deferred_decode": cfg.deferred_decode,
-        "cache_layout='per_layer'": cfg.cache_layout != "stacked",
-        "norm_folded": cfg.norm_folded, "quant='w8a8'": cfg.quant == "w8a8",
-        "moe_name (MoE decoder)": cfg.moe_name,
-        "norm_type": cfg.norm_type != "rmsnorm",
-        "mlp_type": cfg.mlp_type != "silu_glu",
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    """Raise for the decoder option the port does not run yet (the MoE
+    decoder) and for unknown option values."""
+    if cfg.moe_name:
         raise NotImplementedError(
-            f"decoder options not ported yet: {', '.join(bad)} (ROADMAP: "
-            "decoder options left for later slices)")
-    if cfg.quant not in (None, "int8", "int4"):
-        raise ValueError(f"unknown quant {cfg.quant!r}")
-    if cfg.kv_quant not in (None, "int8"):
-        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
+            "decoder options not ported yet: moe_name (MoE decoder) "
+            "(ROADMAP §1 item 1.2, with the Mixtral layer)")
+    known = {"quant": (None, "int8", "int4", "w8a8"),
+             "kv_quant": (None, "int8"),
+             "norm_type": ("rmsnorm", "layernorm_nobias"),
+             "mlp_type": ("silu_glu", "gelu"),
+             "cache_layout": ("stacked", "per_layer")}
+    for field, values in known.items():
+        if getattr(cfg, field) not in values:
+            raise ValueError(f"unknown {field} {getattr(cfg, field)!r}")
 
 
 class RMSNorm(nn.Module):
+    """`folded`: the weight was folded into the next projection
+    (`fold_norm_scales`) and is not read; the parameter stays, so
+    checkpoints keep their names."""
+
     def __init__(self, dim: int, eps: float, *, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, folded: bool = False):
         super().__init__()
         self.eps = eps
+        self.folded = folded
         self.weight = nn.Parameter(torch.empty(dim, device=device,
                                                dtype=dtype))
 
-    def forward(self, x):
-        xf = x.float()
+    def normalize(self, xf):
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         # exact 1/sqrt, as the JAX version (rsqrt is an approximation)
-        xf = xf / torch.sqrt(var + self.eps)
+        return xf / torch.sqrt(var + self.eps)
+
+    def forward(self, x):
+        xf = self.normalize(x.float())
+        if self.folded:
+            return xf.to(x.dtype)
         return (xf * self.weight.float()).to(x.dtype)
+
+
+class LayerNormNoBias(RMSNorm):
+    """MPT's bias-free LayerNorm (no_bias=True)."""
+
+    def normalize(self, xf):
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+        return (xf - mean) / torch.sqrt(var + self.eps)
+
+
+def make_norm(cfg: DecoderConfig, foldable: bool = False,
+              device=None) -> RMSNorm:
+    cls = (LayerNormNoBias if cfg.norm_type == "layernorm_nobias"
+           else RMSNorm)
+    return cls(cfg.hidden_size, cfg.rms_norm_eps, device=device,
+               dtype=cfg.dtype, folded=cfg.norm_folded and foldable)
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Standard ALiBi geometric slopes (HF build_mpt_alibi_tensor)."""
+    n = 2 ** math.ceil(math.log2(n_heads))
+    base = 2.0 ** (-8.0 / n)
+    slopes = np.power(base, np.arange(1, n + 1))
+    if n != n_heads:
+        slopes = np.concatenate([slopes[1::2], slopes[0::2]])[:n_heads]
+    return slopes.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi_slopes(n_heads: int, n_kv: int, device: torch.device):
+    """The slopes as a float32 [hk, rep] tensor on `device`, built once
+    (a captured step must not copy from the host)."""
+    return torch.as_tensor(alibi_slopes(n_heads), device=device).reshape(
+        n_kv, n_heads // n_kv)
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,37 +249,68 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 @dataclasses.dataclass
 class KVCache:
-    """Stacked cache: k/v [L, B, max_len, kv_heads, head_dim] (dtype or
-    int8), pos [B] current length per sequence, and in int8 mode per
-    (L, B, slot, kv-head) dequant scales."""
+    """k/v (dtype or int8), pos [B] current length per sequence, and in
+    int8 mode per (layer, B, slot, kv-head) dequant scales. The 'stacked'
+    layout holds each as one [L, B, max_len, kv_heads, head_dim] tensor,
+    'per_layer' as a tuple of L [B, max_len, kv_heads, head_dim] tensors;
+    `k[i]` is layer i's buffer under either, and `layer_parts` gives
+    code that copies rows one view per part with a leading layer axis."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: object
+    v: object
     pos: torch.Tensor
-    k_scale: Optional[torch.Tensor] = None
-    v_scale: Optional[torch.Tensor] = None
+    k_scale: object = None
+    v_scale: object = None
+
+    @property
+    def per_layer(self) -> bool:
+        return isinstance(self.k, tuple)
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[2]
+        return self.k[0].shape[1]
+
+    @property
+    def batch(self) -> int:
+        return self.k[0].shape[0]
+
+    def buffers(self) -> list:
+        """The cache tensors in order k, v (, k_scale, v_scale)."""
+        return [b for b in (self.k, self.v, self.k_scale, self.v_scale)
+                if b is not None]
 
     @classmethod
     def create(cls, cfg: DecoderConfig, batch: int, max_len: int,
                device=None) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, max_len,
-                 cfg.num_key_value_heads, cfg.head_dim)
+        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        L = cfg.num_hidden_layers
+
+        def buf(shp, dtype):
+            if cfg.cache_layout == "per_layer":
+                return tuple(torch.zeros(shp, dtype=dtype, device=device)
+                             for _ in range(L))
+            return torch.zeros((L,) + shp, dtype=dtype, device=device)
+
         pos = torch.zeros((batch,), dtype=torch.long, device=device)
         if cfg.kv_quant == "int8":
-            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
-                       v=torch.zeros(shape, dtype=torch.int8, device=device),
-                       pos=pos,
-                       k_scale=torch.zeros(shape[:-1], dtype=cfg.dtype,
-                                           device=device),
-                       v_scale=torch.zeros(shape[:-1], dtype=cfg.dtype,
-                                           device=device))
-        return cls(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   pos=pos)
+            return cls(k=buf(shape, torch.int8), v=buf(shape, torch.int8),
+                       pos=pos, k_scale=buf(shape[:-1], cfg.dtype),
+                       v_scale=buf(shape[:-1], cfg.dtype))
+        return cls(k=buf(shape, cfg.dtype), v=buf(shape, cfg.dtype), pos=pos)
+
+
+def layer_parts(buf) -> List[torch.Tensor]:
+    """A cache buffer as views with a leading layer axis: the stacked
+    tensor itself, or each per-layer tensor as a [1, B, ...] view, so one
+    indexed copy `part[:, rows] = ...` serves both layouts."""
+    return [b[None] for b in buf] if isinstance(buf, tuple) else [buf]
+
+
+def take_rows(buf, idx):
+    """The rows `idx` of a cache buffer, in its layout (a copy)."""
+    if isinstance(buf, tuple):
+        return tuple(b[idx] for b in buf)
+    return buf[:, idx]
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -268,7 +343,9 @@ class QuantDense(nn.Module):
     `matvec_kernel`, a CUDA input at a `small_m_viable(..., MAX_QUANT_M)`
     shape (decode steps and speculative verify steps) runs K4; any other
     input dequantizes the weight in its dtype before the dot, as JAX
-    does."""
+    does. In w8a8 mode (JAX's, computed in XLA there) the activations are
+    quantized per row on the fly and the int8 x int8 product accumulates
+    in int32 exactly (`w8a8_accumulate`)."""
 
     def __init__(self, in_features: int, features: int, mode: str = "int8",
                  use_bias: bool = False, *, device=None,
@@ -276,9 +353,8 @@ class QuantDense(nn.Module):
                  matvec_kernel: bool = False):
         super().__init__()
         self.matvec_kernel = matvec_kernel
-        if mode not in ("int8", "int4"):
-            raise NotImplementedError(f"QuantDense mode {mode!r} is not "
-                                      "ported")
+        if mode not in ("int8", "int4", "w8a8"):
+            raise ValueError(f"unknown QuantDense mode {mode!r}")
         if mode == "int4" and in_features % 2:
             raise ValueError("int4 mode needs an even input dim")
         self.in_features, self.features, self.mode = (in_features, features,
@@ -295,7 +371,10 @@ class QuantDense(nn.Module):
     def forward(self, x):
         lead = x.shape[:-1]
         m = int(np.prod(lead)) if lead else 1
-        if self.mode == "int4":
+        if self.mode == "w8a8":
+            acc, amax = w8a8_accumulate(x, self.kernel_q)
+            y = acc.float() * (amax / 127.0) * self.scale
+        elif self.mode == "int4":
             if x.is_cuda and small_m_viable_int4(m, self.in_features,
                                                  self.features):
                 y = quant_small_m_matmul_int4(
@@ -320,6 +399,29 @@ class QuantDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 -> int32, exact. torch._int_mm takes
+    more than 16 rows on CUDA, so fewer are padded with zero rows."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = F.pad(a, (0, 0, 0, 24 - m))
+    return torch._int_mm(a, b)[:m]
+
+
+def w8a8_accumulate(x: torch.Tensor, kernel_q: torch.Tensor):
+    """JAX's w8a8 activation quantization and product: x [..., K] to int8
+    per row (scale 127 / max|row|, round half to even), then the int8
+    product with `kernel_q` [K, N] accumulated in int32. Returns (acc
+    int32 [..., N], amax float32 [..., 1]). The sums reach 127 * 127 * K,
+    past float32's exact integers, so the product is an integer one."""
+    amax = x.abs().amax(dim=-1, keepdim=True).float()
+    xs = x.float() * (127.0 / torch.clamp(amax, min=1e-8))
+    x8 = torch.round(xs).clamp(-127, 127).to(torch.int8)
+    lead, k = x8.shape[:-1], x8.shape[-1]
+    acc = _int8_mm(x8.reshape(-1, k).contiguous(), kernel_q)
+    return acc.reshape(*lead, kernel_q.shape[1]), amax
 
 
 class PallasDense(nn.Linear):
@@ -384,39 +486,59 @@ class DecoderAttention(nn.Module):
 
     def forward(self, x, cos, sin, mask=None,
                 cache: Optional[KVCache] = None, cache_idx=None,
-                layer_idx: int = 0, attn_window: Optional[int] = None):
+                layer_idx: int = 0, attn_window: Optional[int] = None,
+                pending: Optional[list] = None):
         """mask: [B, Tq, Tk] bool (True = attend). With a cache, this
         layer writes its K/V at `cache_idx` [B, T] (pad tokens point at
         the dump slot max_len-1) and attends over its cache slice, cut to
         its first `attn_window` slots when that is below max_len (the
         windowed KV read: every valid position lies below the window, so
-        the keys cut off are masked ones). Decode attention is plain
-        matmul + softmax, as JAX leaves it to XLA."""
+        the keys cut off are masked ones). With `pending` (deferred
+        decode, T == 1) it writes nothing: it attends over the cache plus
+        the current token's K/V as a self column at the end of the key
+        axis, and appends what to write to `pending` (int8 KV: the self
+        term is quantized and dequantized, as the cache would hold it).
+        With ALiBi, `cos` carries the query positions [B, T, 1]. Decode
+        attention is plain matmul + softmax, as JAX leaves it to XLA."""
         cfg = self.cfg
         B, T, _ = x.shape
         h, hk, p = (cfg.num_attention_heads, cfg.num_key_value_heads,
                     cfg.head_dim)
         q, k, v = self._proj(x)
-        q = apply_rope(q.reshape(B, T, h, p), cos, sin)
-        k = apply_rope(k.reshape(B, T, hk, p), cos, sin)
+        q = q.reshape(B, T, h, p)
+        k = k.reshape(B, T, hk, p)
         v = v.reshape(B, T, hk, p)
+        if not cfg.use_alibi:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-        k_scale = v_scale = None
+        k_scale = v_scale = self_kv = None
         if cache is not None:
-            b_idx = torch.arange(B, device=x.device)[:, None]
-            if cache.k_scale is not None:
+            quant = cache.k_scale is not None
+            if quant:
                 kq, k_s = _quantize_kv(k)
                 vq, v_s = _quantize_kv(v)
-                cache.k[layer_idx][b_idx, cache_idx] = kq
-                cache.v[layer_idx][b_idx, cache_idx] = vq
-                cache.k_scale[layer_idx][b_idx, cache_idx] = k_s
-                cache.v_scale[layer_idx][b_idx, cache_idx] = v_s
+            if pending is not None:
+                if quant:
+                    pending.append((kq, vq, k_s, v_s))
+                    self_kv = (kq.to(x.dtype) * k_s[..., None].to(x.dtype),
+                               vq.to(x.dtype) * v_s[..., None].to(x.dtype))
+                else:
+                    pending.append((k, v))
+                    self_kv = (k, v)
+            else:
+                b_idx = torch.arange(B, device=x.device)[:, None]
+                if quant:
+                    cache.k[layer_idx][b_idx, cache_idx] = kq
+                    cache.v[layer_idx][b_idx, cache_idx] = vq
+                    cache.k_scale[layer_idx][b_idx, cache_idx] = k_s
+                    cache.v_scale[layer_idx][b_idx, cache_idx] = v_s
+                else:
+                    cache.k[layer_idx][b_idx, cache_idx] = k
+                    cache.v[layer_idx][b_idx, cache_idx] = v
+            if quant:
                 # the scales fold into the small score / prob tensors
                 k_scale = cache.k_scale[layer_idx]
                 v_scale = cache.v_scale[layer_idx]
-            else:
-                cache.k[layer_idx][b_idx, cache_idx] = k
-                cache.v[layer_idx][b_idx, cache_idx] = v
             k, v = cache.k[layer_idx], cache.v[layer_idx]
             if attn_window is not None and attn_window < k.shape[1]:
                 k, v = _window(k, attn_window), _window(v, attn_window)
@@ -424,9 +546,12 @@ class DecoderAttention(nn.Module):
                     k_scale = _window(k_scale, attn_window)
                     v_scale = _window(v_scale, attn_window)
 
+        alibi = ((cos[:, :, 0], _alibi_slopes(h, hk, x.device))
+                 if cfg.use_alibi else None)
         # GQA: group the query heads per KV head instead of repeating K/V
         q = q.reshape(B, T, hk, h // hk, p)
-        out = _attend(q, k, v, k_scale, v_scale, mask, x.dtype)
+        out = _attend(q, k, v, k_scale, v_scale, mask, x.dtype,
+                      self_kv=self_kv, alibi=alibi)
         return self.o_proj(out.reshape(B, T, h * p))
 
 
@@ -472,22 +597,28 @@ def _mm_f32(a, b):
     return _MatmulF32.apply(a, b)
 
 
-def _attend(q, k, v, k_scale, v_scale, mask, dtype):
+def _attend(q, k, v, k_scale, v_scale, mask, dtype, self_kv=None,
+            alibi=None):
     """Attention of q [B, T, hk, rep, p] over k, v [B, S, hk, p], JAX's
     einsums with preferred_element_type=float32: K and V (int8 converted
     to `dtype`, or as stored) are copied once each into the [B, hk, S, p]
     layout a batched product reads, the int8 scales fold into the scores
     and the probabilities, and the products accumulate in float32, so no
-    float32 copy of the cache is made. Returns [B, T, hk, rep, p] in
-    `dtype`."""
+    float32 copy of the cache is made. `self_kv` (deferred decode): the
+    current tokens' (k, v) [B, T, hk, p], a score column after the cached
+    keys whose output adds separately, as in JAX. `alibi`: (query
+    positions [B, T] float32, slopes [hk, rep]); the bias is -slope x
+    (qpos - kpos) with kpos the key's slot (0 for the self column).
+    Returns [B, T, hk, rep, p] in `dtype`."""
     B, T, hk, rep, p = q.shape
     S = k.shape[1]
 
     def heads_major(t):
         # the layer's one copy of K or V: the conversion and the permute
         # in one kernel
-        out = torch.empty((B, hk, S, p), dtype=dtype, device=t.device)
-        return out.copy_(t.permute(0, 2, 1, 3)).view(B * hk, S, p)
+        n = t.shape[1]
+        out = torch.empty((B, hk, n, p), dtype=dtype, device=t.device)
+        return out.copy_(t.permute(0, 2, 1, 3)).view(B * hk, n, p)
 
     kb, vb = heads_major(k), heads_major(v)
     qb = q.to(dtype).permute(0, 2, 3, 1, 4).reshape(B * hk, rep * T, p)
@@ -495,14 +626,33 @@ def _attend(q, k, v, k_scale, v_scale, mask, dtype):
     if k_scale is not None:
         scores = scores * k_scale.float().movedim(1, -1)[
             :, :, None, None, :]
+    if self_kv is not None:
+        ks, vs = (heads_major(t) for t in self_kv)
+        n_self = ks.shape[1]
+        scores = torch.cat([scores, _mm_f32(qb, ks.transpose(1, 2)).view(
+            B, hk, rep, T, n_self)], dim=-1)
     scores = scores / math.sqrt(p)
+    if alibi is not None:
+        qpos, slopes = alibi
+        kpos = torch.arange(S, dtype=torch.float32, device=q.device)
+        dist = qpos[:, :, None] - kpos[None, None, :]
+        if self_kv is not None:
+            dist = torch.cat([dist, torch.zeros_like(dist[:, :, :n_self])],
+                             dim=-1)
+        scores = scores - (slopes[None, :, :, None, None]
+                           * dist[:, None, None, :, :])
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
+    if self_kv is not None:
+        probs, self_probs = probs[..., :S], probs[..., S:]
     if v_scale is not None:
         probs = probs * v_scale.float().movedim(1, -1)[:, :, None, None, :]
-    probs = probs.to(dtype).view(B * hk, rep * T, S)
+    probs = probs.to(dtype).reshape(B * hk, rep * T, S)
     out = _mm_f32(probs, vb).to(dtype).view(B, hk, rep, T, p)
+    if self_kv is not None:
+        out = out + _mm_f32(self_probs.to(dtype).reshape(
+            B * hk, rep * T, n_self), vs).to(dtype).view(B, hk, rep, T, p)
     return out.permute(0, 3, 1, 2, 4)
 
 
@@ -511,7 +661,10 @@ class DecoderMLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, i = cfg.hidden_size, cfg.intermediate_size
-        if cfg.fused_qkv:  # phi3 layout pairs fused attn with gate_up_proj
+        if cfg.mlp_type == "gelu":   # MPT ffn: up -> exact gelu -> down
+            i = cfg.expansion_ratio * d
+            self.up_proj = _make_dense(cfg, d, i, device=device)
+        elif cfg.fused_qkv:  # phi3 layout pairs fused attn with gate_up_proj
             self.gate_up_proj = _make_dense(cfg, d, 2 * i, device=device)
         else:
             self.gate_proj = _make_dense(cfg, d, i, device=device)
@@ -519,6 +672,8 @@ class DecoderMLP(nn.Module):
         self.down_proj = _make_dense(cfg, i, d, device=device)
 
     def forward(self, x):
+        if self.cfg.mlp_type == "gelu":
+            return self.down_proj(F.gelu(self.up_proj(x)))
         if self.cfg.fused_qkv:
             gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         else:
@@ -530,19 +685,21 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(device=device, dtype=cfg.dtype)
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                       **kw)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
-                                                cfg.rms_norm_eps, **kw)
+        # the input norm folds into qkv, the post-attention norm into the
+        # dense MLP's first projection (not into an MoE FFN)
+        self.input_layernorm = make_norm(cfg, True, device)
+        self.post_attention_layernorm = make_norm(
+            cfg, cfg.moe_name is None, device)
         self.self_attn = DecoderAttention(cfg, device)
         self.mlp = DecoderMLP(cfg, device)
 
     def forward(self, x, cos, sin, mask=None, cache=None, cache_idx=None,
-                layer_idx: int = 0, attn_window: Optional[int] = None):
+                layer_idx: int = 0, attn_window: Optional[int] = None,
+                pending: Optional[list] = None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask=mask,
                                cache=cache, cache_idx=cache_idx,
-                               layer_idx=layer_idx, attn_window=attn_window)
+                               layer_idx=layer_idx, attn_window=attn_window,
+                               pending=pending)
         h = self.post_attention_layernorm(x)
         return x + self.mlp(h), zero_aux(h)
 
@@ -560,7 +717,11 @@ class DecoderLM(nn.Module):
     then the tokens are those of the whole cache. `pos_in_place` advances
     `cache.pos` in place and returns `cache` itself, so a captured step
     writes the new positions into the same buffer; otherwise the returned
-    cache holds a new pos tensor."""
+    cache holds a new pos tensor. Every mask is built from position
+    tensors on the device (`cache.pos`, `position_ids`), never from host
+    values, so a captured step's mask follows its positions. With
+    `deferred_decode`, a decode step over a stacked cache writes every
+    layer's K/V in one indexed copy after the last layer."""
 
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -572,13 +733,16 @@ class DecoderLM(nn.Module):
                                          **kw)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        # the final norm folds into the lm_head; tied embeddings are also
+        # the input table, so they cannot absorb it
+        self.norm = make_norm(cfg, not cfg.tie_word_embeddings, device)
         if not cfg.tie_word_embeddings:
             if cfg.quant:
                 # int4 keeps the lm_head at int8, as in JAX (vocab widths
-                # do not tile the int4 kernel)
-                self.lm_head = QuantDense(cfg.hidden_size, cfg.vocab_size,
-                                          mode="int8", **kw)
+                # do not tile the int4 kernel); w8a8 keeps it w8a8
+                self.lm_head = QuantDense(
+                    cfg.hidden_size, cfg.vocab_size,
+                    mode="w8a8" if cfg.quant == "w8a8" else "int8", **kw)
             else:
                 self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                          bias=False, **kw)
@@ -597,8 +761,11 @@ class DecoderLM(nn.Module):
         x = inputs_embeds
         B, T, _ = x.shape
         dev = x.device
+        sw = cfg.sliding_window
 
         cache_idx = None
+        deferred = (cfg.deferred_decode and cache is not None and T == 1
+                    and not cache.per_layer)
         if cache is not None:
             valid = (attention_mask.long() if attention_mask is not None
                      else torch.ones((B, T), dtype=torch.long, device=dev))
@@ -617,19 +784,37 @@ class DecoderLM(nn.Module):
                 # the windowed read's keys; validity is the caller's
                 # contract (pos + T <= attn_window)
                 kv_len = attn_window
-            mask = (torch.arange(kv_len, device=dev)[None, None]
-                    <= qpos[:, :, None])
+            kpos = torch.arange(kv_len, device=dev)[None, None]
+            qpos = qpos[:, :, None]
+            # deferred: the cached slots strictly precede the current
+            # token, whose own column (valid iff the token is) comes last
+            mask = kpos < qpos if deferred else kpos <= qpos
+            if sw:
+                mask = mask & (kpos > qpos - sw)
+            if deferred:
+                mask = torch.cat([mask, valid[:, :, None].bool()], dim=-1)
         else:
             if position_ids is None:
                 position_ids = torch.arange(T, device=dev)[None].expand(B, T)
-            mask = position_ids[:, None, :] <= position_ids[:, :, None]
+            qpos = position_ids[:, :, None]
+            kpos = position_ids[:, None, :]
+            mask = kpos <= qpos
+            if sw:
+                mask = mask & (kpos > qpos - sw)
             if attention_mask is not None:
                 mask = mask & attention_mask[:, None, :].bool()
-        cos, sin = rope_tables(
-            cfg, position_ids, cache.max_len if cache is not None else T)
+        if cfg.use_alibi:
+            # no rotary tables: the positions ride to the attention's
+            # distance term in `cos`
+            cos = position_ids.float()[..., None]
+            sin = torch.zeros_like(cos)
+        else:
+            cos, sin = rope_tables(
+                cfg, position_ids, cache.max_len if cache is not None else T)
 
         total_aux = torch.zeros((), dtype=torch.float32, device=dev)
         auxes: List[MoEAux] = []
+        pending = [] if deferred else None
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for li, layer in enumerate(self.layers):
             if remat:
@@ -640,20 +825,25 @@ class DecoderLM(nn.Module):
                     use_reentrant=False)
             else:
                 x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
-                               attn_window)
+                               attn_window, pending)
             total_aux = total_aux + aux.aux_loss
             auxes.append(aux)
+        if pending:
+            # one write for every layer's K/V of the step
+            b_idx = torch.arange(B, device=dev)[:, None]
+            for i, buf in enumerate(cache.buffers()):
+                buf[:, b_idx, cache_idx] = torch.stack([p[i]
+                                                        for p in pending])
 
         x = self.norm(x)
         # logits in float32, as the JAX lm_head on an f32 input
-        if cfg.tie_word_embeddings:
-            logits = x.float() @ self.embed_tokens.weight.float().T
-        elif cfg.quant:
+        if cfg.quant and not cfg.tie_word_embeddings:
             logits = self.lm_head(x.float())
         else:
-            logits = _mm_f32(x.reshape(-1, x.shape[-1]),
-                             self.lm_head.weight.t()).reshape(
-                                 *x.shape[:-1], -1)
+            head = (self.embed_tokens.weight if cfg.tie_word_embeddings
+                    else self.lm_head.weight)
+            logits = _mm_f32(x.reshape(-1, x.shape[-1]), head.t()).reshape(
+                *x.shape[:-1], -1)
 
         new_cache = None
         if cache is not None:
@@ -669,3 +859,68 @@ class DecoderLM(nn.Module):
                                                 pos=cache.pos + advance)
         return logits, new_cache, {"total_aux_loss": total_aux,
                                    "layers": auxes}
+
+
+# ---------------------------------------------------------------------------
+# Serving-mode weight transforms
+# ---------------------------------------------------------------------------
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_int4: int8 [K//2, N] -> sign-extended int8 [K, N]
+    (the whole matrix; compute paths use the halves)."""
+    return torch.cat(unpack_int4_halves(p), dim=0)
+
+
+@torch.no_grad()
+def _fold_into_dense(proj: nn.Module, w: torch.Tensor) -> None:
+    """Absorb a per-input-channel scale w [in] into a projection in place:
+    an nn.Linear (or PallasDense) weight is scaled in float32 and cast
+    back; a QuantDense int8 or int4 kernel is dequantized, scaled per
+    input channel and requantized per output channel (JAX's
+    `_fold_into_dense`; round half to even on both sides)."""
+    wf32 = w.float()
+    if not isinstance(proj, QuantDense):
+        proj.weight.copy_(proj.weight.float() * wf32[None, :])
+        return
+    packed = proj.mode == "int4"
+    kq = unpack_int4(proj.kernel_q) if packed else proj.kernel_q
+    qmax = 7 if packed else 127
+    wf = kq.float() * proj.scale.float()[None, :] * wf32[:, None]
+    s_new = torch.clamp(wf.abs().amax(dim=0), min=1e-8) / qmax
+    q = torch.round(wf / s_new[None, :]).clamp(-qmax, qmax).to(torch.int8)
+    proj.kernel_q.copy_(pack_int4(q) if packed else q)
+    proj.scale.copy_(s_new)
+
+
+@torch.no_grad()
+def fold_norm_scales(decoder: DecoderLM) -> DecoderLM:
+    """Fold every foldable norm's weight into the following projection,
+    reset it to ones and mark the norm folded, in place (JAX's
+    `fold_norm_scales` on a param tree, which the caller pairs with a
+    model built with norm_folded=True): input_layernorm -> qkv (or
+    q/k/v); post_attention_layernorm -> gate_up (or gate and up, or MPT's
+    up), unless the FFN is an MoE; the final norm -> lm_head, unless the
+    embeddings are tied. Works on bf16, int8 and int4 projections (an
+    int4 model's lm_head is int8). Sets `decoder.cfg.norm_folded`."""
+    cfg = decoder.cfg
+
+    def fold(norm, projs):
+        for proj in projs:
+            _fold_into_dense(proj, norm.weight)
+        norm.weight.fill_(1.0)
+        norm.folded = True
+
+    for layer in decoder.layers:
+        attn = layer.self_attn
+        fold(layer.input_layernorm,
+             [attn.qkv_proj] if hasattr(attn, "qkv_proj")
+             else [attn.q_proj, attn.k_proj, attn.v_proj])
+        if cfg.moe_name is None:
+            fold(layer.post_attention_layernorm,
+                 [getattr(layer.mlp, n) for n in ("gate_up_proj",
+                                                  "gate_proj", "up_proj")
+                  if hasattr(layer.mlp, n)])
+    if not cfg.tie_word_embeddings:
+        fold(decoder.norm, [decoder.lm_head])
+    decoder.cfg = dataclasses.replace(cfg, norm_folded=True)
+    return decoder

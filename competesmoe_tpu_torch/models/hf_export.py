@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from .decoder import DecoderConfig
+from .projector import mlp_depth
 from .safetensors_io import save_file
 from .vision import VisionConfig
 
@@ -124,20 +125,50 @@ def export_mlpmoe_projector(projector: nn.Module,
 
 def export_plain_projector(projector: nn.Module,
                            prefix: str = "mm_projector.") -> StateDict:
-    """Linear (or identity) `VisionProjector` -> its state dict."""
+    """Linear, mlpNx_gelu (Linears at the Sequential's even indices 0, 2,
+    4, ...) or identity `VisionProjector` -> its state dict."""
     sd = _weights(projector)
-    if projector.cfg.projector_type == "identity":
-        return {}
-    if projector.cfg.projector_type != "linear":
-        raise NotImplementedError(
-            f"projector type {projector.cfg.projector_type!r} is not "
-            "ported: ROADMAP §1 item 1.2 (the mlpNx_gelu projector)")
-    return {prefix + "weight": sd["fc.weight"], prefix + "bias": sd["fc.bias"]}
+    if projector.cfg.projector_type == "linear":
+        return {prefix + "weight": sd["fc.weight"],
+                prefix + "bias": sd["fc.bias"]}
+    out: StateDict = {}
+    for i in range(mlp_depth(projector.cfg.projector_type)):
+        _copy(out, f"{prefix}{2 * i}", sd, f"mlp_{i}")
+    return out
+
+
+def export_mpt(decoder: nn.Module, cfg: DecoderConfig,
+               prefix: str = "transformer.") -> StateDict:
+    """An MPT `DecoderLM` -> HF MptForCausalLM state dict (inverse of
+    hf_loader.convert_mpt)."""
+    sd = _weights(decoder)
+    out: StateDict = {prefix + "wte.weight": sd["embed_tokens.weight"],
+                      prefix + "norm_f.weight": sd["norm.weight"]}
+    if not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    for li in range(cfg.num_hidden_layers):
+        p, q = f"layers.{li}.", f"{prefix}blocks.{li}."
+        out[q + "norm_1.weight"] = sd[p + "input_layernorm.weight"]
+        out[q + "norm_2.weight"] = sd[p + "post_attention_layernorm.weight"]
+        out[q + "attn.Wqkv.weight"] = sd[p + "self_attn.qkv_proj.weight"]
+        out[q + "attn.out_proj.weight"] = sd[p + "self_attn.o_proj.weight"]
+        out[q + "ffn.up_proj.weight"] = sd[p + "mlp.up_proj.weight"]
+        out[q + "ffn.down_proj.weight"] = sd[p + "mlp.down_proj.weight"]
+    return out
 
 
 def export_llava_checkpoint(model: nn.Module, cfg=None) -> StateDict:
-    """`LlavaModel` -> the released-5.1B flat state-dict layout."""
+    """`LlavaModel` -> the released-5.1B flat state-dict layout. A CLIP
+    tower is refused: the JAX package's export writes SigLIP's names for
+    any tower and fails on a CLIP tree (ROADMAP §3), so there is no
+    reference layout to match."""
     cfg = cfg or model.cfg
+    if cfg.vision.tower_type == "clip":
+        raise NotImplementedError(
+            "exporting a CLIP tower: the JAX package's "
+            "export_llava_checkpoint writes the SigLIP tower's names and "
+            "fails on a CLIP tree (its patch conv has no bias), so the "
+            "port has no reference layout to write (ROADMAP §3)")
     out: StateDict = {}
     out.update(export_siglip_tower(model.vision_tower, cfg.vision,
                                    prefix="model.vision_tower.vision_tower."))

@@ -4,10 +4,10 @@ competesmoe_tpu/models/hf_loader.py).
 Covers the weight-loading paths of the reference's builder for what the
 port models:
 - decoder LMs of the llama family (Phi-3.5 fused, Llama / Mistral /
-  SmolLM split projections);
-- the SigLIP vision tower, dense or MoE, including sparse upcycling (a
-  dense MLP replicated into every expert, a fresh N(0, 0.02) gate) and the
-  already-MoE layout of the released CompeteSMoE-5.1B
+  SmolLM split projections) and MPT (`convert_mpt`);
+- the SigLIP and CLIP vision towers, dense or MoE, including sparse
+  upcycling (a dense MLP replicated into every expert, a fresh N(0, 0.02)
+  gate) and the already-MoE layout of the released CompeteSMoE-5.1B
   (`moelayer.experts.<i>`);
 - the MoE projector, trained or upcycled from a dense 2-layer one.
 
@@ -151,7 +151,7 @@ def convert_decoder(sd: Mapping, cfg: DecoderConfig,
         if (p + "block_sparse_moe.gate.weight") in m:
             raise NotImplementedError(
                 "a Mixtral MoE decoder (block_sparse_moe) is not ported: "
-                "ROADMAP §1 item 1.3 (decoder options)")
+                "ROADMAP §1 item 1.2 (with the Mixtral layer)")
         for n in ("input_layernorm", "post_attention_layernorm"):
             _copy(out, p + n, m, p + n)
         names = (("qkv_proj",) if cfg.fused_qkv
@@ -237,9 +237,30 @@ def _convert_vision_layers(m: Mapping, cfg: VisionConfig, out: StateDict,
         out.update({f"{dst}moelayer.{k}": v for k, v in moe.items()})
 
 
-def convert_clip_tower(sd: Mapping, cfg: VisionConfig, *args, **kwargs):
-    raise NotImplementedError("the CLIP tower is not ported: ROADMAP §1 "
-                              "item 1.2 (the other multimodal layers)")
+def convert_clip_tower(sd: Mapping, cfg: VisionConfig,
+                       prefix: str = "vision_model.", upcycle: bool = False,
+                       rng: Optional[np.random.Generator] = None
+                       ) -> StateDict:
+    """CLIP vision state dict -> `CLIPSMoEVisionTower` state dict: the
+    SigLIP conversion with CLIP's class token
+    (`embeddings.class_embedding`, a bare [D] parameter), bias-free patch
+    conv, P+1 positions and `pre_layrnorm`; a state dict nested under
+    `vision_model.` (HF CLIPVisionModel) is read through it."""
+    m = _strip_prefix(sd, prefix)
+    if ("embeddings.class_embedding" not in m
+            and any(k.startswith("vision_model.") for k in m)):
+        m = _Prefixed(m, "vision_model.")
+    rng = rng or np.random.default_rng(42)
+    out: StateDict = {
+        "embeddings.patch_embedding.weight":
+            m["embeddings.patch_embedding.weight"],
+        "embeddings.class_embedding": m["embeddings.class_embedding"],
+        "embeddings.position_embedding":
+            m["embeddings.position_embedding.weight"],
+    }
+    _copy(out, "pre_layrnorm", m, "pre_layrnorm")
+    _convert_vision_layers(m, cfg, out, upcycle, rng)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +301,22 @@ def convert_mlpmoe_projector(sd: Mapping, n_experts: int,
     return {f"moelayer.{k}": v for k, v in moe.items()}
 
 
-def convert_mpt(sd: Mapping, cfg: DecoderConfig, *args, **kwargs):
-    raise NotImplementedError("the MPT decoder (alibi, bias-free "
-                              "LayerNorm, gelu FFN) is not ported: ROADMAP "
-                              "§1 item 1.3 (decoder options)")
+def convert_mpt(sd: Mapping, cfg: DecoderConfig,
+                prefix: str = "transformer.") -> StateDict:
+    """HF MptForCausalLM state dict -> `DecoderLM` state dict for an MPT
+    config (fused Wqkv, bias-free LayerNorm, ALiBi, GELU FFN, usually
+    tied embeddings)."""
+    m = _strip_prefix(sd, prefix)
+    out: StateDict = {"embed_tokens.weight": m["wte.weight"],
+                      "norm.weight": m["norm_f.weight"]}
+    if not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    for li in range(cfg.num_hidden_layers):
+        p, q = f"blocks.{li}.", f"layers.{li}."
+        out[q + "input_layernorm.weight"] = m[p + "norm_1.weight"]
+        out[q + "post_attention_layernorm.weight"] = m[p + "norm_2.weight"]
+        out[q + "self_attn.qkv_proj.weight"] = m[p + "attn.Wqkv.weight"]
+        out[q + "self_attn.o_proj.weight"] = m[p + "attn.out_proj.weight"]
+        out[q + "mlp.up_proj.weight"] = m[p + "ffn.up_proj.weight"]
+        out[q + "mlp.down_proj.weight"] = m[p + "ffn.down_proj.weight"]
+    return out

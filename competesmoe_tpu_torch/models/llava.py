@@ -27,7 +27,8 @@ from ..device import resolve_device
 from ..utils.cuda_graph import capture, copy_from_host
 from .decoder import DecoderConfig, DecoderLM, KVCache
 from .projector import ProjectorConfig, VisionProjector
-from .vision import SiglipSMoEVisionTower, VisionConfig
+from .vision import (CLIPSMoEVisionTower, SiglipSMoEVisionTower,
+                     VisionConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +145,9 @@ class LlavaModel(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.vision_tower = SiglipSMoEVisionTower(cfg.vision, device)
+        tower = (CLIPSMoEVisionTower if cfg.vision.tower_type == "clip"
+                 else SiglipSMoEVisionTower)
+        self.vision_tower = tower(cfg.vision, device)
         self.mm_projector = VisionProjector(cfg.projector, device)
         self.language_model = DecoderLM(cfg.decoder, device)
         self.set_flip_schedules(vision_flip_schedule,
@@ -378,7 +381,7 @@ class _SoloCaches:
 
     def give_back(self, cache: KVCache) -> None:
         with self.lock:
-            self.free[(cache.k.shape[1], cache.max_len)].append(cache)
+            self.free[(cache.batch, cache.max_len)].append(cache)
 
     def program(self, cache: KVCache, key: tuple, build):
         """The program `key` over `cache`, captured by `build(pool)` at its

@@ -1,22 +1,23 @@
-"""Multimodal projector: MoE / linear / identity (port of
-competesmoe_tpu/models/projector.py; the mlpNx_gelu type waits)."""
+"""Multimodal projector: MoE / linear / mlpNx_gelu / identity (port of
+competesmoe_tpu/models/projector.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import torch
 import torch.nn as nn
 
 from ..device import resolve_device
 from ..moe.config import MoEArgs
-from ..moe.layers import zero_aux
+from ..moe.layers import gelu_exact, zero_aux
 from ..moe.registry import get_moe
 
 
 @dataclasses.dataclass(frozen=True)
 class ProjectorConfig:
-    projector_type: str = "moe"        # moe | linear | identity
+    projector_type: str = "moe"        # moe | linear | mlpNx_gelu | identity
     mm_hidden_size: int = 1152
     hidden_size: int = 3072
     n_scales: int = 1
@@ -50,8 +51,16 @@ class MLPMoE(nn.Module):
                              return_id_experts=return_id_experts)
 
 
+def mlp_depth(projector_type: str) -> int:
+    """N of an 'mlpNx_gelu' projector type (0 for another type)."""
+    m = re.match(r"^mlp(\d+)x_gelu$", projector_type)
+    return int(m.group(1)) if m else 0
+
+
 class VisionProjector(nn.Module):
-    """Dispatch on projector_type. Returns (y, MoEAux)."""
+    """Dispatch on projector_type. Returns (y, MoEAux). 'mlpNx_gelu' is N
+    Linear layers `mlp_0` ... `mlp_{N-1}` (JAX's names) with an exact GELU
+    between each two."""
 
     def __init__(self, cfg: ProjectorConfig, device=None):
         super().__init__()
@@ -64,9 +73,13 @@ class VisionProjector(nn.Module):
         elif t == "linear":
             self.fc = nn.Linear(cfg.mm_channels, cfg.hidden_size,
                                 device=device, dtype=cfg.dtype)
+        elif mlp_depth(t):
+            for i in range(mlp_depth(t)):
+                self.add_module(f"mlp_{i}", nn.Linear(
+                    cfg.mm_channels if i == 0 else cfg.hidden_size,
+                    cfg.hidden_size, device=device, dtype=cfg.dtype))
         elif t != "identity":
-            raise NotImplementedError(
-                f"projector type {t!r} is not ported (mlpNx_gelu waits)")
+            raise ValueError(f"Unknown projector type: {t}")
 
     def set_flip_schedule(self, schedule=None) -> None:
         """Give a competing MoE layer row 0 of `schedule` (a one-row
@@ -84,4 +97,11 @@ class VisionProjector(nn.Module):
                                  return_id_experts=return_id_experts)
         if t == "linear":
             return self.fc(x), zero_aux(x)
-        return x, zero_aux(x)
+        if t == "identity":
+            return x, zero_aux(x)
+        h = x
+        for i in range(mlp_depth(t)):
+            if i > 0:
+                h = gelu_exact(h)
+            h = getattr(self, f"mlp_{i}")(h)
+        return h, zero_aux(h)

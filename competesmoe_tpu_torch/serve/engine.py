@@ -6,7 +6,8 @@ requests into one step costs little more than serving one. The engine
 gives serving that batching dynamically:
 
 - a fixed pool of `n_slots` sequences shares ONE KV cache
-  [L, n_slots, max_len, hk, d], updated in place (JAX donates it);
+  [L, n_slots, max_len, hk, d] (or L per-layer buffers under
+  `cache_layout='per_layer'`), updated in place (JAX donates it);
 - arriving requests are admitted in GROUPS: pending prompts that share a
   pow-2 length bucket (and image shape) prefill as one padded batch (the
   row count pow-2 padded, at most `max_prefill_batch` rows), and every row
@@ -70,7 +71,7 @@ import numpy as np
 import torch
 
 from ..constants import IMAGE_TOKEN_INDEX
-from ..models.decoder import KVCache
+from ..models.decoder import KVCache, layer_parts, take_rows
 from ..models.llava import _prefill, sample_rows, verify_step
 from ..utils.cuda_graph import Program, capture, copy_from_host
 
@@ -302,13 +303,11 @@ class DecodeEngine:
         never attended before the step that overwrites it."""
         nb = len(slots)
         idx = self._dev(np.asarray(slots, np.int64))
-        n = rows.k.shape[2]
+        n = rows.max_len
         c = self._cache
-        c.k[:, idx, :n] = rows.k[:, :nb]
-        c.v[:, idx, :n] = rows.v[:, :nb]
-        if c.k_scale is not None:
-            c.k_scale[:, idx, :n] = rows.k_scale[:, :nb]
-            c.v_scale[:, idx, :n] = rows.v_scale[:, :nb]
+        for dst, src in zip(c.buffers(), rows.buffers()):
+            for d, r in zip(layer_parts(dst), layer_parts(src)):
+                d[:, idx, :n] = r[:, :nb]
         c.pos[idx] = rows.pos[:nb]
         self._temps[slots] = temps
         self._topps[slots] = topps
@@ -384,11 +383,12 @@ class DecodeEngine:
         idx = self._dev(pslots)
         park = self._park
         rows = KVCache(
-            k=park.k[:, idx], v=park.v[:, idx], pos=self._dev(pos0),
-            k_scale=(park.k_scale[:, idx] if park.k_scale is not None
-                     else None),
-            v_scale=(park.v_scale[:, idx] if park.v_scale is not None
-                     else None))
+            k=take_rows(park.k, idx), v=take_rows(park.v, idx),
+            pos=self._dev(pos0),
+            k_scale=(take_rows(park.k_scale, idx)
+                     if park.k_scale is not None else None),
+            v_scale=(take_rows(park.v_scale, idx)
+                     if park.v_scale is not None else None))
         mask_d = self._dev(mask)
         out = self.model(self._dev(ids), None, attention_mask=mask_d,
                          cache=rows)
@@ -459,12 +459,9 @@ class DecodeEngine:
         self._park_pending.clear()
         pidx = self._dev(np.asarray(list(newest), np.int64))
         lidx = self._dev(np.asarray(list(newest.values()), np.int64))
-        park, c = self._park, self._cache
-        park.k[:, pidx] = c.k[:, lidx]
-        park.v[:, pidx] = c.v[:, lidx]
-        if park.k_scale is not None:
-            park.k_scale[:, pidx] = c.k_scale[:, lidx]
-            park.v_scale[:, pidx] = c.v_scale[:, lidx]
+        for dst, src in zip(self._park.buffers(), self._cache.buffers()):
+            for d, c in zip(layer_parts(dst), layer_parts(src)):
+                d[:, pidx] = c[:, lidx]
 
     # -- chunked prefill ----------------------------------------------------
 

@@ -4,8 +4,9 @@ JAX runs every device step of serving as one compiled program: the
 engine's donated jitted step and verify step, the solo decode's jitted
 scan. The port's counterpart is a CUDA graph. `capture(step)` records the
 kernels of one call of `step()` once, over buffers that never move (the
-KV cache, the current tokens, the per-slot sampling parameters, the
-positions), and the returned `Program` replays them with one launch, so
+KV cache, stacked or its per-layer tuple of buffers, the current tokens,
+the per-slot sampling parameters, the positions), and the returned
+`Program` replays them with one launch, so
 host dispatch no longer paces the step. `step` takes no arguments: it
 reads its inputs from those buffers and writes its state back into them
 in place, and every call of the program returns the same output tensors,

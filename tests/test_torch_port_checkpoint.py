@@ -133,6 +133,25 @@ def test_loaded_logits_match_jax(golden_port, golden_jax):
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
 
+def test_checkpoint_with_phi35_sliding_window_loads_as_jax(tmp_path):
+    """The golden checkpoint with Phi-3.5-mini's published
+    `sliding_window: 262144` in its config.json: JAX's builder and the
+    port's both load it with the field (the port used to refuse it), and
+    the port's greedy tokens are the golden digests, as without it."""
+    for f in GOLDEN.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    hf = json.loads((GOLDEN / "config.json").read_text())
+    (tmp_path / "config.json").write_text(json.dumps(
+        dict(hf, sliding_window=262144)))
+    assert jax_load(tmp_path)[0].cfg.decoder.sliding_window == 262144
+    model = port_load(tmp_path)
+    assert model.cfg.decoder.sliding_window == 262144
+    ids_img, px, ids_txt = golden_inputs()
+    assert port_tokens(model, ids_img, px) == DIGESTS["greedy_tokens_image"]
+    assert port_tokens(model, ids_txt, None) == \
+        DIGESTS["greedy_tokens_text"]
+
+
 # ---------------------------------------------------------------------------
 # (c), (d): the converters
 # ---------------------------------------------------------------------------
@@ -329,10 +348,28 @@ def test_state_dict_file_rules(tmp_path):
     torch.save({}, lone / "weights.pt")
     with pytest.raises(FileNotFoundError, match=r"weights\.pt"):
         tloader.load_torch_state_dict(lone)
-    with pytest.raises(NotImplementedError, match="1.2"):
-        tloader.convert_clip_tower({}, None)
-    with pytest.raises(NotImplementedError, match="1.3"):
-        tloader.convert_mpt({}, None)
+    # the CLIP tower and MPT convert now (held to JAX in
+    # tests/test_torch_port_clip.py and test_torch_port_decoder_opts.py)
+    from competesmoe_tpu_torch.models.decoder import DecoderConfig
+    from competesmoe_tpu_torch.models.vision import VisionConfig
+    vis = VisionConfig(hidden_size=8, num_hidden_layers=0, image_size=28,
+                       tower_type="clip", use_cls_token=True)
+    clip = {"vision_model.embeddings.patch_embedding.weight":
+            torch.zeros(8, 3, 14, 14),
+            "vision_model.embeddings.class_embedding": torch.zeros(8),
+            "vision_model.embeddings.position_embedding.weight":
+            torch.zeros(5, 8),
+            "vision_model.pre_layrnorm.weight": torch.ones(8),
+            "vision_model.pre_layrnorm.bias": torch.zeros(8)}
+    assert sorted(tloader.convert_clip_tower(clip, vis)) == [
+        "embeddings.class_embedding", "embeddings.patch_embedding.weight",
+        "embeddings.position_embedding", "pre_layrnorm.bias",
+        "pre_layrnorm.weight"]
+    mpt = {"transformer.wte.weight": torch.zeros(16, 8),
+           "transformer.norm_f.weight": torch.ones(8)}
+    assert sorted(tloader.convert_mpt(mpt, DecoderConfig(
+        num_hidden_layers=0, tie_word_embeddings=True))) == [
+            "embed_tokens.weight", "norm.weight"]
 
 
 # ---------------------------------------------------------------------------

@@ -1129,6 +1129,119 @@ def test_captured_solo_streams_equal_eager(gen, kind, temperature, top_p,
     assert np.array_equal(runs[2], runs[0])
 
 
+def _served_option(option: str):
+    """The small --load-4bit model with an int8 KV cache under one of the
+    decoder's serving options: a sliding window of 12 (below the
+    prompts), a per-layer cache, deferred decode, or GQA (4 query heads
+    over 2 KV heads) with the window."""
+    from competesmoe_tpu_torch.models.builder import (apply_load_4bit,
+                                                      build_llava)
+    kw = dict(window=dict(sliding_window=12),
+              per_layer=dict(cache_layout="per_layer"),
+              deferred=dict(deferred_decode=True),
+              gqa_window=dict(sliding_window=12, num_key_value_heads=2,
+                              fused_qkv=False))[option]
+    return apply_load_4bit(build_llava(
+        _small_cfg(torch.bfloat16, kv_quant="int8", **kw), seed=6,
+        device="cuda"))
+
+
+@pytest.mark.parametrize("option", ["window", "per_layer", "deferred",
+                                    "gqa_window"])
+@pytest.mark.parametrize("case", ["plain", "verify", "chunks_and_unparks"])
+def test_captured_option_streams_equal_eager(gen, option, case):
+    """The decoder's serving options under captured engine steps: the
+    window's mask comes from the cache's device positions (a replay over
+    other positions masks them), the per-layer cache's L buffers keep
+    their storage, the deferred write lands after the last layer; each
+    gives the eager engine's streams token for token, and solo
+    stream_generate's captured tokens equal its eager ones."""
+    from competesmoe_tpu_torch.models.llava import stream_generate
+
+    model = _served_option(option)
+    kw = ENGINE_CASES[case]
+    rounds = [_prompts(1, (12, 30, 9, 21, 17, 25))]
+    if case == "chunks_and_unparks":
+        rounds = [_prompts(2, (40, 12, 45, 9)),
+                  _follow_ups(_prompts(2, (40, 12, 45, 9)))]
+    eager, _ = _engine_streams(model, False, rounds, **kw)
+    got, _ = _engine_streams(model, True, rounds, **kw)
+    assert got == eager
+    ids = _prompts(4, (23,))[0][None]
+    runs = [np.concatenate(list(stream_generate(
+        model, ids, None, max_new_tokens=20, cuda_graphs=graphs)), axis=1)
+        for graphs in (False, True, True)]
+    assert np.array_equal(runs[1], runs[0])
+    assert np.array_equal(runs[2], runs[0])
+
+
+def test_w8a8_int_products_are_exact_on_the_card(gen):
+    """w8a8's int32 products on the card (torch._int_mm, rows padded past
+    16) equal the CPU's exactly at decode and prefill row counts, with
+    sums past float32's exact integers."""
+    from competesmoe_tpu_torch.models.decoder import w8a8_accumulate
+
+    g = torch.Generator().manual_seed(3)
+    K, N = 3072, 256
+    q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    q[:, 0] = 127
+    q[5, 0] = 126
+    for m in (1, 3, 8, 16, 17, 40):
+        x = torch.randn((m, K), generator=g).to(torch.bfloat16)
+        x[0] = 2.0
+        want, _ = w8a8_accumulate(x, q)
+        got, _ = w8a8_accumulate(x.cuda(), q.cuda())
+        assert torch.equal(got.cpu(), want), m
+        assert int(want.abs().max()) > 2 ** 25
+
+
+def test_mpt_decode_on_the_card_equals_the_cpu(gen):
+    """A small MPT (ALiBi, bias-free LayerNorm, GELU MLP, tied
+    embeddings), bf16 with int4 projections, on the card (K5 at every
+    decode projection) and on the CPU (plain halves), the card's greedy
+    tokens fed to both: every logit row within 3% of the CPU's largest,
+    with deferred decode too."""
+    import dataclasses
+
+    from competesmoe_tpu_torch.models.builder import (init_random_,
+                                                      quantize_decoder_to_int8)
+    from competesmoe_tpu_torch.models.decoder import (DecoderConfig,
+                                                      DecoderLM, KVCache)
+    from competesmoe_tpu_torch.ops.matvec import quant_small_m_matmul_int4
+
+    cfg = DecoderConfig(vocab_size=512, hidden_size=256,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=4, use_alibi=True,
+                        norm_type="layernorm_nobias", mlp_type="gelu",
+                        tie_word_embeddings=True, fused_qkv=True,
+                        dtype=torch.bfloat16)
+    ids = torch.as_tensor(_prompts(5, (20,))[0][None], dtype=torch.long)
+    for deferred in (False, True):
+        c = dataclasses.replace(cfg, deferred_decode=deferred)
+        cpu = quantize_decoder_to_int8(init_random_(
+            DecoderLM(c, device="cpu"), seed=4), bits=4)
+        card = DecoderLM(cpu.cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        rows, fed = {}, None
+        launches = quant_small_m_matmul_int4.launches
+        for key, model in (("card", card), ("cpu", cpu)):
+            dev = model.embed_tokens.weight.device
+            cache = KVCache.create(model.cfg, 1, 64, dev)
+            with torch.no_grad():
+                logits, cache, _ = model(ids.to(dev), cache=cache)
+                got, feed = [logits[:, -1].float().cpu()], []
+                for i in range(8):
+                    tok = got[-1].argmax(-1) if fed is None else fed[i]
+                    feed.append(tok)
+                    logits, cache, _ = model(tok.to(dev)[:, None],
+                                             cache=cache)
+                    got.append(logits[:, 0].float().cpu())
+            fed, rows[key] = feed, torch.stack(got)
+        assert quant_small_m_matmul_int4.launches - launches == 4 * 2 * 9
+        err = float((rows["card"] - rows["cpu"]).abs().max())
+        assert err <= 0.03 * float(rows["cpu"].abs().max()), deferred
+
+
 def test_replays_count_their_launches(gen):
     """A captured tick adds the launches its graph holds to the kernel's
     count at every replay (4 projections x 2 layers of K5), and the

@@ -192,11 +192,20 @@ def test_phi35_geometry_and_longrope_match_jax():
 
 def test_unported_decoder_options_raise():
     cfg = port_config(jax_llava_cfg().decoder, tdec.DecoderConfig)
+    # only the MoE decoder is left unported; every other option builds
+    # (tests/test_torch_port_decoder_opts.py holds them to JAX)
+    with pytest.raises(NotImplementedError, match="1.2"):
+        tdec.DecoderLM(dataclasses.replace(cfg, moe_name="mixtral"),
+                       device="cpu")
     for change in (dict(use_alibi=True), dict(sliding_window=8),
                    dict(deferred_decode=True),
                    dict(cache_layout="per_layer"), dict(quant="w8a8"),
-                   dict(norm_folded=True), dict(moe_name="mixtral")):
-        with pytest.raises(NotImplementedError):
+                   dict(norm_folded=True),
+                   dict(norm_type="layernorm_nobias", mlp_type="gelu")):
+        tdec.DecoderLM(dataclasses.replace(cfg, **change), device="cpu")
+    for change in (dict(quant="int2"), dict(cache_layout="paged"),
+                   dict(norm_type="batchnorm")):
+        with pytest.raises(ValueError):
             tdec.DecoderLM(dataclasses.replace(cfg, **change), device="cpu")
     # remat is ported: the same logits and gradients as without it
     torch.manual_seed(0)
