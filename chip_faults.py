@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
-    python3 chip_faults.py [--only mm | --only eval | --only options]
+    python3 chip_faults.py [--only mm | --only eval | --only options |
+                            --only routers]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -61,7 +62,12 @@ decoder's options (OPTION_FAULTS, against chip_smoke's
 small_options_check): the sliding window dropped on the cache path, the
 ALiBi slopes in reversed head order, deferred decode's self column left
 out, a per-layer cache's park copying the next layer's row, each norm
-folded twice, and w8a8's products summed in float32. The script
+folded twice, and w8a8's products summed in float32. Five more are
+planted in the multimodal routers and Mixtral's block (MM_ROUTER_FAULTS,
+against chip_smoke's small_routers_check): XMoE's embeddings without the
+1.5 renorm, smoe_share without its 0.5 combine, Mixtral's w1 and w3
+swapped, the grouped dispatch's offsets dropping the last group's rows,
+and theta 0 in smoe_perturbed. The script
 
   1. reads the honest kernels' small-LM gaps: the small LM of chip_smoke.py
      takes 3 optimizer steps on the card and on the CPU from the same
@@ -113,7 +119,11 @@ folded twice, and w8a8's products summed in float32. The script
        against its no-cache forward, folded copies against their
        originals, per-layer and deferred engines against the stacked
        engine through parks and unparks, w8a8's products against exact
-       ones), honest first. `--only options` runs this part alone.
+       ones), honest first. `--only options` runs this part alone;
+     - router faults: `small_routers_check` (each router's layer against
+       its definition written apart, small models card against CPU,
+       telemetry, Mixtral's captured decode), honest first. `--only
+       routers` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -919,6 +929,96 @@ def option_faults(report, failures):
             failures.append(f"fault {name} passed the small option checks")
 
 
+def _xmoe_without_renorm():
+    """XMoE's expert embeddings used as they are, not renormed to 1.5."""
+    from competesmoe_tpu_torch.moe import layers
+    return _edited(layers.XMoELayer, "gate_logits",
+                   "emb * (1.5 / (norm + self.theta)).detach()", "emb")
+
+
+def _share_without_half():
+    """smoe_share's output shared + routed, without the 0.5 combine."""
+    from competesmoe_tpu_torch.moe import layers
+    return _edited(layers.SharedExpertV2, "_combine",
+                   "0.5 * shared + 0.5 * routed", "shared + routed")
+
+
+def _mixtral_w1_w3_swapped():
+    """Mixtral's gate (w1) and up (w3) projections swapped in the experts'
+    SwiGLU."""
+    from competesmoe_tpu_torch.ops import expert_compute as ec
+    real = ec.moe_ffn_swiglu
+
+    def planted(x, sel, weights, w1, w3, w2, impl="auto"):
+        return real(x, sel, weights, w3, w1, w2, impl=impl)
+    return ec, "moe_ffn_swiglu", planted
+
+
+def _offsets_drop_last_group():
+    """The grouped dispatch's device-side offsets end at the second-last
+    group: the last expert's rows are left out of the products."""
+    from competesmoe_tpu_torch.ops import expert_compute as ec
+    return _edited(ec, "grouped_ffn_swiglu",
+                   "offs = torch.cumsum(gs.group_sizes, 0).to(torch.int32)",
+                   "offs = torch.cumsum(gs.group_sizes, 0).to(torch.int32)"
+                   "\n        offs[-1] = offs[-2]")
+
+
+def _perturbed_theta_zero():
+    """smoe_perturbed with theta 0: plain XMoE."""
+    from competesmoe_tpu_torch.moe import layers
+    return layers.PerturbedCosineGating, "theta", 0.0
+
+
+# Python faults of the multimodal routers and Mixtral's block, each a
+# function -> (object, attribute, planted value), caught by
+# chip_smoke.small_routers_check
+MM_ROUTER_FAULTS = {
+    "xmoe_without_renorm": _xmoe_without_renorm,
+    "share_without_half_combine": _share_without_half,
+    "mixtral_w1_w3_swapped": _mixtral_w1_w3_swapped,
+    "grouped_offsets_drop_last_group": _offsets_drop_last_group,
+    "perturbed_theta_zero": _perturbed_theta_zero,
+}
+
+
+def routers_ok(fault=None):
+    """(passed, message) of chip_smoke's small router checks, with the
+    MM_ROUTER_FAULTS fault `fault` planted for their duration. Any
+    exception counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = MM_ROUTER_FAULTS[fault]()
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        r = cs.small_routers_check(0)
+        return True, f"passes ({json.dumps(r)[:200]})"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def router_faults(report, failures):
+    """The honest small router checks, then every MM_ROUTER_FAULTS plant
+    against them."""
+    ok, msg = routers_ok()
+    report["honest_routers"] = msg
+    cs.log(f"honest small router checks: {msg}")
+    if not ok:
+        failures.append(f"honest small router checks: {msg}")
+    for name in MM_ROUTER_FAULTS:
+        ok, msg = routers_ok(name)
+        report["faults"][name] = dict(failed={"routers": not ok},
+                                      routers=msg)
+        cs.log(f"{name}: small router checks -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the small router checks")
+
+
 # the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
 FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
@@ -1149,6 +1249,9 @@ def main():
         _kernels.build(["matvec_int4"])
         option_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "routers"]:
+        router_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1350,6 +1453,7 @@ def main():
         mm_train_faults(report, failures)
         eval_faults(report, failures)
         option_faults(report, failures)
+        router_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

@@ -244,6 +244,25 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      `cumo_summary`); then MPT-7B at full width through export_mpt and
      convert_mpt, int4, a 512-token prompt and 32 greedy steps (K5 4 x
      32 a step), with and without deferred decode (`mpt_summary`).
+     After the small option checks, `small_routers_check`: each router
+     of MM_ROUTERS and Mixtral's block as a layer against its definition
+     written apart (`router_definition`), then a small LLaVA per router
+     and a small Mixtral-decoder LLaVA on the card against the CPU (the
+     CPU replaying the card's top-k choices): logits within 3%, one sft
+     step's loss within 5e-3 and grad_norm within 0.2%, the routing
+     telemetry against its selections, and for Mixtral 8 captured decode
+     tokens equal to eager ones (chip_faults.py plants five faults
+     against it). After the 5.1B sft (`mm_train_summary`), the 5.1B with
+     each of the five routers through cli.train_mm.train (a warm-up and
+     2 timed sft steps, 4 x 2048 rows, remat, grad-accum 2, 8-bit
+     moments; `smoe_sigmoidgating` written as a checkpoint naming it and
+     loaded back first) and a telemetry forward (`mm_routers_summary`).
+     After MPT, the CLIP + Mixtral-8x7B cell (HF_CUMO_MIXTRAL, 12 of 32
+     layers) written layer by layer, loaded with --load-4bit --kv-quant
+     int8 (experts bf16), a 336 px image prompt solo (K5 4 x 12 a decode
+     step; a profiled replay shows qmm4_kernel 48 times) and 12 requests
+     through an 8-slot engine of 2048 positions, captured beside eager
+     (`mixtral_summary`).
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -1585,31 +1604,38 @@ def card_vs_cpu_logits(card, cpu, seed: int):
     counts as an infinite error."""
     import torch
 
+    logits, fed = {}, None
+    for key, model in (("card", card), ("cpu", cpu)):
+        logits[key], fed = logit_rows(model, seed, fed)
+    err = float((logits["card"] - logits["cpu"]).abs().max())
+    if not torch.isfinite(logits["card"]).all():
+        err = float("inf")
+    return err, 0.03 * float(logits["cpu"].abs().max())
+
+
+def logit_rows(model, seed: int, fed=None):
+    """`card_vs_cpu_logits`' run on one model: (the 5 logit rows [5, V] on
+    the CPU, the 4 tokens fed, `fed` when given, else its greedy ones)."""
+    import torch
+
     from competesmoe_tpu_torch.models.decoder import KVCache
 
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, 512, (1, 12))
     ids[0, 3] = -200
     px = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
-    logits, fed = {}, None
     with torch.no_grad():
-        for key, model in (("card", card), ("cpu", cpu)):
-            dev = model.device
-            cache = KVCache.create(model.language_model.cfg, 1, 64, dev)
-            out = model(torch.as_tensor(ids, device=dev),
-                        torch.as_tensor(px, device=dev), cache=cache)
-            rows, feed = [out.logits[:, -1].float().cpu()], []
-            for i in range(4):
-                t = rows[-1].argmax(-1) if fed is None else fed[i]
-                feed.append(t)
-                out = model(t.to(dev)[:, None], None, cache=out.cache)
-                rows.append(out.logits[:, -1].float().cpu())
-            fed = feed
-            logits[key] = torch.stack(rows)
-    err = float((logits["card"] - logits["cpu"]).abs().max())
-    if not torch.isfinite(logits["card"]).all():
-        err = float("inf")
-    return err, 0.03 * float(logits["cpu"].abs().max())
+        dev = model.device
+        cache = KVCache.create(model.language_model.cfg, 1, 64, dev)
+        out = model(torch.as_tensor(ids, device=dev),
+                    torch.as_tensor(px, device=dev), cache=cache)
+        rows, feed = [out.logits[:, -1].float().cpu()], []
+        for i in range(4):
+            t = rows[-1].argmax(-1) if fed is None else fed[i]
+            feed.append(t)
+            out = model(t.to(dev)[:, None], None, cache=out.cache)
+            rows.append(out.logits[:, -1].float().cpu())
+    return torch.stack(rows), feed
 
 
 def small_model_check(seed: int):
@@ -5928,6 +5954,649 @@ def settle_eval_bound(seed: int):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The multimodal routers and Mixtral's MoE decoder
+# ---------------------------------------------------------------------------
+
+# the five routers of moe/layers.py beside smoe and competesmoe
+MM_ROUTERS = ("smoe_sigmoidgating", "xmoe", "smoe_perturbed", "smoe_share",
+              "deepseekv3")
+# one small sft step card against CPU (the CPU replaying the card's top-k
+# choices, the flips within SMALL_MM_FLIP_SHARE and SMALL_MM_FLIP_GAP):
+# |loss gap| and |grad_norm gap| / grad_norm
+SMALL_ROUTER_LOSS_TOL = 5e-3
+SMALL_ROUTER_GRAD_TOL = 2e-3
+# router_definition_check: max |layer - definition| / max |definition| by
+# the layer's activation dtype, and the score by which a choice of the
+# layer may fall short of an expert it left out (a near tie)
+ROUTER_DEF_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+ROUTER_TIE = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# the 5.1B sft step of each router: one warm-up step, then timed ones
+MM_ROUTER_STEPS = 3
+# the decoder fields of mistralai/Mixtral-8x7B-v0.1's config.json (vocab
+# 32000, hidden 4096, intermediate 14336, 32 heads over 8 KV heads, 8
+# local experts, 2 a token, rope_theta 1e6, rms_norm_eps 1e-5, 32768
+# positions, no sliding window, untied head) under HF_CUMO's
+# CLIP-ViT-L/14-336 MoE tower and MoE projector. Cut: 12 of its 32 layers
+# (one layer is 1.451 B parameters, so all 32 take 93 GB in bf16; JAX
+# quantizes no expert either) and random weights from --seed.
+HF_CUMO_MIXTRAL = dict(
+    HF_CUMO, model_type="mixtral", num_hidden_layers=12, rope_theta=1e6,
+    sliding_window=None, num_local_experts=8, num_experts_per_tok=2,
+    tokenizer_model_max_length=2048)
+MIXTRAL_SMALL = dict(HF_CUMO_MIXTRAL, **dict(CUMO_SMALL,
+                                             sliding_window=None))
+# the Mixtral cell's engine: slots, max_len, requests (of them with an
+# image), tokens a request
+MIXTRAL_ENGINE = dict(slots=8, max_len=2048, requests=12, images=4,
+                      new_tokens=32)
+
+
+def router_definition(name: str, layer, x, sel):
+    """The output of router `name` on x [B, N, d] from the definitions of
+    the reference's layers, in float64 on the CPU from `layer`'s weights,
+    routed by `sel` (the layer's own choices): (output, the scores the
+    choices are the top-k of). Written apart from moe/layers.py: the gate
+    (x Wg; the cosine routers' reduced x against expert embeddings renormed
+    to 1.5 / (norm + theta), the input's norm offset by theta in the
+    perturbed one, softmax at temperature 0.3), the combine weights
+    (renormalised top-k; the cosine routers' softmax of the chosen
+    scores), the experts (Linear, exact GELU, Linear; Mixtral's
+    silu(x w1) * (x w3) then w2) and the shared expert (the last; 0.5 x
+    shared + 0.5 x routed for smoe_share, shared + routed for
+    deepseekv3)."""
+    import torch
+    import torch.nn.functional as F
+
+    w = {k: v.detach().double().cpu() for k, v in layer.named_parameters()}
+    x = x.detach().double().cpu()
+    sel = sel.detach().long().cpu()
+    if name == "mixtral":
+        def expert(e):
+            return (F.silu(x @ w["experts_w1"][e]) * (x @ w["experts_w3"][e])
+                    ) @ w["experts_w2"][e]
+    else:
+        def expert(e):
+            h = F.gelu(x @ w["experts_w1"][e] + w["experts_b1"][e])
+            return h @ w["experts_w2"][e] + w["experts_b2"][e]
+    if name in ("xmoe", "smoe_perturbed"):
+        theta = 0.1 if name == "smoe_perturbed" else 0.0
+        r = x @ w["inp_reduction"]
+        emb = w["expert_embeddings"]
+        emb = emb * (1.5 / (emb.norm(dim=-1, keepdim=True) + theta))
+        rn = r.norm(dim=-1, keepdim=True)
+        r = r / (rn + theta) if theta else r / rn.clamp(min=1e-4)
+        scores = torch.softmax(r @ emb.t() / 0.3, dim=-1)
+        weights = torch.softmax(scores.gather(-1, sel), dim=-1)
+    else:
+        logits = x @ w["gate_kernel"]
+        scores = (torch.sigmoid(logits) if name == "smoe_sigmoidgating"
+                  else torch.softmax(logits, dim=-1))
+        top = scores.gather(-1, sel)
+        weights = top / top.sum(dim=-1, keepdim=True)
+    routed_experts = scores.shape[-1]
+    outs = torch.stack([expert(e) for e in range(routed_experts)], dim=-2)
+    picked = outs.gather(-2, sel[..., None].expand(*sel.shape,
+                                                   outs.shape[-1]))
+    out = (picked * weights[..., None]).sum(dim=-2)
+    if name == "smoe_share":
+        out = 0.5 * expert(routed_experts) + 0.5 * out
+    elif name == "deepseekv3":
+        out = expert(routed_experts) + out
+    return out, scores
+
+
+def top_k_consistent(scores, sel, tie: float) -> bool:
+    """Every row's chosen experts score at least as high as any expert it
+    left out, less `tie`."""
+    import torch
+
+    chosen = torch.zeros_like(scores, dtype=torch.bool).scatter_(
+        -1, sel.long(), True)
+    kth = scores.gather(-1, sel.long()).min(dim=-1).values
+    other = scores.masked_fill(chosen, float("-inf")).max(dim=-1).values
+    return bool((kth >= other - tie).all())
+
+
+def router_definition_check(seed: int):
+    """Each router of MM_ROUTERS and Mixtral's block, a layer of width 64
+    (128 expert hidden; 4 experts, Mixtral 8; weights N(0, 0.1) from
+    `seed`) on the card, against `router_definition`: float32
+    activations (Mixtral bf16, which its grouped products take on the
+    card); its choices the top-k of the definition's scores (near ties
+    excepted) and its output within ROUTER_DEF_TOL of the definition's.
+    Returns {router: relative error}."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import init_random_
+    from competesmoe_tpu_torch.moe.registry import get_moe
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name in MM_ROUTERS + ("mixtral",):
+        mixtral = name == "mixtral"
+        layer = get_moe(name)(64, 64, n_experts=8 if mixtral else 4,
+                              n_selected=2, expert_hidden_dim=128,
+                              device="cuda")
+        init_random_(layer, seed, std=0.1)
+        x = torch.randn((2, 48, 64), generator=g, device="cuda")
+        if mixtral:
+            x = x.to(torch.bfloat16)
+        with torch.no_grad():
+            got, aux = layer(x, return_id_experts=True)
+        want, scores = router_definition(name, layer, x,
+                                         aux.selected_experts)
+        dt = str(x.dtype).split(".")[-1]
+        err = float((got.double().cpu() - want).abs().max()
+                    / want.abs().max())
+        out[name] = err
+        if not top_k_consistent(scores, aux.selected_experts.cpu(),
+                                ROUTER_TIE[dt]):
+            raise AssertionError(f"router {name}: the layer's choices are "
+                                 f"not the top-k of its definition's scores")
+        if not err <= ROUTER_DEF_TOL[dt]:
+            raise AssertionError(f"router {name}: output {err:.3g} x max "
+                                 f"off its definition (tol "
+                                 f"{ROUTER_DEF_TOL[dt]})")
+    log(f"router definitions ({card_line()}): " + ", ".join(
+        f"{k} {v:.3g}" for k, v in out.items()))
+    return out
+
+
+def small_router_config(name: str):
+    """The small multimodal model (SMALL_HF, SigLIP) with router `name` in
+    the tower and the projector, or, for 'mixtral', MIXTRAL_SMALL (a CLIP
+    tower, smoe, a 2-layer Mixtral decoder of 8 experts); bf16."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import llava_config_from_hf
+    if name == "mixtral":
+        return llava_config_from_hf(MIXTRAL_SMALL, "llava-mixtral",
+                                    torch.bfloat16)
+    cfg = small_mm_config()
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, moe_name=name),
+        projector=dataclasses.replace(cfg.projector, moe_name=name))
+
+
+def telemetry_consistent(auxes, what: str):
+    """The eval adapter's telemetry of `auxes` against their selections:
+    top-1 histograms count the first choices, a top-2 histogram exists
+    exactly where two experts are chosen, and the choices are the top-k
+    of the reported distribution (near ties excepted)."""
+    import torch
+
+    from competesmoe_tpu_torch.eval.llava_adapter import routing_telemetry
+    tele = routing_telemetry(auxes)
+    for li, aux in enumerate(auxes):
+        row = tele[f"layer_{li}"]
+        sel = aux.selected_experts.reshape(-1, aux.selected_experts.shape[
+            -1]).cpu()
+        probs = aux.gate_softmax.reshape(-1, aux.gate_softmax.shape[-1])
+        n = probs.shape[-1]
+        if (row["top1_hist"] != torch.bincount(sel[:, 0], minlength=n)
+                .tolist()
+                or (row["top2_hist"] is None) != (sel.shape[1] == 1)
+                or not top_k_consistent(probs.float().cpu(), sel, 2.0 ** -6)):
+            raise AssertionError(f"{what} layer {li}: telemetry {row} does "
+                                 f"not match the selections")
+    return tele
+
+
+def small_router_check(name: str, seed: int):
+    """A small model of `small_router_config(name)` on the card against
+    the same weights on the CPU, the CPU replaying the card's top-k
+    choices (`routed_as`): 5 logit rows (prefill with an image and 4
+    greedy steps) within 3% of the largest; one sft step's loss within
+    SMALL_ROUTER_LOSS_TOL and grad_norm within SMALL_ROUTER_GRAD_TOL, the
+    CPU's own choices parting on at most SMALL_MM_FLIP_SHARE of the rows
+    within SMALL_MM_FLIP_GAP; the card's routing telemetry consistent
+    with its selections; for Mixtral 8 greedy tokens of a captured decode
+    equal to eager ones. Returns the gaps."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import build_llava
+    from competesmoe_tpu_torch.models.llava import LlavaModel
+
+    cfg = small_router_config(name)
+    cpu = build_llava(cfg, seed=seed, device="cpu")
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    card = LlavaModel(cfg, device="cuda")
+    card.load_state_dict(init)
+    choices = []
+    with routed_as(record=choices):
+        rows_card, fed = logit_rows(card, seed)
+    with routed_as(replay=choices):
+        rows_cpu, _ = logit_rows(cpu, seed, fed)
+    err = float((rows_card - rows_cpu).abs().max())
+    tol = 0.03 * float(rows_cpu.abs().max())
+    if not (torch.isfinite(rows_card).all() and err <= tol):
+        raise AssertionError(f"small {name}: card logits {err:.4g} off the "
+                             f"CPU's (tol {tol:.4g})")
+    batch = small_mm_batch(seed)
+    choices = []
+    with routed_as(record=choices):
+        got = small_mm_steps(card, False, 1, batch, steps=1)[0]
+    cpu.load_state_dict(init)
+    with routed_as(replay=choices) as seen:
+        want = small_mm_steps(cpu, False, 1, batch, steps=1)[0]
+    dl = abs(got["loss/total"] - want["loss/total"])
+    dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    share = seen["flipped"] / max(seen["rows"], 1)
+    res = dict(logits_err=err, logits_tol=tol, loss_gap=dl, grad_gap=dg,
+               topk_share=share, topk_gap=seen["gap"])
+    log(f"small {name} (card vs CPU): logits {err:.4g} (tol {tol:.4g}); "
+        f"sft step loss {got['loss/total']:.6f} vs {want['loss/total']:.6f}"
+        f" (gap {dl:.3g}, tol {SMALL_ROUTER_LOSS_TOL}), grad_norm gap "
+        f"{dg:.3g} (tol {SMALL_ROUTER_GRAD_TOL}); the CPU's own top-k "
+        f"differs on {share:.3%} of the rows, score gap {seen['gap']:.3g}")
+    if not (math.isfinite(got["loss/total"]) and dl <= SMALL_ROUTER_LOSS_TOL
+            and dg <= SMALL_ROUTER_GRAD_TOL
+            and share <= SMALL_MM_FLIP_SHARE
+            and seen["gap"] <= SMALL_MM_FLIP_GAP):
+        raise AssertionError(f"small {name}: the sft step's card and CPU "
+                             f"disagree: {res}")
+    card.load_state_dict(init)
+    rng = np.random.default_rng(seed + 1)
+    ids = rng.integers(3, 512, (2, 20))
+    ids[:, 4] = -200
+    px = rng.uniform(-1, 1, (2, 28, 28, 3)).astype(np.float32)
+    with torch.no_grad():
+        out = card(torch.as_tensor(ids, device="cuda"),
+                   torch.as_tensor(px, device="cuda"),
+                   return_id_experts=True)
+    telemetry_consistent(out.vision_auxes + [out.projector_aux],
+                         f"small {name}")
+    if name == "mixtral":
+        ids1, px1 = ids[:1].astype(np.int32), px[:1]
+        greedy_run(card, ids1, px1, 8)                      # captures
+        captured = greedy_run(card, ids1, px1, 8)[0]
+        eager = greedy_run(card, ids1, px1, 8, cuda_graphs=False)[0]
+        if not np.array_equal(captured, eager):
+            raise AssertionError(f"small Mixtral: captured decode "
+                                 f"{captured.tolist()} != eager "
+                                 f"{eager.tolist()}")
+        res["captured_tokens"] = captured[0].tolist()
+        log(f"small Mixtral: 8 captured decode tokens equal the eager ones")
+    del card, cpu
+    free_card()
+    return res
+
+
+def small_routers_check(seed: int):
+    """`router_definition_check`, then `small_router_check` for each of
+    MM_ROUTERS and the small Mixtral-decoder model (chip_faults.py plants
+    router faults against these)."""
+    out = dict(definitions=router_definition_check(seed))
+    for name in MM_ROUTERS + ("mixtral",):
+        out[name] = small_router_check(name, seed)
+    return out
+
+
+def _router_row(step, m, seconds, tokens, peak):
+    return dict(step=step, wall_ms=seconds * 1e3,
+                tokens_per_s=tokens / seconds,
+                loss=float(m["loss/total"]), aux_mlp=float(m["loss/aux_mlp"]),
+                aux_clip=float(m["loss/aux_clip"]),
+                grad_norm=float(m["grad_norm"]), peak_gib=peak / 2 ** 30)
+
+
+def phase_mm_routers(seed: int):
+    """The 5.1B (HF_5P1B, full width and depth, bf16 weights from `seed`)
+    with each router of MM_ROUTERS in its tower and projector, built from
+    its config (JAX cannot load four of them from a checkpoint either;
+    `smoe_sigmoidgating` is written as a checkpoint whose config.json
+    names it and loaded back first), through cli.train_mm.train with
+    MM_FULL_FLAGS at MM_BATCH rows of 2048 positions for MM_ROUTER_STEPS
+    steps (the first a warm-up). Every number finite, within the 80 GB
+    card; the projector's, the tower's and the decoder's weights move;
+    then one `return_id_experts` forward of 2 image rows whose telemetry
+    matches its selections. No kernel of K1-K5 on this path. Returns
+    {router: summary}."""
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.cli.train_mm import train
+    from competesmoe_tpu_torch.models.builder import (HF_5P1B, build_llava,
+                                                      llava_config_from_hf,
+                                                      load_pretrained_model)
+    from competesmoe_tpu_torch.models.hf_export import save_hf_checkpoint
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_routers_"))
+    try:
+        for name in MM_ROUTERS:
+            free_card()
+            held = torch.cuda.memory_allocated()
+            hf = dict(HF_5P1B, moe_name=name)
+            cfg = llava_config_from_hf(hf, "llava_phi", torch.bfloat16)
+            t0 = time.perf_counter()
+            model = build_llava(cfg, seed=seed, device="cuda")
+            torch.cuda.synchronize()
+            res = dict(build_s=time.perf_counter() - t0, rows=[])
+            if name == "smoe_sigmoidgating":
+                ckpt = tmp / "llava-phi-sigmoidgating"
+                t0 = time.perf_counter()
+                path = save_hf_checkpoint(model, cfg, ckpt, hf_config=hf)
+                res["write_s"] = time.perf_counter() - t0
+                res["checkpoint_gb"] = path.stat().st_size / 1e9
+                del model
+                free_card()
+                t0 = time.perf_counter()
+                model = load_pretrained_model(ckpt, dtype=torch.bfloat16,
+                                              device="cuda")[1]
+                torch.cuda.synchronize()
+                res["load_s"] = time.perf_counter() - t0
+                shutil.rmtree(ckpt)
+                if model.cfg.projector.moe_name != name:
+                    raise AssertionError(f"{name}: loaded {model.cfg}")
+            probes = {
+                "projector": model.mm_projector.moelayer.experts_w1,
+                "vision": model.vision_tower.layers[0].moelayer.experts_w1,
+                "decoder": model.language_model.layers[
+                    0].self_attn.qkv_proj.weight}
+            before = {k: p.detach()[0, :64].clone()
+                      for k, p in probes.items()}
+            tok = ChatTok(cfg.decoder.vocab_size)
+            data = MMConversations(tok, 12, (150, 400),
+                                   cfg.vision.image_size, seed, 2048)
+            tokens = MM_BATCH * cfg.tokenizer_model_max_length
+            t_step = [0.0]
+
+            def record(step, state, m, seconds):
+                torch.cuda.synchronize()
+                row = _router_row(step, m, time.perf_counter() - t_step[0],
+                                  tokens,
+                                  torch.cuda.max_memory_allocated() - held)
+                res["rows"].append(row)
+                torch.cuda.reset_peak_memory_stats()
+                t_step[0] = time.perf_counter()
+
+            reset_counts()
+            flags = MM_FULL_FLAGS + [
+                "--per-device-batch-size", str(MM_BATCH),
+                "--num-train-steps", str(MM_ROUTER_STEPS), "--seed",
+                str(MM_SEED), "--moe-name", name]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t_step[0] = time.perf_counter()
+            train(mm_args(flags, tmp / name), model, data, tok,
+                  on_step=record, final_save=False)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for row in res["rows"]:
+                nums = [row[k] for k in ("loss", "aux_mlp", "aux_clip",
+                                         "grad_norm")]
+                if not all(math.isfinite(v) for v in nums):
+                    raise AssertionError(f"{name}: a number is not finite: "
+                                         f"{row}")
+                if row["peak_gib"] * 2 ** 30 + held > 80e9:
+                    raise AssertionError(f"{name}: past the card's 80 GB: "
+                                         f"{row}")
+            moved = {k: not torch.equal(before[k], p.detach()[0, :64])
+                     for k, p in probes.items()}
+            if not all(moved.values()):
+                raise AssertionError(f"{name}: weights did not move: "
+                                     f"{moved}")
+            if any(counts.values()):
+                raise AssertionError(f"{name} launched kernels: {counts}")
+            timed = res["rows"][1:]
+            res.update(
+                ms_per_step=float(np.mean([r["wall_ms"] for r in timed])),
+                tokens_per_s=float(np.mean([r["tokens_per_s"]
+                                            for r in timed])),
+                peak_gib=max(r["peak_gib"] for r in res["rows"]),
+                held_gib=held / 2 ** 30, moved=moved, launches=counts,
+                last_peak_gib=peak / 2 ** 30)
+            rng = np.random.default_rng(seed + 5)
+            ids = rng.integers(3, cfg.decoder.vocab_size, (2, 64))
+            ids[:, 8] = -200
+            px = rng.uniform(-1, 1, (2, cfg.vision.image_size,
+                                     cfg.vision.image_size, 3)).astype(
+                                         np.float32)
+            with torch.no_grad():
+                o = model(torch.as_tensor(ids, device="cuda"),
+                          torch.as_tensor(px, device="cuda"),
+                          return_id_experts=True)
+            tele = telemetry_consistent(o.vision_auxes + [o.projector_aux],
+                                        f"5.1B {name}")
+            last = tele[f"layer_{len(tele) - 1}"]
+            res["projector_telemetry"] = dict(
+                entropy=last["entropy"], top1_hist=last["top1_hist"],
+                top2_hist=last["top2_hist"])
+            log(f"5.1B {name} sft ({card_line()}): "
+                f"{res['ms_per_step']:.1f} ms a step over steps 1-"
+                f"{MM_ROUTER_STEPS - 1}, {res['tokens_per_s']:.0f} tok/s, "
+                f"peak {res['peak_gib']:.2f} GiB above {res['held_gib']:.2f}"
+                f"; losses {[round(r['loss'], 5) for r in res['rows']]}, "
+                f"aux_mlp {res['rows'][-1]['aux_mlp']:.4g}, aux_clip "
+                f"{res['rows'][-1]['aux_clip']:.4g}; projector telemetry "
+                f"{res['projector_telemetry']}")
+            out[name] = res
+            del model, probes, o
+            free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def mixtral_layer_hf(layer, q: str):
+    """A Mixtral `DecoderLayer`'s weights under HF Mixtral's names at layer
+    prefix `q`: the writer's side of the checkpoint (the port's export
+    refuses a MoE decoder, as JAX's fails on one)."""
+    sd = layer.state_dict()
+    out = {f"{q}{n}.weight": sd[f"{n}.weight"] for n in (
+        "input_layernorm", "post_attention_layernorm", "self_attn.q_proj",
+        "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj")}
+    bp = q + "block_sparse_moe."
+    out[bp + "gate.weight"] = sd["moe.gate_kernel"].t()
+    for w in ("w1", "w3", "w2"):
+        for j, t in enumerate(sd[f"moe.experts_{w}"]):
+            out[f"{bp}experts.{j}.{w}.weight"] = t.t()
+    return out
+
+
+def write_mixtral_checkpoint(path: Path, hf: dict, seed: int):
+    """HF_CUMO_MIXTRAL's checkpoint in the reference's layout, one shard a
+    part, streamed: the tower, the projector, the embeddings and head,
+    then each decoder layer is built on the card with random weights
+    (its own seed from `seed`), written and dropped, so the card never
+    holds more than one layer. Returns the bytes written."""
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import (init_random_,
+                                                      llava_config_from_hf)
+    from competesmoe_tpu_torch.models.decoder import DecoderLayer
+    from competesmoe_tpu_torch.models.hf_export import \
+        export_mlpmoe_projector
+    from competesmoe_tpu_torch.models.projector import VisionProjector
+    from competesmoe_tpu_torch.models.safetensors_io import save_file
+    from competesmoe_tpu_torch.models.vision import CLIPSMoEVisionTower
+
+    cfg = llava_config_from_hf(hf, "llava-mixtral", torch.bfloat16)
+    dec = cfg.decoder
+    path.mkdir(parents=True)
+    shards = []
+
+    def shard(sd):
+        with torch.no_grad():
+            shards.append(save_file(
+                sd, path / f"model-{len(shards):05d}.safetensors"))
+
+    tower = init_random_(CLIPSMoEVisionTower(cfg.vision, "cuda"), seed)
+    shard(clip_tower_hf(tower, "model.vision_tower.vision_tower."))
+    del tower
+    proj = init_random_(VisionProjector(cfg.projector, "cuda"), seed + 1)
+    shard(export_mlpmoe_projector(proj, "model.mm_projector."))
+    del proj
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+            torch.bfloat16)
+    shard({"model.embed_tokens.weight": normal(dec.vocab_size,
+                                               dec.hidden_size),
+           "model.norm.weight": torch.ones(dec.hidden_size,
+                                           dtype=torch.bfloat16,
+                                           device="cuda"),
+           "lm_head.weight": normal(dec.vocab_size, dec.hidden_size)})
+    for li in range(dec.num_hidden_layers):
+        layer = init_random_(DecoderLayer(dec, "cuda"), seed + 3 + li)
+        shard(mixtral_layer_hf(layer, f"model.layers.{li}."))
+        del layer
+    (path / "config.json").write_text(json.dumps(hf))
+    return sum(p.stat().st_size for p in shards)
+
+
+def mixtral_requests(rng, vocab: int, size: int):
+    """MIXTRAL_ENGINE's requests: `images` 48-token prompts with the image
+    sentinel at 8 and a `size` px image, the rest text of 20-150 tokens."""
+    n_img, n = MIXTRAL_ENGINE["images"], MIXTRAL_ENGINE["requests"]
+    return engine_requests(rng, vocab, n - n_img, n_img, size)
+
+
+def phase_mixtral(seed: int):
+    """The CLIP + Mixtral-8x7B cell (HF_CUMO_MIXTRAL) at full width:
+    written by `write_mixtral_checkpoint` into TMPDIR, loaded through
+    load_pretrained_model with --load-4bit --kv-quant int8 (the experts
+    and the gate stay bf16, as in JAX; K5 at q, k, v and o). Solo: a 336
+    px image prompt, 32 greedy tokens, captured (main path: K5 4 x 12 a
+    decode step) beside eager (equal, or parting only under the parting
+    rule); one profiled replay of the captured decode step shows
+    qmm4_kernel 4 x 12 times. Engine (MIXTRAL_ENGINE): 12 requests of 32
+    tokens, 4 with an image, captured (main path: K5 4 x 12 a viable
+    forward) beside eager, every stream equal or parting under the rule.
+    Returns (K5 launches, the `mixtral_summary` dict)."""
+    import tempfile
+
+    import torch
+
+    from competesmoe_tpu_torch.models.builder import load_pretrained_model
+    from competesmoe_tpu_torch.models.decoder import QuantDense
+    from competesmoe_tpu_torch.serve.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    free_card()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mixtral_"))
+    ckpt = tmp / "llava-mixtral-8x7b-clip-cut12"
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_mixtral_checkpoint(ckpt, HF_CUMO_MIXTRAL, seed)
+        write_s = time.perf_counter() - t0
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = load_pretrained_model(ckpt, load_4bit=True, kv_quant="int8",
+                                      device="cuda")[1]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dec = model.cfg.decoder
+    L = dec.num_hidden_layers
+    lay = model.language_model.layers[0]
+    if not (dec.moe_name == "mixtral" and dec.quant == "int4"
+            and dec.kv_quant == "int8" and L == 12
+            and model.cfg.vision.tower_type == "clip"
+            and isinstance(lay.self_attn.q_proj, QuantDense)
+            and lay.moe.experts_w1.dtype == torch.bfloat16
+            and tuple(lay.moe.experts_w1.shape) == (8, 4096, 14336)):
+        raise AssertionError(f"Mixtral cell as loaded: {model.cfg}")
+    held = torch.cuda.memory_allocated()
+    log(f"Mixtral cell ({card_line()}): wrote {nbytes / 1e9:.2f} GB in "
+        f"{write_s:.1f} s, --load-4bit --kv-quant int8 in {load_s:.1f} s "
+        f"(peak {load_peak / 2 ** 30:.2f} GiB); the model holds "
+        f"{held / 2 ** 30:.2f} GiB")
+    size = model.cfg.vision.image_size
+    rng = np.random.default_rng(seed + 40)
+    ids = rng.integers(3, dec.vocab_size, (1, 48)).astype(np.int32)
+    ids[0, 8] = -200
+    px = rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    n = MIXTRAL_ENGINE["new_tokens"]
+    greedy_run(model, ids, px, n)                   # captures
+    reset_counts()                                  # main path starts
+    toks, ttft, rest = greedy_run(model, ids, px, n)
+    counts = read_counts()                          # main path ends
+    steps = toks.shape[1] - 1
+    solo_k5 = counts["quant_small_m_matmul_int4"]
+    if solo_k5 != 4 * L * steps or sum(counts.values()) != solo_k5:
+        raise AssertionError(f"Mixtral solo launches {counts}: K5 must be "
+                             f"4 x {L} x {steps}")
+    eager, e_ttft, e_rest = greedy_run(model, ids, px, n, cuda_graphs=False)
+    solo_parted = agree(model, ids[0], px, toks[0].tolist(),
+                        eager[0].tolist(), "Mixtral solo captured vs eager")
+    per_replay = replay_kernel_count(solo_program(model, ("scan", 1)),
+                                     "qmm4_kernel", 4 * L,
+                                     "the Mixtral solo decode step")
+    solo = dict(ttft_ms=ttft * 1e3, decode_tok_s=steps / rest,
+                eager_ttft_ms=e_ttft * 1e3, eager_tok_s=steps / e_rest,
+                k5_per_step=solo_k5 // steps, qmm4_per_replay=per_replay,
+                parted=solo_parted)
+    log(f"Mixtral solo: TTFT {ttft * 1e3:.1f} ms, {steps / rest:.2f} tok/s "
+        f"captured ({steps / e_rest:.2f} eager), K5 {solo_k5 // steps} a "
+        f"decode step, a profiled replay shows qmm4_kernel {per_replay} "
+        f"times; captured vs eager: "
+        f"{'equal' if solo_parted is None else solo_parted}")
+    reqs = mixtral_requests(np.random.default_rng(seed + 41),
+                            dec.vocab_size, size)
+    engine_res, streams = {}, {}
+    fw = ForwardRows(model.language_model)
+    fw.active = False
+    for graphs in (True, False):
+        engine = DecodeEngine(model, n_slots=MIXTRAL_ENGINE["slots"],
+                              max_len=MIXTRAL_ENGINE["max_len"],
+                              run_thread=False, cuda_graphs=graphs,
+                              rng_seed=seed)
+        drive_ticks(engine, reqs[:1], 4)            # warm-up, captures
+        if graphs:
+            fw.rows.clear()
+            fw.active = True
+            reset_counts()                          # main path starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams[graphs] = drive_ticks(engine, reqs, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        side = "captured" if graphs else "eager"
+        tokens = sum(len(s) for s in streams[graphs])
+        engine_res[side] = dict(wall_s=wall, tokens=tokens,
+                                tok_s=tokens / wall)
+        if graphs:
+            counts = read_counts()                  # main path ends
+            fw.active = False
+            want = matvec_launches(model.language_model, fw.rows)
+            eng_k5 = counts["quant_small_m_matmul_int4"]
+            if eng_k5 != want or sum(counts.values()) != eng_k5:
+                raise AssertionError(f"Mixtral engine launches {counts}: K5"
+                                     f" must be {want} (4 x {L} x viable "
+                                     f"forwards)")
+            engine_res["k5"] = eng_k5
+            engine_res["viable_forwards"] = want // (4 * L)
+        engine.shutdown()
+        del engine
+        free_card()
+    fw.remove()
+    parted = [agree(model, ids_, px_, streams[True][i], streams[False][i],
+                    f"Mixtral engine request {i} captured vs eager")
+              for i, (ids_, px_) in enumerate(reqs)]
+    engine_res["parted"] = [p for p in parted if p is not None]
+    log(f"Mixtral engine ({MIXTRAL_ENGINE}): "
+        f"{engine_res['captured']['tok_s']:.1f} tok/s captured, "
+        f"{engine_res['eager']['tok_s']:.1f} eager; K5 {eng_k5} = 4 x {L} x "
+        f"{engine_res['viable_forwards']}; streams parted: "
+        f"{engine_res['parted'] or 'none'}")
+    summary = dict(card=card_line(), checkpoint_gb=nbytes / 1e9,
+                   write_s=write_s, load_4bit_s=load_s,
+                   load_peak_gib=load_peak / 2 ** 30,
+                   held_gib=held / 2 ** 30, solo=solo, engine=engine_res,
+                   seconds=time.perf_counter() - t_phase)
+    del model
+    free_card()
+    return solo_k5 + eng_k5, summary
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -5992,6 +6661,7 @@ def main():
     graphs = dict(card=card, small=small_captured_check(a.seed))
     small_eval = small_eval_check(a.seed)
     small_options = small_options_check(a.seed)
+    small_routers = small_routers_check(a.seed)
     model, want_tokens = phase_checkpoint(a.seed)
     k5_launches, summary = phase_model(a.seed, model, want_tokens)
     graphs["solo"] = solo_vs_eager(model, a.seed)
@@ -6031,6 +6701,8 @@ def main():
     print("cumo_summary " + json.dumps(cumo), flush=True)
     mpt_k5, mpt = phase_mpt(a.seed)
     print("mpt_summary " + json.dumps(mpt), flush=True)
+    mixtral_k5, mixtral = phase_mixtral(a.seed)
+    print("mixtral_summary " + json.dumps(mixtral), flush=True)
     small += [small_engine_check(kind, a.seed) for kind in ("bf16", "int8")]
     for kind in ("int8", "bf16"):
         model, engines[kind] = phase_engine(kind, a.seed)
@@ -6051,12 +6723,15 @@ def main():
     mm = dict(small=small_mm_train_check(a.seed))
     mm.update(phase_mm_train(a.seed, profile=a.profile))
     print("mm_train_summary " + json.dumps(mm), flush=True)
+    print("mm_routers_summary " + json.dumps(dict(
+        card=card, small=small_routers, full=phase_mm_routers(a.seed))),
+        flush=True)
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",
                  k5_launches + engines["int4"]["launches"]
                  + features["launches"] + eval_k5 + options_k5 + cumo_k5
-                 + mpt_k5, 1),
+                 + mpt_k5 + mixtral_k5, 1),
                 ("small_m_matmul", engines["bf16"]["launches"], 8),
                 ("quant_small_m_matmul", engines["int8"]["launches"], 8))]
     for row in [k1, k1_bwd["gmm2_bwd_dx"], k1_bwd["gmm2_bwd_dw"]] + [

@@ -109,16 +109,13 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(a) -> None:
-    """Refuse what the port does not run, with its ROADMAP item."""
-    from ..moe.registry import MOE_REGISTRY
+    """Refuse what the port does not run, with its ROADMAP item.
+    `--moe-name` is parsed and, as in JAX, chooses nothing: the router is
+    the checkpoint config.json's `moe_name` (ROADMAP §3)."""
     if a.n_expert > 1:
         raise NotImplementedError(
             f"--n-expert {a.n_expert}: expert parallelism is not ported "
             "(ROADMAP §1 item 1.7, parallelism)")
-    if a.moe_name not in MOE_REGISTRY:
-        raise NotImplementedError(
-            f"--moe-name {a.moe_name!r} is not in the port's registry "
-            f"({', '.join(sorted(MOE_REGISTRY))}): ROADMAP §1 item 1.2")
 
 
 class _CycleSampler:

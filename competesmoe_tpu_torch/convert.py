@@ -18,8 +18,12 @@ projector, CLIP's `class_embedding` and `pre_layrnorm`, MPT's bias-free
 LayerNorm `weight`). Everything a kernel reads keeps the JAX layout and
 passes through as is:
 QuantDense `kernel_q` (packed [K/2, N] in int4 mode) and `scale`, the
-stacked experts `experts_w1` [E, in, h] etc., the MoE `gate_kernel`
-[in, E], RMSNorm `weight`, the vision `position_embedding`, and the
+stacked experts `experts_w1` [E, in, h] etc. (Mixtral's `experts_w1`,
+`experts_w3` [E, d, h] and `experts_w2` [E, h, d] under a decoder
+layer's `moe`), the MoE `gate_kernel` [in, E] ([in, E-1] for the
+shared-expert routers) and `gate_bias` [E], the cosine routers'
+`inp_reduction` [in, E/2] and `expert_embeddings` [E, E/2], RMSNorm
+`weight`, the vision `position_embedding`, and the
 pretrain MoE's `keys` [E, d, ES], `values` [E, ES, d] and `w_gate` [E, d]
 (the layouts K1 reads).
 

@@ -180,8 +180,9 @@ def init_random_(model: nn.Module, seed: int = 0, std: float = 0.02
                  ) -> nn.Module:
     """Fill every parameter in place from a torch.Generator on the
     weights' device, one tensor at a time (no host round trip): norm
-    weights 1, biases 0, other weights N(0, std). Build the model
-    unquantized and quantize after (e.g. `apply_load_4bit`)."""
+    weights 1, biases (a MoE layer's `gate_bias` too, as JAX's zeros
+    initializer) 0, other weights N(0, std). Build the model unquantized
+    and quantize after (e.g. `apply_load_4bit`)."""
     g = None
     for mod in model.modules():
         for name, t in mod.named_parameters(recurse=False):
@@ -189,7 +190,7 @@ def init_random_(model: nn.Module, seed: int = 0, std: float = 0.02
                 g = torch.Generator(device=t.device).manual_seed(seed)
             if isinstance(mod, (nn.LayerNorm, RMSNorm)) and name == "weight":
                 t.fill_(1.0)
-            elif name == "bias":
+            elif name in ("bias", "gate_bias"):
                 t.zero_()
             else:
                 t.copy_(torch.randn(t.shape, generator=g, device=t.device,
@@ -336,8 +337,34 @@ def apply_load_8bit(model: LlavaModel) -> LlavaModel:
 # Checkpoint loading (reference builder.py:29-184)
 # ---------------------------------------------------------------------------
 
+# Routers whose parameters JAX's converters do not read: the cosine gate's
+# `inp_reduction` and `expert_embeddings`, the shared-expert gate [in, E-1]
+UNLOADABLE_ROUTERS = ("xmoe", "smoe_perturbed", "smoe_share", "deepseekv3")
+
+
+def check_loadable(cfg: LlavaConfig) -> None:
+    """Refuse a checkpoint whose tower or projector router JAX's loader
+    cannot give its parameters (ROADMAP §3): JAX's builder loads such a
+    checkpoint, and its model then fails at the first forward."""
+    used = {cfg.vision.moe_name}
+    if cfg.projector.projector_type == "moe":
+        used.add(cfg.projector.moe_name)
+    bad = sorted(used & set(UNLOADABLE_ROUTERS))
+    if bad:
+        raise NotImplementedError(
+            f"loading a checkpoint routed by {', '.join(bad)}: the JAX "
+            "package's converters read no `inp_reduction` or "
+            "`expert_embeddings` (xmoe, smoe_perturbed) and take the gate "
+            "as [in, E] where the shared-expert routers have [in, E-1] "
+            "(smoe_share, deepseekv3), so its loaded model fails at its "
+            "first forward (ROADMAP §3); build the model from its config "
+            "(`build_llava`) instead")
+
+
 def convert_llava_checkpoint(sd, cfg: LlavaConfig) -> Dict[str, torch.Tensor]:
-    """Released-checkpoint state dict -> `LlavaModel` state dict."""
+    """Released-checkpoint state dict -> `LlavaModel` state dict (a router
+    of `UNLOADABLE_ROUTERS` is refused, `check_loadable`)."""
+    check_loadable(cfg)
     vision_sd = _strip_prefix(sd, "model.vision_tower.vision_tower.")
     proj_sd = _strip_prefix(sd, "model.mm_projector.")
     convert_tower = (convert_clip_tower if cfg.vision.tower_type == "clip"

@@ -1,12 +1,14 @@
 """HF-style causal decoder (Phi-3.5 / llama family) in PyTorch (port of
 competesmoe_tpu/models/decoder.py).
 
-Covers every option of JAX's `DecoderConfig` but the MoE decoder
-(`moe_name`) and the sequence-parallel ring path: RMSNorm with an exact
-1/sqrt or MPT's bias-free LayerNorm (either may be folded into the next
-projection, `fold_norm_scales`), plain and Phi-3 longrope rotary tables
+Covers every option of JAX's `DecoderConfig` but the sequence-parallel
+ring path: RMSNorm with an exact 1/sqrt or MPT's bias-free LayerNorm
+(either may be folded into the next projection, `fold_norm_scales`),
+plain and Phi-3 longrope rotary tables
 or ALiBi, MHA/GQA with fused (`qkv_proj`/`gate_up_proj`) or split
-projections, the SiLU-gated or MPT's GELU MLP, a sliding window on every
+projections, the SiLU-gated or MPT's GELU MLP or a MoE FFN from the
+multimodal registry (`moe_name`, Mixtral's `mixtral` block among them,
+whose aux losses the forward sums), a sliding window on every
 mask path, a stacked or per-layer KV cache (bf16 or int8 with per-(slot,
 head) scales), deferred decode writes, and weight-quantized projections
 (`QuantDense` int8 / packed int4 / w8a8).
@@ -40,6 +42,7 @@ import torch.utils.checkpoint
 from ..device import resolve_device
 from ..moe.config import MoEArgs
 from ..moe.layers import MoEAux, zero_aux
+from ..moe.registry import get_moe
 from ..ops.matvec import (MAX_QUANT_M, quant_small_m_matmul,
                           quant_small_m_matmul_int4, small_m_matmul,
                           small_m_viable, small_m_viable_int4,
@@ -123,12 +126,8 @@ def phi35_mini_config(dtype: torch.dtype = torch.bfloat16) -> DecoderConfig:
 
 
 def check_supported(cfg: DecoderConfig) -> None:
-    """Raise for the decoder option the port does not run yet (the MoE
-    decoder) and for unknown option values."""
-    if cfg.moe_name:
-        raise NotImplementedError(
-            "decoder options not ported yet: moe_name (MoE decoder) "
-            "(ROADMAP §1 item 1.2, with the Mixtral layer)")
+    """Raise for unknown option values (an unknown `moe_name` raises in
+    the registry)."""
     known = {"quant": (None, "int8", "int4", "w8a8"),
              "kv_quant": (None, "int8"),
              "norm_type": ("rmsnorm", "layernorm_nobias"),
@@ -682,25 +681,43 @@ class DecoderMLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """Attention, then the dense MLP (`mlp`) or, with `cfg.moe_name`, a MoE
+    FFN of the registry (`moe`, JAX's `layers_<i>/moe`) with the
+    decoder's width, `intermediate_size` experts and dtype."""
+
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
         self.cfg = cfg
         # the input norm folds into qkv, the post-attention norm into the
-        # dense MLP's first projection (not into an MoE FFN)
+        # dense MLP's first projection (not into an MoE FFN: the router
+        # and every expert would each have to absorb it)
         self.input_layernorm = make_norm(cfg, True, device)
         self.post_attention_layernorm = make_norm(
             cfg, cfg.moe_name is None, device)
         self.self_attn = DecoderAttention(cfg, device)
-        self.mlp = DecoderMLP(cfg, device)
+        if cfg.moe_name is not None:
+            self.moe = get_moe(cfg.moe_name)(
+                cfg.hidden_size, cfg.hidden_size, n_experts=cfg.num_experts,
+                n_selected=cfg.num_selected, args=cfg.moe_args,
+                expert_hidden_dim=cfg.intermediate_size, device=device,
+                dtype=cfg.dtype)
+        else:
+            self.mlp = DecoderMLP(cfg, device)
 
     def forward(self, x, cos, sin, mask=None, cache=None, cache_idx=None,
                 layer_idx: int = 0, attn_window: Optional[int] = None,
-                pending: Optional[list] = None):
+                pending: Optional[list] = None, step=None,
+                train: bool = False):
+        """Returns (x, the FFN's MoEAux); `step` and `train` reach a MoE
+        FFN (its aux losses are computed in training only)."""
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask=mask,
                                cache=cache, cache_idx=cache_idx,
                                layer_idx=layer_idx, attn_window=attn_window,
                                pending=pending)
         h = self.post_attention_layernorm(x)
+        if self.cfg.moe_name is not None:
+            out, aux = self.moe(h, step=step, train=train)
+            return x + out, aux
         return x + self.mlp(h), zero_aux(h)
 
 
@@ -721,7 +738,9 @@ class DecoderLM(nn.Module):
     tensors on the device (`cache.pos`, `position_ids`), never from host
     values, so a captured step's mask follows its positions. With
     `deferred_decode`, a decode step over a stacked cache writes every
-    layer's K/V in one indexed copy after the last layer."""
+    layer's K/V in one indexed copy after the last layer. `step` and
+    `train` reach a MoE FFN; the third output's `total_aux_loss` sums
+    its layers' aux losses."""
 
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -754,7 +773,7 @@ class DecoderLM(nn.Module):
                 attention_mask=None, position_ids=None,
                 cache: Optional[KVCache] = None,
                 attn_window: Optional[int] = None,
-                pos_in_place: bool = False):
+                pos_in_place: bool = False, step=None, train: bool = False):
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
@@ -822,10 +841,10 @@ class DecoderLM(nn.Module):
                 # in backward, only the layer's input stays
                 x, aux = torch.utils.checkpoint.checkpoint(
                     layer, x, cos, sin, mask, None, None, li, attn_window,
-                    use_reentrant=False)
+                    None, step, train, use_reentrant=False)
             else:
                 x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
-                               attn_window, pending)
+                               attn_window, pending, step, train)
             total_aux = total_aux + aux.aux_loss
             auxes.append(aux)
         if pending:

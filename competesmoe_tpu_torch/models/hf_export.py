@@ -49,7 +49,15 @@ def _copy(out: StateDict, dst: str, sd: Mapping, src: str) -> None:
 def export_decoder(decoder: nn.Module, cfg: DecoderConfig,
                    prefix: str = "model.") -> StateDict:
     """`DecoderLM` -> HF llama-family state dict (inverse of
-    hf_loader.convert_decoder)."""
+    hf_loader.convert_decoder). A MoE decoder is refused: JAX's
+    export_decoder reads every layer's dense `mlp` and fails on a Mixtral
+    tree (ROADMAP §3), so there is no reference layout to match."""
+    if cfg.moe_name is not None:
+        raise NotImplementedError(
+            f"exporting a MoE decoder (moe_name {cfg.moe_name!r}): the JAX "
+            "package's export_decoder reads each layer's dense `mlp` and "
+            "fails on a Mixtral tree, so the port has no reference layout "
+            "to write (ROADMAP §3)")
     sd = _weights(decoder)
     out: StateDict = {prefix + "embed_tokens.weight":
                       sd["embed_tokens.weight"],

@@ -4,7 +4,8 @@ competesmoe_tpu/models/hf_loader.py).
 Covers the weight-loading paths of the reference's builder for what the
 port models:
 - decoder LMs of the llama family (Phi-3.5 fused, Llama / Mistral /
-  SmolLM split projections) and MPT (`convert_mpt`);
+  SmolLM split projections), Mixtral's MoE decoder (`block_sparse_moe`)
+  and MPT (`convert_mpt`);
 - the SigLIP and CLIP vision towers, dense or MoE, including sparse
   upcycling (a dense MLP replicated into every expert, a fresh N(0, 0.02)
   gate) and the already-MoE layout of the released CompeteSMoE-5.1B
@@ -18,7 +19,11 @@ of the port's modules, in the layouts `convert.py` documents: HF
 [out, in, kh, kw] pass through unchanged; expert MLPs are stacked as
 `experts_w1` [E, in, h], `experts_b1` [E, h], `experts_w2` [E, h, out],
 `experts_b2` [E, out]; `gate.weight` [E, in] becomes `gate_kernel`
-[in, E]. Tensors stay on their device and in their dtype; the fresh gates
+[in, E]; Mixtral's `experts.<j>.w1|w3|w2.weight` stack transposed into
+`experts_w1` / `experts_w3` [E, d, h] and `experts_w2` [E, h, d], one
+layer at a time, each expert's tensor released from a `ReadTracker` as
+soon as it is stacked (so a loaded checkpoint is never held twice on the
+device). Tensors stay on their device and in their dtype; the fresh gates
 of upcycling are float32, drawn from `np.random.default_rng(42)` in JAX's
 order, so both packages draw the same values.
 """
@@ -79,6 +84,9 @@ class _Prefixed(Mapping):
     def __getitem__(self, key: str):
         return self._sd[self._prefix + key]
 
+    def release(self, key: str) -> None:
+        _release(self._sd, self._prefix + key)
+
     def __contains__(self, key) -> bool:
         return self._prefix + key in self._sd
 
@@ -102,8 +110,21 @@ class ReadTracker(dict):
         self.read.add(key)
         return super().__getitem__(key)
 
+    def release(self, key: str) -> None:
+        """Drop a tensor that has been read (and copied), so that its
+        memory can go before the conversion ends."""
+        self.read.add(key)
+        self.pop(key, None)
+
     def unread(self):
         return sorted(set(self) - self.read)
+
+
+def _release(sd: Mapping, key: str) -> None:
+    """Release `key` from a state dict that can (`ReadTracker`)."""
+    release = getattr(sd, "release", None)
+    if release is not None:
+        release(key)
 
 
 def _strip_prefix(sd: Mapping, prefix: str) -> Mapping:
@@ -148,20 +169,34 @@ def convert_decoder(sd: Mapping, cfg: DecoderConfig,
             raise KeyError("lm_head.weight not found")
     for li in range(cfg.num_hidden_layers):
         p = f"layers.{li}."
-        if (p + "block_sparse_moe.gate.weight") in m:
-            raise NotImplementedError(
-                "a Mixtral MoE decoder (block_sparse_moe) is not ported: "
-                "ROADMAP §1 item 1.2 (with the Mixtral layer)")
         for n in ("input_layernorm", "post_attention_layernorm"):
             _copy(out, p + n, m, p + n)
         names = (("qkv_proj",) if cfg.fused_qkv
                  else ("q_proj", "k_proj", "v_proj")) + ("o_proj",)
         for n in names:
             _copy(out, p + f"self_attn.{n}", m, p + f"self_attn.{n}")
+        if (p + "block_sparse_moe.gate.weight") in m:
+            out.update(_convert_mixtral_block(m, p, cfg.num_experts))
+            continue
         names = (("gate_up_proj",) if cfg.fused_qkv
                  else ("gate_proj", "up_proj")) + ("down_proj",)
         for n in names:
             _copy(out, p + f"mlp.{n}", m, p + f"mlp.{n}")
+    return out
+
+
+def _convert_mixtral_block(m: Mapping, p: str, n_experts: int) -> StateDict:
+    """HF Mixtral's `block_sparse_moe` of layer prefix `p` -> the port's
+    `moe.` tensors (the reference keeps these exact tensors and rewires
+    only the forward): each expert's [out, in] weight transposed into
+    one stacked tensor, its sources released as soon as it is built."""
+    bp = p + "block_sparse_moe."
+    out = {f"{p}moe.gate_kernel": _t(m[bp + "gate.weight"])}
+    for w in ("w1", "w3", "w2"):
+        keys = [f"{bp}experts.{j}.{w}.weight" for j in range(n_experts)]
+        out[f"{p}moe.experts_{w}"] = torch.stack([m[k].t() for k in keys])
+        for k in keys:
+            _release(m, k)
     return out
 
 

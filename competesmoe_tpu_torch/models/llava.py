@@ -203,7 +203,8 @@ class LlavaModel(nn.Module):
         if pixel_values is None:
             logits, new_cache, _ = lm(torch.clamp(input_ids, min=0),
                                       attention_mask=attention_mask,
-                                      cache=cache, pos_in_place=pos_in_place)
+                                      cache=cache, pos_in_place=pos_in_place,
+                                      step=step, train=train)
             return LlavaOutput(logits=logits, loss=None, aux_mlp=zero,
                                aux_clip=zero, labels=labels,
                                cache=new_cache)
@@ -223,12 +224,17 @@ class LlavaModel(nn.Module):
         if maxlen is not None and embeds.shape[1] > maxlen:
             embeds, sp_labels = embeds[:, :maxlen], sp_labels[:, :maxlen]
             sp_mask, sp_pos = sp_mask[:, :maxlen], sp_pos[:, :maxlen]
-        logits, new_cache, _ = lm(
+        logits, new_cache, d_aux = lm(
             inputs_embeds=embeds, attention_mask=sp_mask,
             position_ids=sp_pos if cache is None else None, cache=cache,
-            pos_in_place=pos_in_place)
-        # a MoE decoder (aux_llm) is not ported (check_supported refuses)
+            pos_in_place=pos_in_place, step=step, train=train)
+        # a MoE decoder's losses: each layer's aux_loss is already
+        # coefficient-scaled, and the reference adds their mean over the
+        # layers to the loss
         aux_llm = zero
+        if self.cfg.decoder.moe_name is not None:
+            aux_llm = (d_aux["total_aux_loss"]
+                       / self.cfg.decoder.num_hidden_layers)
         loss = None
         if labels is not None:
             from .lm import lm_loss_fn

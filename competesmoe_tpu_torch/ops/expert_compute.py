@@ -1,11 +1,13 @@
 """Expert computation (port of the single-device part of
 competesmoe_tpu/ops/expert_compute.py): 2-layer Linear/act/Linear experts
-(the multimodal tree) and MoEUT-style stacked keys/values experts (the
-pretrain tree).
+(the multimodal tree), Mixtral's SwiGLU experts (the MoE decoder) and
+MoEUT-style stacked keys/values experts (the pretrain tree).
 
 Paths, picked exactly as in JAX: compute ALL experts densely and gather
 the top-k when E <= 2k, else sort the token slots by expert and run one
-GEMM per expert over its contiguous slice; for keys/values experts on
+GEMM per expert over its contiguous slice (Mixtral's SwiGLU experts
+always take the grouped path, on the card as grouped products over
+device-side offsets); for keys/values experts on
 CUDA tensors, `impl='fused'` takes the K1 pipeline of `gmm_fused.py` or
 raises where JAX's rule refuses the experts. Contractions accumulate in float32 and cast back to the input
 dtype, as JAX's `preferred_element_type=float32` does.
@@ -130,6 +132,72 @@ def grouped_ffn_mlp2(x: torch.Tensor, sel: torch.Tensor,
     o = o[gs.inv_perm].reshape(T, k, -1)
     out = torch.einsum("tkv,tk->tv", o.float(), weights.to(o.dtype).float())
     return out.to(x.dtype)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as XLA computes it: x * sigmoid(x), each step rounded
+    to x's dtype (`routing.sigmoid`)."""
+    from .routing import sigmoid
+    return x * sigmoid(x)
+
+
+def _grouped_mm(xs: torch.Tensor, w: torch.Tensor,
+                offs: torch.Tensor) -> torch.Tensor:
+    """One grouped product on the card: rows [offs[e-1], offs[e]) of xs
+    [M, d] times w[e] [d, n], float32 accumulation, output in xs's dtype,
+    the weights rounded to it first (the `_mm_f32` rule). The offsets stay
+    on the device, so nothing reads the group sizes back to the host and
+    the product can run inside a captured CUDA graph. This is a PyTorch
+    grouped product, not a port of a TPU kernel: JAX computes these
+    products with XLA's ragged_dot."""
+    return torch._grouped_mm(xs, w.to(xs.dtype), offs=offs)
+
+
+def grouped_ffn_swiglu(x: torch.Tensor, sel: torch.Tensor,
+                       weights: torch.Tensor, w1: torch.Tensor,
+                       w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Sparse MoE FFN with Mixtral's SwiGLU experts, per expert
+    `w2 @ (silu(w1 @ x) * (w3 @ x))` without biases: sort the slots by
+    expert, the three products over each expert's contiguous rows, then
+    an inverse-permutation gather and a float32-accumulated weighted
+    reduce cast to x's dtype (JAX's `grouped_ffn_swiglu`). x: [T, d];
+    sel/weights: [T, k]; w1/w3: [E, d, h]; w2: [E, h, v] -> [T, v].
+
+    On CUDA tensors the products are grouped products over device-side
+    offsets (`_grouped_mm`), which never synchronise with the host;
+    elsewhere one product per expert with rows, as JAX's ragged_dot on
+    the CPU. Both round as `_mm_f32`. Differentiable."""
+    T, k = sel.shape
+    gs = sort_by_expert(sel, w1.shape[0])
+    xs = x[gs.token_ids]
+    if x.is_cuda:
+        offs = torch.cumsum(gs.group_sizes, 0).to(torch.int32)
+        h = _silu(_grouped_mm(xs, w1, offs)) * _grouped_mm(xs, w3, offs)
+        o = _grouped_mm(h, w2, offs)
+    else:
+        sizes = gs.group_sizes.tolist()
+        parts = []
+        for e, xe in enumerate(xs.split(sizes)):
+            if sizes[e]:
+                h = _silu(_mm_f32(xe, w1[e])) * _mm_f32(xe, w3[e])
+                parts.append(_mm_f32(h, w2[e]))
+        o = torch.cat(parts)
+    o = o[gs.inv_perm].reshape(T, k, -1)
+    out = torch.einsum("tkv,tk->tv", o.float(), weights.to(o.dtype).float())
+    return out.to(x.dtype)
+
+
+def moe_ffn_swiglu(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
+                   w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                   impl: str = "auto") -> torch.Tensor:
+    """MoE FFN dispatcher for Mixtral's SwiGLU experts: always the grouped
+    path, as in JAX (competesmoe_tpu/ops/expert_compute.py:314-328), which
+    has no dense branch for them."""
+    if impl == "ep":
+        raise NotImplementedError(
+            "impl='ep' (expert-parallel all-to-all) is not ported: ROADMAP "
+            "open item 1.7, parallelism")
+    return grouped_ffn_swiglu(x, sel, weights, w1, w3, w2)
 
 
 def moe_ffn_mlp2(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,

@@ -1549,3 +1549,187 @@ def test_eval_generate_until_launches_k5_under_load_4bit(gen):
     # 3 batches (2, 2, 1 rows); each decodes at least one step unless
     # every row stopped at its first token
     assert launches > 0 and launches % (4 * 2) == 0
+
+
+# ---------------------------------------------------------------------------
+# The multimodal routers and Mixtral's MoE decoder on the card
+# ---------------------------------------------------------------------------
+
+def _mixtral_small(dtype=torch.bfloat16, **decoder):
+    """A small CLIP + Mixtral LLaVA (2 layers of 8 SwiGLU experts, top-2,
+    GQA) with random weights, on the card."""
+    import dataclasses
+
+    from competesmoe_tpu_torch.models.builder import (build_llava,
+                                                      llava_config_from_hf)
+    hf = dict(model_type="mixtral", vocab_size=512, hidden_size=256,
+              intermediate_size=512, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2,
+              rope_theta=1e6, max_position_embeddings=4096,
+              num_local_experts=8, num_experts_per_tok=2,
+              mm_vision_tower="openai/clip-vit-large-patch14-336",
+              mm_hidden_size=64, mm_projector_type="moe", moe_name="smoe",
+              num_experts=4, num_selected=2, scales=[1],
+              vision_config=dict(hidden_size=64, intermediate_size=128,
+                                 num_hidden_layers=2, num_attention_heads=2,
+                                 image_size=28, patch_size=14),
+              tokenizer_model_max_length=1024)
+    cfg = llava_config_from_hf(hf, "llava-mixtral", dtype)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, **decoder))
+    return build_llava(cfg, seed=8, device="cuda")
+
+
+def test_grouped_swiglu_on_card_matches_cpu_without_sync(gen):
+    """The grouped products over device-side offsets against the CPU's
+    per-expert products on the same bf16 inputs (an expert without rows
+    among them), forward and every gradient, within 2^-6 of the largest
+    magnitude; nothing in the forward or backward waits for the host."""
+    T, d, h, E, k = 40, 64, 96, 8, 2
+    x = torch.randn((T, d), generator=gen, device="cuda").bfloat16()
+    sel = torch.stack([torch.randperm(E - 1, generator=gen,
+                                      device="cuda")[:k]
+                       for _ in range(T)])
+    w = torch.rand((T, k), generator=gen, device="cuda") + 0.1
+    ws = [(torch.randn(s, generator=gen, device="cuda") * 0.1).bfloat16()
+          for s in ((E, d, h), (E, d, h), (E, h, d))]
+    r = torch.randn((T, d), generator=gen, device="cuda").bfloat16()
+
+    def run(dev, sync_check):
+        args = [t.detach().to(dev).requires_grad_(t.is_floating_point())
+                for t in (x, sel, w, *ws)]
+        if sync_check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = tec.moe_ffn_swiglu(*args)
+            (out * r.to(dev)).float().sum().backward()
+        finally:
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("default")
+        return [out] + [a.grad for a in args if a.is_floating_point()]
+
+    for got, want in zip(run("cuda", True), run("cpu", False)):
+        want = want.float()
+        assert (got.float().cpu() - want).abs().max() <= \
+            2.0 ** -6 * want.abs().max()
+    assert not run("cuda", False)[3][-1].any()
+
+
+def test_mixtral_captured_decode_equals_eager(gen):
+    """A small Mixtral LLaVA, bf16 and --load-4bit (K5 at q, k, v and o,
+    the experts bf16): stream_generate replaying its captured programs
+    gives the eager tokens, on the request that captures and the next;
+    an engine replaying its captured steps gives the eager streams."""
+    from competesmoe_tpu_torch.models.builder import apply_load_4bit
+    from competesmoe_tpu_torch.models.llava import stream_generate
+
+    for quant in (False, True):
+        model = _mixtral_small(kv_quant="int8" if quant else None)
+        if quant:
+            apply_load_4bit(model)
+            assert model.language_model.layers[0].moe.experts_w1.dtype == \
+                torch.bfloat16
+        rng = np.random.default_rng(5)
+        ids = rng.integers(3, 512, (1, 24)).astype(np.int32)
+        ids[0, 4] = -200
+        px = rng.uniform(-1, 1, (1, 28, 28, 3)).astype(np.float32)
+        runs = [np.concatenate(list(stream_generate(
+            model, ids, px, max_new_tokens=16, cuda_graphs=graphs)), axis=1)
+            for graphs in (False, True, True)]
+        assert np.array_equal(runs[1], runs[0])
+        assert np.array_equal(runs[2], runs[0])
+        rounds = [_prompts(7, (12, 30, 9, 21, 17, 25))]
+        eager, _ = _engine_streams(model, False, rounds, n_slots=4,
+                                   max_len=160)
+        got, _ = _engine_streams(model, True, rounds, n_slots=4,
+                                 max_len=160)
+        assert got == eager
+
+
+@pytest.mark.parametrize("name", ["smoe_sigmoidgating", "xmoe",
+                                  "smoe_perturbed", "smoe_share",
+                                  "deepseekv3", "mixtral"])
+def test_router_training_step_on_card_matches_cpu(gen, name):
+    """A small float32 model with the router in the tower and the
+    projector (or the Mixtral decoder) on the card and on the CPU from
+    the same weights: every gradient of the training loss within 1e-3 of
+    its tensor's largest magnitude (a key bias's, which the softmax
+    cancels, below 1e-5 of the largest gradient on both), then one sft
+    step of train/mm_task:
+    loss and grad_norm within 1e-4 (Adam's update is not compared: it
+    turns a gradient's rounding noise into steps of up to lr)."""
+    import dataclasses
+
+    from competesmoe_tpu_torch.models.builder import build_llava
+    from competesmoe_tpu_torch.models.llava import LlavaModel
+    from competesmoe_tpu_torch.train import mm_task as tmm
+
+    # float32 products and convolutions (the tower's patch embedding)
+    # without TF32, on the card as on the CPU
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        if name == "mixtral":
+            cfg = _mixtral_small(torch.float32).cfg
+        else:
+            cfg = _small_cfg(torch.float32)
+            cfg = dataclasses.replace(
+                cfg, vision=dataclasses.replace(cfg.vision, moe_name=name),
+                projector=dataclasses.replace(cfg.projector, moe_name=name))
+        cpu = build_llava(cfg, seed=4, device="cpu")
+        card = LlavaModel(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(6)
+        ids = rng.integers(3, 512, (2, 24))
+        ids[:, 3] = -200
+        labels = ids.copy()
+        labels[:, :5] = -100
+        batch = {"input_ids": ids, "labels": labels,
+                 "attention_mask": np.ones_like(ids),
+                 "images": rng.uniform(-1, 1, (2, 28, 28, 3)).astype(
+                     np.float32)}
+        grads = []
+        for model in (card, cpu):
+            b = tmm.batch_to(batch, model.device)
+            model(b["input_ids"], b["images"], labels=b["labels"],
+                  attention_mask=b["attention_mask"], train=True,
+                  step=0).loss.backward()
+            grads.append({k: p.grad for k, p in model.named_parameters()})
+            model.zero_grad(set_to_none=True)
+        tcfg = tmm.MMTrainConfig(stage="sft", learning_rate=1e-3,
+                                 warmup_ratio=0.0, total_steps=10)
+        mets = []
+        for model in (card, cpu):
+            opt = tmm.make_mm_optimizer(tcfg)
+            step = tmm.make_mm_train_step(model, opt)
+            _, m = step(tmm.MMTrainState.create(model, opt),
+                        tmm.batch_to(batch, model.device))
+            mets.append({k: float(m[k]) for k in ("loss/total",
+                                                  "grad_norm")})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    scale = max(float(w.abs().max()) for w in grads[1].values()
+                if w is not None)
+    bad = []
+    for k, want in grads[1].items():
+        got = grads[0][k]
+        assert (got is None) == (want is None), k
+        if want is None:
+            continue
+        got, err = got.cpu(), float((got.cpu() - want).abs().max())
+        if k.endswith("k_proj.bias"):
+            # a key bias adds one constant to a query's scores, which the
+            # softmax cancels: its gradient is rounding noise on both sides
+            if max(float(got.abs().max()), float(want.abs().max())) > \
+                    1e-5 * scale:
+                bad.append((k, err, float(want.abs().max())))
+        elif err > 1e-3 * float(want.abs().max()) + 1e-7 * scale:
+            bad.append((k, err, float(want.abs().max())))
+    assert not bad, (scale, bad[:6])
+    for k in mets[1]:
+        assert np.isfinite(mets[0][k])
+        np.testing.assert_allclose(mets[0][k], mets[1][k], rtol=1e-4)

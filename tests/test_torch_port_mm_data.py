@@ -270,8 +270,16 @@ def test_train_mm_cli_refusals(ckpt_dir, tok, cli_data_dir, tmp_path):
     from competesmoe_tpu_torch.cli.train_mm import main
     with pytest.raises(NotImplementedError, match="1.7"):
         main(_argv(ckpt_dir, tok, data_dir, tmp_path, "--n-expert", "2"))
-    with pytest.raises(NotImplementedError, match="1.2"):
-        main(_argv(ckpt_dir, tok, data_dir, tmp_path, "--moe-name", "xmoe"))
+    # --moe-name is parsed and chooses nothing, as in JAX: the router is
+    # the checkpoint's (competesmoe), so the losses are those of a run
+    # without the flag
+    runs = {}
+    for name, flags in (("xmoe", ("--moe-name", "xmoe")), ("default", ())):
+        runs[name] = tmp_path / f"moe-name-{name}"
+        main(_argv(ckpt_dir, tok, data_dir, runs[name], "--num-train-steps",
+                   "1", *flags))
+    assert _losses(runs["xmoe"]) == _losses(runs["default"])
+    assert list(_losses(runs["xmoe"])) == [0]
     with pytest.raises(ValueError, match="allow-tiny-dataset"):
         main(_argv(ckpt_dir, tok, data_dir, tmp_path,
                    "--per-device-batch-size", "16"))

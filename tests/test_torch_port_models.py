@@ -192,10 +192,15 @@ def test_phi35_geometry_and_longrope_match_jax():
 
 def test_unported_decoder_options_raise():
     cfg = port_config(jax_llava_cfg().decoder, tdec.DecoderConfig)
-    # only the MoE decoder is left unported; every other option builds
-    # (tests/test_torch_port_decoder_opts.py holds them to JAX)
-    with pytest.raises(NotImplementedError, match="1.2"):
-        tdec.DecoderLM(dataclasses.replace(cfg, moe_name="mixtral"),
+    # every option builds, the MoE decoder too (held to JAX in
+    # tests/test_torch_port_mixtral.py, the others in
+    # tests/test_torch_port_decoder_opts.py); unknown values raise
+    moe = tdec.DecoderLM(dataclasses.replace(cfg, moe_name="mixtral"),
+                         device="cpu")
+    assert hasattr(moe.layers[0], "moe") and not hasattr(moe.layers[0],
+                                                         "mlp")
+    with pytest.raises(ValueError, match="Unknown multimodal MoE"):
+        tdec.DecoderLM(dataclasses.replace(cfg, moe_name="switch"),
                        device="cpu")
     for change in (dict(use_alibi=True), dict(sliding_window=8),
                    dict(deferred_decode=True),
