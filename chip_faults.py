@@ -2,7 +2,7 @@
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
     python3 chip_faults.py [--only mm | --only eval | --only options |
-                            --only routers]
+                            --only routers | --only lm_rest]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -123,7 +123,13 @@ and theta 0 in smoe_perturbed. The script
      - router faults: `small_routers_check` (each router's layer against
        its definition written apart, small models card against CPU,
        telemetry, Mixtral's captured decode), honest first. `--only
-       routers` runs this part alone.
+       routers` runs this part alone;
+     - LM-option faults (LM_REST_FAULTS, against chip_smoke's
+       small_lm_rest_check): a validation telemetry histogram off by one
+       in its first expert, a K2 launch slipped into MoA's attention, a
+       remat path whose block outputs differ from the plain path's, and
+       an XL carry that drops the carried prefix from the attention;
+       honest first. `--only lm_rest` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -1019,6 +1025,96 @@ def router_faults(report, failures):
             failures.append(f"fault {name} passed the small router checks")
 
 
+def _edited_after(obj, name: str, line: str, extra: str):
+    """_edited with `extra` inserted after the line holding `line`, at
+    that line's indentation."""
+    import inspect
+    import textwrap
+    src = textwrap.dedent(inspect.getsource(obj.__dict__[name]))
+    hits = [ln for ln in src.splitlines() if line in ln]
+    if len(hits) != 1:
+        raise AssertionError(f"plant line occurs {len(hits)} times in "
+                             f"{name}: {line!r}")
+    indent = hits[0][:len(hits[0]) - len(hits[0].lstrip())]
+    return _edited(obj, name, hits[0], hits[0] + "\n" + indent + extra)
+
+
+def _telemetry_off_by_one():
+    from competesmoe_tpu_torch.train.lm_task import SyntheticTransformerTask
+    return _edited_after(SyntheticTransformerTask, "_log_expert_usage",
+                         "hist = np.bincount(sel, minlength=",
+                         "hist[0] += 1")
+
+
+def _k2_launch_in_moa():
+    from competesmoe_tpu_torch.models.moa import FullMoeRopeAttention
+    return _edited_after(
+        FullMoeRopeAttention, "forward",
+        "qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))",
+        "import competesmoe_tpu_torch.ops.flash_attention as _fa; "
+        "_fa.flash_attention(qh, kh, vh) if S == T else None")
+
+
+def _remat_output_differs():
+    from competesmoe_tpu_torch.models.lm import MoELanguageModel
+    return _edited_after(MoELanguageModel, "forward",
+                         "net_o, aux = checkpoint(block, *args",
+                         "net_o = net_o * 1.01")
+
+
+def _xl_drops_prefix():
+    from competesmoe_tpu_torch.models.lm import MoETransformerBlock
+    return _edited(MoETransformerBlock, "forward",
+                   "attend_to = torch.cat([prev_state, ninput], dim=1)",
+                   "attend_to = None")
+
+
+LM_REST_FAULTS = {
+    "telemetry_hist_off_by_one": _telemetry_off_by_one,
+    "k2_launch_in_moa": _k2_launch_in_moa,
+    "remat_output_differs": _remat_output_differs,
+    "xl_carry_drops_prefix": _xl_drops_prefix,
+}
+
+
+def lm_rest_ok(fault=None):
+    """(passed, message) of chip_smoke's small_lm_rest_check with the
+    LM_REST_FAULTS fault `fault` planted for its duration. Any exception
+    counts as caught."""
+    undo = None
+    if fault is not None:
+        obj, attr, planted = LM_REST_FAULTS[fault]()
+        undo = (obj, attr, obj.__dict__[attr])
+        setattr(obj, attr, planted)
+    try:
+        r = cs.small_lm_rest_check(0)
+        return True, f"passes ({json.dumps(r)[:200]})"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[:140]}"
+    finally:
+        if undo is not None:
+            setattr(*undo)
+        cs.free_card()
+
+
+def lm_rest_faults(report, failures):
+    """The honest small LM-option checks, then every LM_REST_FAULTS plant
+    against them."""
+    ok, msg = lm_rest_ok()
+    report["honest_lm_rest"] = msg
+    cs.log(f"honest small LM-option checks: {msg}")
+    if not ok:
+        failures.append(f"honest small LM-option checks: {msg}")
+    for name in LM_REST_FAULTS:
+        ok, msg = lm_rest_ok(name)
+        report["faults"][name] = dict(failed={"lm_rest": not ok},
+                                      lm_rest=msg)
+        cs.log(f"{name}: small LM-option checks -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the small LM-option "
+                            f"checks")
+
+
 # the ENGINE_FAULTS that chip_smoke.multiturn_check must catch at full size
 FULL_SIZE_ENGINE_FAULTS = ("unpark_suffix_one_late",)
 # K3/K4/K5 shapes of the kernel check: the decode projections at these M
@@ -1252,6 +1348,10 @@ def main():
     if sys.argv[1:] == ["--only", "routers"]:
         router_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "lm_rest"]:
+        _kernels.build(["gmm2_fused", "gmm2_bwd", "flash_attn"])
+        lm_rest_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1454,6 +1554,7 @@ def main():
         eval_faults(report, failures)
         option_faults(report, failures)
         router_faults(report, failures)
+        lm_rest_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

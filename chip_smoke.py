@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (competesmoe_tpu_torch).
 
-    python3 chip_smoke.py [--seed 0] [--profile]
+    python3 chip_smoke.py [--seed 0] [--profile] [--only lm_rest]
 
 Needs one CUDA GPU; exits non-zero on any failure. Phases:
   1. device: the card's name and power limit (nvidia-smi);
@@ -263,6 +263,31 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      step; a profiled replay shows qmm4_kernel 48 times) and 12 requests
      through an 8-slot engine of 2048 positions, captured beside eager
      (`mixtral_summary`).
+ 15. the rest of the LM stack (main path of the LM-options slice), last
+     (`phase_lm_rest`; `--only lm_rest` runs it alone after the build):
+     the small LM of 4 with each option of SMALL_REST_CASES (MoA with its
+     four expert banks and a v size of its own, ACT with 3 ponder steps,
+     the XL carry over two windows, layer drop at p 0 and 1, remat) takes
+     3 steps on the card and on the CPU from the same weights (the CPU
+     replaying the card's top-k choices, MoA's banks too): losses within
+     SMALL_LM_LOSS_TOL, grad norms within SMALL_LM_GRAD_TOL, launches by
+     `small_rest_launches` (K2 0 on MoA), remat equal to no remat bit for
+     bit; the XL carry's second window against one forward over both
+     windows (`xl_consistency_check`); a small task's validation
+     telemetry against its routers' recomputed selections; K2 at the
+     battery's bucket lengths T 127 and 1023 against its plain version,
+     timed beside it (K2_BATTERY_SHAPES). Then the 154M sweep field for
+     field through its own task, slimpajama_transformer, over 8 jsonl.gz
+     shards written from the seed (vocab from 2), 6 steps with
+     validation at step 3, the async logger, -log tb and a profiler trace
+     of step 4, then test() with the zero-shot battery over hellaswag-,
+     piqa-, ai2arc- and lambada-format files of 64 documents (K1 and K2
+     launches per step, in validation and in the battery as `_lm_want`
+     says; the telemetry against the routers), then with -moe.att.enable 1
+     (in two microbatches: MoA's dense attention does not fit the card at
+     one) and with -remat 1, 4 steps each (K2 0 under MoA; remat launches
+     every forward kernel twice, its step-0 loss equal to the plain run's
+     and its peak memory lower) (`lm_rest_summary` line).
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -6597,6 +6622,627 @@ def phase_mixtral(seed: int):
     return solo_k5 + eng_k5, summary
 
 
+# ---------------------------------------------------------------------------
+# the rest of the LM stack: MoA, ACT, the XL carry, layer drop, remat, the
+# streaming task, telemetry, loggers, the profiler and the QA battery
+# ---------------------------------------------------------------------------
+
+# the main path of this slice: the 154M sweep field for field through its
+# own task over local shards, LM_REST_STEPS steps, validation at step 3,
+# the async logger, a profiler trace of step 4; then its test() with the
+# zero-shot battery; MoA and remat runs LM_REST_SIDE_STEPS steps each
+LM_REST_FLAGS = SWEEP_154M + [
+    "-task", "slimpajama_transformer", "-valid_interval", "3",
+    "-valid_batches", "2", "-log_async", "1", "-log", "tb",
+    "-profile.start_step", "4", "-profile.n_steps", "1", "-log_interval",
+    "1", "-lm.n_shards", "8", "-lm.tokenizer_n_files", "2"]
+LM_REST_STEPS = 6
+LM_REST_SIDE_STEPS = 4
+# MoA's dense einsum attention and all-expert mixes keep about 3 GB a
+# layer for the backward at 64 x 1024 (the first chip run ran out of the
+# card's 80 GB): its run takes the same batch in two microbatches
+LM_REST_SIDE = {"moa": ["-moe.att.enable", "1", "-n_microbatch", "2"],
+                "remat": ["-remat", "1"]}
+# the written corpus: 8 jsonl.gz shards of LM_REST_DOCS documents of 40 to
+# 200 words drawn (Zipf 1.1) from 4,000 pseudo-words; about 700 windows of
+# 1025 tokens, more than 64 x 6 (every window of a run is a new one)
+LM_REST_SHARDS = 8
+LM_REST_DOCS = 600
+# each QA file holds LM_REST_QA_DOCS documents; hellaswag contexts reach
+# 700 words and piqa's are short, so the battery fills buckets from 128
+# to max_len 1024 (K2 at T = 127 and 1023) without cutting a document at
+# max_len; the tasks in the order the battery scores them
+LM_REST_QA = ("lambada", "hellaswag", "piqa", "ai2arc")
+LM_REST_QA_DOCS = 64
+# K2 at the battery's shortest and longest bucket lengths (T = L - 1),
+# against its plain version and timed beside it
+K2_BATTERY_SHAPES = ((32, 4, 127, 82), (8, 4, 1023, 82))
+# the small LM of SMALL_LM_FLAGS (K1 takes d and ES in multiples of 128)
+# with each option, 3 steps (0, 2 and 1 competing layers) on the card and
+# on the CPU from the same weights and batches, at T 128
+SMALL_REST_CASES = {
+    "moa": dict(att_moe=True, att_v_size=64),
+    "act": dict(act_max_steps=3, act_loss=0.01),
+    "xl": dict(n_prev_states=1),
+    "drop0": dict(p_drop_layer=0.0),
+    "drop1": dict(p_drop_layer=1.0),
+    "remat": dict(remat=True),
+}
+SMALL_REST_T = 128
+
+
+def _small_rest_model(case: str, seed: int, device: str, weights=None):
+    """The small LM's model with SMALL_REST_CASES[case] on `device`, its
+    flip schedule SMALL_LM_FLAGS's; weights from `seed` or `weights`."""
+    from competesmoe_tpu_torch.models.lm import MoELanguageModel
+    from competesmoe_tpu_torch.moe.schedule import build_flip_schedule
+    from competesmoe_tpu_torch.train.lm_task import lm_config_from
+    from competesmoe_tpu_torch.utils.argparser import build_parser
+
+    a = build_parser().parse(SMALL_LM_FLAGS + ["-seed", str(seed)])
+    cfg = dataclasses.replace(lm_config_from(a), **SMALL_REST_CASES[case])
+    sched = build_flip_schedule(cfg.n_layers, a.stop_after, a.warm_up,
+                                a.rate_flip, a.max_compete_in_iter, seed=seed)
+    model = MoELanguageModel(cfg, flip_schedule=sched, device=device)
+    if weights is None:
+        return model.init_weights(seed)
+    model.load_state_dict(weights)
+    return model
+
+
+def small_rest_rows(model, case: str, batches, seed: int):
+    """Per step s: the loss (CE + aux) and the gradient norm of one
+    forward and backward at step s (no optimizer update), and the
+    competing layers. The XL case runs the batch's first window (no
+    gradient) and takes its loss on the second with the carried state."""
+    import torch
+
+    from competesmoe_tpu_torch.models.lm import lm_loss_fn
+    from competesmoe_tpu_torch.train.lm_trainer import global_norm
+
+    dev = model.output.weight.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    T = SMALL_REST_T
+    rows = []
+    for s, b in enumerate(batches):
+        model.zero_grad(set_to_none=True)
+        b = b.to(dev)
+        state = None
+        if case == "xl":
+            with torch.no_grad():
+                state = model(b[:, :T], step=s, train=True)[1]["state"]
+            b = b[:, T:]
+        else:
+            b = b[:, :T + 1]
+        logits, aux = model(b[:, :-1], step=s, train=True, state=state,
+                            generator=gen)
+        ce, _ = lm_loss_fn(logits, b[:, 1:])
+        loss = ce + aux["total_aux_loss"]
+        loss.backward()
+        gn = global_norm([p.grad for p in model.parameters()
+                          if p.grad is not None])
+        # a competing layer once (ACT: its first ponder step's key)
+        comp = [v for k, v in aux.items() if k.endswith("mlp_is_comp")
+                and ("ponder" not in k or "/ponder0/" in k)]
+        rows.append({"loss/total": float(loss.detach()),
+                     "grad_norm": float(gn),
+                     "competesmoe/n_flip_layers": float(sum(comp))})
+    return rows
+
+
+def small_rest_launches(case: str, flips, L: int = 2):
+    """The small case's kernel launches over its steps: K1 and its
+    backward kernels at every non-competing layer call, K2 at every
+    attention call (forward) and its backward where one runs; ACT calls
+    each block act_max_steps times; remat runs every block's forward
+    again in the backward; the XL case's first window is a forward only,
+    and its second window attends over the carried prefix by einsum; MoA
+    never reaches K2."""
+    fused = sum(L - f for f in flips)
+    steps = len(flips)
+    calls = SMALL_REST_CASES[case].get("act_max_steps", 0) or 1
+    k1, k1b, k2, k2b = calls * fused, calls * fused, calls * L * steps, \
+        calls * L * steps
+    if case == "remat":
+        k1, k2 = 2 * fused, 2 * L * steps
+    if case == "xl":
+        k1, k2, k2b = 2 * fused, L * steps, 0
+    if case == "moa":
+        k2 = k2b = 0
+    return {"gmm2_fused_aligned": k1, "gmm2_bwd_dx": k1b,
+            "gmm2_bwd_dw": k1b, "flash_attention_fwd": k2,
+            "flash_attention_bwd_dkv": k2b, "flash_attention_bwd_dq": k2b,
+            "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+            "quant_small_m_matmul": 0}
+
+
+def xl_consistency_check(seed: int, card: str = "cuda"):
+    """The XL carry on the card against the same tokens in one window: a
+    float32 small LM (plain MoE and einsum attention, no kernel), window 2
+    with window 1's carried state against the second half of one forward
+    over both windows; logits within 1e-4 of the largest |logit| (the
+    same function; sums over keys taken in another order)."""
+    import torch
+
+    from competesmoe_tpu_torch.models.lm import LMConfig, MoELanguageModel
+
+    cfg = LMConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=2,
+                   head_dim=82, n_experts=8, expert_size=128, moe_topk=2,
+                   moe_name="smoe", moe_impl="dense", attn_backend="einsum",
+                   n_prev_states=1)
+    model = MoELanguageModel(cfg, device=card).init_weights(seed)
+    g = torch.Generator(device=card).manual_seed(seed + 55)
+    toks = torch.randint(0, 512, (4, 2 * SMALL_REST_T), generator=g,
+                         device=card)
+    T = SMALL_REST_T
+    with torch.no_grad():
+        state = model(toks[:, :T])[1]["state"]
+        carried = model(toks[:, T:], state=state)[0]
+        whole = model(toks)[0][:, T:]
+    err = float((carried - whole).abs().max())
+    tol = 1e-4 * float(whole.abs().max())
+    log(f"XL carry on the card: window 2 with the carried state against "
+        f"one forward over both windows: max |diff| {err:.3g} (tol "
+        f"{tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"XL carry: window 2 differs from the whole "
+                             f"forward by {err} (tol {tol})")
+    return dict(max_abs_err=err, tol=tol)
+
+
+def telemetry_consistent_lm(task, what: str):
+    """The task's last validation telemetry (`expert_usage`, one histogram
+    a layer) against the bincount of each layer's router selections,
+    recomputed on the same batch by calling every MoE layer's gate and
+    route on its input: equal, layer for layer."""
+    import torch
+
+    from competesmoe_tpu_torch.data.lm_data import \
+        SequentialMultibatchSampler
+
+    a = task.a
+    sampler = SequentialMultibatchSampler(len(task.valid_dataset),
+                                          a.batch_size)
+    for _ in range(a.valid_batches):
+        idx = next(sampler)
+    batch = torch.from_numpy(task.valid_dataset.batch(idx).astype(
+        np.int64)).to(task.device)
+    inputs = []
+    hooks = [b.moe.register_forward_pre_hook(
+        lambda mod, args, kw: inputs.append((mod, args[0])),
+        with_kwargs=True) for b in task.model.blocks]
+    try:
+        with torch.no_grad():
+            task.model(batch[:, :-1], train=False)
+            hists = []
+            for mod, x in inputs:
+                sel = mod.route(x, mod.compute_gate(x))[1]
+                hists.append(np.bincount(sel.reshape(-1).cpu().numpy(),
+                                         minlength=task.cfg.n_experts))
+    finally:
+        for h in hooks:
+            h.remove()
+    got = task.expert_usage
+    bad = [li for li, h in enumerate(hists)
+           if not np.array_equal(got.get(f"layer{li}"), h)]
+    log(f"{what}: telemetry of {len(got)} layers against the routers' "
+        f"recomputed selections: {len(hists) - len(bad)} equal")
+    if bad or len(got) != len(hists):
+        raise AssertionError(f"{what}: telemetry differs from the routers' "
+                             f"selections at layers {bad}")
+    return len(hists)
+
+
+def small_lm_rest_check(seed: int, card: str = "cuda"):
+    """The small LM (SMALL_LM_FLAGS' geometry) with each option of
+    SMALL_REST_CASES: 3 steps on the card (K1 and its backward kernels,
+    K2) and on the CPU from the same weights and batches, the CPU taking
+    the card's top-k choices (`routed_as`: MoA's banks too); per step the
+    loss within SMALL_LM_LOSS_TOL, grad_norm within SMALL_LM_GRAD_TOL and
+    the same competing layers, at most SMALL_LM_FLIP_SHARE of top-k rows
+    chosen otherwise; launches as `small_rest_launches` says (MoA: K2 0);
+    remat's losses and grad norms equal drop0's (no drop, no remat) bit
+    for bit on the card. Then `xl_consistency_check`, and a small task's
+    validation telemetry against its routers (`telemetry_consistent_lm`).
+    `card` names the device the checks hold against the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + 77)
+    batches = [torch.randint(0, 512, (4, 2 * SMALL_REST_T + 1), generator=g)
+               for _ in range(3)]
+    out, card_rows = {}, {}
+    for case in SMALL_REST_CASES:
+        cpu = _small_rest_model(case, seed, "cpu")
+        gpu = _small_rest_model(case, seed, card, {
+            k: v.to(card) for k, v in cpu.state_dict().items()})
+        choices = []
+        counts0 = read_counts()
+        with routed_as(record=choices):
+            rows = small_rest_rows(gpu, case, batches, seed)
+        counts = {k: v - counts0[k] for k, v in read_counts().items()}
+        with routed_as(replay=choices) as seen:
+            ref = small_rest_rows(cpu, case, batches, seed)
+        gaps = small_lm_gaps(ref, rows)
+        flips = [d["flips"] for d in gaps]
+        share = seen["flipped"] / max(seen["rows"], 1)
+        want = small_rest_launches(case, flips)
+        log(f"small LM {case}: losses card "
+            f"{[round(r['loss/total'], 5) for r in rows]} cpu "
+            f"{[round(r['loss/total'], 5) for r in ref]}; loss gaps "
+            f"{[f'{d['loss_gap']:.2g}' for d in gaps]}, grad_norm gaps "
+            f"{[f'{d['grad_gap']:.2g}' for d in gaps]}; flips {flips}; "
+            f"top-k rows chosen otherwise {seen['flipped']} of "
+            f"{seen['rows']} (gap {seen['gap']:.3g}); launches {counts}")
+        if not all(math.isfinite(r["loss/total"]) for r in rows):
+            raise AssertionError(f"small LM {case}: non-finite loss {rows}")
+        if not all(d["ok"] for d in gaps) or flips != [0, 2, 1]:
+            raise AssertionError(f"small LM {case} disagrees: {gaps}")
+        if share > SMALL_LM_FLIP_SHARE:
+            raise AssertionError(f"small LM {case}: the card chose another "
+                                 f"top-k set on {share:.3%} of the rows")
+        if counts != want:
+            raise AssertionError(f"small LM {case} launches {counts} != "
+                                 f"{want}")
+        card_rows[case] = rows
+        out[case] = dict(gaps=gaps, launches=counts, topk_rows=seen["rows"],
+                         topk_flips=seen["flipped"], topk_gap=seen["gap"])
+        del cpu, gpu
+    keys = ("loss/total", "grad_norm")
+    remat = [[r[k] for k in keys] for r in card_rows["remat"]]
+    plain = [[r[k] for k in keys] for r in card_rows["drop0"]]
+    log(f"small LM remat against no remat on the card: {remat} vs {plain}")
+    if remat != plain:
+        raise AssertionError(f"small LM: remat's steps {remat} differ from "
+                             f"the steps without it {plain}")
+    out["xl_consistency"] = xl_consistency_check(seed, card)
+    task = small_lm_task(seed, card, flags=["-valid_batches", "1",
+                                              "-name", "small_rest"])
+    task.validate()
+    out["telemetry_layers"] = telemetry_consistent_lm(task, "small LM")
+    task.logger.close()
+    return out
+
+
+def k2_battery_shapes(seed: int, reps: int = 20):
+    """K2's forward (and backward) at K2_BATTERY_SHAPES against its plain
+    version by `k2_compare`'s rule, the forward timed beside the plain
+    forward and `scaled_dot_product_attention`; rows by shape."""
+    import torch
+
+    from competesmoe_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 303)
+    rows = []
+    for B, h, T, p in K2_BATTERY_SHAPES:
+        q, k, v, do = (torch.randn(B, h, T, p, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        checks = k2_compare(q, k, v, do, p ** -0.5)
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            raise AssertionError(f"K2 at {(B, h, T, p)} disagrees with its "
+                                 f"plain version: {bad}")
+        args = [(q, k, v, p ** -0.5)]
+        ms = time_launches(fa.flash_attention_fwd, args * 4, reps)
+        plain = time_launches(fa.flash_attention_fwd_reference, args, 5)
+        lib, _ = _sdpa_ms(q, k, v, do, reps)
+        BH, pairs = B * h, T * (T + 1) / 2
+        bound_ms, bound_by = bound(4 * BH * T * p * 2 + BH * T * 4,
+                                   4 * p * pairs * BH)
+        rows.append(dict(shape=[B, h, T, p], ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bound_ms,
+                         bound_by=bound_by, worst=max(c["worst"]
+                                                      for c in checks)))
+        log(f"K2 forward at the battery's [B={B} h={h} T={T} p={p}]: "
+            f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, sdpa "
+            f"{lib * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({bound_by}); worst {rows[-1]['worst']:.3f} of its tolerance "
+            f"(forward and backward)")
+    return rows
+
+
+def write_lm_rest_data(root: Path, seed: int):
+    """The corpus shards and the QA files of the phase, from `seed`:
+    LM_REST_SHARDS jsonl.gz shards of LM_REST_DOCS documents, and
+    hellaswag-, piqa-, ai2arc- and lambada-format files of LM_REST_QA_DOCS
+    documents over the same pseudo-words. Returns (shard glob, {flag:
+    path})."""
+    import gzip
+
+    rng = np.random.default_rng(seed + 808)
+    syl = [c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+    words = set()
+    while len(words) < 4000:
+        words.add("".join(rng.choice(syl, size=int(rng.integers(1, 4)))))
+    words = np.array(sorted(words))
+    zipf = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    zipf /= zipf.sum()
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, size=int(rng.integers(lo, hi)),
+                                   p=zipf))
+
+    (root / "shards").mkdir(parents=True, exist_ok=True)
+    for s in range(LM_REST_SHARDS):
+        with gzip.open(root / "shards" / f"shard_{s:02d}.jsonl.gz",
+                       "wt") as f:
+            for _ in range(LM_REST_DOCS):
+                f.write(json.dumps({"text": text(40, 200)}) + "\n")
+    n = LM_REST_QA_DOCS
+    qa = root / "qa"
+    qa.mkdir(exist_ok=True)
+
+    def jsonl(name, rows):
+        (qa / name).write_text("".join(json.dumps(r) + "\n" for r in rows))
+        return str(qa / name)
+
+    def choice_q():
+        labels = "ABCD"
+        return {"question": {"stem": text(10, 100), "choices": [
+            {"label": c, "text": text(1, 8)} for c in labels]},
+            "answerKey": labels[int(rng.integers(4))]}
+
+    (qa / "piqa-labels.lst").write_text(
+        "\n".join(str(int(rng.integers(2))) for _ in range(n)))
+    paths = {
+        "hellaswag": jsonl("hellaswag.jsonl", [dict(
+            activity_label=text(1, 3), ctx_a=text(20, 700), ctx_b=text(5, 20),
+            endings=[text(5, 20) for _ in range(4)],
+            label=int(rng.integers(4))) for _ in range(n)]),
+        "piqa": jsonl("piqa.jsonl", [dict(goal=text(10, 50),
+                                          sol1=text(5, 30),
+                                          sol2=text(5, 30))
+                                     for _ in range(n)]),
+        "ai2arc": jsonl("arc.jsonl", [choice_q() for _ in range(n)]),
+        "lambada": jsonl("lambada.jsonl", [dict(text=text(20, 560))
+                                           for _ in range(n)]),
+    }
+    flags = ["-lm.eval.enabled", "1"]
+    for name, path in paths.items():
+        flags += [f"-lm.eval.{name}.enabled", "1",
+                  f"-lm.eval.{name}.path", path]
+    flags += ["-lm.eval.piqa.labels_path", str(qa / "piqa-labels.lst")]
+    return str(root / "shards" / "*.jsonl.gz"), flags
+
+
+def _lm_rest_task(name: str, extra, seed: int, root: Path, shards: str,
+                  qa_flags=()):
+    run = root / name
+    shutil.rmtree(run, ignore_errors=True)
+    return _task(LM_REST_FLAGS + [
+        "-seed", str(seed), "-device", "cuda", "-run_dir", str(root),
+        "-name", name, "-lm.shards", shards, "-lm.cache_dir",
+        str(root / "cache"), *qa_flags, *extra])
+
+
+def _train_window(task, steps: int):
+    """`steps` training steps from step 0 with the launch counts set to 0
+    just before and read just after: (flips, counts, wall s, peak GiB)."""
+    import torch
+
+    L = task.cfg.n_layers
+    flips = [sum(task.schedule.is_flip(li, s) for li in range(L))
+             for s in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    task.train(n_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return flips, counts, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _lm_want(flips, L, forwards=0, remat=False, moa=False, micro=1):
+    """Launches of training steps with `flips` competing layers of L, and
+    `forwards` more model forwards without a gradient (validation, the
+    battery): K1 and its backward kernels at every non-competing layer of
+    a step, K1 forward at every layer of a forward without gradient; K2's
+    three kernels at every layer of a step and its forward at every layer
+    of a forward, none under MoA; remat runs each forward kernel of a step
+    twice (the backward recomputes the block); `micro` microbatches run
+    every layer of a step that many times."""
+    fused = micro * sum(L - f for f in flips)
+    k2 = 0 if moa else micro * L * len(flips)
+    extra = L * forwards
+    return {"gmm2_fused_aligned": (2 if remat else 1) * fused + extra,
+            "gmm2_bwd_dx": fused, "gmm2_bwd_dw": fused,
+            "flash_attention_fwd": (2 if remat else 1) * k2 + extra,
+            "flash_attention_bwd_dkv": k2, "flash_attention_bwd_dq": k2,
+            "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+            "quant_small_m_matmul": 0}
+
+
+def _records(task):
+    path = task.run_dir / "log_trainer.jsonl"
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def lm_rest_main(seed: int, root: Path, shards: str, qa_flags):
+    """The slice's main path: the 154M sweep through slimpajama_transformer
+    over the written shards, LM_REST_STEPS steps (validation at step 3,
+    K1 and K2 forward only there: 2 batches and the telemetry forward),
+    then test() with the zero-shot battery (K1 and K2 forward only, once
+    a layer per model forward). Telemetry against the routers."""
+    import torch
+
+    from competesmoe_tpu_torch.data import native_loader
+    from competesmoe_tpu_torch.eval import lm_zeroshot
+
+    t0 = time.perf_counter()
+    task = _lm_rest_task("main", [], seed, root, shards, qa_flags)
+    build_s = time.perf_counter() - t0
+    L = task.cfg.n_layers
+    flips, counts, wall, peak = _train_window(task, LM_REST_STEPS)
+    valid_forwards = task.a.valid_batches + 1        # + the telemetry
+    want = _lm_want(flips, L, valid_forwards)
+    if counts != want:
+        raise AssertionError(f"lm_rest main launches {counts} != {want}")
+    valid_ms = []
+    validate = task.validate
+
+    def timed_validate():
+        t = time.perf_counter()
+        ppl = validate()
+        torch.cuda.synchronize()
+        valid_ms.append(1e3 * (time.perf_counter() - t))
+        return ppl
+
+    task.validate = timed_validate
+    spans, forwards, lengths = [], [0], set()
+    score_seqs = lm_zeroshot.LMZeroShotEvaluator.score_sequences
+    score = lm_zeroshot.LMZeroShotEvaluator.score
+
+    def timed_scores(self, seqs):
+        t = time.perf_counter()
+        res = score_seqs(self, seqs)
+        spans.append(time.perf_counter() - t)
+        return res
+
+    def counted_score(self, tokens, mask):
+        forwards[0] += 1
+        lengths.add(tokens.shape[1])
+        return score(self, tokens, mask)
+
+    lm_zeroshot.LMZeroShotEvaluator.score_sequences = timed_scores
+    lm_zeroshot.LMZeroShotEvaluator.score = counted_score
+    reset_counts()
+    try:
+        res = task.test()
+        torch.cuda.synchronize()
+    finally:
+        lm_zeroshot.LMZeroShotEvaluator.score_sequences = score_seqs
+        lm_zeroshot.LMZeroShotEvaluator.score = score
+    test_counts = read_counts()
+    if not {128, 1024} <= lengths:
+        raise AssertionError(f"lm_rest: the battery's buckets "
+                             f"{sorted(lengths)} miss 128 or 1024")
+    n_fwd = valid_forwards + forwards[0]
+    want_test = _lm_want([], L, n_fwd)
+    if test_counts != want_test:
+        raise AssertionError(f"lm_rest test() launches {test_counts} != "
+                             f"{want_test}")
+    # the last validation (test()'s) ran on these weights
+    telemetry_consistent_lm(task, "lm_rest main")
+    task.logger.close()
+    recs = _records(task)
+    steps = [r for r in recs if "loss/total" in r]
+    if [r["step"] for r in steps] != list(range(LM_REST_STEPS)):
+        raise AssertionError(f"lm_rest: logged steps {steps}")
+    if not all(math.isfinite(r["loss/total"]) for r in steps):
+        raise AssertionError("lm_rest: non-finite loss")
+    for r, f in zip(steps, flips):
+        if int(r["competesmoe/n_flip_layers"]) != f:
+            raise AssertionError(f"lm_rest: step {r['step']} flips")
+    ms = [r["timing/ms_per_step_wall"] for r in steps]
+    steady = statistics.median(ms[1:])
+    tokens = task.a.batch_size * task.a.lm.unroll
+    telemetry = sorted({k for r in recs for k in r
+                        if k.startswith("expert_usage/")})
+    plots = [r for r in recs if "plots" in r]
+    qa = {}
+    for name, sec in zip(LM_REST_QA, spans):
+        n = res[f"{name}/n_docs"]
+        qa[name] = dict(accuracy=res[f"{name}/accuracy"], n_docs=n,
+                        seconds=sec, docs_per_s=n / sec)
+    ppl = res["valid/perplexity"]
+    trace = getattr(task, "trace_path", None)
+    if trace is None or not Path(trace).exists():
+        raise AssertionError("lm_rest: no profiler trace written")
+    if not (math.isfinite(ppl) and len(telemetry) == 2 * L and plots):
+        raise AssertionError(f"lm_rest: perplexity {ppl}, telemetry keys "
+                             f"{len(telemetry)}, plots {len(plots)}")
+    summary = dict(
+        steps=LM_REST_STEPS, flips=flips, launches=counts,
+        test_launches=test_counts, test_forwards=n_fwd,
+        battery_lengths=sorted(lengths),
+        build_s=build_s, wall_s=wall, ms_per_step=ms,
+        ms_per_step_median_after_first=steady,
+        tokens_per_s=tokens / (steady / 1e3),
+        ms_per_load=[r["timing/ms_per_load"] for r in steps],
+        native_loader=native_loader.native_available(),
+        windows=len(task.dataset),
+        vocab=task.dataset.tokenizer.get_vocab_size(),
+        peak_mem_gib=peak, valid_perplexity=ppl, valid_ms=valid_ms,
+        telemetry_keys=telemetry, qa=qa, trace=str(trace),
+        losses=[r["loss/total"] for r in steps])
+    log(f"lm_rest main: {build_s:.1f} s to build (corpus {len(task.dataset)}"
+        f" windows, vocab {summary['vocab']}, native loader "
+        f"{summary['native_loader']}); {LM_REST_STEPS} steps in {wall:.1f} "
+        f"s, ms (competing layers) {[(round(m, 1), f) for m, f in zip(ms, flips)]}"
+        f" (step 4 profiled), median {steady:.1f} ms/step after the first "
+        f"({summary['tokens_per_s']:.0f} tok/s), ms_per_load "
+        f"{[round(x, 3) for x in summary['ms_per_load']]}, peak "
+        f"{peak:.2f} GiB; launches {counts}")
+    log(f"lm_rest main test(): perplexity {ppl:.2f} in "
+        f"{[round(x, 1) for x in valid_ms]} ms; {forwards[0]} battery "
+        f"forwards at lengths {sorted(lengths)}; " + "; ".join(
+            f"{k} accuracy {v['accuracy']:.3f} ({v['n_docs']} docs, "
+            f"{v['docs_per_s']:.1f} docs/s)" for k, v in qa.items())
+        + f"; telemetry keys {len(telemetry)}; trace {trace}")
+    del task
+    free_card()
+    return summary
+
+
+def lm_rest_side(name: str, seed: int, root: Path, shards: str):
+    """The 154M sweep with LM_REST_SIDE[name], LM_REST_SIDE_STEPS steps,
+    no validation and no trace: MoA launches K1 at every non-competing
+    layer and K2 never; remat launches every forward kernel twice."""
+    task = _lm_rest_task(name, LM_REST_SIDE[name] + [
+        "-valid_interval", "0", "-profile.start_step", "-1"], seed, root,
+        shards)
+    L = task.cfg.n_layers
+    flips, counts, wall, peak = _train_window(task, LM_REST_SIDE_STEPS)
+    want = _lm_want(flips, L, remat=name == "remat", moa=name == "moa",
+                    micro=task.a.n_microbatch)
+    if counts != want:
+        raise AssertionError(f"lm_rest {name} launches {counts} != {want}")
+    task.logger.close()
+    steps = [r for r in _records(task) if "loss/total" in r]
+    if not all(math.isfinite(r["loss/total"]) for r in steps):
+        raise AssertionError(f"lm_rest {name}: non-finite loss")
+    ms = [r["timing/ms_per_step_wall"] for r in steps]
+    summary = dict(steps=LM_REST_SIDE_STEPS, flips=flips, launches=counts,
+                   wall_s=wall, ms_per_step=ms,
+                   ms_per_step_median_after_first=statistics.median(ms[1:]),
+                   peak_mem_gib=peak, losses=[r["loss/total"] for r in steps])
+    log(f"lm_rest {name}: {LM_REST_SIDE_STEPS} steps, ms (competing "
+        f"layers) {[(round(m, 1), f) for m, f in zip(ms, flips)]}, median "
+        f"{summary['ms_per_step_median_after_first']:.1f} ms/step after the "
+        f"first, peak {peak:.2f} GiB, losses "
+        f"{[round(x, 4) for x in summary['losses']]}; launches {counts}")
+    del task
+    free_card()
+    return summary
+
+
+def phase_lm_rest(seed: int):
+    """The rest of the LM stack (see the module docstring, phase 15)."""
+    t0 = time.perf_counter()
+    out = dict(small=small_lm_rest_check(seed),
+               k2_battery=k2_battery_shapes(seed))
+    free_card()
+    root = REPO / "runs" / "chip_smoke" / "lm_rest"
+    shutil.rmtree(root, ignore_errors=True)
+    shards, qa_flags = write_lm_rest_data(root, seed)
+    out["main"] = lm_rest_main(seed, root, shards, qa_flags)
+    for name in LM_REST_SIDE:
+        out[name] = lm_rest_side(name, seed, root, shards)
+    main, remat = out["main"], out["remat"]
+    log(f"lm_rest remat: step 0 loss {remat['losses'][0]!r} (without remat "
+        f"{main['losses'][0]!r}); peak {remat['peak_mem_gib']:.2f} GiB "
+        f"against {main['peak_mem_gib']:.2f} GiB")
+    if remat["losses"][0] != main["losses"][0]:
+        raise AssertionError("lm_rest: remat's step 0 loss differs from "
+                             "the run without remat")
+    if not remat["peak_mem_gib"] < main["peak_mem_gib"]:
+        raise AssertionError("lm_rest: remat's peak memory is not lower")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"lm_rest: every check passed in {out['seconds']:.1f} s")
+    return out
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -6612,6 +7258,9 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile training steps, decode steps and "
                          "engine ticks")
+    ap.add_argument("--only", choices=["lm_rest"],
+                    help="run this phase alone (after the build), print its "
+                         "summary and stop")
     a = ap.parse_args()
 
     t_main = time.perf_counter()
@@ -6631,6 +7280,12 @@ def main():
     _kernels.build(verbose=True)
     log(f"build: {', '.join(_kernels.SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if a.only == "lm_rest":
+        print("lm_rest_summary " + json.dumps(dict(phase_lm_rest(a.seed),
+                                                   card=card)), flush=True)
+        log(f"chip_smoke --only lm_rest: passed in "
+            f"{time.perf_counter() - t_main:.1f} s")
+        return 0
     small_rows, small_err, library_why = phase_small_m()
     print("kernel_shapes " + json.dumps({
         "card": card, "rows": small_rows,
@@ -6726,6 +7381,10 @@ def main():
     print("mm_routers_summary " + json.dumps(dict(
         card=card, small=small_routers, full=phase_mm_routers(a.seed))),
         flush=True)
+    # last: its profiler trace and 154M runs touch no replay check after it
+    free_card()
+    print("lm_rest_summary " + json.dumps(dict(phase_lm_rest(a.seed),
+                                               card=card)), flush=True)
     rows = [small_m_summary(small_rows, name, launches, small_err[name], m)
             for name, launches, m in (
                 ("quant_small_m_matmul_int4",

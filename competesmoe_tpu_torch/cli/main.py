@@ -17,6 +17,9 @@ def main(argv=None) -> None:
     from ..utils.argparser import build_parser
 
     a = build_parser().parse(argv)
+    if a.nan_detect:
+        import torch
+        torch.autograd.set_detect_anomaly(True)
     t = get_task(a.task)(a)
     if a.test_only:
         print(json.dumps(t.test()))

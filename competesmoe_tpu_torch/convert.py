@@ -25,7 +25,10 @@ shared-expert routers) and `gate_bias` [E], the cosine routers'
 `inp_reduction` [in, E/2] and `expert_embeddings` [E, E/2], RMSNorm
 `weight`, the vision `position_embedding`, and the
 pretrain MoE's `keys` [E, d, ES], `values` [E, ES, d] and `w_gate` [E, d]
-(the layouts K1 reads).
+(the layouts K1 reads), and the MoA banks' `w_gate` [H*E, d] and
+`experts` [H, E, in, out] (`models/moa.py`). ACT's `halting` Dense
+becomes a Linear like any other, and a block ACT wraps sits under
+`blocks.<i>.block`, as in the flax tree.
 
 `from_jax_lora(tree)` carries a JAX LoRA factor tree across the same way.
 """

@@ -2,39 +2,60 @@
 competesmoe_tpu/models/lm.py).
 
 - token embedding scaled by sqrt(d_model);
-- pre-LN blocks: x + attn(ln(x)); x + moe(ln(x));
+- pre-LN blocks: x + attn(ln(x)); x + moe(ln(x)). `preln=False` changes
+  nothing: JAX declares the flag and reads it nowhere (ROADMAP §3);
 - FastRope attention: q/k/v/out projections without bias, partial rotary
   embedding (`rotate_fraction` of each head, rotate-half convention),
   causal; attn_backend 'flash' runs K2 (`ops/flash_attention.py`),
-  'einsum' the plain softmax(q k^T) v;
+  'einsum' the plain softmax(q k^T) v. With `att_moe` the block's
+  attention is MoA (`models/moa.py`), which is always einsum;
 - MoE FFN from the pretrain registry, with the flip-schedule row of each
   layer *position* passed per call;
 - universal layer sharing `abab` / `aabb`; final LayerNorm and an untied
-  output head with bias.
+  output head with bias;
+- the Transformer-XL carry (`n_prev_states > 0`): `forward(state=...)`
+  takes each layer position's carried block [B, S, D] and returns the
+  new one (each layer's normalised input, detached) under
+  `aux["state"]`; queries sit at positions S.. and see the whole carried
+  prefix (the einsum path, as in JAX: flash takes only the plain square
+  causal case);
+- stochastic layer drop (`p_drop_layer`, training only): a token keeps a
+  block's output where a uniform draw is >= p, else its input;
+- ACT (`act_max_steps > 0`): every block wrapped in `models/act.py`'s
+  ACTBlock;
+- per-block remat (`remat`, ignored under ACT as in JAX): each block runs
+  under `torch.utils.checkpoint` and is recomputed in backward. The
+  competition step is decided on the host from the step number, so the
+  recompute takes the same branch.
+
+Every random draw (layer drop, MoA's dropouts) comes from the
+`generator=` the caller passes to `forward`, and is drawn outside the
+recomputed region, so remat replays the same masks. Training with any of
+them above 0 and no generator raises.
 
 Module and parameter names follow the flax tree (`embedding`,
 `blocks.<i>.attn.{q,k,v,out}`, `blocks.<i>.moe.{w_gate,keys,values}`,
-`blocks.<i>.norm1/norm2`, `out_norm`, `output`), so `convert.
+`blocks.<i>.norm1/norm2`, `out_norm`, `output`; MoA's
+`blocks.<i>.attn.<name>_bank.{w_gate,experts}`; ACT's
+`blocks.<i>.block.*` and `blocks.<i>.halting`), so `convert.
 from_jax_params` carries JAX weights over. LayerNorm epsilon is flax's
 1e-6. `init_weights(seed)` draws the JAX init distributions on the
 model's device with a torch.Generator, one tensor at a time.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item):
-MoA attention (`att_moe`), ACT pondering, the Transformer-XL context carry
-(`n_prev_states`), stochastic layer drop, per-block remat and ring
-attention.
+Not ported: ring attention (ROADMAP item 1.7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..moe.config import MoEArgs
@@ -42,6 +63,8 @@ from ..moe.pretrain_layers import MoEUTBase, PretrainCompeteSMoE
 from ..moe.registry import get_pretrain_moe
 from ..moe.schedule import FlipSchedule
 from ..ops.flash_attention import flash_attention
+from .act import ACTBlock
+from .moa import FullMoeRopeAttention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,15 +90,28 @@ class LMConfig:
     rope_base: float = 10000.0
     # 'einsum' (plain), 'flash' (K2) or 'auto' (resolve_attn_backend)
     attn_backend: str = "auto"
+    # MoA: expert-bank attention projections (the -moe.att.* flags)
+    att_moe: bool = False
+    att_n_experts: int = 4
+    att_k: int = 2
+    att_q_expert: bool = True
+    att_k_expert: bool = True
+    att_v_expert: bool = True
+    att_o_expert: bool = True
+    att_v_size: Optional[int] = None
+    att_expert_dropout: float = 0.0
+    att_selection_dropout: float = 0.0
     # universal transformer sharing
     universal_group_size: int = 1        # 1 -> no sharing
     universal_group_type: str = "abab"
-    # not ported (raise when set): MoA, XL context carry, layer drop, ACT,
-    # remat
-    att_moe: bool = False
+    # Transformer-XL carry; 0 = off (the shipped sweeps' setting)
     n_prev_states: int = 0
+    # stochastic layer drop (training only)
     p_drop_layer: float = 0.0
+    # ACT pondering: 0 = off; > 0 wraps every block in an ACTBlock
     act_max_steps: int = 0
+    act_loss: float = 0.0
+    # per-block remat (ignored when ACT wraps the blocks)
     remat: bool = False
     # misc
     preln: bool = True
@@ -105,26 +141,6 @@ class LMConfig:
     @property
     def n_unique_layers(self) -> int:
         return len(set(self.layer_order()))
-
-
-_NOT_PORTED = (
-    ("att_moe", "MoA attention (models/moa.py)"),
-    ("act_max_steps", "ACT pondering (models/act.py)"),
-    ("n_prev_states", "the Transformer-XL context carry"),
-    ("p_drop_layer", "stochastic layer drop"),
-    ("remat", "per-block remat"),
-)
-
-
-def _check_ported(cfg: LMConfig) -> None:
-    for field, what in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"LMConfig.{field}: {what} is not ported (ROADMAP open "
-                "item 1.1)")
-    if not cfg.preln:
-        raise NotImplementedError("post-LN blocks are not ported (ROADMAP "
-                                  "open item 1.1)")
 
 
 def resolve_attn_backend(backend: str, seq_len: int, head_dim: int,
@@ -214,50 +230,65 @@ class FastRopeAttention(nn.Module):
                                   generator=g)
             lin.weight.mul_(std)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attend_to=None, pos_offset: int = 0,
+                mask=None) -> torch.Tensor:
+        """attend_to: an optional [B, S, D] source of keys and values
+        (the carried prefix and x): queries at positions pos_offset..,
+        keys from position 0."""
         cfg = self.cfg
         h, p = cfg.n_heads, cfg.proj_dim
         n_rotate = int(cfg.rotate_fraction * p)
         n_rotate -= n_rotate % 2
+        kv_src = attend_to if attend_to is not None else x
         B, T, _ = x.shape
+        S = kv_src.shape[1]
         q = _dense(x, self.q, cfg.dtype).reshape(B, T, h, p)
-        k = _dense(x, self.k, cfg.dtype).reshape(B, T, h, p)
-        v = _dense(x, self.v, cfg.dtype).reshape(B, T, h, p)
+        k = _dense(kv_src, self.k, cfg.dtype).reshape(B, S, h, p)
+        v = _dense(kv_src, self.v, cfg.dtype).reshape(B, S, h, p)
         if n_rotate > 0:
             sin, cos = rope_sin_cos(n_rotate, T, cfg.rope_base,
-                                    dtype=q.dtype, device=x.device)
-            sin, cos = sin[None, :, None, :], cos[None, :, None, :]
-            q = apply_partial_rope(q, sin, cos, n_rotate)
-            k = apply_partial_rope(k, sin, cos, n_rotate)
+                                    offset=pos_offset, dtype=q.dtype,
+                                    device=x.device)
+            q = apply_partial_rope(q, sin[None, :, None], cos[None, :, None],
+                                   n_rotate)
+            sin0, cos0 = rope_sin_cos(n_rotate, S, cfg.rope_base,
+                                      dtype=k.dtype, device=x.device)
+            k = apply_partial_rope(k, sin0[None, :, None],
+                                   cos0[None, :, None], n_rotate)
         # [B, h, T, p]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         backend = resolve_attn_backend(cfg.attn_backend, T, p,
                                        platform=x.device.type)
-        if backend == "flash":
+        if backend not in ("flash", "einsum"):
+            raise ValueError(f"unknown attn_backend {backend!r}")
+        if backend == "flash" and attend_to is None and mask is None:
             out = flash_attention(q, k, v, causal=True,
                                   sm_scale=1.0 / math.sqrt(p))
-        elif backend == "einsum":
+        else:
             scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
             scores = scores / math.sqrt(p)
-            causal = torch.ones(T, T, dtype=torch.bool,
-                                device=x.device).tril()
+            # causal over the suffix; the carried prefix fully visible
+            qpos = torch.arange(T, device=x.device)[:, None] + (S - T)
+            causal = torch.arange(S, device=x.device)[None, :] <= qpos
+            if mask is not None:
+                causal = causal & mask
             scores = scores.masked_fill(~causal, float("-inf"))
             probs = torch.softmax(scores, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bhkd->bhqd", probs.float(),
                                v.float()).to(x.dtype)
-        else:
-            raise ValueError(f"unknown attn_backend {backend!r}")
         out = out.transpose(1, 2).reshape(B, T, h * p)
         return _dense(out, self.out, cfg.dtype)
 
 
 class MoETransformerBlock(nn.Module):
-    """Pre-LN block: attention + registry MoE FFN."""
+    """Pre-LN block: attention (FastRope, or MoA with `att_moe`) + registry
+    MoE FFN."""
 
     def __init__(self, cfg: LMConfig, step_warm: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
-        self.attn = FastRopeAttention(cfg, device=device)
+        self.attn = (FullMoeRopeAttention(cfg, device=device) if cfg.att_moe
+                     else FastRopeAttention(cfg, device=device))
         moe_cls = get_pretrain_moe(cfg.moe_name)
         kw = {"step_warm": step_warm} if issubclass(
             moe_cls, PretrainCompeteSMoE) else {}
@@ -269,14 +300,38 @@ class MoETransformerBlock(nn.Module):
         self.norm1 = LayerNorm(cfg.d_model, cfg.dtype, device=device)
         self.norm2 = LayerNorm(cfg.d_model, cfg.dtype, device=device)
 
+    def draw_noise(self, x, prev_state, g: torch.Generator):
+        """MoA's dropout draws for a call on x (and the carried prefix)."""
+        if not self.cfg.att_moe:
+            return None
+        attend_to = (torch.cat([prev_state, x], dim=1)
+                     if prev_state is not None else None)
+        return self.attn.draw_noise(x, attend_to, g)
+
     def forward(self, x, step=None, train: bool = False, flips=None,
-                return_id_experts: bool = False):
-        x = x + self.attn(self.norm1(x))
+                prev_state=None, pos_offset: int = 0,
+                return_id_experts: bool = False, noise=None):
+        ninput = self.norm1(x)
+        attend_to = None
+        if prev_state is not None:
+            # carried states were normalised when saved
+            attend_to = torch.cat([prev_state, ninput], dim=1)
+        att_aux = None
+        if self.cfg.att_moe:
+            attn_out, att_aux = self.attn(ninput, attend_to, pos_offset,
+                                          train=train, noise=noise)
+        else:
+            attn_out = self.attn(ninput, attend_to, pos_offset)
+        x = x + attn_out
         kwargs = {"flips": flips} if isinstance(
             self.moe, PretrainCompeteSMoE) else {}
         moe_out, aux = self.moe(self.norm2(x), step=step, train=train,
                                 return_id_experts=return_id_experts,
                                 **kwargs)
+        if att_aux is not None:
+            aux = dataclasses.replace(
+                aux, aux_loss=aux.aux_loss + att_aux.aux_loss,
+                losses={**aux.losses, **att_aux.losses})
         return x + moe_out, aux
 
 
@@ -288,16 +343,20 @@ class MoELanguageModel(nn.Module):
     def __init__(self, cfg: LMConfig,
                  flip_schedule: Optional[FlipSchedule] = None, device=None):
         super().__init__()
-        _check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.flip_schedule = flip_schedule
         step_warm = flip_schedule.step_warm if flip_schedule else 0
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.d_model,
                                       device=device)
-        self.blocks = nn.ModuleList(
-            MoETransformerBlock(cfg, step_warm=step_warm, device=device)
-            for _ in range(cfg.n_unique_layers))
+        blocks = [MoETransformerBlock(cfg, step_warm=step_warm,
+                                      device=device)
+                  for _ in range(cfg.n_unique_layers)]
+        if cfg.act_max_steps > 0:
+            blocks = [ACTBlock(b, cfg.d_model, max_steps=cfg.act_max_steps,
+                               act_loss_coef=cfg.act_loss, device=device)
+                      for b in blocks]
+        self.blocks = nn.ModuleList(blocks)
         if cfg.norm_before_output:
             self.out_norm = LayerNorm(cfg.d_model, cfg.dtype, device=device)
         self.output = nn.Linear(cfg.d_model, cfg.vocab_size, bias=True,
@@ -309,6 +368,13 @@ class MoELanguageModel(nn.Module):
         for mod in self.modules():
             if isinstance(mod, PretrainCompeteSMoE):
                 mod.step_warm = schedule.step_warm
+
+    @property
+    def draws(self) -> bool:
+        """Does a training forward draw random numbers?"""
+        cfg = self.cfg
+        return cfg.p_drop_layer > 0.0 or (cfg.att_moe and (
+            cfg.att_expert_dropout > 0.0 or cfg.att_selection_dropout > 0.0))
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "MoELanguageModel":
@@ -324,29 +390,60 @@ class MoELanguageModel(nn.Module):
             if isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-            elif isinstance(mod, (FastRopeAttention, MoEUTBase)):
+            elif isinstance(mod, (FastRopeAttention, FullMoeRopeAttention,
+                                  MoEUTBase, ACTBlock)):
                 mod.reset_parameters(g)
         return self
 
     def forward(self, tokens: torch.Tensor, *, step=None,
-                train: bool = False, return_id_experts: bool = False
+                train: bool = False, state: Optional[List] = None,
+                return_id_experts: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens: [B, T] -> (logits [B, T, V] float32, aux dict with one
-        entry per layer and aux key, plus `total_aux_loss`)."""
+        entry per layer and aux key, plus `total_aux_loss`, and the new
+        carried `state` with n_prev_states > 0)."""
         cfg = self.cfg
+        draws = train and self.draws
+        if draws and generator is None:
+            raise ValueError("training with p_drop_layer or MoA dropout "
+                             "draws random numbers: pass generator=")
+        remat = (cfg.remat and cfg.act_max_steps == 0
+                 and torch.is_grad_enabled())
         net = self.embedding(tokens).to(cfg.dtype)
         net = net * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         aux_losses: Dict[str, torch.Tensor] = {}
         total_aux = torch.zeros((), dtype=torch.float32, device=net.device)
+        new_state = []
+        pos_offset = 0
+        if cfg.n_prev_states > 0 and state is not None:
+            pos_offset = state[0].shape[1]
         for li, ui in enumerate(cfg.layer_order()):
+            block = self.blocks[ui]
             flips = (self.flip_schedule.flips[li]
                      if self.flip_schedule is not None else None)
-            net, aux = self.blocks[ui](net, step, train, flips,
-                                       return_id_experts)
+            prev = None
+            if cfg.n_prev_states > 0:
+                prev = state[li] if state is not None else None
+                # this layer's normalised input, carried to the next window
+                new_state.append(block.norm1(net).detach())
+            noise = block.draw_noise(net, prev, generator) if draws else None
+            args = (net, step, train, flips, prev, pos_offset,
+                    return_id_experts, noise)
+            if remat:
+                net_o, aux = checkpoint(block, *args, use_reentrant=False)
+            else:
+                net_o, aux = block(*args)
             if return_id_experts and aux.selected_experts is not None:
                 aux_losses[f"layer{li}/selected_experts"] = \
                     aux.selected_experts
                 aux_losses[f"layer{li}/gate_softmax"] = aux.gate_softmax
+            if train and cfg.p_drop_layer > 0.0:
+                keep = torch.rand(net_o[..., :1].shape, generator=generator,
+                                  device=net.device) >= cfg.p_drop_layer
+                net = torch.where(keep, net_o, net)
+            else:
+                net = net_o
             total_aux = total_aux + aux.aux_loss
             for key, val in aux.losses.items():
                 aux_losses[f"layer{li}/{key}"] = val
@@ -354,6 +451,8 @@ class MoELanguageModel(nn.Module):
             net = self.out_norm(net)
         logits = self.output(net.float())
         aux_losses["total_aux_loss"] = total_aux
+        if cfg.n_prev_states > 0:
+            aux_losses["state"] = new_state
         return logits, aux_losses
 
 

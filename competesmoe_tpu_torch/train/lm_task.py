@@ -1,11 +1,33 @@
-"""LM pretraining task (port of the synthetic-corpus part of
-competesmoe_tpu/train/lm_task.py): the flags, the config mapping and the
-train/validate loop of `SyntheticTransformerTask`.
+"""LM pretraining task (port of competesmoe_tpu/train/lm_task.py): the
+flags, the config mapping, the eight tasks and their train / validate /
+test loop.
+
+Tasks: `synthetic_transformer` (the arithmetic corpus), `mixture_
+transformer` (the latent-mode Markov corpus), `chunked_transformer`
+(uint16 chunk directories under `-lm.data_dir`), and the streaming
+corpora `c4_`, `slimpajama_`, `pes2o_` and `thestack_transformer`
+(`data/streaming.py`: shards by URL, or the local files of `-lm.shards`,
+a vocab trained on the first `-lm.tokenizer_n_files` shards, chunks of
+uint16 tokens under `-lm.cache_dir`).
 
 The flip schedule is built from (`stop_after`, `warm_up`, `rate_flip`,
 `max_compete_in_iter`, `seed`) exactly as in JAX, so both packages make
 the same layers compete at the same steps. Weights are drawn on the
-device from `-seed`. The task runs on `-device` (default cuda).
+device from `-seed`, and so are the model's random draws (MoA's
+dropouts). The task runs on `-device` (default cuda).
+
+Training: a background thread walks its own copy of the sampler and
+assembles the next batches (`timing/ms_per_load` is the wait for one);
+the checkpointed sampler is re-pinned to the consumed step before every
+saver tick, so a resume replays nothing and skips nothing. Validation
+logs the perplexity and, from its last batch, each layer's expert-usage
+histogram, entropy and share of used experts, and a heatmap
+(`train/plots.py`). `-profile.start_step` / `-profile.n_steps` write a
+torch.profiler trace of those steps under `<run_dir>/<name>/trace`.
+`-log tb` mirrors the metrics to TensorBoard, `-log wandb` to W&B where
+the package is installed, `-log_async 1` writes them from a thread.
+`test()` adds the zero-shot QA battery (`-lm.eval.*`,
+`eval/lm_zeroshot.py`, `data/qa_datasets.py`) to the perplexity.
 
 Checkpoints: a `Saver` under `<run_dir>/<name>/checkpoint` holds the
 model, the optimizer state, the sampler, the args and the flip schedule;
@@ -14,16 +36,17 @@ resumes from the newest checkpoint there, or from `-restore` (a step, a
 `model-<step>` directory or a checkpoint directory); a restored flip
 schedule that differs from the rebuilt one replaces it.
 
-Not ported here (each raises NotImplementedError naming its ROADMAP
-item, or is absent): meshes, FSDP, expert and sequence parallelism
-(`-n_expert_shards`, `-n_seq_shards`, `-fsdp`), the preemption job
-record, the streaming corpora and the other tasks, W&B and TensorBoard
-logging, the zero-shot QA battery, profiler traces.
+Not ported here (each raises NotImplementedError naming ROADMAP item
+1.7): meshes, FSDP, expert and sequence parallelism (`-n_expert_shards`,
+`-n_seq_shards`, `-fsdp`) and the preemption job record.
 """
 
 from __future__ import annotations
 
+import copy
 import math
+import queue
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -31,7 +54,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data.lm_data import SequentialMultibatchSampler, SyntheticLMDataset
+from ..data.lm_data import (SequentialMultibatchSampler, SyntheticLMDataset,
+                            open_chunk_dir)
 from ..device import resolve_device
 from ..models.lm import LMConfig, MoELanguageModel
 from ..moe.config import MoEArgs
@@ -41,9 +65,12 @@ from ..utils.argparser import ArgumentParser, DotDict, args
 from .checkpoint import Saver
 from .lm_trainer import (OptConfig, TrainState, make_eval_step,
                          make_optimizer, make_train_step)
-from .logger import ElapsedTimeMeter, MetricLogger, device_memory_stats
+from .logger import (AsyncMetricLogger, ElapsedTimeMeter, MetricLogger,
+                     device_memory_stats)
 
 TASK_REGISTRY: Dict[str, type] = {}
+QA_TASKS = ("lambada", "blimp", "cbt", "hellaswag", "piqa", "ai2arc",
+            "openbookqa", "race", "siqa", "winogrande", "commonsenseqa")
 
 
 def task(name: str):
@@ -58,8 +85,7 @@ def get_task(name: str) -> type:
         return TASK_REGISTRY[name]
     except KeyError:
         raise ValueError(f"unknown task {name!r}; registered: "
-                         f"{', '.join(sorted(TASK_REGISTRY))} (the streaming "
-                         "corpora are ROADMAP open item 1.1)") from None
+                         f"{', '.join(sorted(TASK_REGISTRY))}") from None
 
 
 @args
@@ -92,11 +118,43 @@ def _task_args(parser: ArgumentParser):
     parser.add_argument("-n_seq_shards", default=1)
     parser.add_argument("-fsdp", default=False)
     parser.add_argument("-remat", default=False)
+    # anomaly detection in the backward (JAX: jax_debug_nans)
+    parser.add_argument("-nan_detect", default=False)
+    # a torch.profiler trace of steps [start, start + n)
+    parser.add_argument("-profile.start_step", default=-1)
+    parser.add_argument("-profile.n_steps", default=5)
     parser.add_argument("-log", default="tb", choice=["tb", "wandb"])
+    parser.add_argument("-wandb.project", default="competesmoe_tpu")
+    parser.add_argument("-log_async", default=False)
     # lm
     parser.add_argument("-lm.unroll", default=1024)
     parser.add_argument("-lm.vocab_size", default=8000)
+    parser.add_argument("-lm.data_dir", default="")
+    # streaming corpora (c4/slimpajama/pes2o/thestack tasks)
+    parser.add_argument("-lm.cache_dir", default="./cache")
+    parser.add_argument("-lm.n_shards", default=1)
+    parser.add_argument("-lm.valid_n_shards", default=1)
+    parser.add_argument("-lm.token_limit", default="none",
+                        parser=parser.int_or_none_parser)
+    # comma / glob list of LOCAL shard files; overrides the remote spec
+    parser.add_argument("-lm.shards", default="")
+    parser.add_argument("-lm.tokenizer_algo", default="unigram",
+                        choice=["unigram", "bpe"])
+    parser.add_argument("-lm.tokenizer_n_files", default="none",
+                        parser=parser.int_or_none_parser)
+    parser.add_argument("-lm.thestack_languages", default="python")
+    # mixture_transformer (the latent-mode Markov corpus)
+    parser.add_argument("-lm.mixture.n_modes", default=16)
+    parser.add_argument("-lm.mixture.coherence", default=0.85)
+    parser.add_argument("-lm.mixture.zipf_alpha", default=1.2)
+    # the zero-shot QA battery of test()
     parser.add_argument("-lm.eval.enabled", default=True)
+    parser.add_argument("-lm.eval.pad_quantum", default=128)
+    for qa in QA_TASKS:
+        parser.add_argument(f"-lm.eval.{qa}.enabled", default=False)
+        parser.add_argument(f"-lm.eval.{qa}.path", default="")
+    parser.add_argument("-lm.eval.piqa.labels_path", default="")
+    parser.add_argument("-lm.eval.siqa.labels_path", default="")
     # transformer
     parser.add_argument("-state_size", default=512)
     parser.add_argument("-transformer.encoder_n_layers", default=16)
@@ -111,7 +169,18 @@ def _task_args(parser: ArgumentParser):
     parser.add_argument("-dropout", default=0.0)
     parser.add_argument("-rope.rotate_fraction", default=0.5)
     parser.add_argument("-rope.base", default=10000.0)
+    # MoA attention
     parser.add_argument("-moe.att.enable", default=False)
+    parser.add_argument("-moe.att.n_experts", default=4)
+    parser.add_argument("-moe.att.k", default=2)
+    parser.add_argument("-moe.att.q_expert", default=True)
+    parser.add_argument("-moe.att.k_expert", default=True)
+    parser.add_argument("-moe.att.v_expert", default=True)
+    parser.add_argument("-moe.att.o_expert", default=True)
+    parser.add_argument("-moe.att.v_size", default="none",
+                        parser=parser.int_or_none_parser)
+    parser.add_argument("-moe.att.drop_expert", default=0.0)
+    parser.add_argument("-moe.att.selection_dropout", default=0.0)
     # moe
     parser.add_argument("-moe_name", default="competesmoe")
     parser.add_argument("-moe.n_experts", default=64)
@@ -164,7 +233,12 @@ def lm_config_from(a: DotDict) -> LMConfig:
         moe_topk=a.pkm.n_heads, moe_args=moe_args_from(a),
         moe_impl=a.moe.impl,
         rotate_fraction=a.rope.rotate_fraction, rope_base=a.rope.base,
-        att_moe=a.moe.att.enable,
+        att_moe=a.moe.att.enable, att_n_experts=a.moe.att.n_experts,
+        att_k=a.moe.att.k, att_q_expert=a.moe.att.q_expert,
+        att_k_expert=a.moe.att.k_expert, att_v_expert=a.moe.att.v_expert,
+        att_o_expert=a.moe.att.o_expert, att_v_size=a.moe.att.v_size,
+        att_expert_dropout=a.moe.att.drop_expert,
+        att_selection_dropout=a.moe.att.selection_dropout,
         attn_backend=a.transformer.attn_backend,
         universal_group_size=a.transformer.universal.group_size,
         universal_group_type=a.transformer.universal.group_type,
@@ -177,8 +251,7 @@ def _not_ported(a: DotDict) -> None:
     for flag, bad, item in (
             ("n_expert_shards", a.n_expert_shards > 1, "1.7 (parallelism)"),
             ("n_seq_shards", a.n_seq_shards > 1, "1.7 (ring attention)"),
-            ("fsdp", a.fsdp, "1.7 (parallelism)"),
-            ("log", a.log == "wandb", "1.1 (W&B logging)")):
+            ("fsdp", a.fsdp, "1.7 (parallelism)")):
         if bad:
             raise NotImplementedError(f"-{flag} is not ported: ROADMAP open "
                                       f"item {item}")
@@ -187,20 +260,20 @@ def _not_ported(a: DotDict) -> None:
 @task("synthetic_transformer")
 class SyntheticTransformerTask:
     """LM pretraining on the synthetic corpus (the offline stand-in for
-    the reference's streaming-corpus tasks)."""
+    the reference's streaming-corpus tasks); the other tasks change only
+    `create_datasets`."""
 
     def __init__(self, a: DotDict):
         _not_ported(a)
         self.a = a
         self.device = resolve_device(a.device)
         self.run_dir = Path(a.run_dir) / a.name
-        self.logger = MetricLogger(self.run_dir,
-                                   stdout_interval=a.log_interval)
-        self.dataset = SyntheticLMDataset(a.lm.vocab_size, a.lm.unroll,
-                                          n_windows=1 << 16, seed=a.seed)
-        self.valid_dataset = SyntheticLMDataset(a.lm.vocab_size, a.lm.unroll,
-                                                n_windows=1 << 10,
-                                                seed=a.seed + 1)
+        logger_cls = AsyncMetricLogger if a.log_async else MetricLogger
+        self.logger = logger_cls(self.run_dir, use_wandb=a.log == "wandb",
+                                 wandb_project=a.wandb.project,
+                                 run_name=a.name,
+                                 stdout_interval=a.log_interval)
+        self.dataset, self.valid_dataset = self.create_datasets()
         self.sampler = SequentialMultibatchSampler(
             n_items=len(self.dataset), batch_size=a.batch_size)
         self.cfg = lm_config_from(a)
@@ -211,14 +284,20 @@ class SyntheticTransformerTask:
                 a.max_compete_in_iter, seed=a.seed)
         self.model = MoELanguageModel(self.cfg, flip_schedule=self.schedule,
                                       device=self.device).init_weights(a.seed)
+        self.generator = None
+        if self.model.draws:
+            self.generator = torch.Generator(
+                device=self.device).manual_seed(a.seed)
         self.optimizer = make_optimizer(OptConfig(
             lr=a.lr, lr_sched=a.lr_sched.type, warmup_steps=a.lr_warmup,
             total_steps=a.stop_after, grad_clip=a.grad_clip,
             weight_decay=a.wd, state_8bit=a.opt.state_8bit))
         self.state = TrainState.create(self.model, self.optimizer)
         self.train_step = make_train_step(self.model, self.optimizer,
-                                          n_microbatch=a.n_microbatch)
+                                          n_microbatch=a.n_microbatch,
+                                          generator=self.generator)
         self.eval_step = make_eval_step(self.model)
+        self.expert_usage: Dict[str, np.ndarray] = {}
 
         self.saver = Saver(self.run_dir / "checkpoint",
                            save_interval=a.save_interval,
@@ -233,6 +312,16 @@ class SyntheticTransformerTask:
             self.restore(a.restore)
         elif self.saver.latest_step() is not None:
             self.restore()
+
+    # -- data --
+
+    def create_datasets(self):
+        a = self.a
+        train = SyntheticLMDataset(a.lm.vocab_size, a.lm.unroll,
+                                   n_windows=1 << 16, seed=a.seed)
+        valid = SyntheticLMDataset(a.lm.vocab_size, a.lm.unroll,
+                                   n_windows=1 << 10, seed=a.seed + 1)
+        return train, valid
 
     # -- checkpoint --
 
@@ -266,22 +355,74 @@ class SyntheticTransformerTask:
         print(f"restored checkpoint at step {restored}")
         return restored
 
-    def fetch_batch(self) -> torch.Tensor:
-        batch = self.dataset.batch(next(self.sampler))
-        return torch.from_numpy(batch.astype(np.int64)).to(
+    # -- loops --
+
+    def _device_batch(self, windows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(windows.astype(np.int64)).to(
             self.device, non_blocking=True)
 
+    def fetch_batch(self) -> torch.Tensor:
+        return self._device_batch(self.dataset.batch(next(self.sampler)))
+
+    @torch.no_grad()
     def validate(self) -> float:
         total_nll, total_tok = 0.0, 0
         sampler = SequentialMultibatchSampler(
             n_items=len(self.valid_dataset), batch_size=self.a.batch_size)
+        batch = None
         for _ in range(self.a.valid_batches):
             batch = torch.from_numpy(self.valid_dataset.batch(
                 next(sampler)).astype(np.int64)).to(self.device)
             nll, n = self.eval_step(batch)
             total_nll += float(nll)
             total_tok += int(n)
+        if batch is not None:
+            self._log_expert_usage(batch)
         return math.exp(total_nll / max(total_tok, 1))
+
+    def _log_expert_usage(self, batch: torch.Tensor) -> None:
+        """Eval-time routing telemetry of `batch`: per layer, the expert
+        histogram of the router's selections (kept in `expert_usage`),
+        the share of experts used and the entropy of the usage, and a
+        heatmap of every layer's usage."""
+        try:
+            _, aux = self.model(batch[:, :-1], train=False,
+                                return_id_experts=True)
+        except Exception as e:  # noqa: BLE001 - telemetry must not end a run
+            # warn once instead of dropping telemetry silently
+            if not getattr(self, "_telemetry_warned", False):
+                self._telemetry_warned = True
+                print(f"expert-usage telemetry failed "
+                      f"({type(e).__name__}: {e}); disabled for this run",
+                      flush=True)
+            return
+        metrics = {}
+        usage_rows = {}
+        self.expert_usage = {}
+        for key, val in aux.items():
+            if key.endswith("/selected_experts") and val is not None:
+                layer = key.split("/")[0]
+                sel = val.reshape(-1).cpu().numpy()
+                hist = np.bincount(sel, minlength=self.cfg.n_experts)
+                self.expert_usage[layer] = hist
+                frac = hist / max(hist.sum(), 1)
+                usage_rows[layer] = frac
+                metrics[f"expert_usage/{layer}_nonzero_frac"] = float(
+                    (hist > 0).mean())
+                p = np.clip(frac, 1e-12, None)
+                metrics[f"expert_usage/{layer}_entropy"] = float(
+                    -(p * np.log(p)).sum())
+        if metrics:
+            self.logger.log(int(self.state.step), metrics, to_stdout=False)
+        if usage_rows:
+            from .plots import Heatmap, log_plots
+            order = sorted(usage_rows,
+                           key=lambda k: int(k.replace("layer", "") or 0))
+            mat = np.stack([usage_rows[k] for k in order])
+            log_plots(self.logger, int(self.state.step), {
+                "expert_usage/heatmap": Heatmap(
+                    map=mat, xlabel="expert", ylabel="layer",
+                    y_marks=order)})
 
     def train(self, n_steps: Optional[int] = None) -> None:
         """Train from the current step to `stop_after`, or for `n_steps`
@@ -292,44 +433,182 @@ class SyntheticTransformerTask:
         end = a.stop_after if n_steps is None else min(a.stop_after,
                                                        start + n_steps)
         iter_meter = ElapsedTimeMeter()
+        load_meter = ElapsedTimeMeter()   # wait for the next batch
+        prof_start = a.profile.start_step
+        prof_end = prof_start + a.profile.n_steps if prof_start >= 0 else -1
+        prof = None
+
+        # the producer walks its own sampler copy; the checkpointed
+        # sampler is re-pinned to the consumed step before each save. It
+        # assembles numpy windows only: every torch and CUDA call stays on
+        # this thread (a profiled replay later in a process whose other
+        # thread had made CUDA calls lost a kernel record on the card)
+        q: queue.Queue = queue.Queue(maxsize=2)
+        stop_evt = threading.Event()
+        prod_sampler = copy.copy(self.sampler)
+
+        def produce():
+            try:
+                for _ in range(start, end):
+                    item = self.dataset.batch(next(prod_sampler))
+                    while not stop_evt.is_set():
+                        try:
+                            q.put(item, timeout=0.5)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop_evt.is_set():
+                        return
+            except Exception as e:  # noqa: BLE001 - raised by the consumer
+                q.put(e)
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
         prev = None                    # one-step-lagged NaN guard
         wall_t0, wall_steps = time.perf_counter(), 0
-        for step in range(start, end):
-            batch = self.fetch_batch()
-            with iter_meter:
-                self.state, metrics = self.train_step(self.state, batch)
+        try:
+            for step in range(start, end):
+                if step == prof_start:
+                    prof = _start_profiler(self.device)
+                if step == prof_end and prof is not None:
+                    self._stop_profiler(prof)
+                    prof = None
+                    # the trace's export is not a step's time
+                    wall_t0, wall_steps = time.perf_counter(), 0
+                with load_meter:
+                    batch = q.get()
+                    if isinstance(batch, Exception):
+                        raise batch
+                    batch = self._device_batch(batch)
+                with iter_meter:
+                    self.state, metrics = self.train_step(self.state, batch)
+                if prev is not None:
+                    _check_finite(*prev)
+                prev = (step, metrics)
+                wall_steps += 1
+                if step % a.log_interval == 0 or step == end - 1:
+                    logm = {k: float(v) for k, v in metrics.items()}
+                    prev = None
+                    _check_finite(step, logm)
+                    tokens = a.batch_size * a.lm.unroll
+                    wall_ms = 1e3 * (time.perf_counter() - wall_t0) \
+                        / wall_steps
+                    logm.update({
+                        "timing/ms_per_step_wall": wall_ms,
+                        "timing/ms_per_iter": iter_meter.mean_ms,
+                        "timing/ms_per_load": load_meter.mean_ms,
+                        "timing/ms_per_token": wall_ms / tokens,
+                        "step_tokens_per_second": tokens / (wall_ms / 1000.0),
+                    })
+                    logm.update(device_memory_stats())
+                    self.logger.log(step, logm)
+                    iter_meter.reset()
+                    load_meter.reset()
+                    wall_t0, wall_steps = time.perf_counter(), 0
+                if a.valid_interval and step and step % a.valid_interval == 0:
+                    self.logger.log(step, {"valid/perplexity":
+                                           self.validate()}, to_stdout=True)
+                    wall_t0, wall_steps = time.perf_counter(), 0
+                # the producer's copy runs ahead by the queue's depth
+                self.sampler.pos = step + 1
+                self.saver.tick(step + 1)
             if prev is not None:
                 _check_finite(*prev)
-            prev = (step, metrics)
-            wall_steps += 1
-            if step % a.log_interval == 0 or step == end - 1:
-                logm = {k: float(v) for k, v in metrics.items()}
-                prev = None
-                _check_finite(step, logm)
-                tokens = a.batch_size * a.lm.unroll
-                wall_ms = 1e3 * (time.perf_counter() - wall_t0) / wall_steps
-                logm.update({
-                    "timing/ms_per_step_wall": wall_ms,
-                    "timing/ms_per_iter": iter_meter.mean_ms,
-                    "timing/ms_per_token": wall_ms / tokens,
-                    "step_tokens_per_second": tokens / (wall_ms / 1000.0),
-                })
-                logm.update(device_memory_stats())
-                self.logger.log(step, logm)
-                iter_meter.reset()
-                wall_t0, wall_steps = time.perf_counter(), 0
-            if a.valid_interval and step and step % a.valid_interval == 0:
-                self.logger.log(step, {"valid/perplexity": self.validate()},
-                                to_stdout=True)
-                wall_t0, wall_steps = time.perf_counter(), 0
-            self.saver.tick(step + 1)
-        if prev is not None:
-            _check_finite(*prev)
-        if end == a.stop_after:
-            self.saver.save(a.stop_after)
+            if end == a.stop_after:
+                self.saver.save(a.stop_after)
+        finally:
+            if prof is not None:
+                self._stop_profiler(prof)
+            stop_evt.set()
+            producer.join(timeout=30)
+
+    def _stop_profiler(self, prof) -> Path:
+        prof.stop()
+        out = self.run_dir / "trace"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
+        self.trace_path = path
+        print(f"profiler trace written to {path}", flush=True)
+        return path
 
     def test(self) -> Dict[str, float]:
-        return {"valid/perplexity": self.validate()}
+        res = {"valid/perplexity": self.validate()}
+        res.update(self.run_downstream_evals())
+        return res
+
+    # -- the zero-shot QA battery --
+
+    def _qa_encode(self):
+        """Tokenizer for QA prompts: the streaming corpus vocab when the
+        task has one, else a stable hash of each word (synthetic and
+        chunked runs)."""
+        tok = getattr(self.dataset, "tokenizer", None)
+        if tok is not None:
+            return lambda s: tok.encode(s).ids
+        import zlib
+        v = self.a.lm.vocab_size
+
+        def hash_encode(s: str):
+            return [(zlib.crc32(w.encode()) % (v - 1)) + 1
+                    for w in s.split()]
+        return hash_encode
+
+    def run_downstream_evals(self) -> Dict[str, float]:
+        a = self.a
+        if not a.lm.eval.enabled:
+            return {}
+        from ..data import qa_datasets as qa
+        from ..eval.lm_zeroshot import LMZeroShotEvaluator, lambada_accuracy
+
+        encode = self._qa_encode()
+        ev = LMZeroShotEvaluator(self.model,
+                                 pad_quantum=a.lm.eval.pad_quantum,
+                                 max_len=a.lm.unroll)
+        res: Dict[str, float] = {}
+        if a.lm.eval.lambada.enabled:
+            items = qa.lambada_items(
+                qa.ensure_file(a.lm.eval.lambada.path, "lambada",
+                               a.lm.cache_dir), encode)
+            for k, v in lambada_accuracy(ev, items).items():
+                res[f"lambada/{k}"] = v
+        simple = {
+            "hellaswag": lambda: qa.hellaswag_docs(
+                qa.ensure_file(a.lm.eval.hellaswag.path, "hellaswag",
+                               a.lm.cache_dir), encode),
+            "piqa": lambda: qa.piqa_docs(
+                qa.ensure_file(a.lm.eval.piqa.path, "piqa", a.lm.cache_dir),
+                qa.ensure_file(a.lm.eval.piqa.labels_path, "piqa_labels",
+                               a.lm.cache_dir), encode),
+            "ai2arc": lambda: qa.arc_docs(a.lm.eval.ai2arc.path, encode),
+            "openbookqa": lambda: qa.openbookqa_docs(
+                a.lm.eval.openbookqa.path, encode),
+            "commonsenseqa": lambda: qa.commonsenseqa_docs(
+                a.lm.eval.commonsenseqa.path, encode),
+            "winogrande": lambda: qa.winogrande_docs(
+                a.lm.eval.winogrande.path, encode),
+            "siqa": lambda: qa.siqa_docs(
+                a.lm.eval.siqa.path, a.lm.eval.siqa.labels_path, encode),
+            "race": lambda: qa.race_docs(a.lm.eval.race.path, encode),
+            "cbt": lambda: qa.cbt_docs(a.lm.eval.cbt.path, encode),
+            "blimp": lambda: qa.blimp_docs(a.lm.eval.blimp.path, encode),
+        }
+        for name, load in simple.items():
+            if not getattr(a.lm.eval, name).enabled:
+                continue
+            for k, v in ev.evaluate(load()).items():
+                res[f"{name}/{k}"] = v
+        return res
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
 
 
 def _check_finite(step: int, metrics) -> None:
@@ -338,3 +617,109 @@ def _check_finite(step: int, metrics) -> None:
         raise FloatingPointError(
             f"non-finite loss at step {step}: "
             f"{ {k: float(v) for k, v in metrics.items()} }")
+
+
+class _StreamingTransformerTask(SyntheticTransformerTask):
+    """LM pretraining over a streaming shard corpus (the reference's
+    {c4,slimpajama,pes2o,thestack}_transformer tasks): shards are fetched
+    or read locally (`-lm.shards`), a Unigram vocab is trained on the
+    first shards, and tokens are written to uint16 mmap chunks."""
+
+    SPEC_NAME = None  # streaming spec class name, set by subclasses
+
+    def _make_spec(self):
+        from ..data import streaming
+        a = self.a
+        if a.lm.shards:
+            import glob
+            shards: list = []
+            for part in a.lm.shards.split(","):
+                hits = sorted(glob.glob(part))
+                shards.extend(hits if hits else [part])
+            return streaming.LocalShardSpec(shards=shards)
+        return getattr(streaming, self.SPEC_NAME)(**self._spec_kwargs())
+
+    def _spec_kwargs(self):
+        return {}
+
+    def create_datasets(self):
+        from ..data.streaming import ChunkedLMCorpus, LocalShardSpec
+        a = self.a
+        spec = self._make_spec()
+        cache = Path(a.lm.cache_dir) / type(self).__name__
+        kw = dict(vocab_size=a.lm.vocab_size, token_limit=a.lm.token_limit,
+                  algo=a.lm.tokenizer_algo,
+                  tokenizer_n_files=a.lm.tokenizer_n_files)
+        train = ChunkedLMCorpus(spec, a.lm.unroll, cache, split="train",
+                                n_shards=a.lm.n_shards, **kw)
+        if isinstance(spec, LocalShardSpec):
+            valid = train  # local shards carry no validation split
+        else:
+            valid = ChunkedLMCorpus(spec, a.lm.unroll, cache,
+                                    split="validation",
+                                    n_shards=a.lm.valid_n_shards, **kw)
+        return train, valid
+
+
+@task("c4_transformer")
+class C4TransformerTask(_StreamingTransformerTask):
+    SPEC_NAME = "C4Spec"
+
+
+@task("slimpajama_transformer")
+class SlimPajamaTransformerTask(_StreamingTransformerTask):
+    SPEC_NAME = "SlimPajamaSpec"
+
+
+@task("pes2o_transformer")
+class PES2OTransformerTask(_StreamingTransformerTask):
+    SPEC_NAME = "PES2OSpec"
+
+
+@task("thestack_transformer")
+class TheStackTransformerTask(_StreamingTransformerTask):
+    SPEC_NAME = "TheStackSpec"
+
+    def _spec_kwargs(self):
+        return {"languages": self.a.lm.thestack_languages}
+
+
+@task("mixture_transformer")
+class MixtureTransformerTask(SyntheticTransformerTask):
+    """LM pretraining on the latent-mode Markov mixture corpus
+    (`data.lm_data.SyntheticMixtureLMDataset`), where expert
+    specialisation per mode is what lowers the loss."""
+
+    def create_datasets(self):
+        from ..data.lm_data import SyntheticMixtureLMDataset
+        a = self.a
+        kw = dict(n_modes=a.lm.mixture.n_modes,
+                  coherence=a.lm.mixture.coherence,
+                  zipf_alpha=a.lm.mixture.zipf_alpha)
+        train = SyntheticMixtureLMDataset(
+            a.lm.vocab_size, a.lm.unroll, n_windows=1 << 20, seed=a.seed,
+            **kw)
+        # the same language (modes and permutations), held-out windows
+        valid = SyntheticMixtureLMDataset(
+            a.lm.vocab_size, a.lm.unroll, n_windows=1 << 10,
+            seed=a.seed + 7919, **kw)
+        valid.perms = train.perms
+        return train, valid
+
+
+@task("chunked_transformer")
+class ChunkedTransformerTask(SyntheticTransformerTask):
+    """LM pretraining over pre-tokenized uint16 mmap chunk directories
+    (`-lm.data_dir` with `train/` and optionally `valid/`, each written by
+    `data.lm_data.tokenize_to_chunks`)."""
+
+    def create_datasets(self):
+        a = self.a
+        if not a.lm.data_dir:
+            raise ValueError("chunked_transformer requires -lm.data_dir")
+        d = Path(a.lm.data_dir)
+        train = open_chunk_dir(d / "train", a.lm.unroll)
+        valid_dir = d / "valid"
+        valid = (open_chunk_dir(valid_dir, a.lm.unroll)
+                 if valid_dir.exists() else train)
+        return train, valid

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -209,15 +209,18 @@ class TrainState:
 
 
 def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
-                    ignore_index: int = -100,
-                    n_microbatch: int = 1) -> Callable:
+                    ignore_index: int = -100, n_microbatch: int = 1,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Callable:
     """`train_step(state, tokens) -> (state, metrics)`; tokens [B, T+1]
     int on the model's device: inputs tokens[:, :-1], targets
     tokens[:, 1:]. Metrics are 0-dim device tensors (read them with
-    float(); that synchronises)."""
+    float(); that synchronises). `generator` feeds the model's random
+    draws (layer drop, MoA's dropouts), where it has any."""
 
     def loss_for(step: int, tokens: torch.Tensor):
-        logits, aux = model(tokens[:, :-1], step=step, train=True)
+        logits, aux = model(tokens[:, :-1], step=step, train=True,
+                            generator=generator)
         ce, n_tok = lm_loss_fn(logits, tokens[:, 1:], ignore_index)
         total = ce + aux["total_aux_loss"]
         # distillation health: router-vs-competition top-k agreement,

@@ -15,7 +15,9 @@ launches through replays, a capture that fails raising); and multimodal
 training's float32 products of bf16 operands, train step (no host sync
 inside it) and LoRA step; and the eval adapter: its engine route against
 its solo route, batched against unbatched loglikelihood, and K5 launched
-by generate_until under --load-4bit.
+by generate_until under --load-4bit; and the LM options: a MoA layer on
+the card against the CPU (K2 never launched by a MoA LM), and a
+chunked_transformer task's steps on the card.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -622,10 +624,11 @@ def _qkv(g, B, h, T, p):
 
 
 # a ragged last tile; 16-byte copies; odd p (plain loads); the widest
-# head; T below one tile; one tile exactly; the 154M shape
+# head; T below one tile; one tile exactly; the 154M shape; the zero-shot
+# battery's shortest and longest buckets (T = 128 - 1 and 1024 - 1)
 K2_SHAPES = [(2, 2, 200, 82), (1, 2, 256, 64), (2, 1, 130, 33),
              (1, 2, 320, 128), (1, 1, 40, 82), (1, 3, 64, 16),
-             (64, 4, 1024, 82)]
+             (64, 4, 1024, 82), (8, 4, 127, 82), (4, 4, 1023, 82)]
 
 
 @pytest.mark.parametrize("B,h,T,p", K2_SHAPES)
@@ -1733,3 +1736,106 @@ def test_router_training_step_on_card_matches_cpu(gen, name):
     for k in mets[1]:
         assert np.isfinite(mets[0][k])
         np.testing.assert_allclose(mets[0][k], mets[1][k], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the LM options: MoA and the chunked task
+# ---------------------------------------------------------------------------
+
+def _moa_cfg(**kw):
+    from competesmoe_tpu_torch.models.lm import LMConfig
+    base = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                head_dim=82, n_experts=8, expert_size=128, moe_topk=2,
+                moe_name="smoe", moe_impl="fused", attn_backend="flash",
+                att_moe=True, att_v_size=64)
+    base.update(kw)
+    return LMConfig(**base)
+
+
+def test_moa_layer_on_the_card_matches_the_cpu(gen):
+    """FullMoeRopeAttention in float32 on the card against the CPU, same
+    weights and input, train=True with a carried prefix: output, aux loss
+    and input gradients within 1e-4 of the largest |CPU| value (float32
+    products summed in other orders; the banks' top-k choices equal)."""
+    from competesmoe_tpu_torch.models.moa import FullMoeRopeAttention
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = _moa_cfg()
+        card = FullMoeRopeAttention(cfg, device="cuda")
+        card.reset_parameters(gen)
+        cpu = FullMoeRopeAttention(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        x = torch.randn(2, 96, 128, generator=gen, device="cuda")
+        pre = torch.randn(2, 32, 128, generator=gen, device="cuda")
+        outs = []
+        for mod, dev in ((card, "cuda"), (cpu, "cpu")):
+            xs = x.to(dev).requires_grad_()
+            att = torch.cat([pre.to(dev), xs], 1)
+            sel = mod.q_bank.select(xs)[0]
+            out, aux = mod(xs, att, pos_offset=32, train=True)
+            g, = torch.autograd.grad((out ** 2).sum() + aux.aux_loss, [xs])
+            outs.append([t.detach().cpu() for t in (out, aux.aux_loss, g,
+                                                    sel)])
+        (o1, a1, g1, s1), (o2, a2, g2, s2) = outs
+        assert torch.equal(s1, s2)
+        for got, want in ((o1, o2), (a1, a2), (g1, g2)):
+            tol = 1e-4 * float(want.abs().max())
+            assert float((got - want).abs().max()) <= tol
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_moa_lm_launches_no_k2_on_the_card(gen):
+    """A MoA LM's training forward and backward on the card: K1 (and its
+    backward kernels) at every layer, K2 never (MoA's attention is
+    einsum, as in JAX)."""
+    from competesmoe_tpu_torch.models.lm import MoELanguageModel
+    model = MoELanguageModel(_moa_cfg(dtype=torch.bfloat16),
+                             device="cuda").init_weights(0)
+    toks = torch.randint(0, 256, (4, 129), generator=gen, device="cuda")
+    kernels = (tgmm.gmm2_fused_aligned, tgmm.gmm2_bwd_dx, tgmm.gmm2_bwd_dw,
+               tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
+               tfa.flash_attention_bwd_dq)
+    before = [f.launches for f in kernels]
+    logits, aux = model(toks[:, :-1], train=True)
+    (logits.float().logsumexp(-1).mean() + aux["total_aux_loss"]).backward()
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(kernels, before)]
+    assert got == [2, 2, 2, 0, 0, 0]
+
+
+def test_chunked_transformer_steps_on_the_card(tmp_path):
+    """chunked_transformer over uint16 chunks written with numpy: 3 steps
+    and a validation on the card with K1 and K2, losses finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from competesmoe_tpu_torch.train.lm_task import get_task
+    from competesmoe_tpu_torch.utils.argparser import build_parser
+    d = tmp_path / "data" / "train"
+    d.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    rng.integers(0, 512, 40_000).astype(np.uint16).tofile(d / "c0.bin")
+    (d / "manifest.json").write_text(json.dumps({"chunks": ["c0.bin"]}))
+    a = build_parser().parse([
+        "-task", "chunked_transformer", "-lm.data_dir", str(d.parent),
+        "-stop_after", "3", "-batch_size", "4", "-lm.unroll", "128",
+        "-lm.vocab_size", "512", "-state_size", "128",
+        "-transformer.encoder_n_layers", "2", "-transformer.n_heads", "2",
+        "-transformer.head_projection_size", "82", "-moe.n_experts", "8",
+        "-moe.expert_size", "128", "-pkm.n_heads", "2", "-moe.impl", "fused",
+        "-transformer.attn_backend", "flash", "-valid_interval", "2",
+        "-valid_batches", "1", "-log_interval", "1", "-run_dir",
+        str(tmp_path), "-name", "ck", "-log_async", "1"])
+    task = get_task(a.task)(a)
+    before = (tgmm.gmm2_fused_aligned.launches, tfa.flash_attention_fwd.launches)
+    task.train()
+    task.logger.close()
+    recs = [json.loads(x) for x in (tmp_path / "ck" / "log_trainer.jsonl")
+            .read_text().splitlines()]
+    losses = [r["loss/total"] for r in recs if "loss/total" in r]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert any("valid/perplexity" in r for r in recs)
+    assert tgmm.gmm2_fused_aligned.launches > before[0]
+    assert tfa.flash_attention_fwd.launches > before[1]

@@ -400,12 +400,13 @@ def test_lm_config_rules():
     jcfg, tcfg = _cfgs(n_layers=4, universal_group_size=2,
                        universal_group_type="aabb")
     assert jcfg.layer_order() == tcfg.layer_order() == [0, 0, 1, 1]
+    # every JAX LMConfig option builds (their parity:
+    # tests/test_torch_port_lm_rest.py)
     for field, value in (("att_moe", True), ("act_max_steps", 2),
                          ("n_prev_states", 1), ("p_drop_layer", 0.1),
-                         ("remat", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.MoELanguageModel(dataclasses.replace(tcfg, **{field: value}),
-                                 device="cpu")
+                         ("remat", True), ("preln", False)):
+        tlm.MoELanguageModel(dataclasses.replace(tcfg, **{field: value}),
+                             device="cpu")
     # -opt.state_8bit is ported (tests/test_torch_port_quant_opt.py)
     from competesmoe_tpu_torch.train.quant_opt import QuantAdamState
     opt = ttrainer.make_optimizer(ttrainer.OptConfig(state_8bit=True))
