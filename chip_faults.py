@@ -2,7 +2,8 @@
 """Planted faults against the checks of chip_smoke.py (one CUDA GPU).
 
     python3 chip_faults.py [--only mm | --only eval | --only options |
-                            --only routers | --only lm_rest]
+                            --only routers | --only lm_rest |
+                            --only parallel]
 
 Each fault is a small edit of a kernel source (csrc/flash_attn.cu, K2,
 csrc/gmm2_fused.cu, K1, csrc/matvec_small_m.cu, K3 and K4, or
@@ -129,7 +130,14 @@ and theta 0 in smoe_perturbed. The script
        in its first expert, a K2 launch slipped into MoA's attention, a
        remat path whose block outputs differ from the plain path's, and
        an XL carry that drops the carried prefix from the attention;
-       honest first. `--only lm_rest` runs this part alone.
+       honest first. `--only lm_rest` runs this part alone;
+     - parallel faults (PARALLEL_FAULTS, planted in every rank, against
+       chip_smoke's small_parallel_phase: ranks sharing the card over
+       gloo against one process): the expert-parallel combine reading
+       each slot's output one rank late, the expert banks' gradients not
+       summed over 'data', Mixtral's balance averaged per rank, and an
+       8-bit block split at a shard boundary; honest first. `--only
+       parallel` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -558,9 +566,9 @@ def _microbatches_unscaled():
     from competesmoe_tpu_torch.train import mm_task
     honest = mm_task.accumulate_grads
 
-    def planted(forward, params, batch, n_microbatch, buffers):
+    def planted(forward, params, batch, n_microbatch, buffers, world=None):
         grads, metrics = honest(forward, params, batch, n_microbatch,
-                                buffers)
+                                buffers, world)
         if n_microbatch > 1:
             for g in grads.values():
                 g.mul_(n_microbatch)
@@ -1042,7 +1050,7 @@ def _edited_after(obj, name: str, line: str, extra: str):
 def _telemetry_off_by_one():
     from competesmoe_tpu_torch.train.lm_task import SyntheticTransformerTask
     return _edited_after(SyntheticTransformerTask, "_log_expert_usage",
-                         "hist = np.bincount(sel, minlength=",
+                         "hist = raw_all_reduce(counts, world)",
                          "hist[0] += 1")
 
 
@@ -1112,6 +1120,93 @@ def lm_rest_faults(report, failures):
         cs.log(f"{name}: small LM-option checks -> {_verdict(ok)} ({msg})")
         if ok:
             failures.append(f"fault {name} passed the small LM-option "
+                            f"checks")
+
+
+def _combine_off_by_one():
+    from competesmoe_tpu_torch.parallel import expert_parallel
+    return _edited(expert_parallel, "_ep_dispatch",
+                   "torch.clamp(rank, max=cap - 1)",
+                   "torch.clamp(rank + 1, max=cap - 1)")
+
+
+def _experts_not_summed_over_data():
+    from competesmoe_tpu_torch.parallel import mesh
+    return _edited(mesh, "reduce_gradients",
+                   'key = "world" if len(rest) == 2 else',
+                   'key = "world" if len(rest) == 2 else None if "expert" '
+                   'in held else')
+
+
+def _balance_averaged_per_rank():
+    from competesmoe_tpu_torch.parallel import distributed_ops
+    return _edited(distributed_ops, "mean_over_batch", "if axis is None:",
+                   "if True:")
+
+
+def _block_split_at_shard():
+    from competesmoe_tpu_torch.train import quant_opt
+    cls = quant_opt.QuantAdamState
+    # the classmethod's function, recompiled with its decorator
+    holder = type("Holder", (), {"init": cls.__dict__["init"].__func__})
+    _, _, planted = _edited(holder, "init", "p.shape[bdim] % block:",
+                            "p.shape[bdim] % block < 0:")
+    return cls, "init", planted
+
+
+# Python faults of the parallel paths, each a function -> (object,
+# attribute, planted value), planted in every rank (`apply_parallel_plant`
+# through CHIP_SMOKE_PLANT) and caught by chip_smoke.small_parallel_phase:
+# the expert-parallel combine reading [dest, rank + 1]; the expert banks'
+# gradients not summed over 'data'; Mixtral's balance averaged per rank;
+# an 8-bit block split at a shard boundary
+PARALLEL_FAULTS = {
+    "combine_off_by_one": _combine_off_by_one,
+    "experts_not_summed_over_data": _experts_not_summed_over_data,
+    "balance_averaged_per_rank": _balance_averaged_per_rank,
+    "block_split_at_shard": _block_split_at_shard,
+}
+
+
+def apply_parallel_plant(name: str) -> None:
+    """Plant PARALLEL_FAULTS[name] in this process (a rank of
+    chip_smoke.spawn_ranks)."""
+    obj, attr, planted = PARALLEL_FAULTS[name]()
+    setattr(obj, attr, planted)
+
+
+def parallel_ok(fault=None):
+    """(passed, message) of chip_smoke's small_parallel_phase with the
+    PARALLEL_FAULTS fault `fault` planted in its ranks. Any exception
+    counts as caught."""
+    import os
+    if fault is not None:
+        os.environ["CHIP_SMOKE_PLANT"] = fault
+    try:
+        r, _ = cs.small_parallel_phase()
+        return True, f"passes ({json.dumps(r)[:200]})"
+    except Exception as e:  # noqa: BLE001 - any failure is the catch
+        return False, f"{type(e).__name__}: {str(e)[-300:]}"
+    finally:
+        os.environ.pop("CHIP_SMOKE_PLANT", None)
+        cs.free_card()
+
+
+def parallel_faults(report, failures):
+    """The honest small parallel checks, then every PARALLEL_FAULTS plant
+    against them."""
+    ok, msg = parallel_ok()
+    report["honest_parallel"] = msg
+    cs.log(f"honest small parallel checks: {msg}")
+    if not ok:
+        failures.append(f"honest small parallel checks: {msg}")
+    for name in PARALLEL_FAULTS:
+        ok, msg = parallel_ok(name)
+        report["faults"][name] = dict(failed={"parallel": not ok},
+                                      parallel=msg)
+        cs.log(f"{name}: small parallel checks -> {_verdict(ok)} ({msg})")
+        if ok:
+            failures.append(f"fault {name} passed the small parallel "
                             f"checks")
 
 
@@ -1352,6 +1447,10 @@ def main():
         _kernels.build(["gmm2_fused", "gmm2_bwd", "flash_attn"])
         lm_rest_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "parallel"]:
+        _kernels.build(["gmm2_fused", "gmm2_bwd", "flash_attn"])
+        parallel_faults(report, failures)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1555,6 +1654,7 @@ def main():
         option_faults(report, failures)
         router_faults(report, failures)
         lm_rest_faults(report, failures)
+        parallel_faults(report, failures)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (competesmoe_tpu_torch).
 
-    python3 chip_smoke.py [--seed 0] [--profile] [--only lm_rest]
+    python3 chip_smoke.py [--seed 0] [--profile] [--only lm_rest|parallel]
 
 Needs one CUDA GPU; exits non-zero on any failure. Phases:
   1. device: the card's name and power limit (nvidia-smi);
@@ -288,6 +288,26 @@ Needs one CUDA GPU; exits non-zero on any failure. Phases:
      one) and with -remat 1, 4 steps each (K2 0 under MoA; remat launches
      every forward kernel twice, its step-0 loss equal to the plain run's
      and its peak memory lower) (`lm_rest_summary` line).
+ 16. parallel training (main path of the parallelism slice), before 15
+     (`phase_parallel`; `--only parallel` runs it alone after the build):
+     ranks are processes on this one card over gloo (NCCL refuses two
+     ranks on a device; gloo moves CUDA tensors through host memory), each
+     rank's compute on the card. 2 ranks: the small LM of 4 with
+     -n_expert_shards 2 (expert parallel, K1 as the local compute) and
+     with -moe.impl fused (the banks gathered at use), Mixtral's balance
+     over both ranks' rows, sharded 8-bit Adam (one shard cut would split
+     a block), the 154M sweep (SWEEP_154M at PAR_154M_BATCH rows) for
+     PAR_154M_STEPS steps three ways (PAR_154M_RUNS: expert parallel;
+     gathered experts; FSDP over 'data'), and cli.train_mm.train with
+     --n-expert 2 on small_mm_config; 4 ranks: the small LM 2 x 2 (expert
+     + data parallel), then with -fsdp -fsdp.min_size 1024. Each against
+     one process on the card taking the ranks' top-k choices (the small
+     LM's and small mm's tolerances and replay rule; the parameters after
+     3 steps within PAR_PARAM_TOL of the update); every rank launches K1
+     and its backward kernels 16 - the competing layers a 154M step and
+     each K2 kernel 16 (per rank: ms a step, tokens/s, peak GiB, bytes
+     through each collective a step); then NCCL at one rank runs each
+     collective the port uses (`parallel_summary` line).
 Each main path (or each window of one) is driven with every launch count
 set to 0 just before it and read just after. The last lines are the
 kernels JSON, the card line and the result JSON.
@@ -1955,31 +1975,42 @@ def solo_program(model, head: tuple):
 # cycles of the spin kernel (torch.cuda._sleep, about 10 ms at the H100's
 # clock) run before and after a profiled replay, inside the window
 REPLAY_PAD_CYCLES = 20_000_000
+# tiny spin kernels that open a profiled window, and the host's wait for
+# the profiler to record before any of them
+REPLAY_LEAD_IN = 256
+REPLAY_HOST_WAIT_S = 0.05
 
 
 def replay_kernels(program):
     """{kernel name: (launches, device µs)} of one replay of the captured
-    `program`, as torch.profiler traces the card. Kineto keeps only the
-    device records that it places inside the profiled window, on a card
-    clock read against the host's, so the replay runs between two spin
-    kernels inside the window, and their records are left out."""
+    `program`, from the device records torch.profiler holds, counted one
+    by one. On the card the profiler has dropped the first device records
+    of a window (a replay's first K3 launch, with the spin kernel before
+    it, whatever the spin's length) and `key_averages` has dropped one of
+    a replay's 128 K4 records that `events` held (an engine's check read
+    127 of 128 that way, run after run): so the host waits for
+    the profiler to record, a lead-in of tiny spin kernels opens the
+    window, and the replay runs between two spin kernels of about 10 ms;
+    spin kernels are left out of the result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(REPLAY_HOST_WAIT_S)
+        for _ in range(REPLAY_LEAD_IN):
+            torch.cuda._sleep(100)
         torch.cuda._sleep(REPLAY_PAD_CYCLES)
         program()
         torch.cuda._sleep(REPLAY_PAD_CYCLES)
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0
-                and "spin_kernel" not in ev.key):
-            out[ev.key] = (ev.count, dev_us)
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in ev.name):
+            count, us = out.get(ev.name, (0, 0.0))
+            out[ev.name] = (count + 1, us + ev.time_range.elapsed_us())
     return out
 
 
@@ -7243,6 +7274,596 @@ def phase_lm_rest(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel training: ranks that share the card over gloo
+# ---------------------------------------------------------------------------
+
+# the 154M sweep at 2 ranks: global rows of 1024 (cut from 64: both ranks'
+# activations, the expert-parallel buffers, 2 x T_loc x 8 slots of 512, and
+# gloo's host copies of them must fit one card and a run of the phase)
+PAR_154M_BATCH = 8
+PAR_154M_STEPS = 4
+PAR_154M_RUNS = {
+    # (i) experts sharded, tokens by all-to-all, K1 as the local compute
+    "ep": ["-n_expert_shards", "2", "-moe.impl", "auto"],
+    # (ii) experts sharded, gathered where they are read, K1
+    "fused": ["-n_expert_shards", "2", "-moe.impl", "fused"],
+    # (iii) dense parameters sharded over 'data' (2), K1
+    "fsdp": ["-fsdp", "1"],
+}
+# the small LM of SMALL_LM_FLAGS (8 experts of 128 so that K1 runs) over
+# ranks: (world, name, flags); each against one process on the card
+PAR_SMALL_RUNS = (
+    (2, "ep2", ["-n_expert_shards", "2", "-moe.impl", "auto"]),
+    (2, "fused2", ["-n_expert_shards", "2", "-moe.impl", "fused"]),
+    (4, "ep2x2", ["-n_expert_shards", "2", "-moe.impl", "auto"]),
+    (4, "ep2x2_fsdp", ["-n_expert_shards", "2", "-moe.impl", "auto",
+                       "-fsdp", "1", "-fsdp.min_size", "1024"]))
+# the parameters after 3 steps: |multi-rank - one process| over |one
+# process - the initial weights| (all parameters as one vector)
+PAR_PARAM_TOL = 5e-2
+PAR_MM_FLAGS = ("--stage sft --model-max-length 64 --grad-accum 2 "
+                "--rate-flip 0.5 --max-compete-in-iter 3 "
+                "--learning-rate 1e-4 --warmup-ratio 0.0 --log-interval 1 "
+                "--save-interval 0 --num-train-steps 3 --seed 1").split()
+
+
+def _par_tmp(name: str) -> str:
+    import tempfile
+    return tempfile.mkdtemp(prefix=f"chip_smoke_par_{name}_")
+
+
+def par_small_lm(name: str, flags, steps: int = 3):
+    """A rank's run of the small LM with `flags` over the process group:
+    its metrics, its top-k choices, its launches, and (rank 0) the full
+    parameters after the steps."""
+    import torch
+
+    from competesmoe_tpu_torch.parallel.mesh import full_state_dict
+    task = small_lm_task(0, "cuda", flags=["-run_dir", _par_tmp(name),
+                                           *flags])
+    choices = []
+    reset_counts()
+    with routed_as(record=choices), task._ep_scope():
+        rows = small_lm_steps(task, steps)
+    counts = read_counts()
+    params = {k: v.float().cpu() for k, v in
+              full_state_dict(task.model).items()}
+    torch.cuda.synchronize()
+    task.logger.close()
+    return dict(rows=rows, choices=choices, launches=counts,
+                params=params if task.mesh.rank == 0 else None,
+                mesh=(task.mesh.shape["data"], task.mesh.shape["expert"]),
+                ep=task._use_ep)
+
+
+def _replay_of(ranks, mesh_shape, ep: bool):
+    """One process's replay of the ranks' recorded top-k choices: a
+    router's choices ([b, n, k]) of every rank's rows in rank order; the
+    expert-parallel competition step's ([T, k] of a data row's tokens, the
+    same on the row's ranks) one per data row."""
+    import torch
+    n_data, n_exp = mesh_shape
+    out = []
+    for calls in zip(*ranks):
+        if calls[0].dim() == 3 or not ep:
+            out.append(torch.cat(calls))
+        else:
+            out.append(torch.cat([calls[d * n_exp] for d in range(n_data)]))
+    return out
+
+
+def _params_gap(got, want, init) -> float:
+    num = sum(float((got[k] - want[k]).double().norm() ** 2) for k in want)
+    den = sum(float((want[k] - init[k]).double().norm() ** 2) for k in want)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def small_parallel_check(ranks_by_world):
+    """Each PAR_SMALL_RUNS run against the small LM in one process on the
+    card (-moe.impl fused, K1), from the same seed, the one process taking
+    the ranks' top-k choices (`routed_as`): per step the loss within
+    SMALL_LM_LOSS_TOL and grad_norm within SMALL_LM_GRAD_TOL, the same
+    competing layers, the rows chosen otherwise at most
+    SMALL_LM_FLIP_SHARE (each within SMALL_LM_FLIP_GAP), the parameters
+    after 3 steps within PAR_PARAM_TOL; every rank reports the same
+    metrics, and each rank launches K1 and its backward kernels 2 - the
+    competing layers a step and each K2 kernel 2."""
+    import torch
+    out = {}
+    for world, name, flags in PAR_SMALL_RUNS:
+        ranks = [r[f"small_{name}"] for r in ranks_by_world[world]]
+        what = f"parallel small LM {name} ({world} ranks)"
+        got = ranks[0]["rows"]
+        for r in ranks[1:]:
+            if r["rows"] != got:
+                raise AssertionError(f"{what}: ranks report other metrics: "
+                                     f"{r['rows']} != {got}")
+        replay = _replay_of([r["choices"] for r in ranks],
+                            ranks[0]["mesh"], ranks[0]["ep"])
+        single = small_lm_task(0, "cuda", flags=[
+            "-run_dir", _par_tmp(name), "-moe.impl", "fused"])
+        init = {k: v.float().cpu().clone()
+                for k, v in single.model.state_dict().items()}
+        with routed_as(replay=replay) as seen:
+            want = small_lm_steps(single)
+        params = {k: v.float().cpu() for k, v in
+                  single.model.state_dict().items()}
+        del single
+        gaps = small_lm_gaps(want, got)
+        share = seen["flipped"] / max(seen["rows"], 1)
+        pgap = _params_gap(ranks[0]["params"], params, init)
+        flips = [d["flips"] for d in gaps]
+        for r in ranks:
+            fused = sum(2 - f for f in flips)
+            wl = {"gmm2_fused_aligned": fused, "gmm2_bwd_dx": fused,
+                  "gmm2_bwd_dw": fused, "flash_attention_fwd": 6,
+                  "flash_attention_bwd_dkv": 6, "flash_attention_bwd_dq": 6,
+                  "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+                  "quant_small_m_matmul": 0}
+            if r["launches"] != wl:
+                raise AssertionError(f"{what}: a rank's launches "
+                                     f"{r['launches']} != {wl}")
+        for g, w, d in zip(got, want, gaps):
+            log(f"{what} step (flips {d['flips']}): loss {g['loss/total']:.6f}"
+                f" one process {w['loss/total']:.6f} (gap {d['loss_gap']:.3g},"
+                f" tol {SMALL_LM_LOSS_TOL}); grad_norm {g['grad_norm']:.6f} "
+                f"one process {w['grad_norm']:.6f} (gap {d['grad_gap']:.3g},"
+                f" tol {SMALL_LM_GRAD_TOL})")
+        log(f"{what}: parameters after 3 steps {pgap:.3g} of the update "
+            f"apart (tol {PAR_PARAM_TOL}); top-k rows chosen otherwise "
+            f"{seen['flipped']} of {seen['rows']} ({share:.3%}), gap "
+            f"{seen['gap']:.3g}; launches a rank {ranks[0]['launches']}")
+        ok = (all(d["ok"] for d in gaps) and pgap <= PAR_PARAM_TOL
+              and share <= SMALL_LM_FLIP_SHARE
+              and seen["gap"] <= SMALL_LM_FLIP_GAP["competesmoe"]
+              and max(flips) > 0)
+        if not ok:
+            raise AssertionError(f"{what} disagrees with one process: "
+                                 f"{gaps}, params {pgap:.3g}, top-k {share}"
+                                 f" / {seen['gap']}")
+        out[name] = dict(world=world, steps=gaps, params_gap=pgap,
+                         topk_share=share, topk_gap=seen["gap"],
+                         launches_per_rank=ranks[0]["launches"])
+        free_card()
+    return out
+
+
+def par_154m(name: str, flags, steps: int = PAR_154M_STEPS):
+    """A rank's run of the 154M sweep (SWEEP_154M at PAR_154M_BATCH rows)
+    with `flags` through the CLI's task: per step its wall ms (the card
+    synchronised), and over the steps its launches, the bytes each
+    collective sent from it, its peak memory; rank 0 also the logged
+    losses and competing layers."""
+    import torch
+
+    from competesmoe_tpu_torch.parallel import collectives as C
+    run = Path(_par_tmp(name))
+    task = _task(SWEEP_154M + [
+        "-batch_size", str(PAR_154M_BATCH), "-seed", "0", "-device",
+        "cuda", "-run_dir", str(run), "-name", name, "-log_interval", "1",
+        "-valid_interval", "0", *flags])
+    L = task.cfg.n_layers
+    flips = [sum(task.schedule.is_flip(li, s) for li in range(L))
+             for s in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_bytes()
+    reset_counts()                            # main path starts here
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        task.train(n_steps=1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()                    # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    task.logger.close()
+    out = dict(flips=flips, ms_per_step=ms, launches=counts,
+               bytes_per_step={k: v / steps for k, v in C.BYTES.items()},
+               peak_gib=peak / 2 ** 30, layers=L,
+               tokens=PAR_154M_BATCH * task.a.lm.unroll,
+               mesh=dict(task.mesh.shape))
+    if task.mesh.rank == 0:
+        recs = [json.loads(line) for line in
+                (run / name / "log_trainer.jsonl").read_text().splitlines()]
+        out["losses"] = [r["loss/total"] for r in recs]
+        out["logged_flips"] = [int(r["competesmoe/n_flip_layers"])
+                               for r in recs]
+    shutil.rmtree(run, ignore_errors=True)
+    return out
+
+
+def parallel_154m_check(ranks):
+    """The three 154M runs at 2 ranks: finite losses, the logged competing
+    layers the schedule's (at least one step competing), and per rank and
+    step K1 and its backward kernels 16 - the competing layers, each K2
+    kernel 16 (PERF.md §2); per rank the ms a step, tokens/s, peak GiB and
+    the bytes through each collective a step."""
+    out = {}
+    for name in PAR_154M_RUNS:
+        runs = [r[f"lm154m_{name}"] for r in ranks]
+        head = runs[0]
+        L, flips, steps = head["layers"], head["flips"], len(head["flips"])
+        if head["logged_flips"] != flips or not max(flips):
+            raise AssertionError(f"parallel 154M {name}: flips "
+                                 f"{head['logged_flips']} (schedule {flips})")
+        if not all(math.isfinite(x) for x in head["losses"]):
+            raise AssertionError(f"parallel 154M {name}: losses "
+                                 f"{head['losses']}")
+        fused = sum(L - f for f in flips)
+        want = {"gmm2_fused_aligned": fused, "gmm2_bwd_dx": fused,
+                "gmm2_bwd_dw": fused, "flash_attention_fwd": L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "flash_attention_bwd_dq": L * steps,
+                "quant_small_m_matmul_int4": 0, "small_m_matmul": 0,
+                "quant_small_m_matmul": 0}
+        per_rank = []
+        for i, r in enumerate(runs):
+            if r["launches"] != want:
+                raise AssertionError(f"parallel 154M {name} rank {i} "
+                                     f"launches {r['launches']} != {want}")
+            steady = statistics.median(r["ms_per_step"][1:])
+            row = dict(rank=i, ms_per_step=r["ms_per_step"],
+                       ms_median_after_first=steady,
+                       tokens_per_s=r["tokens"] / (steady / 1e3),
+                       peak_gib=r["peak_gib"],
+                       bytes_per_step=r["bytes_per_step"],
+                       launches=r["launches"])
+            per_rank.append(row)
+            log(f"parallel 154M {name} rank {i} (mesh {r['mesh']}): "
+                f"{steady:.1f} ms/step after the first "
+                f"({row['tokens_per_s']:.0f} tok/s of the global batch), "
+                f"peak {r['peak_gib']:.2f} GiB, bytes a step "
+                f"{ {k: int(v) for k, v in r['bytes_per_step'].items()} }, "
+                f"launches {r['launches']}")
+        log(f"parallel 154M {name}: competing layers by step {flips}, "
+            f"losses {[round(x, 4) for x in head['losses']]}")
+        out[name] = dict(flags=PAR_154M_RUNS[name], flips=flips,
+                         losses=head["losses"], ranks=per_rank,
+                         batch=PAR_154M_BATCH, steps=steps)
+    return out
+
+
+def par_mm(flags, rows_per_rank: int = 2):
+    """A rank's run of a small multimodal model (small_mm_config: the
+    5.1B's CompeteSMoE tower and projector, mlp2 experts, bf16) through
+    cli.train_mm.train over the process group: per-step metrics and its
+    top-k choices."""
+    import torch
+
+    from competesmoe_tpu_torch.cli.train_mm import train
+    from competesmoe_tpu_torch.models.builder import build_llava
+    cfg = small_mm_config()
+    model = build_llava(cfg, seed=MM_SEED, device="cuda")
+    tok = ChatTok(cfg.decoder.vocab_size)
+    data = MMConversations(tok, 16, (4, 10), cfg.vision.image_size,
+                           seed=MM_SEED, max_len=64)
+    a = mm_args(PAR_MM_FLAGS + ["--per-device-batch-size",
+                                str(rows_per_rank), *flags],
+                _par_tmp("mm"))
+    rows, choices = [], []
+
+    def on_step(step, state, metrics, seconds):
+        rows.append({k: (v.tolist() if v.numel() > 1 else float(v))
+                     for k, v in metrics.items()})
+    with routed_as(record=choices):
+        train(a, model, data, tok, on_step=on_step, final_save=False)
+    del model
+    torch.cuda.synchronize()
+    return dict(rows=rows, choices=choices)
+
+
+def parallel_mm_check(ranks):
+    """cli.train_mm.train with --n-expert 2 at 2 ranks against one process
+    on the card (the same global batch of 4 rows, taking the ranks' top-k
+    choices): per step the loss within SMALL_MM_LOSS_TOL, grad_norm within
+    SMALL_MM_GRAD_TOL, the same competing layers, and the rows chosen
+    otherwise within SMALL_MM_FLIP_SHARE and SMALL_MM_FLIP_GAP."""
+    runs = [r["mm"] for r in ranks]
+    got = runs[0]["rows"]
+    if runs[1]["rows"] != got:
+        raise AssertionError("parallel mm: the ranks report other metrics")
+    replay = _replay_of([r["choices"] for r in runs], (1, 2), True)
+    with routed_as(replay=replay) as seen:
+        want = par_mm([], rows_per_rank=4)["rows"]
+    share = seen["flipped"] / max(seen["rows"], 1)
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        dl = abs(g["loss/total"] - w["loss/total"])
+        dg = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+        ok = (dl <= SMALL_MM_LOSS_TOL and dg <= SMALL_MM_GRAD_TOL
+              and _competed(g) == _competed(w))
+        log(f"parallel mm step {i} (competed {_competed(g)}): loss "
+            f"{g['loss/total']:.6f} one process {w['loss/total']:.6f} (gap "
+            f"{dl:.3g}, tol {SMALL_MM_LOSS_TOL}); grad_norm "
+            f"{g['grad_norm']:.6f} one process {w['grad_norm']:.6f} (gap "
+            f"{dg:.3g}, tol {SMALL_MM_GRAD_TOL})")
+        out.append(dict(step=i, competed=_competed(g), loss_gap=dl,
+                        grad_gap=dg, ok=ok))
+    log(f"parallel mm: top-k rows chosen otherwise {seen['flipped']} of "
+        f"{seen['rows']} ({share:.3%}), gap {seen['gap']:.3g}")
+    if not (all(d["ok"] for d in out) and share <= SMALL_MM_FLIP_SHARE
+            and seen["gap"] <= SMALL_MM_FLIP_GAP
+            and any(d["competed"] for d in out)):
+        raise AssertionError(f"parallel mm disagrees: {out}, top-k {share}")
+    return dict(steps=out, topk_share=share, topk_gap=seen["gap"])
+
+
+def _mixtral_aux_inputs():
+    import torch
+    g = torch.Generator().manual_seed(5)
+    return torch.randn(4, 16, 64, generator=g)
+
+
+def _mixtral_layer():
+    from competesmoe_tpu_torch.models.builder import init_random_
+    from competesmoe_tpu_torch.moe import get_moe
+    layer = get_moe("mixtral")(64, 64, n_experts=8, n_selected=2,
+                               device="cuda")
+    return init_random_(layer, seed=5, std=0.2)
+
+
+def par_aux():
+    """A rank's Mixtral layer (top-1 balance over the flattened tokens, a
+    statistic of every rank's rows) over its rows, the world as the batch
+    axis: its balance loss."""
+    from competesmoe_tpu_torch.parallel import distributed_ops as D
+    from competesmoe_tpu_torch.parallel.mesh import make_mesh, put_batch
+    mesh = make_mesh()
+    x = put_batch(_mixtral_aux_inputs(), mesh).cuda()
+    with D.use_batch_axis(mesh.axis("world")):
+        _, aux = _mixtral_layer()(x, train=True)
+    return float(aux.losses["balance_loss"])
+
+
+def _adam8_shapes():
+    """(name, shape, shard dim): a cut along a dim the 8-bit blocks do not
+    run along, one along the block dim at a multiple of 256, and one that
+    would split a block (384 / 2)."""
+    return (("rows", (8, 512), 0), ("aligned", (4, 1024), 1),
+            ("split", (16, 384), 1))
+
+
+def _adam8_run(shard_axis=None, steps: int = 3):
+    import torch
+
+    from competesmoe_tpu_torch.train.lm_trainer import (OptConfig,
+                                                        make_optimizer)
+    params, shards = {}, {}
+    for n, shape, dim in _adam8_shapes():
+        p = torch.full(shape, 0.5, device="cuda")
+        if shard_axis is not None:
+            k = shape[dim] // shard_axis.size
+            p = p.narrow(dim, shard_axis.index * k, k).clone()
+            shards[n] = (shard_axis, dim)
+        params[n] = p
+    # no clipping: the global norm's sum over the shards is added in
+    # another order than one process's, and a last-bit change of the
+    # clipped gradient can move a moment across a code's rounding edge
+    opt = make_optimizer(OptConfig(lr=1e-2, grad_clip=0.0, state_8bit=True,
+                                   total_steps=10))
+    state = opt.init(params, shards=shards or None)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for _ in range(steps):
+        grads = {}
+        for n, shape, dim in _adam8_shapes():
+            full = torch.randn(shape, generator=g, device="cuda")
+            if shard_axis is not None:
+                k = shape[dim] // shard_axis.size
+                full = full.narrow(dim, shard_axis.index * k, k).clone()
+            grads[n] = full
+        opt.apply(params, grads, state)
+    return {n: p.cpu() for n, p in params.items()}
+
+
+def par_adam8():
+    """A rank's 3 steps of the LM optimizer with 8-bit moments on its
+    shards of _adam8_shapes."""
+    from competesmoe_tpu_torch.parallel.mesh import make_mesh
+    return _adam8_run(make_mesh().axis("world"))
+
+
+def parallel_parts_check(ranks):
+    """Mixtral's balance at 2 ranks equals one process's over all rows (a
+    per-rank statistic would not); sharded 8-bit Adam's parameters, put
+    together, equal the unsharded run's."""
+    import torch
+    _, aux = _mixtral_layer()(_mixtral_aux_inputs().cuda(), train=True)
+    want = float(aux.losses["balance_loss"])
+    got = [r["aux"] for r in ranks]
+    log(f"parallel aux: Mixtral's balance at 2 ranks {got}, one process "
+        f"{want}")
+    if not all(abs(g - want) <= 1e-5 * abs(want) for g in got):
+        raise AssertionError(f"parallel aux: balance {got} != {want}")
+    full = _adam8_run()
+    gaps = {}
+    for n, _, dim in _adam8_shapes():
+        cat = torch.cat([r["adam8"][n] for r in ranks], dim)
+        gaps[n] = float((cat - full[n]).abs().max())
+    log(f"parallel 8-bit Adam: |sharded - unsharded| after 3 steps {gaps}")
+    if max(gaps.values()) > 0.0:
+        raise AssertionError(f"parallel 8-bit Adam: sharded != unsharded "
+                             f"{gaps}")
+    return dict(balance=got, balance_one=want, adam8_gap=gaps)
+
+
+def nccl_world1_check():
+    """NCCL at one rank on the card: each collective the port uses (the
+    calls of parallel/collectives.py over a group) runs and returns its
+    input. NCCL over several ranks needs a card each: one card cannot
+    show it."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from competesmoe_tpu_torch.parallel import collectives as C
+    from competesmoe_tpu_torch.parallel.distributed import (DistributedEnv,
+                                                            initialize)
+    from competesmoe_tpu_torch.parallel.mesh import Axis
+    d = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    initialize(DistributedEnv(), "cuda", init_method=f"file://{d}/init",
+               backend="nccl")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        axis = Axis("world", 1, 0, (0,), dist.group.WORLD)
+        x = torch.randn(8, 16, device="cuda")
+        done = {}
+        for name, fn in (
+                ("all_to_all", lambda: C.all_to_all(x, axis)),
+                ("all_gather", lambda: C.all_gather(x, axis, 1)),
+                ("reduce_scatter", lambda: C.reduce_scatter(x, axis, 0)),
+                ("all_reduce", lambda: C.all_reduce(x, axis)),
+                ("all_reduce_max", lambda: C.raw_all_reduce_max(x, axis))):
+            got = fn()
+            torch.cuda.synchronize()
+            done[name] = bool(torch.equal(got, x))
+        flat = [x.clone(), torch.ones(3, device="cuda")]
+        C.all_reduce_(flat, axis)
+        done["all_reduce_flat"] = bool(torch.equal(flat[0], x))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    log(f"NCCL at one rank: {done} (NCCL across ranks needs a card for "
+        f"each; {torch.cuda.device_count()} card(s) here)")
+    if not all(done.values()):
+        raise AssertionError(f"NCCL collectives at one rank: {done}")
+    return done
+
+
+def _parallel_rank(rank: int, world: int, init: str, out: str, jobs):
+    """A rank of phase_parallel: the process group from its environment
+    (gloo: the ranks share the card), then `jobs` [(key, function name,
+    kwargs)], each result saved for the parent."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        plant = os.environ.get("CHIP_SMOKE_PLANT")
+        if plant:
+            import chip_faults
+            chip_faults.apply_parallel_plant(plant)
+        from competesmoe_tpu_torch.parallel.distributed import (detect_env,
+                                                                initialize)
+        initialize(detect_env(), "cuda", init_method=f"file://{init}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res = {}
+        for key, fn, kwargs in jobs:
+            res[key] = globals()[fn](**kwargs)
+            dist.barrier()
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        Path(out, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(world: int, jobs, timeout: float = 600.0):
+    """Run `jobs` on `world` ranks, processes on this card over gloo;
+    every rank's results (any rank's failure raises, and every process
+    is stopped)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, world, str(out / "init"), str(out), jobs))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+            if p.exitcode not in (0, None):
+                break               # a rank failed: stop the others
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        errs = "\n".join((out / f"rank{r}.err").read_text()
+                         for r, _ in bad if (out / f"rank{r}.err").exists())
+        raise AssertionError(f"parallel ranks failed {bad}:\n{errs}")
+    res = [torch.load(out / f"rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def small_parallel_phase(more2=()):
+    """The small checks of phase_parallel (chip_faults.py plants faults
+    against them): 2 ranks run the PAR_SMALL_RUNS of 2, Mixtral's balance
+    and sharded 8-bit Adam (and the jobs `more2`), 4 ranks the runs of 4;
+    then small_parallel_check and parallel_parts_check. Returns (summary,
+    each world's ranks' results)."""
+    t0 = time.perf_counter()
+    jobs2 = [(f"small_{n}", "par_small_lm", dict(name=n, flags=f))
+             for w, n, f in PAR_SMALL_RUNS if w == 2]
+    jobs2 += [("aux", "par_aux", {}), ("adam8", "par_adam8", {}),
+              *more2]
+    jobs4 = [(f"small_{n}", "par_small_lm", dict(name=n, flags=f))
+             for w, n, f in PAR_SMALL_RUNS if w == 4]
+    ranks = {2: spawn_ranks(2, jobs2)}
+    t2 = time.perf_counter()
+    ranks[4] = spawn_ranks(4, jobs4)
+    t4 = time.perf_counter()
+    summary = dict(small=small_parallel_check(ranks),
+                   parts=parallel_parts_check(ranks[2]),
+                   seconds=dict(ranks2=t2 - t0, ranks4=t4 - t2))
+    return summary, ranks
+
+
+def phase_parallel(card: str):
+    """Data, FSDP and expert parallelism of the LM trainer and
+    cli/train_mm with ranks that share the card over gloo: 2 ranks run
+    the small LM (expert parallel; gathered experts), Mixtral's balance
+    and sharded 8-bit Adam, the 154M sweep three ways (PAR_154M_RUNS) and
+    cli.train_mm --n-expert 2; 4 ranks run the small LM 2 x 2 (expert +
+    data parallel, then with FSDP); each against one process on the card;
+    then NCCL at one rank. Returns the summary and the 154M runs' K1 and
+    K2 launches summed over ranks (the phase's main path)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    log(f"parallel: backend gloo, 2 and 4 ranks sharing one card: "
+        f"{res.stdout.strip()}")
+    jobs2 = [(f"lm154m_{n}", "par_154m", dict(name=n, flags=f))
+             for n, f in PAR_154M_RUNS.items()]
+    jobs2 += [("mm", "par_mm", dict(flags=["--n-expert", "2"]))]
+    summary, ranks = small_parallel_phase(jobs2)
+    summary.update(card=card, compute_mode=res.stdout.strip(),
+                   backend="gloo", ranks_per_card=[2, 4])
+    summary["lm154m"] = parallel_154m_check(ranks[2])
+    summary["mm"] = parallel_mm_check(ranks[2])
+    summary["nccl_world1"] = nccl_world1_check()
+    launches = {}
+    for name in PAR_154M_RUNS:
+        for r in ranks[2]:
+            for k, v in r[f"lm154m_{name}"]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    summary.update(launches_154m=launches, seconds=dict(
+        total=time.perf_counter() - t0, **summary.pop("seconds")),
+        not_run="the 5.1B sft recipe at 2 ranks: one rank alone takes "
+                "55.45 GiB of the card (PERF.md), two do not fit")
+    log(f"parallel: phase passed in {summary['seconds']['total']:.1f} s")
+    free_card()
+    return summary, launches
+
+
 def free_card():
     """Return the memory of the models just deleted to the card: a model
     still reachable from a reference cycle (the HTTP server's handler
@@ -7258,7 +7879,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile training steps, decode steps and "
                          "engine ticks")
-    ap.add_argument("--only", choices=["lm_rest"],
+    ap.add_argument("--only", choices=["lm_rest", "parallel"],
                     help="run this phase alone (after the build), print its "
                          "summary and stop")
     a = ap.parse_args()
@@ -7284,6 +7905,12 @@ def main():
         print("lm_rest_summary " + json.dumps(dict(phase_lm_rest(a.seed),
                                                    card=card)), flush=True)
         log(f"chip_smoke --only lm_rest: passed in "
+            f"{time.perf_counter() - t_main:.1f} s")
+        return 0
+    if a.only == "parallel":
+        print("parallel_summary " + json.dumps(phase_parallel(card)[0]),
+              flush=True)
+        log(f"chip_smoke --only parallel: passed in "
             f"{time.perf_counter() - t_main:.1f} s")
         return 0
     small_rows, small_err, library_why = phase_small_m()
@@ -7381,6 +8008,9 @@ def main():
     print("mm_routers_summary " + json.dumps(dict(
         card=card, small=small_routers, full=phase_mm_routers(a.seed))),
         flush=True)
+    free_card()
+    parallel, par_launches = phase_parallel(card)
+    print("parallel_summary " + json.dumps(parallel), flush=True)
     # last: its profiler trace and 154M runs touch no replay check after it
     free_card()
     print("lm_rest_summary " + json.dumps(dict(phase_lm_rest(a.seed),
@@ -7397,8 +8027,11 @@ def main():
             k2[n] for n in ("flash_attention_fwd",
                                        "flash_attention_bwd_dkv",
                                        "flash_attention_bwd_dq")]:
+        # the 154M CompeteSMoE cell's launches and the parallel 154M
+        # runs', every rank's (phase_parallel)
         rows.append(dict(name=row["name"],
-                         launches=lm["launches"][row["name"]],
+                         launches=lm["launches"][row["name"]]
+                         + par_launches[row["name"]],
                          max_abs_err=row["max_abs_err"], ms=row["ms"],
                          plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                          bound_by=row["bound_by"],

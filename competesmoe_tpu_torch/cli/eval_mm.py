@@ -53,7 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kv-quant", default="", choices=["", "int8"])
     ap.add_argument("--mesh", default="",
                     help="DxM tensor-parallel mesh: not ported yet "
-                         "(ROADMAP §1 item 1.7)")
+                         "(ROADMAP §1 item 1.7b)")
     ap.add_argument("--speculative", type=int, default=0,
                     help="prompt-lookup speculative decoding for "
                          "batch-1 generation tasks: verify K drafted "
@@ -140,7 +140,7 @@ def run(a: argparse.Namespace, *, model=None, tokenizer=None):
             k.replace("-", "_"): v for k, v in (overrides or {}).items()}})
         if getattr(run, "mesh", ""):
             raise NotImplementedError(
-                "--mesh: not ported (ROADMAP §1 item 1.7: parallelism)")
+                "--mesh: not ported (ROADMAP §1 item 1.7b: parallelism)")
         if not run.tasks or (model is None and not run.model_dir):
             raise SystemExit("--model-dir and --tasks are required "
                              "(via flags or --config entries)")

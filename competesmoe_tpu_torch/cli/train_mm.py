@@ -1,5 +1,5 @@
 """Multimodal training entry point, the `moe-train` role (port of
-competesmoe_tpu/cli/train_mm.py), on one device.
+competesmoe_tpu/cli/train_mm.py), on one device or several ranks.
 
 Wires the LLaVA data pipeline, the 3-stage recipe, the flip schedules, the
 Saver and the metric logger into a loop with gradient accumulation,
@@ -13,8 +13,20 @@ resume and optional LoRA training:
 `main` builds the file-backed dataset and a `transformers` tokenizer and
 calls `train`, which takes any dataset object (`__len__`, `__getitem__`,
 `modality_lengths`) and tokenizer object (`pad_token_id`). Runs on the
-card unless `--device cpu`. `--fsdp` over one device is the unsharded
-layout; an expert-parallel axis (`--n-expert` > 1) is not ported.
+card unless `--device cpu`.
+
+Several ranks (`python -m torch.distributed.run --nproc-per-node N -m
+competesmoe_tpu_torch.cli.train_mm ...`, or a SLURM job): the process
+group comes from the scheduler's environment (`parallel.distributed.
+initialize`), the ranks form JAX's ('data', 'expert') grid with
+`--n-expert` ranks on the expert axis, and the global batch is
+`--per-device-batch-size` x ranks, each rank keeping its rows of each
+accumulation microbatch. `--n-expert > 1` shards the expert banks and
+dispatches the tokens and the competition step over that axis
+(`parallel/expert_parallel.py`); `--fsdp` (the default, as in JAX) shards
+the dense parameters of at least 2^16 elements over 'data'. One rank is
+the unsharded layout. Only rank 0 logs and writes the checkpoint (the
+gathered full state).
 """
 
 from __future__ import annotations
@@ -86,10 +98,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu")
     # sharding
     ap.add_argument("--n-expert", type=int, default=1,
-                    help="expert-parallel axis size (only 1 is ported)")
+                    help="expert-parallel axis size; ranks / n_expert "
+                         "becomes the data axis")
     ap.add_argument("--fsdp", action="store_true", default=True,
                     help="fully shard dense params over the data axis "
-                         "(one device: the unsharded layout)")
+                         "(one rank: the unsharded layout)")
     ap.add_argument("--no-fsdp", dest="fsdp", action="store_false")
     ap.add_argument("--profile-start-step", type=int, default=-1,
                     help="take a torch.profiler trace of steps "
@@ -109,13 +122,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(a) -> None:
-    """Refuse what the port does not run, with its ROADMAP item.
-    `--moe-name` is parsed and, as in JAX, chooses nothing: the router is
-    the checkpoint config.json's `moe_name` (ROADMAP §3)."""
-    if a.n_expert > 1:
-        raise NotImplementedError(
-            f"--n-expert {a.n_expert}: expert parallelism is not ported "
-            "(ROADMAP §1 item 1.7, parallelism)")
+    """Refuse what the port does not run, with its ROADMAP item: every
+    flag of JAX's CLI runs. `--moe-name` is parsed and, as in JAX, chooses
+    nothing: the router is the checkpoint config.json's `moe_name`
+    (ROADMAP §3)."""
 
 
 class _CycleSampler:
@@ -137,21 +147,43 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
     """The training loop over `dataset` with the loaded `model` (its
     weights are trained in place). `on_step(step, state, metrics,
     seconds)` is called after each step. Returns the final MMTrainState.
-    Inside a step nothing is read from the device but the loss, once."""
+    Inside a step nothing is read from the device but the loss, once.
+    Over several ranks `model` is this rank's (built on its device with
+    the same weights on every rank); it is sharded here."""
+    from ..parallel.distributed import detect_env, initialize
+    from ..parallel.ep_context import use_expert_parallel
+    from ..parallel.mesh import make_mesh, put_batch, shard_params
+
+    check_ported(a)
+    out_dir = Path(a.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    device = model.device
+    initialize(detect_env(), device)
+    # experts over 'expert', everything else data parallel; the batch is
+    # global (per-device batch x ranks), each rank keeping its rows
+    mesh = make_mesh(n_expert=a.n_expert)
+    master = mesh.rank == 0
+    if mesh.is_distributed:
+        shard_params(model, mesh, fsdp=a.fsdp, ep=a.n_expert > 1)
+    ep_scope = (use_expert_parallel(mesh) if a.n_expert > 1
+                else contextlib.nullcontext())
+    with ep_scope:
+        return _train(a, model, dataset, tokenizer, eval_dataset, on_step,
+                      final_save, out_dir, device, mesh, master, put_batch)
+
+
+def _train(a, model, dataset, tokenizer, eval_dataset, on_step, final_save,
+           out_dir, device, mesh, master, put_batch):
     from ..data.mm_data import LengthGroupedSampler, SupervisedCollator
     from ..train.checkpoint import Saver
     from ..train.lm_trainer import OptConfig, make_optimizer
-    from ..train.logger import ElapsedTimeMeter, MetricLogger
+    from ..train.logger import ElapsedTimeMeter, MetricLogger, NullLogger
     from ..train.lora import (apply_lora, init_lora_params, lora_scaling,
                               make_mm_lora_train_step)
     from ..train.mm_task import (MMTrainConfig, MMTrainState, batch_to,
                                  build_mm_schedules, make_mm_eval_step,
                                  make_mm_optimizer, make_mm_train_step)
 
-    check_ported(a)
-    out_dir = Path(a.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    device = model.device
     cfg = model.cfg
     if a.remat:
         cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
@@ -166,14 +198,15 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
         schedule_seed=a.seed, opt_state_8bit=a.opt_state_8bit)
     model.set_flip_schedules(*build_mm_schedules(cfg, tcfg))
 
-    batch_size = a.per_device_batch_size
+    batch_size = a.per_device_batch_size * mesh.size
     if len(dataset) >= batch_size:
         sampler = LengthGroupedSampler(dataset.modality_lengths, batch_size,
                                        seed=a.seed)
     elif not a.allow_tiny_dataset:
         raise ValueError(
-            f"dataset ({len(dataset)}) is smaller than one batch "
-            f"({batch_size}): a real run would silently train on repeated "
+            f"dataset ({len(dataset)}) is smaller than one global batch "
+            f"({batch_size} = {a.per_device_batch_size} x {mesh.size} "
+            f"ranks): a real run would silently train on repeated "
             f"samples. Shrink --per-device-batch-size, or pass "
             f"--allow-tiny-dataset for smoke tests.")
     else:
@@ -194,14 +227,15 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
         state = MMTrainState.create(lora, optimizer)
         step_fn = make_mm_lora_train_step(
             model, optimizer, lora_scaling(a.lora_r, a.lora_alpha),
-            n_microbatch=a.grad_accum)
+            n_microbatch=a.grad_accum, mesh=mesh)
     else:
         optimizer = make_mm_optimizer(tcfg)
         state = MMTrainState.create(model, optimizer)
         step_fn = make_mm_train_step(model, optimizer,
-                                     n_microbatch=a.grad_accum)
+                                     n_microbatch=a.grad_accum, mesh=mesh)
 
-    saver = Saver(out_dir / "checkpoint", save_interval=a.save_interval)
+    saver = Saver(out_dir / "checkpoint", save_interval=a.save_interval,
+                  writer=master)
     # the sampler's epoch and the batches drawn from its current pass, so
     # a resumed run continues with the batch that comes next
     pos = {"epoch": sampler.epoch, "consumed": 0}
@@ -219,15 +253,16 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
 
     eval_step = None
     if a.eval_interval and eval_dataset is not None:
-        eval_step = make_mm_eval_step(model)
-    logger = MetricLogger(out_dir, stdout_interval=a.log_interval)
+        eval_step = make_mm_eval_step(model, mesh=mesh)
+    logger = (MetricLogger(out_dir, stdout_interval=a.log_interval)
+              if master else NullLogger())
     meter = ElapsedTimeMeter()
     prof = None
     prof_start = a.profile_start_step
     prof_end = prof_start + a.profile_n_steps if prof_start >= 0 else -1
 
     for step in range(start_step, a.num_train_steps):
-        if step == prof_start:
+        if step == prof_start and master:
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU] + (
                 [torch.profiler.ProfilerActivity.CUDA]
@@ -241,7 +276,8 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
             idx = next(batches)
             pos["consumed"] = 1
         pos["epoch"] = sampler.epoch
-        batch = batch_to(collator([dataset[i] for i in idx]), device)
+        batch = batch_to(put_batch(collator([dataset[i] for i in idx]),
+                                   mesh, a.grad_accum), device)
         t0 = time.perf_counter()
         with meter:
             state, metrics = step_fn(state, batch)
@@ -275,7 +311,8 @@ def train(a, model, dataset, tokenizer, eval_dataset=None,
                     ev = collator([eval_dataset[j] for j in
                                    range(bi * batch_size,
                                          (bi + 1) * batch_size)])
-                    losses.append(float(eval_step(batch_to(ev, device))))
+                    losses.append(float(eval_step(batch_to(
+                        put_batch(ev, mesh), device))))
             logger.log(step, {"eval/loss": float(np.mean(losses))})
         saver["sampler"] = dict(pos)
         saver.tick(step + 1)
@@ -299,12 +336,14 @@ def main(argv=None):
     from transformers import AutoTokenizer
 
     from ..data.mm_data import LazySupervisedDataset
+    from ..device import resolve_device
     from ..models.builder import load_pretrained_model
+    from ..parallel.distributed import detect_env, rank_device
 
     tokenizer = AutoTokenizer.from_pretrained(a.tokenizer)
     _, model, image_processor, _ = load_pretrained_model(
         a.model_dir, dtype=torch.bfloat16 if a.bf16 else torch.float32,
-        device=a.device)
+        device=rank_device(detect_env(), resolve_device(a.device)))
 
     def dataset(path):
         return LazySupervisedDataset(

@@ -130,6 +130,10 @@ class LlavaOutput:
     projector_aux: Any = None
     cache: Optional[KVCache] = None
     aux_llm: Any = 0.0
+    # the loss's cross-entropy and its count of label tokens (a
+    # multi-rank trainer weighs each rank's by the global count)
+    ce: Optional[torch.Tensor] = None
+    n_tokens: Optional[torch.Tensor] = None
 
 
 class LlavaModel(nn.Module):
@@ -235,20 +239,21 @@ class LlavaModel(nn.Module):
         if self.cfg.decoder.moe_name is not None:
             aux_llm = (d_aux["total_aux_loss"]
                        / self.cfg.decoder.num_hidden_layers)
-        loss = None
+        loss = ce = n_tok = None
         if labels is not None:
             from .lm import lm_loss_fn
             shift_labels = torch.where(
                 sp_mask[:, 1:], sp_labels[:, 1:],
                 torch.full_like(sp_labels[:, 1:], IGNORE_INDEX))
-            ce, _ = lm_loss_fn(logits[:, :-1], shift_labels, IGNORE_INDEX)
+            ce, n_tok = lm_loss_fn(logits[:, :-1], shift_labels,
+                                   IGNORE_INDEX)
             loss = ce + aux_clip + p_aux.aux_loss + aux_llm
         return LlavaOutput(
             logits=logits, loss=loss, aux_mlp=p_aux.aux_loss,
             aux_clip=aux_clip, labels=sp_labels, aux_llm=aux_llm,
             vision_auxes=v_auxes if return_id_experts or train else None,
             projector_aux=p_aux if return_id_experts or train else None,
-            cache=new_cache)
+            cache=new_cache, ce=ce, n_tokens=n_tok)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ from_jax_params` carries JAX weights over. LayerNorm epsilon is flax's
 1e-6. `init_weights(seed)` draws the JAX init distributions on the
 model's device with a torch.Generator, one tensor at a time.
 
-Not ported: ring attention (ROADMAP item 1.7).
+Not ported: ring attention (ROADMAP item 1.7b).
 """
 
 from __future__ import annotations

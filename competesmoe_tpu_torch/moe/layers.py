@@ -311,9 +311,12 @@ class MixtralMoELayer(MoeLayerBase):
         if not (train or return_id_experts):
             return out, zero_aux(x)
         # the reference flattens [B, N] before the density means, unlike
-        # the tower's and projector's layers, which keep the batch dim
+        # the tower's and projector's layers, which keep the batch dim: so
+        # over several ranks they are the means of every rank's rows
+        from ..parallel.distributed_ops import batch_axis
         balance = L.switch_balance_loss(gate_softmax.reshape(b * n, e),
-                                        sel.reshape(b * n, -1), e)
+                                        sel.reshape(b * n, -1), e,
+                                        axis=batch_axis())
         zl = L.z_loss(logits)
         return out, MoEAux(
             aux_loss=(balance * self.args.balance_loss_coef

@@ -5,7 +5,9 @@ MoEUT-style stacked keys/values experts (the pretrain tree).
 
 Paths, picked exactly as in JAX: compute ALL experts densely and gather
 the top-k when E <= 2k, else sort the token slots by expert and run one
-GEMM per expert over its contiguous slice (Mixtral's SwiGLU experts
+GEMM per expert over its contiguous slice, or, under an active
+expert-parallel mesh, send the slots to the ranks that hold their experts
+(`parallel.expert_parallel`) (Mixtral's SwiGLU experts
 always take the grouped path, on the card as grouped products over
 device-side offsets); for keys/values experts on
 CUDA tensors, `impl='fused'` takes the K1 pipeline of `gmm_fused.py` or
@@ -187,16 +189,37 @@ def grouped_ffn_swiglu(x: torch.Tensor, sel: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _ep_mesh(impl: str):
+    """The active expert-parallel mesh, if this impl should use it: 'ep'
+    demands one (raises without it), 'auto' takes it whenever
+    `parallel.ep_context` has one with an expert axis > 1
+    (competesmoe_tpu/ops/expert_compute.py:257-272)."""
+    if impl not in ("auto", "ep"):
+        return None
+    from ..parallel import ep_context
+    mesh = ep_context.current_ep_mesh()
+    if impl == "ep" and mesh is None:
+        raise ValueError(
+            "impl='ep' requires an active expert-parallel mesh; wrap the "
+            "call in parallel.ep_context.use_expert_parallel(mesh)")
+    return mesh
+
+
 def moe_ffn_swiglu(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
                    w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                    impl: str = "auto") -> torch.Tensor:
-    """MoE FFN dispatcher for Mixtral's SwiGLU experts: always the grouped
-    path, as in JAX (competesmoe_tpu/ops/expert_compute.py:314-328), which
-    has no dense branch for them."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "impl='ep' (expert-parallel all-to-all) is not ported: ROADMAP "
-            "open item 1.7, parallelism")
+    """MoE FFN dispatcher for Mixtral's SwiGLU experts: the grouped path,
+    as in JAX (competesmoe_tpu/ops/expert_compute.py:314-328), which has
+    no dense branch for them; the all-to-all under an active
+    expert-parallel mesh."""
+    mesh = _ep_mesh(impl)
+    if mesh is not None:
+        from ..parallel import ep_context
+        from ..parallel.expert_parallel import make_ep_ffn_swiglu
+        data_axis, expert_axis = ep_context.ep_axes()
+        fn = make_ep_ffn_swiglu(mesh, data_axis=data_axis,
+                                expert_axis=expert_axis)
+        return fn(x, sel, weights, w1, w3, w2)
     return grouped_ffn_swiglu(x, sel, weights, w1, w3, w2)
 
 
@@ -204,19 +227,26 @@ def moe_ffn_mlp2(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, activation: Activation = gelu_tanh,
                  impl: str = "auto") -> torch.Tensor:
-    """MoE FFN dispatcher: impl 'auto' | 'dense' | 'grouped'. 'auto'
-    computes all experts densely when E <= 2k, else takes the grouped
-    path (competesmoe_tpu/ops/expert_compute.py:344-350)."""
-    if impl == "auto":
+    """MoE FFN dispatcher: impl 'auto' | 'dense' | 'grouped' | 'ep'.
+    'auto' computes all experts densely when E <= 2k, else takes the
+    grouped path (competesmoe_tpu/ops/expert_compute.py:331-350); with an
+    active expert-parallel mesh 'auto' and 'ep' dispatch by all-to-all."""
+    mesh = _ep_mesh(impl)
+    if mesh is not None:
+        from ..parallel import ep_context
+        from ..parallel.expert_parallel import make_ep_ffn_mlp2
+        data_axis, expert_axis = ep_context.ep_axes()
+        fn = make_ep_ffn_mlp2(mesh, activation, data_axis=data_axis,
+                              expert_axis=expert_axis)
+        return fn(x, sel, weights, w1, b1, w2, b2)
+    if impl in ("auto", "ep"):
         impl = "dense" if w1.shape[0] <= 2 * sel.shape[-1] else "grouped"
     if impl == "dense":
         outs = dense_all_experts_mlp2(x, w1, b1, w2, b2, activation)
         return combine_topk(outs, sel, weights)
     if impl == "grouped":
         return grouped_ffn_mlp2(x, sel, weights, w1, b1, w2, b2, activation)
-    raise NotImplementedError(
-        f"impl={impl!r} is not ported (the expert-parallel 'ep' path waits "
-        "for the parallelism slice)")
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -273,11 +303,20 @@ def moe_ffn_kv(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
     and raises NotImplementedError with the reason where JAX's rule
     (`gmm_fused.fused_path_refusal`) refuses the experts; on CPU tensors
     it takes 'grouped', as JAX does off the TPU. 'auto' is dense when
-    E <= 2k, else grouped."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "impl='ep' (expert-parallel all-to-all) is not ported: ROADMAP "
-            "open item 1.7, parallelism")
+    E <= 2k, else grouped. With an active expert-parallel mesh
+    (`parallel.ep_context`) 'auto' and 'ep' dispatch the tokens over the
+    expert axis by all-to-all (`parallel.expert_parallel`); 'ep' without
+    one raises, as in JAX."""
+    mesh = _ep_mesh(impl)
+    if mesh is not None:
+        from ..parallel import ep_context
+        from ..parallel.expert_parallel import make_ep_ffn_kv
+        data_axis, expert_axis = ep_context.ep_axes()
+        fn = make_ep_ffn_kv(mesh, activation, data_axis=data_axis,
+                            expert_axis=expert_axis,
+                            with_bias=b1 is not None)
+        args = (x, sel, weights, keys, values)
+        return fn(*args, b1) if b1 is not None else fn(*args)
     if impl == "fused" and x.device.type == "cuda":
         from .gmm_fused import fused_grouped_ffn_kv, fused_path_refusal
         why = fused_path_refusal(x, keys, activation, b1)
@@ -288,7 +327,7 @@ def moe_ffn_kv(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
         return fused_grouped_ffn_kv(x, sel, weights, keys, values)
     if impl == "fused":
         impl = "grouped"
-    if impl == "auto":
+    if impl in ("auto", "ep"):
         impl = "dense" if keys.shape[0] <= 2 * sel.shape[-1] else "grouped"
     if impl == "dense":
         outs = dense_all_experts_kv(x, keys, values, activation, b1=b1)
@@ -306,11 +345,20 @@ def competition_all_experts_kv(x: torch.Tensor, keys: torch.Tensor,
     """CompeteSMoE competition step: x [T, d] -> (affinity [T, E],
     topk_outputs [T, k, v], sel [T, k]). affinity = mean(softplus(expert
     output)) per expert; sel = top-k of the affinity, ties toward the
-    lower index."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "impl='ep' (expert-parallel competition) is not ported: "
-            "ROADMAP open item 1.7, parallelism")
+    lower index. With an active expert-parallel mesh the all-expert pass
+    runs sharded (`parallel.expert_parallel.make_ep_all_experts_kv`) and
+    returns this rank's rows."""
+    mesh = _ep_mesh(impl)
+    if mesh is not None:
+        from ..parallel import ep_context
+        from ..parallel.expert_parallel import make_ep_all_experts_kv
+        data_axis, expert_axis = ep_context.ep_axes()
+        fn = make_ep_all_experts_kv(mesh, activation, topk,
+                                    data_axis=data_axis,
+                                    expert_axis=expert_axis,
+                                    with_bias=b1 is not None)
+        args = (x, keys, values)
+        return fn(*args, b1) if b1 is not None else fn(*args)
     from .routing import top_k
     outs = dense_all_experts_kv(x, keys, values, activation, b1=b1)
     affinity = F.softplus(outs).mean(dim=-1)
@@ -356,11 +404,17 @@ def competition_all_experts_mlp2(x: torch.Tensor, w1: torch.Tensor,
     layout: x [T, d] -> (affinity [T, E], topk_outputs [T, k, v],
     sel [T, k]); affinity = mean(softplus(expert output)) per expert in
     x's dtype, sel = top-k of the raw affinity, ties toward the lower
-    index."""
-    if impl == "ep":
-        raise NotImplementedError(
-            "impl='ep' (expert-parallel competition) is not ported: "
-            "ROADMAP open item 1.7, parallelism")
+    index. With an active expert-parallel mesh it runs sharded and
+    returns this rank's rows."""
+    mesh = _ep_mesh(impl)
+    if mesh is not None:
+        from ..parallel import ep_context
+        from ..parallel.expert_parallel import make_ep_all_experts_mlp2
+        data_axis, expert_axis = ep_context.ep_axes()
+        fn = make_ep_all_experts_mlp2(mesh, activation, topk,
+                                      data_axis=data_axis,
+                                      expert_axis=expert_axis)
+        return fn(x, w1, b1, w2, b2)
     from .routing import top_k
     outs = dense_all_experts_mlp2(x, w1, b1, w2, b2, activation)
     affinity = affinity_mean(outs)

@@ -1,5 +1,11 @@
 """Auxiliary MoE routing losses (port of competesmoe_tpu/ops/losses.py).
 
+JAX computes each over the global batch. Over several ranks, a statistic
+whose reduced dim spans rows of the batch held by other ranks reduces
+across them before its nonlinearity (`parallel/distributed_ops.py` says
+which do); the others are per row or per token, and a rank's share of
+them is exact.
+
 Serving needs these too: prefill asks for routing telemetry
 (`return_id_experts=True`), which runs the layers' `combine_loss`. The
 pretrain routers use the entropy balance, and CompeteSMoE's competition
@@ -23,12 +29,16 @@ def z_loss(gate_logits: torch.Tensor) -> torch.Tensor:
 
 def switch_balance_loss(gate_softmax: torch.Tensor,
                         selected_experts: torch.Tensor,
-                        n_experts: int) -> torch.Tensor:
+                        n_experts: int, axis=None) -> torch.Tensor:
     """Switch-style balance loss over the FIRST selected expert only:
-    mean(mean_tokens(softmax) * mean_tokens(one_hot(top1))) * E^2."""
-    density_proxy = gate_softmax.float().mean(dim=-2)
+    mean(mean_tokens(softmax) * mean_tokens(one_hot(top1))) * E^2. `axis`:
+    when the token dim holds rows of the batch that other ranks share
+    (`parallel.distributed_ops`), the two means run over every rank's
+    tokens before their product."""
+    from ..parallel.distributed_ops import mean_over_batch
+    density_proxy = mean_over_batch(gate_softmax.float(), -2, axis)
     one_hot = F.one_hot(selected_experts[..., 0].long(), n_experts).float()
-    density = one_hot.mean(dim=-2)
+    density = mean_over_batch(one_hot, -2, axis)
     return torch.mean(density_proxy * density) * float(n_experts ** 2)
 
 

@@ -75,7 +75,7 @@ from ..models.decoder import KVCache, layer_parts, take_rows
 from ..models.llava import _prefill, sample_rows, verify_step
 from ..utils.cuda_graph import Program, capture, copy_from_host
 
-_UNPORTED = "not ported yet (ROADMAP §1 item 1.7: {})"
+_UNPORTED = "not ported yet (ROADMAP §1 item 1.7b: {})"
 
 
 def _bucket(n: int, lo: int = 32) -> int:

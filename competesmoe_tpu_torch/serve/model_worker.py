@@ -7,7 +7,7 @@ optional controller registration with a heartbeat thread. Requests stream
 through `stream_generate` one at a time, or, with `--engine-slots`, share
 the batched steps of a `DecodeEngine` (prefix cache, chunked prefill,
 adaptive speculation and warmup by flag). Tensor- and expert-parallel
-serving wait for ROADMAP §1 item 1.7.
+serving wait for ROADMAP §1 item 1.7b.
 """
 
 from __future__ import annotations
@@ -417,7 +417,7 @@ def main(argv=None):
                if getattr(a, f[2:].replace("-", "_")) not in ("", "0")]
     if refused:
         raise SystemExit(f"{', '.join(refused)}: not ported (ROADMAP §1 "
-                         "item 1.7: parallelism)")
+                         "item 1.7b: parallelism)")
     model, tokenizer, model_name = load_model(a)
     adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
                          max_new_tokens=a.max_new_tokens,

@@ -12,6 +12,14 @@ competesmoe_tpu/train/checkpoint.py).
   checkpoint; `keep_last` bounds how many stay;
 - `tick(step)` saves every `save_interval` steps; `latest_step()` finds
   where to resume.
+
+Over several ranks every rank calls `save` and `restore` at the same
+steps: each element's state is gathered on every rank (`FullState` wraps
+a sharded model or optimizer state: the full tensors under the names an
+unsharded run gives them), only the `writer` (rank 0) writes, and the
+ranks wait for the write before going on. A checkpoint so written is
+today's format whatever the world size, and restores at any other: each
+rank loads the whole state and keeps its shards.
 """
 
 from __future__ import annotations
@@ -46,13 +54,79 @@ def _holds_tensors(tree) -> bool:
     return False
 
 
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+class FullState:
+    """A Saver element over a model or an optimizer state that may hold
+    shards (`parallel/mesh.py`): `state_dict` is the full state under the
+    names an unsharded run gives it (every rank gathers it),
+    `load_state_dict` keeps this rank's shards of a full state. `model`:
+    the model whose placements an optimizer state's moments follow."""
+
+    def __init__(self, element, model=None):
+        self.element, self.model = element, model
+
+    def state_dict(self):
+        from ..parallel import mesh as M
+        if self.model is None:
+            return M.full_state_dict(self.element)
+        return _opt_state(self.element, M.placements(self.model), True)
+
+    @torch.no_grad()
+    def load_state_dict(self, d) -> None:
+        from ..parallel import mesh as M
+        if self.model is None:
+            M.load_full_state_dict(self.element, d)
+        else:
+            self.element.load_state_dict(
+                _opt_state(d, M.placements(self.model), False,
+                           like=self.element))
+
+
+def _opt_state(state, place, gather: bool, like=None):
+    """An optimizer state's moments gathered to full tensors (gather) or
+    cut to this rank's shards (a full state, in the layout of `like`).
+    A QuantLeaf's codes and scales hold the block dim last: a shard along
+    another dim cuts them at that dim's place in that layout; the moments
+    of a parameter that keeps them whole (`QuantAdamState.full`) pass."""
+    from ..parallel import collectives as C
+    from ..parallel.mesh import _shard_of
+    src = state.state_dict() if gather else state
+    whole = getattr(like if like is not None else state, "full", {})
+    axes = getattr(like if like is not None else state, "axes", {})
+    out = {k: v for k, v in src.items() if k not in ("mu", "nu")}
+    for key in ("mu", "nu"):
+        tree = {}
+        for name, v in src[key].items():
+            p = place.get(name)
+            if p is None or p.axis is None or name in whole:
+                tree[name] = v
+                continue
+            dim = p.dim
+            if isinstance(v, dict):          # a QuantLeaf's q and scale
+                nd = len(p.full_shape)
+                b = axes.get(name, -1) % nd
+                dim = nd - 1 if dim == b else (dim if dim < b else dim - 1)
+            cut = ((lambda t: C.raw_all_gather(t, p.axis, dim)) if gather
+                   else (lambda t: _shard_of(t, p.axis, dim)))
+            tree[name] = ({f: cut(t) for f, t in v.items()}
+                          if isinstance(v, dict) else cut(v))
+        out[key] = tree
+    return out
+
+
 class Saver:
     """Checkpoint registry with interval ticks and retention."""
 
     def __init__(self, ckpt_dir, save_interval: Optional[int] = None,
-                 keep_last: int = 2):
+                 keep_last: int = 2, writer: bool = True):
         self.dir = Path(ckpt_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
         self.save_interval = save_interval
         self.keep_last = keep_last
         self._elements: Dict[str, Any] = {}
@@ -73,14 +147,19 @@ class Saver:
 
     def save(self, step: int) -> Path:
         out = self._step_dir(step)
+        states = {name: el.state_dict() for name, el in
+                  self._elements.items() if hasattr(el, "state_dict")}
+        if not self.writer:
+            _barrier()
+            return out
         tmp = self.dir / f".tmp-model-{step}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         meta: Dict[str, str] = {}
         for name, el in self._elements.items():
-            if hasattr(el, "state_dict"):
-                state = el.state_dict()
+            if name in states:
+                state = states[name]
                 if _holds_tensors(state):
                     torch.save(state, tmp / f"{name}.pt")
                     meta[name] = "torch"
@@ -98,6 +177,7 @@ class Saver:
             shutil.rmtree(out)
         tmp.rename(out)  # atomic publish
         self._retain()
+        _barrier()
         return out
 
     def _retain(self) -> None:

@@ -36,9 +36,25 @@ resumes from the newest checkpoint there, or from `-restore` (a step, a
 `model-<step>` directory or a checkpoint directory); a restored flip
 schedule that differs from the rebuilt one replaces it.
 
-Not ported here (each raises NotImplementedError naming ROADMAP item
-1.7): meshes, FSDP, expert and sequence parallelism (`-n_expert_shards`,
-`-n_seq_shards`, `-fsdp`) and the preemption job record.
+Several ranks (`python -m torch.distributed.run --nproc-per-node N -m
+competesmoe_tpu_torch.cli.main ...`, or a SLURM job): `parallel.
+distributed.initialize` makes the process group from the scheduler's
+environment (NCCL when each rank has a card, gloo when ranks share one or
+run on the CPU), and the ranks form JAX's ('data', 'expert') grid with
+`-n_expert_shards` ranks on the expert axis. Every rank builds the same
+weights and the same global batch from `-seed`; it keeps its rows
+(`parallel.mesh.put_batch`) in training, validation and the perplexity of
+`test()` (the QA battery runs whole on every rank). `-n_expert_shards > 1`
+with `-moe.impl auto|ep` shards the expert banks and dispatches the
+tokens by all-to-all (`parallel/expert_parallel.py`); with `fused`,
+`grouped` or `dense` the banks are sharded and gathered where they are
+read, as are the dense parameters under `-fsdp` (over 'data', those of at
+least `-fsdp.min_size` elements). Metrics are reduced over the ranks and
+only rank 0 logs and writes; the Saver's checkpoint is the gathered full
+state, so it restores at any world size. A preemptible job
+(`SLURM_RESTART_COUNT`) records its checkpoint directory under
+`-job_record_dir`, and a restart resumes from the recorded one.
+`-n_seq_shards > 1` (ring attention) waits for ROADMAP item 1.7b.
 """
 
 from __future__ import annotations
@@ -62,11 +78,12 @@ from ..moe.config import MoEArgs
 from ..moe.schedule import (build_flip_schedule, schedule_from_dict,
                             schedule_to_dict)
 from ..utils.argparser import ArgumentParser, DotDict, args
-from .checkpoint import Saver
+from ..parallel.mesh import make_mesh, put_batch, shard_params
+from .checkpoint import FullState, Saver
 from .lm_trainer import (OptConfig, TrainState, make_eval_step,
                          make_optimizer, make_train_step)
 from .logger import (AsyncMetricLogger, ElapsedTimeMeter, MetricLogger,
-                     device_memory_stats)
+                     NullLogger, device_memory_stats)
 
 TASK_REGISTRY: Dict[str, type] = {}
 QA_TASKS = ("lambada", "blimp", "cbt", "hellaswag", "piqa", "ai2arc",
@@ -117,6 +134,9 @@ def _task_args(parser: ArgumentParser):
     parser.add_argument("-n_expert_shards", default=1)
     parser.add_argument("-n_seq_shards", default=1)
     parser.add_argument("-fsdp", default=False)
+    parser.add_argument("-fsdp.min_size", default=65536)
+    # preemption auto-resume (training_helper.py:159-182 job records)
+    parser.add_argument("-job_record_dir", default="jobs")
     parser.add_argument("-remat", default=False)
     # anomaly detection in the backward (JAX: jax_debug_nans)
     parser.add_argument("-nan_detect", default=False)
@@ -248,13 +268,9 @@ def lm_config_from(a: DotDict) -> LMConfig:
 
 
 def _not_ported(a: DotDict) -> None:
-    for flag, bad, item in (
-            ("n_expert_shards", a.n_expert_shards > 1, "1.7 (parallelism)"),
-            ("n_seq_shards", a.n_seq_shards > 1, "1.7 (ring attention)"),
-            ("fsdp", a.fsdp, "1.7 (parallelism)")):
-        if bad:
-            raise NotImplementedError(f"-{flag} is not ported: ROADMAP open "
-                                      f"item {item}")
+    if a.n_seq_shards > 1:
+        raise NotImplementedError("-n_seq_shards is not ported: ROADMAP "
+                                  "item 1.7b (ring attention)")
 
 
 @task("synthetic_transformer")
@@ -266,13 +282,32 @@ class SyntheticTransformerTask:
     def __init__(self, a: DotDict):
         _not_ported(a)
         self.a = a
-        self.device = resolve_device(a.device)
+        from ..parallel.distributed import (detect_env, initialize,
+                                            rank_device)
+        self.denv = detect_env()
+        device = resolve_device(a.device)
+        initialize(self.denv, device)
+        self.device = rank_device(self.denv, device)
+        self.mesh = make_mesh(n_expert=a.n_expert_shards)
+        if a.batch_size % self.mesh.size != 0:
+            raise ValueError(
+                f"-batch_size {a.batch_size} must be divisible by the "
+                f"number of devices ({self.mesh.size}); the global batch "
+                f"is sharded over the full mesh")
+        if a.moe.impl == "ep" and a.n_expert_shards <= 1:
+            raise ValueError("-moe.impl ep requires -n_expert_shards > 1")
+        # route the MoE dispatch through the all-to-all path; scoped to
+        # this task's loops (`_ep_scope`)
+        self._use_ep = (a.n_expert_shards > 1
+                        and a.moe.impl in ("auto", "ep"))
+        self.is_master = self.mesh.rank == 0
         self.run_dir = Path(a.run_dir) / a.name
         logger_cls = AsyncMetricLogger if a.log_async else MetricLogger
-        self.logger = logger_cls(self.run_dir, use_wandb=a.log == "wandb",
-                                 wandb_project=a.wandb.project,
-                                 run_name=a.name,
-                                 stdout_interval=a.log_interval)
+        self.logger = (logger_cls(self.run_dir, use_wandb=a.log == "wandb",
+                                  wandb_project=a.wandb.project,
+                                  run_name=a.name,
+                                  stdout_interval=a.log_interval)
+                       if self.is_master else NullLogger())
         self.dataset, self.valid_dataset = self.create_datasets()
         self.sampler = SequentialMultibatchSampler(
             n_items=len(self.dataset), batch_size=a.batch_size)
@@ -284,6 +319,9 @@ class SyntheticTransformerTask:
                 a.max_compete_in_iter, seed=a.seed)
         self.model = MoELanguageModel(self.cfg, flip_schedule=self.schedule,
                                       device=self.device).init_weights(a.seed)
+        if self.mesh.is_distributed:
+            shard_params(self.model, self.mesh, fsdp=a.fsdp,
+                         fsdp_min_size=a.fsdp.min_size, ep=self._use_ep)
         self.generator = None
         if self.model.draws:
             self.generator = torch.Generator(
@@ -295,15 +333,28 @@ class SyntheticTransformerTask:
         self.state = TrainState.create(self.model, self.optimizer)
         self.train_step = make_train_step(self.model, self.optimizer,
                                           n_microbatch=a.n_microbatch,
-                                          generator=self.generator)
-        self.eval_step = make_eval_step(self.model)
+                                          generator=self.generator,
+                                          mesh=self.mesh)
+        self.eval_step = make_eval_step(self.model, mesh=self.mesh)
         self.expert_usage: Dict[str, np.ndarray] = {}
 
-        self.saver = Saver(self.run_dir / "checkpoint",
-                           save_interval=a.save_interval,
-                           keep_last=a.keep_last)
-        self.saver["model"] = self.model
-        self.saver["optimizer"] = self.state.opt_state
+        # preemption auto-resume (training_helper.py:159-182): a restarted
+        # scheduler job reads its job record to find the checkpoint
+        # directory of the interrupted run, even when the run name changed
+        from ..parallel.distributed import is_restart, run_identifier
+        ckpt_dir = self.run_dir / "checkpoint"
+        record = Path(a.job_record_dir) / run_identifier(self.denv)
+        if is_restart(self.denv) and record.exists():
+            recorded = Path(record.read_text().strip())
+            if recorded.exists():
+                print(f"restart detected; resuming from job record "
+                      f"{recorded}")
+                ckpt_dir = recorded
+        self.saver = Saver(ckpt_dir, save_interval=a.save_interval,
+                           keep_last=a.keep_last, writer=self.is_master)
+        self.saver["model"] = FullState(self.model)
+        self.saver["optimizer"] = FullState(self.state.opt_state,
+                                            self.model)
         self.saver["sampler"] = self.sampler
         self.saver["args"] = ArgumentParser.namespace_to_dict(a)
         if self.schedule is not None:
@@ -312,6 +363,21 @@ class SyntheticTransformerTask:
             self.restore(a.restore)
         elif self.saver.latest_step() is not None:
             self.restore()
+        if self.denv.is_preemptible and self.denv.is_master:
+            record.parent.mkdir(parents=True, exist_ok=True)
+            record.write_text(str(ckpt_dir))
+
+    def _ep_scope(self):
+        """The expert-parallel context of this task's loops."""
+        import contextlib
+        if not self._use_ep:
+            return contextlib.nullcontext()
+        from ..parallel.ep_context import use_expert_parallel
+        return use_expert_parallel(self.mesh)
+
+    def _rows(self, windows: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch."""
+        return put_batch(windows, self.mesh, self.a.n_microbatch)
 
     # -- data --
 
@@ -362,17 +428,22 @@ class SyntheticTransformerTask:
             self.device, non_blocking=True)
 
     def fetch_batch(self) -> torch.Tensor:
-        return self._device_batch(self.dataset.batch(next(self.sampler)))
+        return self._device_batch(self._rows(
+            self.dataset.batch(next(self.sampler))))
 
     @torch.no_grad()
     def validate(self) -> float:
+        with self._ep_scope():
+            return self._validate()
+
+    def _validate(self) -> float:
         total_nll, total_tok = 0.0, 0
         sampler = SequentialMultibatchSampler(
             n_items=len(self.valid_dataset), batch_size=self.a.batch_size)
         batch = None
         for _ in range(self.a.valid_batches):
-            batch = torch.from_numpy(self.valid_dataset.batch(
-                next(sampler)).astype(np.int64)).to(self.device)
+            batch = torch.from_numpy(put_batch(self.valid_dataset.batch(
+                next(sampler)), self.mesh).astype(np.int64)).to(self.device)
             nll, n = self.eval_step(batch)
             total_nll += float(nll)
             total_tok += int(n)
@@ -399,11 +470,17 @@ class SyntheticTransformerTask:
         metrics = {}
         usage_rows = {}
         self.expert_usage = {}
+        from ..parallel.collectives import raw_all_reduce
+        world = self.mesh.axis("world")
         for key, val in aux.items():
             if key.endswith("/selected_experts") and val is not None:
                 layer = key.split("/")[0]
-                sel = val.reshape(-1).cpu().numpy()
-                hist = np.bincount(sel, minlength=self.cfg.n_experts)
+                counts = torch.zeros(self.cfg.n_experts, dtype=torch.long,
+                                     device=val.device)
+                counts.index_add_(0, val.reshape(-1).long(),
+                                  torch.ones_like(val.reshape(-1).long()))
+                # the histogram of the global batch's rows
+                hist = raw_all_reduce(counts, world).cpu().numpy()
                 self.expert_usage[layer] = hist
                 frac = hist / max(hist.sum(), 1)
                 usage_rows[layer] = frac
@@ -414,7 +491,7 @@ class SyntheticTransformerTask:
                     -(p * np.log(p)).sum())
         if metrics:
             self.logger.log(int(self.state.step), metrics, to_stdout=False)
-        if usage_rows:
+        if usage_rows and self.is_master:
             from .plots import Heatmap, log_plots
             order = sorted(usage_rows,
                            key=lambda k: int(k.replace("layer", "") or 0))
@@ -434,7 +511,8 @@ class SyntheticTransformerTask:
                                                        start + n_steps)
         iter_meter = ElapsedTimeMeter()
         load_meter = ElapsedTimeMeter()   # wait for the next batch
-        prof_start = a.profile.start_step
+        # rank 0 alone takes the trace
+        prof_start = a.profile.start_step if self.is_master else -1
         prof_end = prof_start + a.profile.n_steps if prof_start >= 0 else -1
         prof = None
 
@@ -450,7 +528,8 @@ class SyntheticTransformerTask:
         def produce():
             try:
                 for _ in range(start, end):
-                    item = self.dataset.batch(next(prod_sampler))
+                    item = self._rows(self.dataset.batch(
+                        next(prod_sampler)))
                     while not stop_evt.is_set():
                         try:
                             q.put(item, timeout=0.5)
@@ -480,7 +559,7 @@ class SyntheticTransformerTask:
                     if isinstance(batch, Exception):
                         raise batch
                     batch = self._device_batch(batch)
-                with iter_meter:
+                with iter_meter, self._ep_scope():
                     self.state, metrics = self.train_step(self.state, batch)
                 if prev is not None:
                     _check_finite(*prev)
@@ -534,7 +613,8 @@ class SyntheticTransformerTask:
 
     def test(self) -> Dict[str, float]:
         res = {"valid/perplexity": self.validate()}
-        res.update(self.run_downstream_evals())
+        with self._ep_scope():
+            res.update(self.run_downstream_evals())
         return res
 
     # -- the zero-shot QA battery --

@@ -19,6 +19,17 @@ in place saves a copy of the 154M parameters and both moments per step).
 of the batch, all at the same step (so with the same flips), sums their
 gradients in the parameters' `.grad` and takes one optimizer step with
 their mean. Metric names are JAX's.
+
+Over several ranks (`mesh`, `parallel/mesh.py`), each rank holds its rows
+of the global batch (`put_batch`) and its shards of the parameters. Its
+objective is its share of the global loss: its tokens' cross-entropy sum
+over the global token count, plus 1/world of its aux losses (each a mean
+over its rows, or, where a statistic spans rows, the global value through
+`parallel/distributed_ops`), so the ranks' objectives sum to the global
+loss. `mesh.reduce_gradients` then sums every gradient over the ranks
+that hold a copy of its parameter (replicated ones over the world, expert
+banks over 'data'); `global_norm` counts each shard once; the reported
+losses are the global ones.
 """
 
 from __future__ import annotations
@@ -79,9 +90,14 @@ def make_lr_schedule(cfg: OptConfig) -> Callable[[int], float]:
 
 @dataclasses.dataclass
 class AdamState:
+    """Adam's count and float moments per parameter name. `shards`: the
+    mesh axis of each sharded parameter (its moments are shards too), so
+    that clipping counts each shard once."""
+
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    shards: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def direction(self, name: str, g: torch.Tensor, count: int, b1: float,
                   b2: float, eps: float) -> torch.Tensor:
@@ -122,10 +138,10 @@ class AdamState:
         self.count = int(d["count"])
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, axes=None):
     """optax.clip_by_global_norm: scale by max_norm / norm only when
-    norm >= max_norm (no epsilon)."""
-    norm = global_norm(grads)
+    norm >= max_norm (no epsilon). `axes`: see `global_norm`."""
+    norm = global_norm(grads, axes)
     keep = norm < max_norm
     return [torch.where(keep, t, t / norm.to(t.dtype) * max_norm)
             for t in grads]
@@ -140,17 +156,21 @@ class Optimizer:
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
 
-    def init(self, params: Dict[str, torch.Tensor], axes=None):
-        """`axes`: quant_opt.quant_axes of the model, for 8-bit moments."""
+    def init(self, params: Dict[str, torch.Tensor], axes=None,
+             shards=None):
+        """`axes`: quant_opt.quant_axes of the model, for 8-bit moments;
+        `shards`: {name: (mesh axis, dim)} of the sharded parameters
+        (`parallel.mesh.shard_axes`)."""
         if self.cfg.state_8bit:
             from .quant_opt import QuantAdamState
-            return QuantAdamState.init(params, axes=axes)
+            return QuantAdamState.init(params, axes=axes, shards=shards)
         return AdamState(
             count=0,
             mu={k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()},
             nu={k: torch.zeros_like(p, dtype=torch.float32)
-                for k, p in params.items()})
+                for k, p in params.items()},
+            shards={k: a for k, (a, _) in (shards or {}).items()})
 
     @torch.no_grad()
     def apply(self, params: Dict[str, torch.Tensor],
@@ -171,7 +191,8 @@ def apply_adam_(params: Dict[str, torch.Tensor],
     names = list(params)
     g = [grads[k] for k in names]
     if cfg.grad_clip > 0:
-        g = clip_by_global_norm(g, cfg.grad_clip)
+        g = clip_by_global_norm(g, cfg.grad_clip,
+                                [state.shards.get(k) for k in names])
     count = state.count + 1
     lr = schedule(state.count)
     for k, gk in zip(names, g):
@@ -188,9 +209,26 @@ def make_optimizer(cfg: OptConfig) -> Optimizer:
     return Optimizer(cfg)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+def global_norm(tensors, axes=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    `axes`: per tensor, None, or the mesh axis it is a shard over: its
+    squares are summed over that axis's ranks, so the norm is the full
+    tensors' on every rank."""
+    tensors = list(tensors)
+    if not axes or all(a is None for a in axes):
+        return torch.sqrt(sum(torch.sum(t.float() * t.float())
+                              for t in tensors))
+    from ..parallel import collectives as C
+    local, over = 0.0, {}
+    for t, a in zip(tensors, axes):
+        sq = torch.sum(t.float() * t.float())
+        if a is None:
+            local = local + sq
+        else:
+            over.setdefault(a.name, [a, 0.0])[1] += sq
+    for a, sq in over.values():
+        local = local + C.raw_all_reduce(sq, a, op="grad_norm")
+    return torch.sqrt(local)
 
 
 @dataclasses.dataclass
@@ -201,28 +239,47 @@ class TrainState:
 
     @classmethod
     def create(cls, model: MoELanguageModel, optimizer: Optimizer):
+        from ..parallel.mesh import named_params, shard_axes
         from .quant_opt import quant_axes
         return cls(model=model,
-                   opt_state=optimizer.init(dict(model.named_parameters()),
-                                            axes=quant_axes(model)),
+                   opt_state=optimizer.init(named_params(model),
+                                            axes=quant_axes(model),
+                                            shards=shard_axes(model)),
                    step=0)
 
 
 def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
                     ignore_index: int = -100, n_microbatch: int = 1,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None) -> Callable:
     """`train_step(state, tokens) -> (state, metrics)`; tokens [B, T+1]
     int on the model's device: inputs tokens[:, :-1], targets
-    tokens[:, 1:]. Metrics are 0-dim device tensors (read them with
-    float(); that synchronises). `generator` feeds the model's random
-    draws (layer drop, MoA's dropouts), where it has any."""
+    tokens[:, 1:] (over a `mesh` of several ranks: this rank's rows,
+    `put_batch(..., n_microbatch)`). Metrics are 0-dim device tensors
+    (read them with float(); that synchronises). `generator` feeds the
+    model's random draws (layer drop, MoA's dropouts), where it has
+    any."""
+    from ..parallel import collectives as C
+    from ..parallel import distributed_ops
+    from ..parallel.mesh import named_params, reduce_gradients, shard_axes
+
+    dist_ = mesh is not None and mesh.is_distributed
+    world = mesh.axis("world") if dist_ else None
+    shard_of = {k: a for k, (a, _) in shard_axes(model).items()}
 
     def loss_for(step: int, tokens: torch.Tensor):
-        logits, aux = model(tokens[:, :-1], step=step, train=True,
-                            generator=generator)
+        with distributed_ops.use_batch_axis(world):
+            logits, aux = model(tokens[:, :-1], step=step, train=True,
+                                generator=generator)
         ce, n_tok = lm_loss_fn(logits, tokens[:, 1:], ignore_index)
-        total = ce + aux["total_aux_loss"]
+        reg = aux["total_aux_loss"]
+        if dist_:
+            # this rank's share of the global loss: its tokens' sum over
+            # the global count, 1/world of its aux (means over its rows)
+            n_all = C.raw_all_reduce(n_tok, world)
+            ce = ce * (n_tok / n_all)
+            reg = reg / world.size
+        total = ce + reg
         # distillation health: router-vs-competition top-k agreement,
         # summed over the layers that flipped this step
         zero = torch.zeros((), dtype=torch.float32, device=total.device)
@@ -231,11 +288,13 @@ def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
         ncomp = sum((v for k, v in aux.items() if k.endswith("is_comp")),
                     zero)
         total.backward()
-        return (total.detach(), ce.detach(), aux["total_aux_loss"].detach(),
-                n_tok, agree, ncomp)
+        if dist_:
+            n_tok, agree = n_all, agree / world.size
+        return (total.detach(), ce.detach(), reg.detach(), n_tok, agree,
+                ncomp)
 
     def step_fn(state: TrainState, tokens: torch.Tensor):
-        params = dict(model.named_parameters())
+        params = named_params(model)
         for p in params.values():
             p.grad = None
         b = tokens.shape[0]
@@ -252,11 +311,19 @@ def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
         grads = {k: (p.grad * inv if n_microbatch > 1 else p.grad)
                  if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if dist_:
+            reduce_gradients(model, mesh, grads)
+            # the global losses: the sum of the ranks' shares
+            summed = C.raw_all_reduce(torch.stack(
+                [acc[0], acc[1], acc[2], acc[4]]), world, op="metrics")
+            acc = (summed[0], summed[1], summed[2], acc[3], summed[3],
+                   acc[5])
         total, ce, reg = acc[0] * inv, acc[1] * inv, acc[2] * inv
         n_tok = acc[3]
         # every microbatch sees the same step, hence the same flips
         agree, ncomp = acc[4] * inv, acc[5] * inv
-        grad_norm = global_norm(grads.values())
+        grad_norm = global_norm(grads.values(),
+                                [shard_of.get(k) for k in grads])
         optimizer.apply(params, grads, state.opt_state)
         for p in params.values():
             p.grad = None
@@ -279,13 +346,21 @@ def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
 
 
 def make_eval_step(model: MoELanguageModel,
-                   ignore_index: int = -100) -> Callable:
-    """`eval_step(tokens) -> (sum_nll, n_tokens)` for perplexity."""
+                   ignore_index: int = -100, mesh=None) -> Callable:
+    """`eval_step(tokens) -> (sum_nll, n_tokens)` for perplexity; over a
+    `mesh` of several ranks, tokens are this rank's rows and the sums are
+    the global ones."""
+    from ..parallel import collectives as C
+    world = mesh.axis("world") if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(tokens):
         logits, _ = model(tokens[:, :-1], train=False)
         ce, n_tok = lm_loss_fn(logits, tokens[:, 1:], ignore_index)
+        if world is not None and world.size > 1:
+            both = C.raw_all_reduce(torch.stack(
+                [ce * n_tok, n_tok.to(ce.dtype)]), world, op="metrics")
+            return both[0], both[1].round().long()
         return ce * n_tok, n_tok
 
     return step_fn

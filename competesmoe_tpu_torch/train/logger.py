@@ -87,6 +87,22 @@ class MetricLogger:
             self._wandb.finish()
 
 
+class NullLogger:
+    """The logger of a rank other than 0 in a multi-rank run: it writes
+    nothing."""
+
+    _tb = _wandb = None
+
+    def log(self, step, metrics, to_stdout=None) -> None:
+        pass
+
+    def write_record(self, rec) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class AsyncMetricLogger(MetricLogger):
     """MetricLogger with a background writer thread so TB/W&B/JSONL IO
     never blocks the train step (the reference's AsyncLogger process,

@@ -104,15 +104,24 @@ def apply_lora(model: nn.Module, lora: LoRAParams, scaling: float):
     grad_flags = {p: p.requires_grad for p in model.parameters()}
     for p in grad_flags:
         p.requires_grad_(False)
+    from ..parallel.mesh import sharded_holder
     try:
         for n, a, b in zip(lora.names, lora.a, lora.b):
-            parametrize.register_parametrization(mods[n], "weight",
-                                                 _Fold(a, b, scaling),
-                                                 unsafe=True)
+            shards = sharded_holder(mods[n], "weight")
+            if shards is not None:
+                # a weight gathered at use (parallel/mesh.py) folds after
+                # the gather
+                shards.folds["weight"] = _Fold(a, b, scaling)
+            else:
+                parametrize.register_parametrization(
+                    mods[n], "weight", _Fold(a, b, scaling), unsafe=True)
         yield model
     finally:
         for n in lora.names:
-            if parametrize.is_parametrized(mods[n], "weight"):
+            shards = sharded_holder(mods[n], "weight")
+            if shards is not None:
+                shards.folds.pop("weight", None)
+            elif parametrize.is_parametrized(mods[n], "weight"):
                 parametrize.remove_parametrizations(
                     mods[n], "weight", leave_parametrized=False)
         for p, flag in grad_flags.items():
@@ -120,26 +129,33 @@ def apply_lora(model: nn.Module, lora: LoRAParams, scaling: float):
 
 
 def make_mm_lora_train_step(model: nn.Module, optimizer, scaling: float,
-                            n_microbatch: int = 1) -> Callable:
+                            n_microbatch: int = 1, mesh=None) -> Callable:
     """`train_step(state, batch) -> (state, metrics)` where state.params
     is the LoRAParams module and `optimizer` a lm_trainer.Optimizer
     (clip_by_global_norm(1.0) -> adamw(lr, wd 0) in the CLI); the same
-    microbatching and metrics as mm_task.make_mm_train_step."""
+    microbatching, metrics and ranks as mm_task.make_mm_train_step (the
+    factors are replicated: their gradients sum over every rank)."""
+    from ..parallel import distributed_ops
+    from ..parallel.mesh import reduce_gradients
     buffers: Dict[str, torch.Tensor] = {}
+    world = mesh.axis("world") if mesh is not None else None
 
     def step_fn(state: MMTrainState, batch: Dict[str, torch.Tensor]):
         lora = state.params
         params = dict(lora.named_parameters())
 
         def forward(mb):
-            return model(mb["input_ids"], mb.get("images"),
-                         labels=mb["labels"],
-                         attention_mask=mb["attention_mask"],
-                         step=state.step, train=True)
+            with distributed_ops.use_batch_axis(world):
+                return model(mb["input_ids"], mb.get("images"),
+                             labels=mb["labels"],
+                             attention_mask=mb["attention_mask"],
+                             step=state.step, train=True)
 
         with apply_lora(model, lora, scaling):
             grads, metrics = accumulate_grads(forward, params, batch,
-                                              n_microbatch, buffers)
+                                              n_microbatch, buffers, world)
+        if mesh is not None:
+            reduce_gradients(lora, mesh, grads)
         metrics["grad_norm"] = global_norm(grads.values())
         optimizer.apply(params, grads, state.opt_state)
         state.step += 1

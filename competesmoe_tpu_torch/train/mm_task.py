@@ -21,6 +21,12 @@ more than one, the gradients are summed in float32 buffers and scaled by
 1/n; with one they stay in the parameters' dtype. Parameters and moments
 are updated in place. The step reads nothing back from the device:
 metrics are device tensors.
+
+Over several ranks (`mesh`), each rank holds its rows of each microbatch
+and its shards of the parameters; its objective is its share of the
+global loss (its label tokens' cross-entropy over the global count, 1/world
+of its aux losses), gradients are summed over the ranks that hold a copy
+(`parallel.mesh.reduce_gradients`), and the metrics are the global ones.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ import numpy as np
 import torch
 
 from ..moe.schedule import FlipSchedule, build_flip_schedule
+from ..parallel import collectives as C
+from ..parallel import distributed_ops
+from ..parallel.mesh import named_params, reduce_gradients, shard_axes
 from .lm_trainer import (AdamState, OptConfig, apply_adam_, global_norm,
                          make_lr_schedule)
 
@@ -106,22 +115,28 @@ class MMOptimizer:
         self.schedules = {g: make_lr_schedule(c)
                           for g, c in groups.items() if c is not None}
 
-    def init(self, params: Dict[str, torch.Tensor], axes=None) -> Dict:
-        """`axes`: quant_opt.quant_axes of the model, for 8-bit moments."""
+    def init(self, params: Dict[str, torch.Tensor], axes=None,
+             shards=None) -> Dict:
+        """`axes`: quant_opt.quant_axes of the model, for 8-bit moments;
+        `shards`: {name: (mesh axis, dim)} of the sharded parameters."""
         state = {}
+        shards = shards or {}
         for g, c in self.groups.items():
             mine = {k: p for k, p in params.items() if param_group(k) == g}
             if c is None or not mine:
                 state[g] = None
             elif c.state_8bit:
                 from .quant_opt import QuantAdamState
-                state[g] = QuantAdamState.init(mine, axes=axes)
+                state[g] = QuantAdamState.init(mine, axes=axes,
+                                               shards=shards)
             else:
                 # the moments in the parameters' dtype, as optax keeps them
                 state[g] = AdamState(
                     count=0, mu={k: torch.zeros_like(p)
                                  for k, p in mine.items()},
-                    nu={k: torch.zeros_like(p) for k, p in mine.items()})
+                    nu={k: torch.zeros_like(p) for k, p in mine.items()},
+                    shards={k: a for k, (a, _) in shards.items()
+                            if k in mine})
         return state
 
     @torch.no_grad()
@@ -171,26 +186,35 @@ class MMTrainState:
     def create(cls, params: torch.nn.Module, optimizer) -> "MMTrainState":
         from .quant_opt import quant_axes
         return cls(params=params,
-                   opt_state=optimizer.init(dict(params.named_parameters()),
-                                            axes=quant_axes(params)),
+                   opt_state=optimizer.init(named_params(params),
+                                            axes=quant_axes(params),
+                                            shards=shard_axes(params)),
                    step=0)
 
     def state_dict(self) -> Dict:
+        """The full state (gathered where sharded: every rank calls it),
+        under the names an unsharded run gives it."""
+        from .checkpoint import FullState
         opt = self.opt_state
-        return {"params": self.params.state_dict(), "step": self.step,
-                "opt": ({g: s.state_dict() if s is not None else None
+
+        def full(s):
+            return FullState(s, self.params).state_dict()
+        return {"params": FullState(self.params).state_dict(),
+                "step": self.step,
+                "opt": ({g: full(s) if s is not None else None
                          for g, s in opt.items()}
-                        if isinstance(opt, dict) else opt.state_dict())}
+                        if isinstance(opt, dict) else full(opt))}
 
     @torch.no_grad()
     def load_state_dict(self, d: Dict) -> None:
-        self.params.load_state_dict(d["params"])
+        from .checkpoint import FullState
+        FullState(self.params).load_state_dict(d["params"])
         if isinstance(self.opt_state, dict):
             for g, s in self.opt_state.items():
                 if s is not None:
-                    s.load_state_dict(d["opt"][g])
+                    FullState(s, self.params).load_state_dict(d["opt"][g])
         else:
-            self.opt_state.load_state_dict(d["opt"])
+            FullState(self.opt_state, self.params).load_state_dict(d["opt"])
         self.step = int(d["step"])
 
 
@@ -233,28 +257,62 @@ def _layer_metrics(out) -> Dict[str, torch.Tensor]:
     return m
 
 
+def _objective(out, world):
+    """(the tensor to differentiate, the metrics) of one microbatch's
+    LlavaOutput. Over several ranks (`world`): this rank's share of the
+    global loss (its label tokens' cross-entropy sum over the global
+    count, 1/world of its aux losses, which are means over its rows), and
+    metrics that sum over the ranks to the global values."""
+    metrics = {"loss/aux_mlp": out.aux_mlp.detach(),
+               "loss/aux_clip": out.aux_clip.detach(),
+               **{k: v.detach() for k, v in _layer_metrics(out).items()}}
+    if world is None or world.size == 1:
+        metrics["loss/total"] = out.loss.detach()
+        return out.loss, metrics
+    n_all = C.raw_all_reduce(out.n_tokens, world)
+    share = (out.ce * (out.n_tokens / n_all)
+             + (out.loss - out.ce) / world.size)
+    metrics = {k: v / world.size for k, v in metrics.items()}
+    metrics["loss/total"] = share.detach()
+    return share, metrics
+
+
+def _reduce_metrics(metrics: Dict[str, torch.Tensor], world
+                    ) -> Dict[str, torch.Tensor]:
+    """Sum the ranks' shares of the metrics (one collective)."""
+    if world is None or world.size == 1:
+        return metrics
+    keys = sorted(metrics)
+    flat = torch.cat([metrics[k].float().reshape(-1) for k in keys])
+    flat = C.raw_all_reduce(flat, world, op="metrics")
+    out, off = {}, 0
+    for k in keys:
+        n = metrics[k].numel()
+        out[k] = flat[off:off + n].reshape(metrics[k].shape)
+        off += n
+    return out
+
+
 def accumulate_grads(forward: Callable, params: Dict[str, torch.Tensor],
                      batch: Dict[str, torch.Tensor], n_microbatch: int,
-                     buffers: Dict[str, torch.Tensor]):
+                     buffers: Dict[str, torch.Tensor], world=None):
     """Run `forward(microbatch) -> LlavaOutput` with a backward of its loss
     over `n_microbatch` slices; return (gradients, metrics). One slice
     leaves the gradients in the parameters' dtype (zeros where none
     reached a parameter); more sum them into the float32 `buffers`
-    (filled on first use) and scale them by 1/n."""
+    (filled on first use) and scale them by 1/n. `world`: the axis of
+    every rank when this rank holds only its rows (`_objective`); the
+    gradients are then this rank's, to be reduced by the caller."""
     for p in params.values():
         p.grad = None
     if n_microbatch == 1:
-        out = forward(batch)
-        out.loss.backward()
+        loss, metrics = _objective(forward(batch), world)
+        loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        metrics = {"loss/total": out.loss.detach(),
-                   "loss/aux_mlp": out.aux_mlp.detach(),
-                   "loss/aux_clip": out.aux_clip.detach(),
-                   **{k: v.detach() for k, v in _layer_metrics(out).items()}}
-        return grads, metrics
+        return grads, _reduce_metrics(metrics, world)
     if not buffers:
         buffers.update({k: torch.zeros(p.shape, dtype=torch.float32,
                                        device=p.device)
@@ -264,45 +322,51 @@ def accumulate_grads(forward: Callable, params: Dict[str, torch.Tensor],
             b.zero_()
     acc = None
     for mb in _split(batch, n_microbatch):
-        out = forward(mb)
-        out.loss.backward()
+        loss, cur = _objective(forward(mb), world)
+        loss.backward()
         with torch.no_grad():
             for k, p in params.items():
                 if p.grad is not None:
                     buffers[k].add_(p.grad)
                     p.grad = None
-        cur = {"loss/total": out.loss.detach(),
-               "loss/aux_mlp": out.aux_mlp.detach(),
-               "loss/aux_clip": out.aux_clip.detach(),
-               **{k: v.detach() for k, v in _layer_metrics(out).items()}}
         acc = cur if acc is None else {k: acc[k] + cur[k] for k in acc}
     inv = 1.0 / n_microbatch
     with torch.no_grad():
         for b in buffers.values():
             b.mul_(inv)
-    return dict(buffers), {k: v * inv for k, v in acc.items()}
+    return dict(buffers), _reduce_metrics({k: v * inv for k, v in
+                                           acc.items()}, world)
 
 
 def make_mm_train_step(model, optimizer: MMOptimizer,
-                       n_microbatch: int = 1) -> Callable:
+                       n_microbatch: int = 1, mesh=None) -> Callable:
     """`train_step(state, batch) -> (state, metrics)`: batch holds
     input_ids, labels, attention_mask and images as tensors on the
-    model's device (`batch_to`). Metrics: loss/total, loss/aux_mlp,
-    loss/aux_clip, grad_norm (over every gradient, before clipping), and
-    the per-layer competition telemetry of `_layer_metrics`."""
+    model's device (`batch_to`; over a `mesh` of several ranks, this
+    rank's rows, `parallel.mesh.put_batch(..., n_microbatch)`). Metrics:
+    loss/total, loss/aux_mlp, loss/aux_clip, grad_norm (over every
+    gradient, before clipping), and the per-layer competition telemetry
+    of `_layer_metrics`."""
     buffers: Dict[str, torch.Tensor] = {}
+    world = mesh.axis("world") if mesh is not None else None
 
     def forward(mb, step):
-        return model(mb["input_ids"], mb.get("images"), labels=mb["labels"],
-                     attention_mask=mb["attention_mask"], step=step,
-                     train=True)
+        with distributed_ops.use_batch_axis(world):
+            return model(mb["input_ids"], mb.get("images"),
+                         labels=mb["labels"],
+                         attention_mask=mb["attention_mask"], step=step,
+                         train=True)
 
     def step_fn(state: MMTrainState, batch: Dict[str, torch.Tensor]):
-        params = dict(model.named_parameters())
+        params = named_params(model)
         grads, metrics = accumulate_grads(
             lambda mb: forward(mb, state.step), params, batch, n_microbatch,
-            buffers)
-        metrics["grad_norm"] = global_norm(grads.values())
+            buffers, world)
+        if mesh is not None:
+            reduce_gradients(model, mesh, grads)
+        axes = {k: a for k, (a, _) in shard_axes(model).items()}
+        metrics["grad_norm"] = global_norm(grads.values(),
+                                           [axes.get(k) for k in grads])
         optimizer.apply(params, grads, state.opt_state)
         del grads
         state.step += 1
@@ -311,15 +375,19 @@ def make_mm_train_step(model, optimizer: MMOptimizer,
     return step_fn
 
 
-def make_mm_eval_step(model) -> Callable:
+def make_mm_eval_step(model, mesh=None) -> Callable:
     """`eval_step(batch) -> loss` (a device scalar) for eval during
-    training."""
+    training; over a `mesh` of several ranks, batch is this rank's rows
+    and the loss the global one."""
+    world = mesh.axis("world") if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(batch):
-        return model(batch["input_ids"], batch.get("images"),
-                     labels=batch["labels"],
-                     attention_mask=batch["attention_mask"],
-                     train=False).loss
+        with distributed_ops.use_batch_axis(world):
+            out = model(batch["input_ids"], batch.get("images"),
+                        labels=batch["labels"],
+                        attention_mask=batch["attention_mask"], train=False)
+        loss, _ = _objective(out, world)
+        return _reduce_metrics({"loss": loss}, world)["loss"]
 
     return step_fn

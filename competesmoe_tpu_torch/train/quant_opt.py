@@ -18,6 +18,14 @@ is computed in float32:
   here and last in flax, so its moments are quantized along dim 0
   (`quant_axes`), and the codes and scales take that dim last.
 
+A sharded parameter (`parallel/mesh.py`) is quantized in blocks of the
+whole tensor, as JAX quantizes its global array: a shard whose cut does
+not run along the block dim, or cuts it at a multiple of the block, holds
+its own blocks exactly; one that would split a block (its block dim cut
+at a length that is not a multiple of 256) gathers its gradient and keeps
+the moments of the whole tensor, and its direction is its part of the
+whole one (`QuantAdamState.full`).
+
 `QuantAdamState` is the 8-bit variant of the trainers' `AdamState`
 (train/lm_trainer.py): the LM trainer's `-opt.state_8bit` and the
 multimodal trainer's `--opt-state-8bit` hold their moments in it.
@@ -117,22 +125,44 @@ class QuantAdamState:
     nu: Dict[str, Moment]
     block: int = BLOCK
     axes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # {name: mesh axis} of the sharded parameters, and {name: (axis,
+    # dim)} of those whose moments are the whole tensor's (a shard cut
+    # would split a block)
+    shards: Dict[str, object] = dataclasses.field(default_factory=dict)
+    full: Dict[str, Tuple[object, int]] = dataclasses.field(
+        default_factory=dict)
 
     @classmethod
     def init(cls, params: Dict[str, torch.Tensor], block: int = BLOCK,
              min_quant_size: int = MIN_QUANT_SIZE,
-             axes: Dict[str, int] = None) -> "QuantAdamState":
+             axes: Dict[str, int] = None,
+             shards: Dict[str, Tuple[object, int]] = None
+             ) -> "QuantAdamState":
         axes = {k: a for k, a in (axes or {}).items() if k in params}
-        mu, nu = {}, {}
+        shards = {k: v for k, v in (shards or {}).items() if k in params}
+        mu, nu, full = {}, {}, {}
         for k, p in params.items():
-            if quantizable(p, min_quant_size):
-                z = torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device).movedim(axes.get(k, -1), -1)
+            shape = tuple(p.shape)
+            if k in shards:
+                ax, dim = shards[k]
+                shape = shape[:dim] + (shape[dim] * ax.size,) + \
+                    shape[dim + 1:]
+            if quantizable(torch.empty(shape, device="meta",
+                                       dtype=p.dtype), min_quant_size):
+                bdim = axes.get(k, -1) % p.dim()
+                if k in shards and shards[k][1] == bdim and \
+                        p.shape[bdim] % block:
+                    full[k] = shards[k]
+                else:
+                    shape = tuple(p.shape)
+                z = torch.zeros(shape, dtype=torch.float32,
+                                device=p.device).movedim(bdim, -1)
                 mu[k] = quantize_signed(z, block)
                 nu[k] = quantize_sqrt(z, block)
             else:
                 mu[k], nu[k] = torch.zeros_like(p), torch.zeros_like(p)
-        return cls(count=0, mu=mu, nu=nu, block=block, axes=axes)
+        return cls(count=0, mu=mu, nu=nu, block=block, axes=axes,
+                   shards={k: a for k, (a, _) in shards.items()}, full=full)
 
     def direction(self, name: str, g: torch.Tensor, count: int, b1: float,
                   b2: float, eps: float) -> torch.Tensor:
@@ -142,6 +172,10 @@ class QuantAdamState:
         mu_leaf, nu_leaf = self.mu[name], self.nu[name]
         quant = isinstance(mu_leaf, QuantLeaf)
         axis = self.axes.get(name, -1) if quant else -1
+        whole = self.full.get(name)
+        if whole is not None:
+            from ..parallel.collectives import raw_all_gather
+            g = raw_all_gather(g, whole[0], whole[1])
         g32 = g.float().movedim(axis, -1)
         mu = (dequantize_signed(mu_leaf, self.block) if quant
               else mu_leaf.float())
@@ -160,7 +194,12 @@ class QuantAdamState:
         else:
             mu_leaf.copy_(mu)
             nu_leaf.copy_(nu)
-        return out.movedim(-1, axis)
+        out = out.movedim(-1, axis)
+        if whole is not None:
+            ax, dim = whole
+            n = out.shape[dim] // ax.size
+            out = out.narrow(dim, ax.index * n, n)
+        return out
 
     def state_dict(self) -> Dict:
         def flat(tree):

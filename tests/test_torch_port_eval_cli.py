@@ -8,7 +8,7 @@ identical and entropies within 1e-5). Both CLIs load the checkpoint in
 bf16; here both loaders are wrapped to load it in float32, where the two
 packages' roundings agree that far (in bf16 a router's near tie may
 choose another expert for one token). Also: `--mesh` raises naming
-ROADMAP §1 item 1.7; without `--device cpu` and with no card the CLI
+ROADMAP §1 item 1.7b; without `--device cpu` and with no card the CLI
 raises; the `--config` loop (bf16 and --load-8bit), `--task-yaml` and the
 results logger.
 """

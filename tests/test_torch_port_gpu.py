@@ -17,7 +17,8 @@ inside it) and LoRA step; and the eval adapter: its engine route against
 its solo route, batched against unbatched loglikelihood, and K5 launched
 by generate_until under --load-4bit; and the LM options: a MoA layer on
 the card against the CPU (K2 never launched by a MoA LM), and a
-chunked_transformer task's steps on the card.
+chunked_transformer task's steps on the card; and two ranks sharing the
+card over gloo through the expert-parallel dispatch with K1.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -1839,3 +1840,28 @@ def test_chunked_transformer_steps_on_the_card(tmp_path):
     assert any("valid/perplexity" in r for r in recs)
     assert tgmm.gmm2_fused_aligned.launches > before[0]
     assert tfa.flash_attention_fwd.launches > before[1]
+
+
+def test_ep_dispatch_with_k1_on_ranks_sharing_the_card(gen, tmp_path):
+    """Two ranks on the card over gloo (NCCL refuses two ranks on one
+    device): the expert-parallel dispatch with K1 as each shard's local
+    compute (bf16 tokens, d and ES 128) against K1's plain version over
+    all the rows in one process, within K1's tolerance (2^-6 max|plain|);
+    the tokens' gradients too; each rank launches K1 and each backward
+    kernel once."""
+    import torch_parallel_ranks as R
+    ranks = R.spawn(R.ep_k1_scenario, 2, tmp_path)
+    d = R.ep_k1_inputs()
+    x = torch.from_numpy(d["x"]).to(torch.bfloat16).requires_grad_()
+    want = tgmm.fused_grouped_ffn_kv(
+        x, torch.from_numpy(d["sel"]).long(),
+        torch.from_numpy(d["w"]).to(torch.bfloat16),
+        torch.from_numpy(d["keys"]), torch.from_numpy(d["values"]))
+    (want.float() ** 2).sum().backward()
+    want, gx = want.float(), x.grad.float()
+    for rows, out, grad, launches in ranks:
+        assert launches == [1, 1, 1]
+        tol = 2.0 ** -6 * float(want.abs().max())
+        assert float((out - want[rows]).abs().max()) <= tol
+        gtol = 2.0 ** -6 * float(gx.abs().max())
+        assert float((grad - gx[rows]).abs().max()) <= gtol

@@ -138,8 +138,10 @@ def test_moe_ffn_kv_matches_jax(impl):
 
 
 def test_moe_ffn_kv_ep_raises():
+    """impl='ep' without an active expert-parallel mesh raises JAX's
+    ValueError (the dispatch itself: tests/test_torch_port_parallel.py)."""
     x, sel, w, keys, values = map(t, _kv_inputs(D=32, ES=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="expert-parallel mesh"):
         tec.moe_ffn_kv(x, sel, w, keys, values, torch.relu, impl="ep")
 
 
@@ -451,11 +453,17 @@ def test_task_needs_a_card_unless_asked(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             get_task(a.task)(a)
-    for flag in (["-n_expert_shards", "2"], ["-fsdp", "1"]):
+    # -n_expert_shards and -fsdp are ported (tests/test_torch_port_parallel
+    # *.py): one process cannot hold 2 expert shards, as in JAX's mesh;
+    # ring attention is not ported
+    for flag, err, msg in ((["-n_expert_shards", "2"], ValueError,
+                            "not divisible"),
+                           (["-n_seq_shards", "2"], NotImplementedError,
+                            "1.7b")):
         a = build_parser().parse(_TINY_FLAGS + flag + ["-device", "cpu",
                                                        "-run_dir",
                                                        str(tmp_path)])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(err, match=msg):
             get_task(a.task)(a)
     # -restore is ported: a step with no checkpoint names what is missing
     a = build_parser().parse(_TINY_FLAGS + ["-restore", "5", "-device",

@@ -41,6 +41,7 @@ from competesmoe_tpu_torch.data import streaming as tstream
 from competesmoe_tpu_torch.eval import lm_zeroshot as tzs
 from competesmoe_tpu_torch.models import lm as tlm
 from competesmoe_tpu_torch.moe import MoEArgs
+from competesmoe_tpu_torch.parallel import mesh as tmesh
 from competesmoe_tpu_torch.train import lm_task as ttask
 from competesmoe_tpu_torch.train import logger as tlogger
 from competesmoe_tpu_torch.train import plots as tplots
@@ -383,10 +384,13 @@ def test_expert_usage_telemetry_matches_jax(tmp_path, tiny_models):
             (ttask, tm, tlogger, torch.from_numpy(batch))):
         logger = logger_mod.MetricLogger(tmp_path / pkg.__name__,
                                          use_tensorboard=False)
+        # the port's task sums the histograms over its ranks' rows (one
+        # rank here)
         stub = SimpleNamespace(model=model, logger=logger,
                                cfg=SimpleNamespace(n_experts=4),
                                state=SimpleNamespace(params=params["params"],
-                                                     step=3))
+                                                     step=3),
+                               mesh=tmesh.make_mesh(), is_master=True)
         with torch.no_grad():
             pkg.SyntheticTransformerTask._log_expert_usage(stub, arr)
         logger.close()

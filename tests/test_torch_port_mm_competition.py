@@ -195,7 +195,7 @@ def test_competition_all_experts_matches_jax(dtype):
     np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32),
                                rtol=1e-2 if dtype == "bfloat16" else 1e-5,
                                atol=1e-2 if dtype == "bfloat16" else 1e-5)
-    with pytest.raises(NotImplementedError, match="1.7"):
+    with pytest.raises(ValueError, match="expert-parallel mesh"):
         tec.competition_all_experts_mlp2(t(x), t(w1), t(b1), t(w2), t(b2),
                                          quick_gelu, K, impl="ep")
 

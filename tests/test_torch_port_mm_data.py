@@ -268,7 +268,9 @@ def test_train_mm_cli_trains_and_resumes_on_cpu(ckpt_dir, tok, cli_data_dir,
 def test_train_mm_cli_refusals(ckpt_dir, tok, cli_data_dir, tmp_path):
     data_dir = cli_data_dir
     from competesmoe_tpu_torch.cli.train_mm import main
-    with pytest.raises(NotImplementedError, match="1.7"):
+    # --n-expert is ported (tests/test_torch_port_parallel_train.py): one
+    # process cannot hold 2 expert shards, as JAX's mesh refuses it
+    with pytest.raises(ValueError, match="not divisible"):
         main(_argv(ckpt_dir, tok, data_dir, tmp_path, "--n-expert", "2"))
     # --moe-name is parsed and chooses nothing, as in JAX: the router is
     # the checkpoint's (competesmoe), so the losses are those of a run

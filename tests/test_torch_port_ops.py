@@ -140,8 +140,9 @@ def test_moe_layer_router_branch(name, act, return_ids):
 
 def test_competesmoe_training_schedule_raises():
     """The competition step is ported (tests/test_torch_port_mm_competition
-    .py); its expert-parallel layout is not and raises with its ROADMAP
-    item."""
+    .py); its expert-parallel layout needs an active mesh
+    (tests/test_torch_port_parallel.py), and impl='ep' without one raises
+    JAX's ValueError."""
     from competesmoe_tpu_torch.moe import get_moe
     layer = get_moe("competesmoe")(8, 8, device="cpu",
                                    flip_schedule=np.ones(4, bool))
@@ -149,7 +150,7 @@ def test_competesmoe_training_schedule_raises():
     _, aux = layer(torch.zeros(1, 2, 8), step=1, train=True)
     assert float(aux.losses["is_comp"]) == 1.0
     layer.impl = "ep"
-    with pytest.raises(NotImplementedError, match="ROADMAP open item 1.7"):
+    with pytest.raises(ValueError, match="expert-parallel mesh"):
         layer(torch.zeros(1, 2, 8), step=1, train=True)
 
 

@@ -536,7 +536,7 @@ def test_engine_sampling_and_cancellation(tiny_engine_model):
 
 
 def test_unported_engine_options_raise(tiny_engine_model):
-    """Tensor- and expert-parallel engines wait for ROADMAP §1 item 1.7:
+    """Tensor- and expert-parallel engines wait for ROADMAP §1 item 1.7b:
     the engine refuses a mesh and the worker --mesh and --ep-shards."""
     _, _, model = tiny_engine_model
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1.7"):
