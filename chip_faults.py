@@ -137,7 +137,14 @@ and theta 0 in smoe_perturbed. The script
        each slot's output one rank late, the expert banks' gradients not
        summed over 'data', Mixtral's balance averaged per rank, and an
        8-bit block split at a shard boundary; honest first. `--only
-       parallel` runs this part alone.
+       parallel` runs this part alone;
+     - sharded faults (SHARDED_FAULTS, planted in every rank, against the
+       runs of chip_smoke's phase_sharded each is meant to fail; its
+       honest run is chip_smoke.py's own): the expert-parallel combine
+       one rank late against the --ep-shards 2 runs, and a ring that
+       folds only its own K/V block, or lets each query see the next
+       block, against the 154M run with -n_seq_shards 2. `--only
+       sharded` runs this part alone.
 
 It prints one line per fault and check and a `faults` JSON line, and
 exits non-zero if an honest run fails its check or a fault passes any
@@ -1168,11 +1175,62 @@ PARALLEL_FAULTS = {
 }
 
 
+def _ring_local_block_only():
+    from competesmoe_tpu_torch.parallel import ring_attention
+    return _edited(ring_attention, "make_ring_attention",
+                   "m, l, o = _fold(qs, kb, vb, m, l, o, ok)",
+                   "m, l, o = (_fold(qs, kb, vb, m, l, o, ok) if s == 0 "
+                   "else (m, l, o))")
+
+
+def _ring_sees_next_block():
+    from competesmoe_tpu_torch.parallel import ring_attention
+    return _edited(ring_attention, "make_ring_attention",
+                   "ok = (kpos[None, :] <= qpos[:, None])[None, None]",
+                   "ok = (kpos[None, :] <= qpos[:, None] + Tl)[None, None]")
+
+
+# Python faults of the sharded paths, planted in every rank as
+# PARALLEL_FAULTS are: name -> (plant, the phase_sharded runs that must
+# fail)
+SHARDED_FAULTS = {
+    "combine_off_by_one": (_combine_off_by_one, ("ep_tower", "ep_mixtral")),
+    "ring_local_block_only": (_ring_local_block_only, ("seq_154m",)),
+    "ring_sees_next_block": (_ring_sees_next_block, ("seq_154m",)),
+}
+
+
 def apply_parallel_plant(name: str) -> None:
-    """Plant PARALLEL_FAULTS[name] in this process (a rank of
-    chip_smoke.spawn_ranks)."""
-    obj, attr, planted = PARALLEL_FAULTS[name]()
+    """Plant PARALLEL_FAULTS[name] or SHARDED_FAULTS[name] in this
+    process (a rank of chip_smoke.spawn_ranks)."""
+    plant = (PARALLEL_FAULTS[name] if name in PARALLEL_FAULTS
+             else SHARDED_FAULTS[name][0])
+    obj, attr, planted = plant()
     setattr(obj, attr, planted)
+
+
+def sharded_faults(report, failures, card: str):
+    """Every SHARDED_FAULTS plant against the phase_sharded runs it must
+    fail, each run on its own (`keys`), so a failure names its run."""
+    import os
+    for name, (_, keys) in SHARDED_FAULTS.items():
+        report["faults"][name] = dict(failed={})
+        for key in keys:
+            os.environ["CHIP_SMOKE_PLANT"] = name
+            try:
+                r, _ = cs.phase_sharded(card, 0, keys=(key,))
+                ok, msg = True, f"passes ({json.dumps(r[key])[:200]})"
+            except Exception as e:  # noqa: BLE001 - any failure is the catch
+                ok, msg = False, f"{type(e).__name__}: {str(e)[-300:]}"
+            finally:
+                os.environ.pop("CHIP_SMOKE_PLANT", None)
+                cs.free_card()
+            report["faults"][name]["failed"][key] = not ok
+            report["faults"][name][key] = msg
+            cs.log(f"{name}: sharded {key} -> {_verdict(ok)} ({msg})")
+            if ok:
+                failures.append(f"fault {name} passed the sharded {key} "
+                                f"run")
 
 
 def parallel_ok(fault=None):
@@ -1451,6 +1509,10 @@ def main():
         _kernels.build(["gmm2_fused", "gmm2_bwd", "flash_attn"])
         parallel_faults(report, failures)
         return _finish(report, failures, t0)
+    if sys.argv[1:] == ["--only", "sharded"]:
+        _kernels.build()
+        sharded_faults(report, failures, card)
+        return _finish(report, failures, t0)
     _kernels.build()
     tmp = Path(tempfile.mkdtemp(prefix="chip_faults_"))
     try:
@@ -1655,6 +1717,7 @@ def main():
         router_faults(report, failures)
         lm_rest_faults(report, failures)
         parallel_faults(report, failures)
+        sharded_faults(report, failures, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return _finish(report, failures, t0)

@@ -7,6 +7,12 @@
 
 Runs on `cuda` unless `--device cpu` is given. `run(args, model=...,
 tokenizer=...)` is the same loop over a model already loaded.
+
+`--mesh DxM` shards the decoder tensor-parallel over D x M ranks (one
+process a rank: `python -m torch.distributed.run --nproc-per-node N -m
+competesmoe_tpu_torch.cli.eval_mm --mesh 1xN ...`): rank 0 scores every
+document and writes the results, the other ranks make its model calls in
+lockstep (`eval.llava_adapter.TorchLlava(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--load-4bit", action="store_true")
     ap.add_argument("--kv-quant", default="", choices=["", "int8"])
     ap.add_argument("--mesh", default="",
-                    help="DxM tensor-parallel mesh: not ported yet "
-                         "(ROADMAP §1 item 1.7b)")
+                    help="DxM tensor-parallel mesh (e.g. 1x2): shard the "
+                         "decoder over M ranks for eval of models larger "
+                         "than one card (serve.model_worker shares the "
+                         "same path); rank 0 scores the documents")
     ap.add_argument("--speculative", type=int, default=0,
                     help="prompt-lookup speculative decoding for "
                          "batch-1 generation tasks: verify K drafted "
@@ -116,6 +124,11 @@ def run(a: argparse.Namespace, *, model=None, tokenizer=None):
     from ..models.builder import load_pretrained_model
     from ..multimodal.mm_utils import ImageProcessorConfig
 
+    if getattr(a, "mesh", ""):
+        # the ranks are the mesh's: rank 0 scores every document
+        from ..serve.model_worker import start_ranks
+        start_ranks(a)
+        a.rank, a.world_size = 0, 1
     if a.rank is None or a.world_size is None:
         from ..parallel.distributed import detect_env
         denv = detect_env()
@@ -138,9 +151,6 @@ def run(a: argparse.Namespace, *, model=None, tokenizer=None):
     for overrides in run_cfgs:
         run = argparse.Namespace(**{**vars(a), **{
             k.replace("-", "_"): v for k, v in (overrides or {}).items()}})
-        if getattr(run, "mesh", ""):
-            raise NotImplementedError(
-                "--mesh: not ported (ROADMAP §1 item 1.7b: parallelism)")
         if not run.tasks or (model is None and not run.model_dir):
             raise SystemExit("--model-dir and --tasks are required "
                              "(via flags or --config entries)")
@@ -159,6 +169,10 @@ def run(a: argparse.Namespace, *, model=None, tokenizer=None):
             from transformers import AutoTokenizer
             tok = AutoTokenizer.from_pretrained(
                 run.tokenizer or run.model_dir, local_files_only=True)
+        mesh = None
+        if getattr(run, "mesh", ""):
+            from ..serve.model_worker import shard_llava_params
+            lmodel, mesh = shard_llava_params(lmodel, run.mesh)
         lm = harness.TorchLlava(lmodel, tok, image_processor,
                                 conv_template=run.conv_template,
                                 batch_size=run.batch_size,
@@ -168,7 +182,11 @@ def run(a: argparse.Namespace, *, model=None, tokenizer=None):
                                 engine_max_len=getattr(run,
                                                        "engine_max_len", 0),
                                 engine_pipeline=getattr(
-                                    run, "engine_pipeline", 1))
+                                    run, "engine_pipeline", 1),
+                                mesh=mesh)
+        if mesh is not None and mesh.rank != 0:
+            lm.follow()
+            continue
         try:
             results = harness.simple_evaluate(
                 lm, run.tasks.split(","), limit=run.limit, rank=run.rank,

@@ -68,7 +68,7 @@ class TorchLlava:
                  stop_token_ids: Optional[List[int]] = None,
                  speculative: int = 0,
                  engine_slots: int = 0, engine_max_len: int = 0,
-                 engine_pipeline: int = 1):
+                 engine_pipeline: int = 1, mesh=None):
         self.model = model
         self.tokenizer = tokenizer
         self.image_processor = image_processor or ImageProcessorConfig(
@@ -92,6 +92,29 @@ class TorchLlava:
         self.engine_pipeline = engine_pipeline
         self._engine = None
         self.time_inference: List[float] = []
+        # a sharded model (`cli/eval_mm --mesh`): rank 0 scores the
+        # documents and every model call runs on each rank in lockstep
+        # (`parallel/lockstep.py`); the others wait in follow()
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._calls = {"generate": self._generate_rows,
+                       "score": self._score_rows,
+                       "engine": self._start_engine}
+        self._lockstep = None
+        self._graphs = True
+        if self.mesh is not None:
+            from ..parallel.lockstep import Lockstep
+            from ..serve.model_worker import graphs_for
+            self._graphs = graphs_for(self.mesh, model.device)
+            self._lockstep = Lockstep(self._calls)
+
+    def _run(self, name: str, *args, **kw):
+        if self._lockstep is not None:
+            return self._lockstep.call(name, *args, **kw)
+        return self._calls[name](*args, **kw)
+
+    def follow(self) -> None:
+        """A follower rank: make rank 0's model calls until its close()."""
+        self._lockstep.follow()
 
     # -- prompt building --
 
@@ -139,24 +162,40 @@ class TorchLlava:
 
     # -- request types --
 
+    def _start_engine(self):
+        """The DecodeEngine of generate_until (a follower rank runs its
+        ticks until rank 0's engine stops)."""
+        from ..serve.engine import DecodeEngine
+        max_len = (self.engine_max_len
+                   or self.model.cfg.tokenizer_model_max_length
+                   or 2048)
+        self._engine = DecodeEngine(
+            self.model, n_slots=self.engine_slots, max_len=max_len,
+            spec_k=self.speculative,
+            pipeline_depth=(1 if self.speculative
+                            else self.engine_pipeline),
+            mesh=self.mesh, cuda_graphs=self._graphs)
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._engine.follow()
+            self._engine = None
+
     def _get_engine(self):
         if self._engine is None:
-            from ..serve.engine import DecodeEngine
-            max_len = (self.engine_max_len
-                       or self.model.cfg.tokenizer_model_max_length
-                       or 2048)
-            self._engine = DecodeEngine(
-                self.model, n_slots=self.engine_slots, max_len=max_len,
-                spec_k=self.speculative,
-                pipeline_depth=(1 if self.speculative
-                                else self.engine_pipeline))
+            self._run("engine")
         return self._engine
 
-    def close(self) -> None:
-        """Stop the engine's thread, if generate_until started one."""
+    def _stop_engine(self) -> None:
         if self._engine is not None:
             self._engine.shutdown()
             self._engine = None
+
+    def close(self) -> None:
+        """Stop the engine's thread, if generate_until started one, and
+        release the follower ranks."""
+        self._stop_engine()
+        if self._lockstep is not None and self._lockstep.lead:
+            self._lockstep.stop()
+            self._lockstep = None
 
     def _generate_until_engine(self,
                                requests: List[Instance]) -> List[str]:
@@ -191,6 +230,9 @@ class TorchLlava:
             ordered = list(pool.map(run_one, requests))
         if engine.error is not None:
             raise RuntimeError("eval engine died") from engine.error
+        if self.mesh is not None:
+            # its ticks' broadcasts would interleave with the next call's
+            self._stop_engine()
         self.time_inference.append(time.perf_counter() - t0)
         for inst, resp in zip(requests, ordered):
             inst.resps.append(resp)
@@ -229,15 +271,11 @@ class TorchLlava:
                               px_rows.dtype)
                 px[rows] = px_rows
             t0 = time.perf_counter()
-            toks, out = generate(
-                self.model, ids, px, attention_mask=mask,
-                max_new_tokens=gen_kwargs.get("max_new_tokens",
-                                              self.max_new_tokens),
-                temperature=gen_kwargs.get("temperature", 0.0),
-                top_p=gen_kwargs.get("top_p", 1.0),
-                eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
-                stop_token_ids=self.stop_token_ids,
-                speculative=self.speculative)
+            toks, out = self._run(
+                "generate", ids, px, np.asarray(mask),
+                gen_kwargs.get("max_new_tokens", self.max_new_tokens),
+                gen_kwargs.get("temperature", 0.0),
+                gen_kwargs.get("top_p", 1.0))
             self.time_inference.append(time.perf_counter() - t0)
             for b, row in enumerate(toks):
                 results.append(self._text(row))
@@ -257,8 +295,21 @@ class TorchLlava:
     # reference's pad_quantum trick, lm_eval_mixin.py:82-95)
     pad_quantum: int = 64
 
-    @torch.no_grad()
+    def _generate_rows(self, ids, px, mask, max_new_tokens, temperature,
+                       top_p):
+        return generate(
+            self.model, ids, px, attention_mask=mask,
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_p=top_p,
+            eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
+            stop_token_ids=self.stop_token_ids,
+            speculative=self.speculative, cuda_graphs=self._graphs)
+
     def _score(self, ids, attn, px, tgt_tok, tgt_mask):
+        return self._run("score", ids, attn, px, tgt_tok, tgt_mask)
+
+    @torch.no_grad()
+    def _score_rows(self, ids, attn, px, tgt_tok, tgt_mask):
         """(total log-probability of the masked targets, whether each is
         the greedy choice) per row; log_softmax in float32."""
         dev = self.model.device

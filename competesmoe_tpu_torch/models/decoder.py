@@ -1,10 +1,9 @@
 """HF-style causal decoder (Phi-3.5 / llama family) in PyTorch (port of
 competesmoe_tpu/models/decoder.py).
 
-Covers every option of JAX's `DecoderConfig` but the sequence-parallel
-ring path: RMSNorm with an exact 1/sqrt or MPT's bias-free LayerNorm
-(either may be folded into the next projection, `fold_norm_scales`),
-plain and Phi-3 longrope rotary tables
+Covers every option of JAX's `DecoderConfig`: RMSNorm with an exact
+1/sqrt or MPT's bias-free LayerNorm (either may be folded into the next
+projection, `fold_norm_scales`), plain and Phi-3 longrope rotary tables
 or ALiBi, MHA/GQA with fused (`qkv_proj`/`gate_up_proj`) or split
 projections, the SiLU-gated or MPT's GELU MLP or a MoE FFN from the
 multimodal registry (`moe_name`, Mixtral's `mixtral` block among them,
@@ -24,6 +23,22 @@ the first slots of the cache, as JAX's does. The KV cache is updated in
 place (the JAX version returns a new buffer; here the in-place write
 saves a copy of the cache per step), and so, on request, are its
 positions (a captured step's state must stay where it is).
+
+Sequence parallelism (an active `parallel.seq_context` mesh, training
+without a cache): each rank holds its block of the spliced sequence and
+its positions and validity. Where JAX takes the masked ring (no sliding
+window, no ALiBi, as many KV heads as query heads) the attention runs
+`parallel.ring_attention.make_ring_attention_masked` and no dense mask
+is built; otherwise it gathers the sequence's K/V, positions and validity
+over 'seq' and attends its own query rows.
+
+Tensor parallelism (`parallel/tensor_parallel.py` places the weights):
+an attention whose heads are sharded holds `n_heads` / `n_kv_heads` of
+them and sums its output over `tp_axis` before `o_proj`'s bias (`MLP`
+the same after `down_proj`); a column-parallel lm_head's logits are
+gathered; a cache from `DecoderLM.new_cache` holds the KV heads the
+attention holds. A cache made with `rows` (the mesh's 'data' axis) holds this rank's block of the slots: a forward over it runs
+those rows of its inputs and gathers every rank's logits.
 """
 
 from __future__ import annotations
@@ -260,6 +275,9 @@ class KVCache:
     pos: torch.Tensor
     k_scale: object = None
     v_scale: object = None
+    # tensor-parallel serving's 'data' axis (`parallel.mesh.Axis`): the
+    # cache holds this rank's block of the batch's rows
+    rows: object = None
 
     @property
     def per_layer(self) -> bool:
@@ -278,10 +296,30 @@ class KVCache:
         return [b for b in (self.k, self.v, self.k_scale, self.v_scale)
                 if b is not None]
 
+    def local(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The rows of a whole batch's `t` [B, ...] this cache holds."""
+        if self.rows is None or t is None:
+            return t
+        n = t.shape[0] // self.rows.size
+        return t[self.rows.index * n:(self.rows.index + 1) * n]
+
     @classmethod
     def create(cls, cfg: DecoderConfig, batch: int, max_len: int,
-               device=None) -> "KVCache":
-        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+               device=None, rows=None,
+               kv_heads: Optional[int] = None) -> "KVCache":
+        """`rows`: an axis whose ranks split the batch's rows (this rank
+        holds its block), as JAX's `kv_cache_sharding` puts the slots on
+        'data'; `kv_heads`: the KV heads a slot holds (the config's by
+        default; `DecoderLM.new_cache` gives a tensor-parallel rank's)."""
+        if rows is not None and rows.size > 1:
+            if batch % rows.size:
+                raise ValueError(f"{batch} cache rows do not divide over the "
+                                 f"{rows.size} ranks of '{rows.name}'")
+            batch //= rows.size
+        else:
+            rows = None
+        shape = (batch, max_len, kv_heads or cfg.num_key_value_heads,
+                 cfg.head_dim)
         L = cfg.num_hidden_layers
 
         def buf(shp, dtype):
@@ -294,8 +332,9 @@ class KVCache:
         if cfg.kv_quant == "int8":
             return cls(k=buf(shape, torch.int8), v=buf(shape, torch.int8),
                        pos=pos, k_scale=buf(shape[:-1], cfg.dtype),
-                       v_scale=buf(shape[:-1], cfg.dtype))
-        return cls(k=buf(shape, cfg.dtype), v=buf(shape, cfg.dtype), pos=pos)
+                       v_scale=buf(shape[:-1], cfg.dtype), rows=rows)
+        return cls(k=buf(shape, cfg.dtype), v=buf(shape, cfg.dtype), pos=pos,
+                   rows=rows)
 
 
 def layer_parts(buf) -> List[torch.Tensor]:
@@ -474,19 +513,32 @@ class DecoderAttention(nn.Module):
             self.k_proj = _make_dense(cfg, d, kvd, b, device)
             self.v_proj = _make_dense(cfg, d, kvd, b, device)
         self.o_proj = _make_dense(cfg, d, d, b, device)
+        # tensor parallel (`parallel.tensor_parallel`): the heads held, the
+        # first one's index, the axis the output sums over, and o_proj's
+        # bias, added after the sum
+        self.n_heads, self.n_kv_heads = (cfg.num_attention_heads,
+                                         cfg.num_key_value_heads)
+        self.head_offset = 0
+        self.tp_axis = None
+        self.out_bias = None
 
     def _proj(self, x):
         cfg = self.cfg
         if cfg.fused_qkv:
-            kvd = cfg.num_key_value_heads * cfg.head_dim
-            return self.qkv_proj(x).split(
-                [cfg.hidden_size, kvd, kvd], dim=-1)
+            qd = self.n_heads * cfg.head_dim
+            kvd = self.n_kv_heads * cfg.head_dim
+            return self.qkv_proj(x).split([qd, kvd, kvd], dim=-1)
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+
+    def _out(self, out):
+        """o_proj, summed over the tensor-parallel axis before its bias."""
+        y = self.o_proj(out)
+        return _tp_sum(y, self.tp_axis, self.out_bias)
 
     def forward(self, x, cos, sin, mask=None,
                 cache: Optional[KVCache] = None, cache_idx=None,
                 layer_idx: int = 0, attn_window: Optional[int] = None,
-                pending: Optional[list] = None):
+                pending: Optional[list] = None, seq=None):
         """mask: [B, Tq, Tk] bool (True = attend). With a cache, this
         layer writes its K/V at `cache_idx` [B, T] (pad tokens point at
         the dump slot max_len-1) and attends over its cache slice, cut to
@@ -498,17 +550,30 @@ class DecoderAttention(nn.Module):
         axis, and appends what to write to `pending` (int8 KV: the self
         term is quantized and dequantized, as the cache would hold it).
         With ALiBi, `cos` carries the query positions [B, T, 1]. Decode
-        attention is plain matmul + softmax, as JAX leaves it to XLA."""
+        attention is plain matmul + softmax, as JAX leaves it to XLA.
+        `seq` (sequence parallel, no cache): ('ring', mesh, qpos, kvalid)
+        for the masked ring, or ('gather', axis) to attend over the
+        sequence's gathered K/V with `mask` [B, T, S]."""
         cfg = self.cfg
         B, T, _ = x.shape
-        h, hk, p = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                    cfg.head_dim)
+        h, hk, p = self.n_heads, self.n_kv_heads, cfg.head_dim
         q, k, v = self._proj(x)
         q = q.reshape(B, T, h, p)
         k = k.reshape(B, T, hk, p)
         v = v.reshape(B, T, hk, p)
         if not cfg.use_alibi:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if seq is not None and seq[0] == "ring":
+            from ..parallel.ring_attention import make_ring_attention_masked
+            from ..parallel.seq_context import seq_axis
+            _, mesh, qpos, kvalid = seq
+            out = make_ring_attention_masked(mesh, seq_axis())(
+                q, k, v, qpos, qpos, kvalid)
+            return self._out(out.reshape(B, T, h * p))
+        if seq is not None:
+            from ..parallel import collectives as C
+            k = C.all_gather(k.contiguous(), seq[1], 1)
+            v = C.all_gather(v.contiguous(), seq[1], 1)
 
         k_scale = v_scale = self_kv = None
         if cache is not None:
@@ -545,13 +610,28 @@ class DecoderAttention(nn.Module):
                     k_scale = _window(k_scale, attn_window)
                     v_scale = _window(v_scale, attn_window)
 
-        alibi = ((cos[:, :, 0], _alibi_slopes(h, hk, x.device))
-                 if cfg.use_alibi else None)
+        alibi = None
+        if cfg.use_alibi:
+            slopes = _alibi_slopes(cfg.num_attention_heads,
+                                   cfg.num_key_value_heads, x.device)
+            kv0 = self.head_offset // (h // hk)
+            alibi = (cos[:, :, 0], slopes[kv0:kv0 + hk])
         # GQA: group the query heads per KV head instead of repeating K/V
         q = q.reshape(B, T, hk, h // hk, p)
         out = _attend(q, k, v, k_scale, v_scale, mask, x.dtype,
                       self_kv=self_kv, alibi=alibi)
-        return self.o_proj(out.reshape(B, T, h * p))
+        return self._out(out.reshape(B, T, h * p))
+
+
+def _tp_sum(y: torch.Tensor, axis, bias) -> torch.Tensor:
+    """A row-parallel projection's output: the sum over `axis` (none for
+    a replicated one), then the bias."""
+    if axis is not None:
+        from ..parallel import collectives as C
+        y = C.all_reduce(y, axis)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
 
 
 def _window(t: torch.Tensor, attn_window: int) -> torch.Tensor:
@@ -669,15 +749,21 @@ class DecoderMLP(nn.Module):
             self.gate_proj = _make_dense(cfg, d, i, device=device)
             self.up_proj = _make_dense(cfg, d, i, device=device)
         self.down_proj = _make_dense(cfg, i, d, device=device)
+        # tensor parallel: the axis down_proj's output sums over, and its
+        # bias (`parallel.tensor_parallel`)
+        self.tp_axis = None
+        self.out_bias = None
 
     def forward(self, x):
         if self.cfg.mlp_type == "gelu":
-            return self.down_proj(F.gelu(self.up_proj(x)))
-        if self.cfg.fused_qkv:
-            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+            h = F.gelu(self.up_proj(x))
         else:
-            gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+            if self.cfg.fused_qkv:
+                gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+            else:
+                gate, up = self.gate_proj(x), self.up_proj(x)
+            h = F.silu(gate) * up
+        return _tp_sum(self.down_proj(h), self.tp_axis, self.out_bias)
 
 
 class DecoderLayer(nn.Module):
@@ -707,13 +793,13 @@ class DecoderLayer(nn.Module):
     def forward(self, x, cos, sin, mask=None, cache=None, cache_idx=None,
                 layer_idx: int = 0, attn_window: Optional[int] = None,
                 pending: Optional[list] = None, step=None,
-                train: bool = False):
+                train: bool = False, seq=None):
         """Returns (x, the FFN's MoEAux); `step` and `train` reach a MoE
         FFN (its aux losses are computed in training only)."""
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask=mask,
                                cache=cache, cache_idx=cache_idx,
                                layer_idx=layer_idx, attn_window=attn_window,
-                               pending=pending)
+                               pending=pending, seq=seq)
         h = self.post_attention_layernorm(x)
         if self.cfg.moe_name is not None:
             out, aux = self.moe(h, step=step, train=train)
@@ -755,6 +841,8 @@ class DecoderLM(nn.Module):
         # the final norm folds into the lm_head; tied embeddings are also
         # the input table, so they cannot absorb it
         self.norm = make_norm(cfg, not cfg.tie_word_embeddings, device)
+        # tensor parallel: the axis of a column-parallel lm_head
+        self.head_axis = None
         if not cfg.tie_word_embeddings:
             if cfg.quant:
                 # int4 keeps the lm_head at int8, as in JAX (vocab widths
@@ -769,12 +857,26 @@ class DecoderLM(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens(input_ids).to(self.cfg.dtype)
 
+    def new_cache(self, batch: int, max_len: int, device=None,
+                  rows=None) -> KVCache:
+        """A KV cache for this decoder: a slot holds the KV heads its
+        attention holds (a tensor-parallel rank's share where the heads
+        shard)."""
+        return KVCache.create(self.cfg, batch, max_len, device, rows=rows,
+                              kv_heads=self.layers[0].self_attn.n_kv_heads)
+
     def forward(self, input_ids=None, *, inputs_embeds=None,
                 attention_mask=None, position_ids=None,
                 cache: Optional[KVCache] = None,
                 attn_window: Optional[int] = None,
                 pos_in_place: bool = False, step=None, train: bool = False):
         cfg = self.cfg
+        if cache is not None and cache.rows is not None:
+            # the cache holds this rank's block of the rows: run those,
+            # gather every rank's logits at the end
+            input_ids, inputs_embeds, attention_mask, position_ids = (
+                cache.local(t) for t in (input_ids, inputs_embeds,
+                                         attention_mask, position_ids))
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
         x = inputs_embeds
@@ -783,6 +885,8 @@ class DecoderLM(nn.Module):
         sw = cfg.sliding_window
 
         cache_idx = None
+        seq = None
+        n_seq = 1
         deferred = (cfg.deferred_decode and cache is not None and T == 1
                     and not cache.per_layer)
         if cache is not None:
@@ -813,15 +917,42 @@ class DecoderLM(nn.Module):
             if deferred:
                 mask = torch.cat([mask, valid[:, :, None].bool()], dim=-1)
         else:
+            from ..parallel import seq_context
+            sp = seq_context.active()
+            n_seq = 1 if sp is None else sp[1].size
             if position_ids is None:
-                position_ids = torch.arange(T, device=dev)[None].expand(B, T)
-            qpos = position_ids[:, :, None]
-            kpos = position_ids[:, None, :]
-            mask = kpos <= qpos
-            if sw:
-                mask = mask & (kpos > qpos - sw)
-            if attention_mask is not None:
-                mask = mask & attention_mask[:, None, :].bool()
+                first = 0 if sp is None else sp[1].index * T
+                position_ids = (first + torch.arange(T, device=dev))[
+                    None].expand(B, T)
+            valid = (attention_mask.bool() if attention_mask is not None
+                     else None)
+            kpos, kvalid = position_ids, valid
+            if (sp is not None and not sw and not cfg.use_alibi
+                    and cfg.num_attention_heads == cfg.num_key_value_heads):
+                # JAX's masked ring: no dense mask; positions and validity
+                # travel round the ring with their K/V
+                seq = ("ring", sp[0], position_ids,
+                       valid if valid is not None
+                       else torch.ones((B, T), dtype=torch.bool, device=dev))
+                mask = None
+            else:
+                if sp is not None:
+                    # this rank's query rows over the whole sequence
+                    from ..parallel import collectives as C
+                    kpos = C.raw_all_gather(position_ids.contiguous(),
+                                            sp[1], 1)
+                    if valid is not None:
+                        kvalid = C.raw_all_gather(
+                            valid.to(torch.uint8).contiguous(), sp[1],
+                            1).bool()
+                    seq = ("gather", sp[1])
+                qpos = position_ids[:, :, None]
+                kp = kpos[:, None, :]
+                mask = kp <= qpos
+                if sw:
+                    mask = mask & (kp > qpos - sw)
+                if kvalid is not None:
+                    mask = mask & kvalid[:, None, :]
         if cfg.use_alibi:
             # no rotary tables: the positions ride to the attention's
             # distance term in `cos`
@@ -829,7 +960,8 @@ class DecoderLM(nn.Module):
             sin = torch.zeros_like(cos)
         else:
             cos, sin = rope_tables(
-                cfg, position_ids, cache.max_len if cache is not None else T)
+                cfg, position_ids,
+                cache.max_len if cache is not None else T * n_seq)
 
         total_aux = torch.zeros((), dtype=torch.float32, device=dev)
         auxes: List[MoEAux] = []
@@ -841,10 +973,10 @@ class DecoderLM(nn.Module):
                 # in backward, only the layer's input stays
                 x, aux = torch.utils.checkpoint.checkpoint(
                     layer, x, cos, sin, mask, None, None, li, attn_window,
-                    None, step, train, use_reentrant=False)
+                    None, step, train, seq, use_reentrant=False)
             else:
                 x, aux = layer(x, cos, sin, mask, cache, cache_idx, li,
-                               attn_window, pending, step, train)
+                               attn_window, pending, step, train, seq)
             total_aux = total_aux + aux.aux_loss
             auxes.append(aux)
         if pending:
@@ -863,6 +995,13 @@ class DecoderLM(nn.Module):
                     else self.lm_head.weight)
             logits = _mm_f32(x.reshape(-1, x.shape[-1]), head.t()).reshape(
                 *x.shape[:-1], -1)
+            if self.head_axis is not None:
+                # a column-parallel lm_head: every rank's vocabulary block
+                from ..parallel import collectives as C
+                logits = C.all_gather(logits, self.head_axis, dim=-1)
+        if cache is not None and cache.rows is not None:
+            from ..parallel import collectives as C
+            logits = C.all_gather(logits, cache.rows, dim=0)
 
         new_cache = None
         if cache is not None:

@@ -24,6 +24,7 @@ import torch.nn as nn
 
 from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from ..device import resolve_device
+from ..parallel import seq_context
 from ..utils.cuda_graph import capture, copy_from_host
 from .decoder import DecoderConfig, DecoderLM, KVCache
 from .projector import ProjectorConfig, VisionProjector
@@ -201,10 +202,20 @@ class LlavaModel(nn.Module):
         token-mean cross-entropy of the shifted, masked labels (image
         positions and padding ignored) + aux_clip + the projector's
         aux_loss + aux_llm. `pos_in_place`: with a cache, advance its pos
-        in place (see DecoderLM.forward)."""
+        in place (see DecoderLM.forward). Under a sequence-parallel mesh
+        (training, no cache) the decoder runs this rank's block of the
+        spliced sequence, the labels shifted before the split; `ce` and
+        `n_tokens` are then the block's (the global loss is the ranks'
+        sum of ce x n_tokens over the global count)."""
         lm = self.language_model
         zero = torch.zeros((), dtype=torch.float32, device=input_ids.device)
         if pixel_values is None:
+            seq_mesh = seq_context.current_seq_mesh() if cache is None else None
+            if seq_mesh is not None:
+                from ..parallel.mesh import seq_block
+                input_ids = seq_block(input_ids, seq_mesh)
+                if attention_mask is not None:
+                    attention_mask = seq_block(attention_mask, seq_mesh)
             logits, new_cache, _ = lm(torch.clamp(input_ids, min=0),
                                       attention_mask=attention_mask,
                                       cache=cache, pos_in_place=pos_in_place,
@@ -228,6 +239,23 @@ class LlavaModel(nn.Module):
         if maxlen is not None and embeds.shape[1] > maxlen:
             embeds, sp_labels = embeds[:, :maxlen], sp_labels[:, :maxlen]
             sp_mask, sp_pos = sp_mask[:, :maxlen], sp_pos[:, :maxlen]
+        shift_labels = None
+        if labels is not None:
+            # shifted over the whole sequence, before any split: the last
+            # position of a rank's block takes the next block's first label
+            shift_labels = torch.where(
+                sp_mask[:, 1:], sp_labels[:, 1:],
+                torch.full_like(sp_labels[:, 1:], IGNORE_INDEX))
+        seq_mesh = seq_context.current_seq_mesh() if cache is None else None
+        if seq_mesh is not None:
+            # sequence parallel: this rank's block of the spliced sequence
+            from ..parallel.mesh import seq_block
+            if shift_labels is not None:
+                shift_labels = torch.cat([shift_labels, torch.full_like(
+                    shift_labels[:, :1], IGNORE_INDEX)], dim=1)
+            embeds, sp_mask, sp_pos, shift_labels = (
+                seq_block(t, seq_mesh) if t is not None else None
+                for t in (embeds, sp_mask, sp_pos, shift_labels))
         logits, new_cache, d_aux = lm(
             inputs_embeds=embeds, attention_mask=sp_mask,
             position_ids=sp_pos if cache is None else None, cache=cache,
@@ -242,11 +270,13 @@ class LlavaModel(nn.Module):
         loss = ce = n_tok = None
         if labels is not None:
             from .lm import lm_loss_fn
-            shift_labels = torch.where(
-                sp_mask[:, 1:], sp_labels[:, 1:],
-                torch.full_like(sp_labels[:, 1:], IGNORE_INDEX))
-            ce, n_tok = lm_loss_fn(logits[:, :-1], shift_labels,
-                                   IGNORE_INDEX)
+            ce, n_tok = lm_loss_fn(
+                logits if seq_mesh is not None else logits[:, :-1],
+                shift_labels, IGNORE_INDEX)
+            if seq_mesh is not None:
+                # a block may hold no label: its share is 0 of the global
+                # count, which must not count it as 1
+                n_tok = (shift_labels != IGNORE_INDEX).sum()
             loss = ce + aux_clip + p_aux.aux_loss + aux_llm
         return LlavaOutput(
             logits=logits, loss=loss, aux_mlp=p_aux.aux_loss,
@@ -339,7 +369,7 @@ def _prefill(model: LlavaModel, input_ids, pixel_values, attention_mask,
     dev = model.device
     B = input_ids.shape[0]
     if cache is None:
-        cache = KVCache.create(model.language_model.cfg, B, max_len, dev)
+        cache = model.language_model.new_cache(B, max_len, dev)
     ids = torch.as_tensor(input_ids, dtype=torch.long, device=dev)
     mask = torch.as_tensor(attention_mask, device=dev)
     px = (torch.as_tensor(pixel_values, dtype=torch.float32, device=dev)
@@ -383,8 +413,8 @@ class _SoloCaches:
             if free:
                 cache = free.pop()
             else:
-                cache = KVCache.create(model.language_model.cfg, batch,
-                                       max_len, model.device)
+                cache = model.language_model.new_cache(batch, max_len,
+                                                       model.device)
                 self.owned[id(cache)] = cache
                 self.pools[id(cache)] = torch.cuda.graph_pool_handle()
         cache.pos.zero_()
@@ -537,7 +567,7 @@ def verify_step(model: LlavaModel, tokens: torch.Tensor, cache: KVCache,
     out = model(tokens, None, cache=cache, pos_in_place=True)
     toks, n_acc = speculative_accept(out.logits, tokens[:, 1:], temps, topps,
                                      generator, nucleus=nucleus)
-    cache.pos.sub_(tokens.shape[1] - 1 - n_acc)
+    cache.pos.sub_(cache.local(tokens.shape[1] - 1 - n_acc))
     return toks, n_acc
 
 

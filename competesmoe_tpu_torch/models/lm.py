@@ -28,6 +28,15 @@ competesmoe_tpu/models/lm.py).
   competition step is decided on the host from the step number, so the
   recompute takes the same branch.
 
+Sequence parallelism (`parallel.seq_context.use_sequence_parallel`, a
+mesh with a 'seq' axis): each rank holds its block of every row's
+sequence, and rotary positions are global (block offset + local index).
+Plain causal attention (no carried prefix, no mask) runs as a K/V ring
+(`parallel/ring_attention.py`) before the flash branch, as in JAX, so K2
+is not launched there; an attention JAX does not send through the ring
+(the XL carry, MoA) gathers the sequence's K/V over 'seq' and attends its
+own query rows (`seq_gather_kv`). A carried state is each rank's block.
+
 Every random draw (layer drop, MoA's dropouts) comes from the
 `generator=` the caller passes to `forward`, and is drawn outside the
 recomputed region, so remat replays the same masks. Training with any of
@@ -41,8 +50,6 @@ Module and parameter names follow the flax tree (`embedding`,
 from_jax_params` carries JAX weights over. LayerNorm epsilon is flax's
 1e-6. `init_weights(seed)` draws the JAX init distributions on the
 model's device with a torch.Generator, one tensor at a time.
-
-Not ported: ring attention (ROADMAP item 1.7b).
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from ..moe.pretrain_layers import MoEUTBase, PretrainCompeteSMoE
 from ..moe.registry import get_pretrain_moe
 from ..moe.schedule import FlipSchedule
 from ..ops.flash_attention import flash_attention
+from ..parallel import seq_context
 from .act import ACTBlock
 from .moa import FullMoeRopeAttention
 
@@ -234,42 +242,52 @@ class FastRopeAttention(nn.Module):
                 mask=None) -> torch.Tensor:
         """attend_to: an optional [B, S, D] source of keys and values
         (the carried prefix and x): queries at positions pos_offset..,
-        keys from position 0."""
+        keys from position 0. Under a seq mesh x and attend_to are this
+        rank's blocks and pos_offset the global carried length."""
         cfg = self.cfg
         h, p = cfg.n_heads, cfg.proj_dim
         n_rotate = int(cfg.rotate_fraction * p)
         n_rotate -= n_rotate % 2
         kv_src = attend_to if attend_to is not None else x
         B, T, _ = x.shape
-        S = kv_src.shape[1]
         q = _dense(x, self.q, cfg.dtype).reshape(B, T, h, p)
-        k = _dense(kv_src, self.k, cfg.dtype).reshape(B, S, h, p)
-        v = _dense(kv_src, self.v, cfg.dtype).reshape(B, S, h, p)
+        k = _dense(kv_src, self.k, cfg.dtype).reshape(B, -1, h, p)
+        v = _dense(kv_src, self.v, cfg.dtype).reshape(B, -1, h, p)
+        seq = seq_context.active()
+        q_off = pos_offset
+        if seq is not None:
+            mesh, axis = seq
+            q_off = pos_offset + axis.index * T
+            if attend_to is None and mask is None:
+                # JAX's ring branch comes before the flash branch
+                if n_rotate > 0:
+                    q = _rope(q, n_rotate, cfg.rope_base, q_off)
+                    k = _rope(k, n_rotate, cfg.rope_base, q_off)
+                from ..parallel.ring_attention import make_ring_attention
+                from ..parallel.seq_context import seq_axis
+                out = make_ring_attention(mesh, seq_axis())(q, k, v)
+                return _dense(out.reshape(B, T, h * p), self.out, cfg.dtype)
+            k, v = seq_gather_kv(k, v, T, axis)
+        S = k.shape[1]
         if n_rotate > 0:
-            sin, cos = rope_sin_cos(n_rotate, T, cfg.rope_base,
-                                    offset=pos_offset, dtype=q.dtype,
-                                    device=x.device)
-            q = apply_partial_rope(q, sin[None, :, None], cos[None, :, None],
-                                   n_rotate)
-            sin0, cos0 = rope_sin_cos(n_rotate, S, cfg.rope_base,
-                                      dtype=k.dtype, device=x.device)
-            k = apply_partial_rope(k, sin0[None, :, None],
-                                   cos0[None, :, None], n_rotate)
+            q = _rope(q, n_rotate, cfg.rope_base, q_off)
+            k = _rope(k, n_rotate, cfg.rope_base, 0)
         # [B, h, T, p]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         backend = resolve_attn_backend(cfg.attn_backend, T, p,
                                        platform=x.device.type)
         if backend not in ("flash", "einsum"):
             raise ValueError(f"unknown attn_backend {backend!r}")
-        if backend == "flash" and attend_to is None and mask is None:
+        if (backend == "flash" and attend_to is None and mask is None
+                and seq is None):
             out = flash_attention(q, k, v, causal=True,
                                   sm_scale=1.0 / math.sqrt(p))
         else:
             scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
             scores = scores / math.sqrt(p)
             # causal over the suffix; the carried prefix fully visible
-            qpos = torch.arange(T, device=x.device)[:, None] + (S - T)
-            causal = torch.arange(S, device=x.device)[None, :] <= qpos
+            causal = causal_mask(T, S, q_off if seq is not None else S - T,
+                                 x.device)
             if mask is not None:
                 causal = causal & mask
             scores = scores.masked_fill(~causal, float("-inf"))
@@ -278,6 +296,38 @@ class FastRopeAttention(nn.Module):
                                v.float()).to(x.dtype)
         out = out.transpose(1, 2).reshape(B, T, h * p)
         return _dense(out, self.out, cfg.dtype)
+
+
+def _rope(t: torch.Tensor, n_rotate: int, base: float, offset: int):
+    """Partial rotary embedding of t [B, T, h, p] at positions offset.."""
+    sin, cos = rope_sin_cos(n_rotate, t.shape[1], base, offset=offset,
+                            dtype=t.dtype, device=t.device)
+    return apply_partial_rope(t, sin[None, :, None], cos[None, :, None],
+                              n_rotate)
+
+
+def causal_mask(T: int, S: int, q0: int, device) -> torch.Tensor:
+    """[T, S] bool: query t, at key position q0 + t, sees the keys at or
+    before it (so a carried prefix before q0 is fully visible)."""
+    qpos = torch.arange(T, device=device)[:, None] + q0
+    return torch.arange(S, device=device)[None, :] <= qpos
+
+
+def seq_gather_kv(k: torch.Tensor, v: torch.Tensor, T: int, axis):
+    """The whole sequence's keys and values from this rank's blocks: k, v
+    [B, S_loc + T, ...] hold this rank's block of a carried prefix, then
+    of x (S_loc may be 0); each part is gathered over `axis` in rank
+    order, prefix first. The gather's backward returns each rank its part
+    of the gradient."""
+    from ..parallel import collectives as C
+    s_loc = k.shape[1] - T
+
+    def whole(t):
+        parts = [C.all_gather(t[:, :s_loc].contiguous(), axis, 1)] \
+            if s_loc else []
+        parts.append(C.all_gather(t[:, s_loc:].contiguous(), axis, 1))
+        return torch.cat(parts, dim=1)
+    return whole(k), whole(v)
 
 
 class MoETransformerBlock(nn.Module):
@@ -417,7 +467,10 @@ class MoELanguageModel(nn.Module):
         new_state = []
         pos_offset = 0
         if cfg.n_prev_states > 0 and state is not None:
-            pos_offset = state[0].shape[1]
+            # the global carried length (each rank holds its block)
+            seq = seq_context.active()
+            pos_offset = state[0].shape[1] * (1 if seq is None
+                                              else seq[1].size)
         for li, ui in enumerate(cfg.layer_order()):
             block = self.blocks[ui]
             flips = (self.flip_schedule.flips[li]

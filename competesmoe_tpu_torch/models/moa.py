@@ -215,7 +215,9 @@ class FullMoeRopeAttention(nn.Module):
     def forward(self, x: torch.Tensor, attend_to=None, pos_offset: int = 0,
                 mask=None, train: bool = False, noise=None
                 ) -> Tuple[torch.Tensor, MoEAux]:
-        from .lm import apply_partial_rope, rope_sin_cos
+        from ..parallel import seq_context
+        from .lm import (apply_partial_rope, causal_mask, rope_sin_cos,
+                         seq_gather_kv)
 
         cfg = self.cfg
         h, p = cfg.n_heads, cfg.proj_dim
@@ -246,11 +248,19 @@ class FullMoeRopeAttention(nn.Module):
         k = k * sqrt_scale.to(k.dtype)
         v = self._project("v", kv_src, sels, B, S)
 
+        # under a seq mesh: this rank's query rows over the whole
+        # sequence's keys (`lm.seq_gather_kv`), at global positions
+        seq = seq_context.active()
+        q0 = pos_offset
+        if seq is not None:
+            q0 = pos_offset + seq[1].index * T
+            k, v = seq_gather_kv(k, v, T, seq[1])
+            S = k.shape[1]
         n_rotate = int(cfg.rotate_fraction * p)
         n_rotate -= n_rotate % 2
         if n_rotate > 0:
             sin, cos = rope_sin_cos(n_rotate, T, cfg.rope_base,
-                                    offset=pos_offset, dtype=q.dtype,
+                                    offset=q0, dtype=q.dtype,
                                     device=x.device)
             q = apply_partial_rope(q, sin[None, :, None], cos[None, :, None],
                                    n_rotate)
@@ -261,9 +271,8 @@ class FullMoeRopeAttention(nn.Module):
 
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         scores = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float())
-        qpos = torch.arange(T, device=x.device)[:, None] + (S - T)
-        kpos = torch.arange(S, device=x.device)[None, :]
-        causal = kpos <= qpos
+        causal = causal_mask(T, S, q0 if seq is not None else S - T,
+                             x.device)
         if mask is not None:
             causal = causal & mask
         scores = scores.masked_fill(~causal, float("-inf"))

@@ -132,8 +132,10 @@ class MoeLayerBase(nn.Module):
                      n_experts: Optional[int] = None):
         """balance * coef + z * coef, the balance over `n_experts` (the
         layer's when None)."""
+        from ..parallel.distributed_ops import token_axis
         balance = L.switch_balance_loss(gate_softmax, sel,
-                                        n_experts or self.n_experts)
+                                        n_experts or self.n_experts,
+                                        axis=token_axis())
         zl = L.z_loss(gate_logits)
         aux = (balance * self.args.balance_loss_coef
                + zl * self.args.router_z_loss_coef)

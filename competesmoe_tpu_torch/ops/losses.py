@@ -72,9 +72,13 @@ def log_mean(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def entropy_balance_loss(gate_logits: torch.Tensor) -> torch.Tensor:
     """MoEUT entropy balance over [..., T, E] logits: minus the mean
-    entropy of the token-averaged routing distribution."""
+    entropy of the token-averaged routing distribution (the token average
+    over every rank of `distributed_ops.token_axis()` when the sequence is
+    split)."""
+    from ..parallel import distributed_ops
     logp = torch.log_softmax(gate_logits.float(), dim=-1)
-    return -torch.mean(entropy_from_logprobs(log_mean(logp, dim=-2)))
+    return -torch.mean(entropy_from_logprobs(distributed_ops.log_mean(
+        logp, dim=-2, axis=distributed_ops.token_axis())))
 
 
 def diversity_loss(topk_expert_outputs: torch.Tensor) -> torch.Tensor:

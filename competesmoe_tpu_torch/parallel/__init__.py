@@ -1,6 +1,6 @@
-"""Parallelism: process groups, the data/expert rank grid, FSDP and
-expert parallelism (port of competesmoe_tpu/parallel/, less ring
-attention and the tensor-parallel half: ROADMAP item 1.7b)."""
+"""Parallelism: process groups, the data/expert/seq and data/model rank
+grids, FSDP, expert parallelism, ring attention and tensor-parallel
+serving (port of competesmoe_tpu/parallel/)."""
 
 from .distributed import (  # noqa: F401
     DistributedEnv,
@@ -23,9 +23,23 @@ from .expert_parallel import (  # noqa: F401
 )
 from .mesh import (  # noqa: F401
     batch_sharding,
+    decoder_param_shardings,
+    ep_param_shardings,
+    kv_cache_sharding,
+    llava_param_shardings,
     make_mesh,
     make_param_shardings,
+    make_tp_mesh,
     put_batch,
     replicated,
     shard_params,
+)
+from .ring_attention import (  # noqa: F401
+    make_ring_attention,
+    make_ring_attention_masked,
+)
+from .seq_context import (  # noqa: F401
+    current_seq_mesh,
+    set_seq_mesh,
+    use_sequence_parallel,
 )

@@ -11,12 +11,17 @@ autograd rules that JAX's single-device math gives them:
 - `reduce_scatter(x, axis, dim)`: the sum over the ranks, this rank's
   part along `dim`; its backward is an all-gather;
 - `all_reduce(x, axis)`: the sum over the ranks; its backward is the same
-  sum (each rank used the sum, so every use feeds every summand).
+  sum (each rank used the sum, so every use feeds every summand);
+- `ring_shift(x, axis)`: JAX's `lax.ppermute` with perm i -> i+1 (mod
+  n): this rank sends x to the next rank of the axis and returns the
+  previous rank's; its backward shifts the cotangent the other way.
 
 An axis without a process group (size 1, or none) is the identity. NCCL
 takes the single-tensor collectives; over gloo, which stages CUDA tensors
 through host memory, a reduce-scatter is an all-reduce and a slice and
-an all-gather goes through the list form of `dist.all_gather`. `BYTES`
+an all-gather goes through the list form of `dist.all_gather`; a ring
+shift is a `batch_isend_irecv` pair over NCCL and, over gloo, a send and
+a receive of host copies. `BYTES`
 counts the bytes each collective sends from this rank (`reset_bytes`
 zeroes it), for the per-step traffic that `chip_smoke.py` prints.
 """
@@ -105,6 +110,34 @@ def raw_reduce_scatter(x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
     return full.narrow(dim, axis.index * n, n).contiguous()
 
 
+def raw_ring_shift(x: torch.Tensor, axis, step: int = 1) -> torch.Tensor:
+    """Send x to the rank `step` places on along the axis (mod its size)
+    and return what the rank `step` places back sent."""
+    if _trivial(axis):
+        return x
+    n = axis.size
+    dst = axis.ranks[(axis.index + step) % n]
+    src = axis.ranks[(axis.index - step) % n]
+    x = x.contiguous()
+    _count("ring_shift", x)
+    if _nccl(axis):
+        out = torch.empty_like(x)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, dst, group=axis.group),
+            dist.P2POp(dist.irecv, out, src, group=axis.group)])
+        for r in reqs:
+            r.wait()
+        return out
+    # gloo: host copies; the send is posted before the receive, so a ring
+    # of blocking receives cannot wait on itself
+    host = x.detach().cpu()
+    got = torch.empty_like(host)
+    req = dist.isend(host, dst, group=axis.group)
+    dist.recv(got, src, group=axis.group)
+    req.wait()
+    return got.to(x.device)
+
+
 # -- autograd ---------------------------------------------------------------
 
 class _AllToAll(torch.autograd.Function):
@@ -149,6 +182,23 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return raw_all_reduce(g, ctx.axis), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return raw_ring_shift(x, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_ring_shift(g, ctx.axis, -1), None
+
+
+def ring_shift(x: torch.Tensor, axis) -> torch.Tensor:
+    """JAX's `lax.ppermute(x, axis, [(i, (i + 1) % n)])`: the previous
+    rank's x; the gradient flows back to the rank that sent it."""
+    return x if _trivial(axis) else _RingShift.apply(x, axis)
 
 
 def all_to_all(x: torch.Tensor, axis) -> torch.Tensor:

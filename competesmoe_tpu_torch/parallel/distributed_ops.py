@@ -12,6 +12,13 @@ the ranks' cotangents, `collectives.all_reduce`), and each rank adds
 1/world of the loss to its objective, so the ranks' sum is the global
 loss and its gradient.
 
+Under sequence parallelism the ranks of the 'seq' axis hold the other
+tokens of the same rows: the batch axis (`use_batch_axis`) is then every
+rank (data x expert x seq), and a statistic over the tokens of each row
+reduces over `token_axis()`, the 'seq' axis: the entropy balance's
+log-mean (the pretrain routers, MoA, the competition step's
+`balance_affinity`) and the multimodal layers' switch balance.
+
 Which aux losses span rows (ops/losses.py): Mixtral's top-1 balance
 flattens [B, N] first (`moe/layers.py` `MixtralMoELayer`), so its two
 density means do. The pretrain entropy balance (also MoA's and the
@@ -31,22 +38,36 @@ import torch
 from . import collectives as C
 
 _BATCH_AXIS = None
+_TOKEN_AXIS = None
 
 
 def batch_axis():
-    """The axis whose ranks hold the other rows of the batch, or None."""
+    """The axis whose ranks hold the other rows (and tokens) of the
+    batch, or None."""
     return _BATCH_AXIS
 
 
+def token_axis():
+    """The axis whose ranks hold the other tokens of this rank's rows
+    (the 'seq' axis), or None."""
+    return _TOKEN_AXIS
+
+
+def _nontrivial(axis):
+    return axis if axis is not None and axis.size > 1 else None
+
+
 @contextmanager
-def use_batch_axis(axis):
-    global _BATCH_AXIS
-    prev = _BATCH_AXIS
-    _BATCH_AXIS = axis if axis is not None and axis.size > 1 else None
+def use_batch_axis(axis, tokens=None):
+    """Activate the batch axis and, under sequence parallelism, the token
+    axis (`tokens`)."""
+    global _BATCH_AXIS, _TOKEN_AXIS
+    prev = _BATCH_AXIS, _TOKEN_AXIS
+    _BATCH_AXIS, _TOKEN_AXIS = _nontrivial(axis), _nontrivial(tokens)
     try:
         yield
     finally:
-        _BATCH_AXIS = prev
+        _BATCH_AXIS, _TOKEN_AXIS = prev
 
 
 def mean_over_batch(x: torch.Tensor, dim: int, axis=None) -> torch.Tensor:

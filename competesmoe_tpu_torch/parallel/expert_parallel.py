@@ -23,6 +23,10 @@ the selected outputs that live here, and sums over the shards; each rank
 keeps its rows. Every collective a gradient crosses is an autograd
 function of `collectives` whose backward is the single-device gradient.
 
+When every rank of the expert axis holds the same tokens (serving,
+`ep_context.replicated_tokens()`), each rank dispatches its block of them
+(padded to equal blocks) and all-gathers the outputs (`_replicated`).
+
 On CUDA tensors the keys/values experts' local compute is K1
 (`ops/gmm_fused.fused_grouped_ffn_kv`, each received slot its own token
 with weight 1) where `fused_path_refusal` allows it (relu, no bias, D and
@@ -95,6 +99,30 @@ def _ep_dispatch(x, sel, weights, compute_local, v_dim, axis,
     return out.to(x.dtype)
 
 
+def _replicated(dispatch, axis):
+    """dispatch(x, sel, weights) over tokens that every rank of `axis`
+    holds: each rank runs its block of them (the tokens padded to a
+    multiple of the axis size; padding rows route to expert 0 with weight
+    0) and the outputs are gathered."""
+    from . import ep_context
+
+    def run(x, sel, weights):
+        if not ep_context.replicated_tokens():
+            return dispatch(x, sel, weights)
+        T, n = x.shape[0], axis.size
+        blk = -(-T // n)
+        pad = blk * n - T
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+            sel = torch.cat([sel, sel.new_zeros((pad, sel.shape[1]))])
+            weights = torch.cat([weights,
+                                 weights.new_zeros((pad, weights.shape[1]))])
+        rows = slice(axis.index * blk, (axis.index + 1) * blk)
+        out = dispatch(x[rows], sel[rows], weights[rows])
+        return C.raw_all_gather(out, axis, 0)[:T]
+    return run
+
+
 def _kv_local(keys, values, activation, b1):
     """The keys/values experts of this shard over received slots: K1 on
     CUDA where JAX's rule allows it, else the grouped path."""
@@ -124,10 +152,10 @@ def make_ep_ffn_kv(mesh: Mesh, activation: Callable,
 
     def ep_ffn(x, sel, weights, keys, values, *rest):
         b1 = rest[0] if with_bias else None
-        return _ep_dispatch(x, sel, weights,
-                            _kv_local(keys, values, activation, b1),
-                            values.shape[-1], axis,
-                            keys.shape[0] * axis.size, capacity)
+        return _replicated(lambda x, sel, weights: _ep_dispatch(
+            x, sel, weights, _kv_local(keys, values, activation, b1),
+            values.shape[-1], axis, keys.shape[0] * axis.size, capacity),
+            axis)(x, sel, weights)
 
     return ep_ffn
 
@@ -147,8 +175,9 @@ def make_ep_ffn_mlp2(mesh: Mesh, activation: Callable,
             return ec.grouped_ffn_mlp2(flat_x, flat_eid[:, None], ones,
                                        w1, b1, w2, b2, activation)
 
-        return _ep_dispatch(x, sel, weights, compute_local, w2.shape[-1],
-                            axis, w1.shape[0] * axis.size, capacity)
+        return _replicated(lambda x, sel, weights: _ep_dispatch(
+            x, sel, weights, compute_local, w2.shape[-1], axis,
+            w1.shape[0] * axis.size, capacity), axis)(x, sel, weights)
 
     return ep_ffn
 
@@ -168,8 +197,9 @@ def make_ep_ffn_swiglu(mesh: Mesh, capacity: Optional[int] = None,
             return ec.grouped_ffn_swiglu(flat_x, flat_eid[:, None], ones,
                                          w1, w3, w2)
 
-        return _ep_dispatch(x, sel, weights, compute_local, w2.shape[-1],
-                            axis, w1.shape[0] * axis.size, capacity)
+        return _replicated(lambda x, sel, weights: _ep_dispatch(
+            x, sel, weights, compute_local, w2.shape[-1], axis,
+            w1.shape[0] * axis.size, capacity), axis)(x, sel, weights)
 
     return ep_ffn
 

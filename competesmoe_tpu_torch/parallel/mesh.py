@@ -1,14 +1,15 @@
-"""The rank grid and the placement of parameters and batches (port of the
-data/expert half of competesmoe_tpu/parallel/mesh.py, `:1-123`; its
-tensor-parallel half waits for ROADMAP item 1.7b).
+"""The rank grid and the placement of parameters and batches (port of
+competesmoe_tpu/parallel/mesh.py).
 
-JAX's mesh has axes ('data', 'expert') over the devices of every host,
-and `jit` partitions one global program over it. Here each rank is a
-process with its own rows of the batch, and `Mesh` is the same grid of
-ranks: rank r sits at data r // n_expert and expert r % n_expert (JAX's
-`devices.reshape(n // n_expert, n_expert)`). It holds this rank's
-coordinates and, per axis, the process group of the ranks that share its
-other coordinate (`Axis`); every rank creates every group, in one order.
+JAX's mesh has axes ('data', 'expert') (and a trailing 'seq' for
+sequence parallelism, or ('data', 'model') for tensor-parallel serving)
+over the devices of every host, and `jit` partitions one global program
+over it. Here each rank is a process with its own rows of the batch, and
+`Mesh` is the same grid of ranks in JAX's device order: rank r sits at
+the row-major coordinates of r (`devices.reshape(*shape)`). It holds this
+rank's coordinates and, per axis (and per pair of axes of a 3-axis
+mesh), the process group of the ranks that share its other coordinates
+(`Axis`); every rank creates every group, in one order.
 
 A parameter's placement follows JAX's `param_spec` exactly, read on the
 parameter's JAX layout (an nn.Linear weight is flax's kernel transposed;
@@ -32,12 +33,19 @@ After the backward, `reduce_gradients` sums each gradient over the mesh
 axes its parameter is not sharded on (each rank's loss is its share of
 the global one, so the ranks' sum is the global gradient). The batch:
 every rank builds the same global batch from the seed and `put_batch`
-keeps its rows, row block r of P(('data', 'expert')).
+keeps its rows, row block r of P(('data', 'expert')); the ranks of a
+'seq' axis hold the same rows and take their block of the sequence
+(`seq_block`). The serving placements (`decoder_param_shardings`,
+`llava_param_shardings`, `ep_param_shardings`, `kv_cache_sharding`) are
+JAX's specs, applied by projection where a multi-controller rank must
+compute its part alone (fused projections split part by part, `Parts`);
+`parallel/tensor_parallel.py` applies them to a model.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,9 +65,9 @@ EXPERT_PARAM_NAMES = (
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Axis:
-    """One mesh axis as this rank sees it: its name, size, this rank's
-    index along it, the ranks of its group (in index order) and the
-    process group (None when the size is 1)."""
+    """One mesh axis (or a product of axes) as this rank sees it: its
+    name, size, this rank's index along it, the ranks of its group (in
+    index order) and the process group (None when the size is 1)."""
 
     name: str
     size: int
@@ -75,61 +83,102 @@ def _world() -> Tuple[int, int]:
 
 
 class Mesh:
-    """The ('data', 'expert') grid of ranks. `axis(name)` for 'data',
-    'expert' or 'world' (all ranks)."""
+    """A grid of ranks with named axes, in JAX's device order: rank r
+    sits at the row-major coordinates of r in the grid
+    (`devices.reshape(*shape)`). `axis(name)` gives one axis, 'world' all
+    ranks, and a tuple of names the product of those axes (the ranks that
+    share this rank's other coordinates; index row-major over the
+    names). Every rank creates every group, in one order."""
 
-    axis_names = ("data", "expert")
-
-    def __init__(self, n_expert: int = 1):
+    def __init__(self, names: Sequence[str] = ("data", "expert"),
+                 sizes: Optional[Sequence[int]] = None):
         world, rank = _world()
-        if world % n_expert != 0:
-            raise ValueError(f"{world} devices not divisible by "
-                             f"expert={n_expert} x seq=1")
-        n_data = world // n_expert
-        self.shape = {"data": n_data, "expert": n_expert}
+        names = tuple(names)
+        sizes = list(sizes) if sizes is not None else [0] * len(names)
+        known = int(np.prod([s for s in sizes if s])) if any(sizes) else 1
+        sizes = [s or world // known for s in sizes]
+        if int(np.prod(sizes)) != world:
+            raise ValueError(f"mesh {dict(zip(names, sizes))} needs "
+                             f"{int(np.prod(sizes))} devices, have {world}")
+        self.axis_names = names
+        self.shape = dict(zip(names, sizes))
         self.size, self.rank = world, rank
-        d, e = divmod(rank, n_expert)
-        rows = [tuple(i * n_expert + j for j in range(n_expert))
-                for i in range(n_data)]
-        cols = [tuple(i * n_expert + j for i in range(n_data))
-                for j in range(n_expert)]
-        self._axes = {
-            "expert": self._axis("expert", rows, d, e),
-            "data": self._axis("data", cols, e, d),
-            "world": Axis("world", world, rank, tuple(range(world)),
-                          dist.group.WORLD if world > 1 else None),
-        }
+        self.coords = dict(zip(names, np.unravel_index(rank, sizes)))
+        self._axes: Dict = {}
+        grid = np.arange(world).reshape(sizes)
+        combos = [(n,) for n in names]
+        if len(names) > 2:
+            combos += [c for c in itertools.combinations(names, 2)]
+        for combo in combos:
+            self._axes[combo if len(combo) > 1 else combo[0]] = \
+                self._product_axis(grid, combo)
+        self._axes["world"] = Axis("world", world, rank, tuple(range(world)),
+                                   dist.group.WORLD if world > 1 else None)
 
-    @staticmethod
-    def _axis(name, groups, mine, index) -> Axis:
-        """Every rank creates every group of the axis, in one order."""
+    def _product_axis(self, grid, combo) -> Axis:
+        """The groups of ranks varying along the axes `combo` (every rank
+        creates every one, in one order), and this rank's."""
+        names = self.axis_names
+        keep = [names.index(n) for n in combo]
+        rest = [i for i in range(len(names)) if i not in keep]
+        moved = np.transpose(grid, rest + keep).reshape(
+            int(np.prod([grid.shape[i] for i in rest])) if rest else 1, -1)
         made = None
-        for i, ranks in enumerate(groups):
+        for row in moved:
+            ranks = tuple(int(r) for r in row)
             g = dist.new_group(list(ranks)) if len(ranks) > 1 else None
-            if i == mine:
-                made = Axis(name, len(ranks), index, ranks, g)
+            if self.rank in ranks:
+                made = Axis("x".join(combo), len(ranks),
+                            ranks.index(self.rank), ranks, g)
         return made
 
-    def axis(self, name: str) -> Axis:
+    def axis(self, name) -> Axis:
+        if isinstance(name, (tuple, list)):
+            names = tuple(n for n in self.axis_names if n in name)
+            if len(names) == len(self.axis_names):
+                return self._axes["world"]
+            if len(names) == 1:
+                return self._axes[names[0]]
+            return self._axes[names]
         return self._axes[name]
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The axes the batch rows are split over (JAX's
+        P(('data', 'expert')), or 'data' on a tensor-parallel mesh); a
+        'seq' axis splits the sequence instead."""
+        return tuple(n for n in self.axis_names if n in ("data", "expert"))
 
     @property
     def is_distributed(self) -> bool:
         return self.size > 1
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape['data']}, "
-                f"expert={self.shape['expert']}, rank={self.rank})")
+        dims = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({dims}, rank={self.rank})"
 
 
 def make_mesh(n_expert: int = 1, n_seq: int = 1) -> Mesh:
     """Mesh with ('data', 'expert') axes over the ranks of the process
-    group (one rank without one); the expert axis has n_expert ranks."""
+    group (one rank without one); the expert axis has n_expert ranks.
+    n_seq > 1 adds a trailing 'seq' axis of n_seq ranks for sequence
+    parallelism (`parallel/ring_attention.py`)."""
+    world, _ = _world()
+    if world % (n_expert * n_seq) != 0:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"expert={n_expert} x seq={n_seq}")
     if n_seq > 1:
-        raise NotImplementedError(
-            f"n_seq={n_seq}: sequence parallelism is not ported (ROADMAP "
-            "item 1.7b, ring attention)")
-    return Mesh(n_expert)
+        return Mesh(("data", "expert", "seq"),
+                    (world // (n_expert * n_seq), n_expert, n_seq))
+    return Mesh(("data", "expert"), (world // n_expert, n_expert))
+
+
+def make_tp_mesh(n_model: int = 1) -> Mesh:
+    """Mesh with ('data', 'model') axes for tensor-parallel decode."""
+    world, _ = _world()
+    if world % n_model != 0:
+        raise ValueError(f"{world} devices not divisible by model={n_model}")
+    return Mesh(("data", "model"), (world // n_model, n_model))
 
 
 # ---------------------------------------------------------------------------
@@ -235,13 +284,23 @@ def replicated(mesh: Mesh) -> Tuple:
     return ()
 
 
+def _batch_rank(mesh: Mesh) -> Tuple[int, int]:
+    """(ranks the rows are split over, this rank's index among them):
+    row-major over the mesh's batch axes."""
+    w, r = 1, 0
+    for n in mesh.batch_axes:
+        w, r = w * mesh.shape[n], r * mesh.shape[n] + int(mesh.coords[n])
+    return w, r
+
+
 def local_rows(n_rows: int, mesh: Mesh, n_microbatch: int = 1
                ) -> np.ndarray:
     """The global rows this rank holds: row block r of each of the
     `n_microbatch` consecutive slices of the batch (one slice: block r of
     the batch, JAX's P(('data', 'expert'))), so the rank's microbatch i
-    is its part of JAX's microbatch i."""
-    w, r = mesh.size, mesh.rank
+    is its part of JAX's microbatch i. The ranks of a 'seq' axis hold
+    the same rows (and split their sequence, `seq_block`)."""
+    w, r = _batch_rank(mesh)
     if n_rows % (w * n_microbatch):
         raise ValueError(f"batch {n_rows} must be divisible by the number "
                          f"of devices ({w}) x {n_microbatch} microbatches; "
@@ -264,6 +323,21 @@ def put_batch(batch, mesh: Mesh, n_microbatch: int = 1):
     if isinstance(batch, torch.Tensor):
         return batch[torch.as_tensor(rows, device=batch.device)]
     return np.asarray(batch)[rows]
+
+
+def seq_block(x, mesh: Optional[Mesh], dim: int = 1):
+    """This rank's block of dim `dim` (the sequence) over the mesh's 'seq'
+    axis, in rank order; x itself without one."""
+    if mesh is None or mesh.shape.get("seq", 1) == 1:
+        return x
+    n, i = mesh.shape["seq"], int(mesh.coords["seq"])
+    T = x.shape[dim]
+    if T % n:
+        raise ValueError(f"sequence {T} does not divide over the {n} "
+                         f"ranks of 'seq'")
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, i * (T // n), T // n)
+    return np.take(x, np.arange(i * (T // n), (i + 1) * (T // n)), axis=dim)
 
 
 # ---------------------------------------------------------------------------
@@ -390,20 +464,21 @@ def reduce_gradients(model: nn.Module, mesh: Mesh,
                      grads: Dict[str, torch.Tensor]) -> None:
     """Sum each gradient, in place, over the mesh axes its parameter is
     not sharded on: replicated ones over the world, expert banks over
-    'data', FSDP shards over 'expert'."""
+    'data' (and 'seq'), FSDP shards over 'expert' (and 'seq')."""
     if not mesh.is_distributed:
         return
     place = placements(model)
-    by_axis: Dict[str, list] = {"world": [], "data": [], "expert": []}
+    by_axes: Dict[Tuple[str, ...], list] = {}
     for k, g in grads.items():
         spec = place[k].spec if k in place else ()
         held = {a for a in spec if a is not None}
-        rest = [a for a in ("data", "expert") if a not in held]
-        key = "world" if len(rest) == 2 else (rest[0] if rest else None)
-        if key is not None:
-            by_axis[key].append(g)
-    for key, ts in by_axis.items():
-        C.all_reduce_(ts, mesh.axis(key), op=f"grad_{key}")
+        rest = tuple(a for a in mesh.axis_names
+                     if a not in held and mesh.shape[a] > 1)
+        if rest:
+            by_axes.setdefault(rest, []).append(g)
+    for key in sorted(by_axes):
+        ax = mesh.axis(key)
+        C.all_reduce_(by_axes[key], ax, op=f"grad_{ax.name}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,3 +524,191 @@ def load_full_state_dict(model: nn.Module,
     missing = set(state) - {canonical_name(k) for k in mine}
     if missing:
         raise KeyError(f"state names the model lacks: {sorted(missing)[:8]}")
+
+
+# ---------------------------------------------------------------------------
+# tensor- and expert-parallel serving placements (JAX's mesh.py:125-221)
+# ---------------------------------------------------------------------------
+
+# Megatron-style rules for the llama/phi decoder: column-parallel layers
+# shard their OUTPUT features, row-parallel ones their INPUT features
+_TP_COL = ("qkv_proj", "q_proj", "k_proj", "v_proj",
+           "gate_up_proj", "gate_proj", "up_proj", "lm_head")
+_TP_ROW = ("o_proj", "down_proj")
+
+
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """A spec entry for a fused projection's output dim: the dim holds
+    parts of `sizes` (q, k, v or gate, up) and each part splits over
+    `axis`, rank i keeping block i of every part. A plain axis name splits
+    the dim as one part; on a fused dim that would give rank 0 all of q
+    and half of k, or all of gate and none of up."""
+
+    axis: str
+    sizes: Tuple[int, ...]
+
+
+def split_entry(t: torch.Tensor, dim: int, entry, axis: Axis
+                ) -> torch.Tensor:
+    """This rank's part of `t` along `dim` under a spec entry (an axis
+    name or `Parts`)."""
+    sizes = entry.sizes if isinstance(entry, Parts) else (t.shape[dim],)
+    starts = np.cumsum((0,) + tuple(sizes[:-1]))
+    return torch.cat([_shard_of(t.narrow(dim, int(s), n), axis, dim)
+                      for s, n in zip(starts, sizes)], dim)
+
+
+def decoder_param_spec(path_names: Sequence[str], leaf) -> Tuple:
+    """JAX's tensor-parallel spec of one decoder parameter, keyed by its
+    path and read on its JAX layout (a tuple, () replicated). Only
+    parameters named `kernel` and `bias` shard: a quantized projection's
+    `kernel_q` and `scale` replicate. `decoder_param_shardings` applies it
+    by projection."""
+    module = path_names[-2] if len(path_names) >= 2 else ""
+    name = path_names[-1] if path_names else ""
+    ndim = len(_shape(leaf))
+    if module in _TP_COL:
+        if name == "kernel" and ndim == 2:
+            return (None, "model")
+        if name == "bias" and ndim == 1:
+            return ("model",)
+    if module in _TP_ROW and name == "kernel" and ndim == 2:
+        return ("model", None)
+    if name in EXPERT_PARAM_NAMES and ndim >= 1:
+        return ("model",) + (None,) * (ndim - 1)
+    return ()
+
+
+def _named_specs(model: nn.Module, rule) -> Dict[str, Tuple]:
+    """{canonical name: spec over the port's dims} of every parameter and
+    buffer of `model`, `rule(path_names, jax_leaf)` read on its JAX
+    layout."""
+    out = {}
+    for mname, mod in model.named_modules():
+        tensors = list(mod._parameters.items()) + list(mod._buffers.items())
+        for pname, t in tensors:
+            if t is None:
+                continue
+            full = f"{mname}.{pname}" if mname else pname
+            jname, jshape, to_torch = _jax_layout(mod, pname, t)
+            path = mname.split(".") + [jname] if mname else [jname]
+            spec = rule(path, torch.empty(jshape, device="meta"))
+            mine = [None] * t.dim()
+            for jd, ax in enumerate(spec):
+                mine[to_torch[jd]] = ax
+            out[full] = tuple(mine) if spec else ()
+    return out
+
+
+def _fused_parts(cfg, module: str, n_out: int) -> Optional[Tuple[int, ...]]:
+    """The parts of a fused projection's output features."""
+    if module == "qkv_proj":
+        p = cfg.head_dim
+        return (cfg.num_attention_heads * p,) + (
+            cfg.num_key_value_heads * p,) * 2
+    if module == "gate_up_proj":
+        return (n_out // 2,) * 2
+    return None
+
+
+def decoder_param_shardings(mesh: Mesh, model: nn.Module
+                            ) -> Dict[str, Tuple]:
+    """The tensor-parallel placement of every tensor of an unplaced
+    DecoderLM, on the port's dims: `decoder_param_spec` per tensor,
+    applied by projection so that each rank computes its part alone
+    (`tensor_parallel.shard_decoder` applies it):
+
+    - a module's projections (an attention's q, k, v, o; an MLP's; the
+      lm_head) shard together or not at all: not where one of them is
+      quantized (JAX shards no `kernel_q`; its bias then replicates too),
+      nor where a sharded dim, or a part of it, does not divide by
+      'model', nor, for an attention, unless both h and hk do (its KV
+      cache then replicates too, as JAX's engine does);
+    - a fused projection's output dim splits part by part (`Parts`);
+    - a row-parallel projection's bias replicates (it adds once, after
+      the sum over 'model'), as in JAX;
+    - an expert bank shards its experts where they divide (ndim >= 2: a
+      1-D tensor named `bias` is no bank)."""
+    M = mesh.shape["model"]
+    cfg = model.cfg
+    specs = _named_specs(model, decoder_param_spec)
+    shapes = {k: tuple(v.shape) for k, v in itertools.chain(
+        model.named_parameters(), model.named_buffers())}
+    groups: Dict[str, Dict[str, List[str]]] = {}
+    out = {}
+    for name, spec in specs.items():
+        mpath, _, pname = name.rpartition(".")
+        parent, _, module = mpath.rpartition(".")
+        if module in _TP_COL + _TP_ROW:
+            groups.setdefault(parent, {}).setdefault(mpath, []).append(name)
+        elif spec:
+            shape = shapes[name]
+            out[name] = spec if len(shape) >= 2 and shape[0] % M == 0 else ()
+        else:
+            out[name] = ()
+    heads = (cfg.num_attention_heads % M == 0
+             and cfg.num_key_value_heads % M == 0)
+    for projs in groups.values():
+        entries = _group_entries(cfg, projs, specs, shapes, M)
+        if entries is not None and not heads and any(
+                m.endswith("o_proj") for m in projs):
+            entries = None                  # an attention that cannot shard
+        for mpath, names in projs.items():
+            for name in names:
+                out[name] = () if entries is None else tuple(
+                    entries[mpath] if a is not None else None
+                    for a in specs[name])
+    return out
+
+
+def _group_entries(cfg, projs, specs, shapes, M: int):
+    """{projection path: its sharded dim's entry} of one module's
+    projections, or None when one of them cannot shard (quantized, or a
+    part that does not divide by M)."""
+    entries = {}
+    for mpath in projs:
+        kernel = specs.get(f"{mpath}.weight", ())
+        if not kernel:                        # quantized: JAX replicates
+            return None
+        dim = next(i for i, a in enumerate(kernel) if a is not None)
+        n = shapes[f"{mpath}.weight"][dim]
+        sizes = _fused_parts(cfg, mpath.rpartition(".")[2], n) or (n,)
+        if any(x % M for x in sizes):
+            return None
+        entries[mpath] = Parts("model", sizes) if len(sizes) > 1 else "model"
+    return entries
+
+
+def llava_param_shardings(mesh: Mesh, model: nn.Module) -> Dict[str, Tuple]:
+    """Tensor-parallel specs of a LlavaModel: the decoder
+    (`language_model`) takes `decoder_param_shardings`, the vision tower
+    and projector replicate (they run once a request)."""
+    out = {k: () for k in _named_specs(model, lambda path, leaf: ())}
+    out.update((f"language_model.{k}", v) for k, v in
+               decoder_param_shardings(mesh, model.language_model).items())
+    return out
+
+
+def ep_param_shardings(mesh: Mesh, model: nn.Module) -> Dict[str, Tuple]:
+    """Expert-parallel serving specs: every stacked expert bank whose
+    leading dim divides by the 'expert' axis shards over it (ndim >= 2,
+    so 1-D `bias` parameters of norms and gates never do); the rest
+    replicates."""
+    n_ep = mesh.shape["expert"]
+
+    def rule(path, leaf):
+        shape = _shape(leaf)
+        if (path[-1] in EXPERT_PARAM_NAMES and len(shape) >= 2
+                and shape[0] % n_ep == 0):
+            return ("expert",) + (None,) * (len(shape) - 1)
+        return ()
+    return _named_specs(model, rule)
+
+
+def kv_cache_sharding(mesh: Mesh) -> Tuple:
+    """The KV cache [L, B, max_len, kv_heads, head_dim]: slots over
+    'data', kv heads over 'model' (where the attention shards its heads:
+    a cache holds the KV heads its decoder's attention holds,
+    `DecoderLM.new_cache`)."""
+    return (None, "data", None, "model", None)

@@ -54,13 +54,31 @@ gives serving that batching dynamically:
   step eagerly, for comparison; on the CPU it always runs eagerly.
 
 Random draws come from one `torch.Generator` on the model's device, seeded
-by `rng_seed`. Tensor- and expert-parallel engines (`mesh`) are not ported
-yet and raise NotImplementedError.
+by `rng_seed`.
+
+Tensor- and expert-parallel engines (`mesh`, a model placed by
+`parallel.tensor_parallel.shard_llava` or `shard_llava_ep`): every rank
+runs the same ticks. Rank 0 owns the request queue; at the top of each
+tick it broadcasts, over a CPU gloo group, the tick's new requests (ids,
+pixel values, sampling parameters), the requests cancelled since the
+last tick, the prefix cache's bookkeeping and whether to stop, and under
+speculation the tick's verify decision and drafts; the other ranks
+(`follow()`) apply them (`parallel.lockstep.from_lead`), so every
+host-side decision is rank 0's. All ranks sample from the same seeded
+generator on the full logits, so their tokens agree. A tensor-parallel
+cache holds the KV heads this rank's attention holds
+(`DecoderLM.new_cache`) and, with a 'data' axis above 1, this rank's block
+of the slots (JAX's `kv_cache_sharding`): a step runs those rows and
+gathers every block's logits, and admission writes the slots of the
+block; an expert-parallel cache is whole. NCCL collectives
+can sit in a captured CUDA graph, gloo ones cannot: over gloo
+`cuda_graphs=True` raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -75,14 +93,16 @@ from ..models.decoder import KVCache, layer_parts, take_rows
 from ..models.llava import _prefill, sample_rows, verify_step
 from ..utils.cuda_graph import Program, capture, copy_from_host
 
-_UNPORTED = "not ported yet (ROADMAP §1 item 1.7b: {})"
-
-
 def _bucket(n: int, lo: int = 32) -> int:
     b = lo
     while b < n:
         b *= 2
     return b
+
+
+def _backend() -> str:
+    import torch.distributed as dist
+    return dist.get_backend()
 
 
 @dataclass
@@ -106,6 +126,17 @@ class _Request:
     # holds K/V for emitted[:-1])
     base_len: int = -1
     emitted: List[int] = field(default_factory=list)
+    # under a mesh: the request's number, and the cancellation as rank 0
+    # broadcast it (every rank acts on it at the same tick)
+    rid: int = -1
+    cancel_seen: bool = False
+
+
+class _Discard:
+    """The token queue of a follower rank's copy of a request."""
+
+    def put(self, _):
+        pass
 
 
 class DecodeEngine:
@@ -125,9 +156,22 @@ class DecodeEngine:
                  spec_adaptive: bool = False,
                  spec_probe_interval: int = 32, clock=time.monotonic,
                  pipeline_depth: int = 1, cuda_graphs: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(_UNPORTED.format(
-                "tensor- and expert-parallel engines"))
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._lead = self._mesh is None or self._mesh.rank == 0
+        if self._mesh is not None:
+            from ..parallel.lockstep import control_group, from_lead
+            # rank 0's host decisions reach every rank over a CPU group
+            self._bcast = functools.partial(from_lead,
+                                            group=control_group())
+            if (cuda_graphs and model.device.type == "cuda"
+                    and _backend() != "nccl"):
+                raise ValueError(
+                    "cuda_graphs=True under a mesh needs NCCL: gloo "
+                    "collectives cannot be captured in a CUDA graph; pass "
+                    "cuda_graphs=False")
+            self._inbox: List[_Request] = []
+            self._known: Dict[int, _Request] = {}
+            self._next_rid = 0
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -166,8 +210,15 @@ class DecodeEngine:
         self._live: Dict[int, _Request] = {}
         self._free = list(range(n_slots))
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        self._cache = KVCache.create(self.cfg.decoder, n_slots, max_len,
-                                     self.device)
+        # a tensor-parallel mesh's 'data' axis splits the slots (JAX's
+        # kv_cache_sharding); an expert-parallel engine's cache is whole
+        rows = None
+        if self._mesh is not None and "model" in self._mesh.shape:
+            from ..parallel.mesh import kv_cache_sharding
+            rows = self._mesh.axis(kv_cache_sharding(self._mesh)[1])
+        decoder = model.language_model
+        self._cache = decoder.new_cache(n_slots, max_len, self.device,
+                                        rows=rows)
         self._cur = torch.zeros((n_slots,), dtype=torch.long,
                                 device=self.device)
         self._temps = np.zeros((n_slots,), np.float32)
@@ -188,21 +239,21 @@ class DecodeEngine:
         self._pf_chunk_n = int(prefill_chunk)
         self._pf_state: Optional[dict] = None
         self._pf_queue: List[_Request] = []
-        self._stage = (KVCache.create(self.cfg.decoder, 1, max_len,
-                                      self.device)
+        self._stage = (decoder.new_cache(1, max_len, self.device)
                        if self._pf_chunk_n > 0 else None)
         # prefix cache: parked rows, their keys, and the retirements whose
         # rows the next tick copies in one group (before _admit can reuse
         # their slots)
         self._park_n = int(prefix_cache_slots)
-        self._park = (KVCache.create(self.cfg.decoder, self._park_n,
-                                     max_len, self.device)
+        self._park = (decoder.new_cache(self._park_n, max_len,
+                                        self.device)
                       if self._park_n > 0 else None)
         self._park_meta: List[Optional[dict]] = [None] * self._park_n
         self._park_clock = 0
         self._park_pending: List[tuple] = []
         self._prefix_hits = 0
         self.error: Optional[Exception] = None
+        self._stopped = False
         self._tokens_emitted = 0
         self._hold_admission = False   # warmup(): bursts admit as one group
         self._started = time.monotonic()
@@ -305,10 +356,18 @@ class DecodeEngine:
         idx = self._dev(np.asarray(slots, np.int64))
         n = rows.max_len
         c = self._cache
-        for dst, src in zip(c.buffers(), rows.buffers()):
-            for d, r in zip(layer_parts(dst), layer_parts(src)):
-                d[:, idx, :n] = r[:, :nb]
-        c.pos[idx] = rows.pos[:nb]
+        src, dst = slice(0, nb), idx
+        if c.rows is not None:
+            # this rank writes the slots of its block
+            off = c.rows.index * c.batch
+            mine = [(j, s - off) for j, s in enumerate(slots)
+                    if off <= s < off + c.batch]
+            src = self._dev(np.asarray([j for j, _ in mine], np.int64))
+            dst = self._dev(np.asarray([s for _, s in mine], np.int64))
+        for dbuf, sbuf in zip(c.buffers(), rows.buffers()):
+            for d, r in zip(layer_parts(dbuf), layer_parts(sbuf)):
+                d[:, dst, :n] = r[:, src]
+        c.pos[dst] = rows.pos[src]
         self._temps[slots] = temps
         self._topps[slots] = topps
         copy_from_host(self._temps_dev, self._temps)
@@ -458,10 +517,24 @@ class DecodeEngine:
             newest[pidx] = slot
         self._park_pending.clear()
         pidx = self._dev(np.asarray(list(newest), np.int64))
-        lidx = self._dev(np.asarray(list(newest.values()), np.int64))
+        slots = np.asarray(list(newest.values()), np.int64)
+        rows = self._cache.rows
+        if rows is not None:
+            # slots split over 'data': each rank reads the same local rows
+            # of its block, the gather holds every block's, and the parked
+            # slot's row is its owner's
+            n_loc, m = self._cache.batch, len(slots)
+            lidx = self._dev(slots % n_loc)
+            pick = self._dev((slots // n_loc) * m + np.arange(m))
+        else:
+            lidx = self._dev(slots)
+        from ..parallel import collectives as C
         for dst, src in zip(self._park.buffers(), self._cache.buffers()):
             for d, c in zip(layer_parts(dst), layer_parts(src)):
-                d[:, pidx] = c[:, lidx]
+                got = c[:, lidx]
+                if rows is not None:
+                    got = C.raw_all_gather(got, rows, 1)[:, pick]
+                d[:, pidx] = got
 
     # -- chunked prefill ----------------------------------------------------
 
@@ -481,7 +554,7 @@ class DecodeEngine:
         has a home)."""
         while self._pf_state is None and self._pf_queue and self._free:
             req = self._pf_queue.pop(0)
-            if req.cancelled:
+            if self._is_cancelled(req):
                 req.done = True
                 req.out.put(None)
                 continue
@@ -497,7 +570,7 @@ class DecodeEngine:
         first token (`_insert`, as grouped admission)."""
         st = self._pf_state
         req: _Request = st["req"]
-        if req.cancelled:
+        if self._is_cancelled(req):
             self._free.append(st["slot"])
             req.done = True
             req.out.put(None)
@@ -523,23 +596,43 @@ class DecodeEngine:
         self._pf_state = None
         self._emit_admission(toks, [req])
 
+    def _has_pending(self) -> bool:
+        if self._mesh is not None:
+            return bool(self._inbox)
+        return not self._requests.empty()
+
+    def _take_pending(self, n: int) -> List[_Request]:
+        """Up to n queued requests, in arrival order."""
+        if self._mesh is not None:
+            out, self._inbox = self._inbox[:n], self._inbox[n:]
+            return out
+        out: List[_Request] = []
+        while len(out) < n:
+            try:
+                out.append(self._requests.get_nowait())
+            except queue.Empty:
+                break
+        return out
+
+    def _is_cancelled(self, req: _Request) -> bool:
+        """Under a mesh, the cancellation rank 0 broadcast (a consumer may
+        set `cancelled` mid-tick, which the other ranks cannot see)."""
+        return req.cancel_seen if self._mesh is not None else req.cancelled
+
     def _admit(self):
         # warmup() holds admission while it enqueues a burst so that the
         # burst admits as one group; checked in the loop condition, so a
         # tick landing mid-enqueue cannot split it
-        while (not self._hold_admission and self._free
-               and not self._requests.empty()):
-            pending: List[_Request] = []
-            while len(pending) < len(self._free):
-                try:
-                    pending.append(self._requests.get_nowait())
-                except queue.Empty:
-                    break
+        # (under a mesh rank 0 applies the hold when it broadcasts, and
+        # every rank admits from the broadcast inbox)
+        while ((self._mesh is not None or not self._hold_admission)
+               and self._free and self._has_pending()):
+            pending = self._take_pending(len(self._free))
             if not pending:
                 return
             live = []
             for req in pending:
-                if req.cancelled:
+                if self._is_cancelled(req):
                     req.done = True
                     req.out.put(None)
                 else:
@@ -586,7 +679,7 @@ class DecodeEngine:
     def _emit(self, req: _Request, token: int):
         if req.done:
             return
-        if req.cancelled:
+        if self._is_cancelled(req):
             req.done = True
             req.out.put(None)
             self._live.pop(req.slot, None)
@@ -627,6 +720,8 @@ class DecodeEngine:
             req.done = True
             req.out.put(None)
         self._pf_queue.clear()
+        for req in getattr(self, "_inbox", []):
+            req.out.put(None)
         while not self._requests.empty():
             try:
                 self._requests.get_nowait().out.put(None)
@@ -634,9 +729,89 @@ class DecodeEngine:
                 break
 
     def _run(self):
-        while not self._stop.is_set():
-            self._tick()
+        if self._mesh is None:
+            while not self._stop.is_set():
+                self._tick()
+        else:
+            # rank 0 broadcasts the stop: every rank leaves after the same
+            # tick
+            while not self._stopped:
+                self._tick()
         self._drain_all()   # deliver in-flight tokens before shutdown
+
+    # -- the mesh protocol --------------------------------------------------
+
+    def _sync(self) -> bool:
+        """The top of a tick under a mesh: rank 0 broadcasts what arrived
+        and was cancelled since the last tick, the prefix cache's
+        bookkeeping and whether to stop; every rank applies it. Returns the
+        stop flag."""
+        msg = None
+        if self._lead:
+            new = []
+            if not self._hold_admission:
+                while True:
+                    try:
+                        new.append(self._requests.get_nowait())
+                    except queue.Empty:
+                        break
+            for req in new:
+                req.rid = self._next_rid
+                self._next_rid += 1
+                self._known[req.rid] = req
+            msg = {"new": [(r.rid, r.ids, r.pixel_values, r.max_new_tokens,
+                            r.temperature, r.top_p, tuple(r.eos_ids))
+                           for r in new],
+                   "cancel": [rid for rid, r in self._known.items()
+                              if r.cancelled and not r.cancel_seen],
+                   "park": ((list(self._park_meta), self._park_clock,
+                             list(self._park_pending))
+                            if self._park_n else None),
+                   "stop": self._stop.is_set()}
+        msg = self._bcast(msg)
+        if self._lead:
+            new = [self._known[p[0]] for p in msg["new"]]
+        else:
+            new = []
+            for rid, ids, px, max_new, temp, topp, eos in msg["new"]:
+                req = _Request(ids=ids, pixel_values=px,
+                               max_new_tokens=max_new, temperature=temp,
+                               top_p=topp, eos_ids=frozenset(eos),
+                               out=_Discard(), rid=rid)
+                self._known[rid] = req
+                new.append(req)
+            if msg["park"] is not None:
+                meta, clock, pending = msg["park"]
+                self._park_meta, self._park_clock = list(meta), clock
+                self._park_pending = list(pending)
+        for rid in msg["cancel"]:
+            self._known[rid].cancel_seen = True
+        self._inbox.extend(new)
+        self._known = {rid: r for rid, r in self._known.items()
+                       if not r.done}
+        self._stopped = msg["stop"]
+        return self._stopped
+
+    def _spec_decision(self):
+        """(try a verify tick?, the drafts or None): rank 0's bandit and
+        drafter decide, broadcast under a mesh."""
+        go = self._spec_gate() if self._lead else None
+        drafts = self._collect_drafts() if self._lead and go else None
+        if self._mesh is not None:
+            go, drafts = self._bcast((go, drafts))
+        return go, drafts
+
+    def follow(self) -> None:
+        """A follower rank's engine: run the ticks rank 0 leads until it
+        stops (on this thread, or waiting for the engine thread)."""
+        if self._lead:
+            raise ValueError("rank 0 leads: serve requests with submit()")
+        if self._thread is not None:
+            self._thread.join()
+        else:
+            self._run()
+        if self.error is not None:
+            raise RuntimeError("engine failed") from self.error
 
     @torch.no_grad()
     def _tick(self):
@@ -645,6 +820,8 @@ class DecodeEngine:
         one batched step (a verify step when spec_k > 0, the bandit
         allows it and some slot has a draft). Called only from the engine
         thread, or from tests with run_thread=False."""
+        if self._mesh is not None and self._sync():
+            return
         if self._park_n:
             self._flush_parks()   # before _admit can reuse source slots
         self._admit()
@@ -658,8 +835,9 @@ class DecodeEngine:
             self._drain_all()
             if self._pf_state is None and not self._pf_queue:
                 self._idle.set()
-                self._woken.wait(timeout=0.05)
-                self._woken.clear()
+                if self._lead:
+                    self._woken.wait(timeout=0.05)
+                    self._woken.clear()
             return
         nucleus = any(self._topps[r.slot] < 1.0 and self._temps[r.slot] > 0
                       for r in self._live.values())
@@ -669,9 +847,9 @@ class DecodeEngine:
         # (which waits for the device) before the tick is recorded.
         t0 = self._clock() if self._spec_k else 0.0
         tried_verify = False
-        if self._spec_k and self._spec_gate():
+        go, drafts = self._spec_decision() if self._spec_k else (False, None)
+        if go:
             tried_verify = True
-            drafts = self._collect_drafts()
             if drafts is not None:
                 before = self._tokens_emitted
                 self._tick_spec(drafts, nucleus)
@@ -843,6 +1021,9 @@ class DecodeEngine:
         """Check capacity against the spliced length (each <image>
         sentinel expands to num_image_tokens embeddings), build and
         enqueue a request."""
+        if not self._lead:
+            raise ValueError("requests go to rank 0's engine; the other "
+                             "ranks follow() it")
         n_img = int(np.sum(np.asarray(ids) == IMAGE_TOKEN_INDEX))
         p_img = int(getattr(self.cfg, "num_image_tokens", 0) or 0)
         expanded = len(ids) + n_img * max(p_img - 1, 0)
@@ -1126,6 +1307,9 @@ class DecodeEngine:
     def shutdown(self):
         self._stop.set()
         self._woken.set()
+        if (self._mesh is not None and self._lead and self._thread is None
+                and not self._stopped):
+            self._tick()   # broadcast the stop to the followers
         if self._thread is not None:
             self._thread.join(timeout=5)
         # consumers blocked on out.get() must not hang past shutdown

@@ -6,8 +6,19 @@ chunks terminated by \\0, FastChat protocol), `/worker_get_status`,
 optional controller registration with a heartbeat thread. Requests stream
 through `stream_generate` one at a time, or, with `--engine-slots`, share
 the batched steps of a `DecodeEngine` (prefix cache, chunked prefill,
-adaptive speculation and warmup by flag). Tensor- and expert-parallel
-serving wait for ROADMAP §1 item 1.7b.
+adaptive speculation and warmup by flag).
+
+Tensor- and expert-parallel serving (`--mesh DxM`, `--ep-shards N`,
+mutually exclusive) run one worker process per rank (`python -m
+torch.distributed.run --nproc-per-node N -m
+competesmoe_tpu_torch.serve.model_worker ...`, or a SLURM job): each rank
+builds the same model from `--seed` (or loads the checkpoint) and keeps
+its part (`parallel.tensor_parallel.shard_llava` / `shard_llava_ep`).
+Rank 0 serves HTTP and registers with the controller; the other ranks
+follow it: the engine's ticks (`DecodeEngine.follow`), or the solo
+path's `stream_generate` calls (`parallel.lockstep`). Over gloo (ranks
+sharing a card) the device steps run eagerly: gloo collectives cannot be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -131,14 +142,21 @@ def _cut_at_stops(text: str, stops: list):
 
 
 def torch_llava_generate_fn(adapter,
-                            default_speculative: Optional[int] = None):
+                            default_speculative: Optional[int] = None,
+                            lockstep=None, cuda_graphs: bool = True):
     """A worker generate_fn over an eval.TorchLlava adapter: prompt and
     optional base64 images in, incremental text out. Tokens stream as
     `stream_generate` produces them; a client that disconnects abandons
     the generator, which cancels the remaining decode steps. A request's
     `speculative` (else `default_speculative`, else the adapter's)
-    verifies that many prompt-lookup drafts per forward."""
+    verifies that many prompt-lookup drafts per forward. Under a mesh
+    (`lockstep`, rank 0) every rank runs the same `stream_generate`."""
     from ..models.llava import stream_generate
+
+    def generation(*args, **kw):
+        if lockstep is not None:
+            return lockstep.stream("stream_generate", *args, **kw)
+        return stream_generate(adapter.model, *args, **kw)
 
     if default_speculative is None:
         default_speculative = adapter.speculative
@@ -158,12 +176,14 @@ def torch_llava_generate_fn(adapter,
             px = process_images(pil, adapter.image_processor)
         arr = np.asarray([ids], np.int32)
         tokens: list = []
-        for chunk in stream_generate(
-                adapter.model, arr, px, max_new_tokens=max_new,
-                temperature=temperature, top_p=top_p,
+        for chunk in generation(
+                arr, None if px is None else np.asarray(px),
+                max_new_tokens=max_new, temperature=temperature,
+                top_p=top_p,
                 eos_token_id=getattr(adapter.tokenizer, "eos_token_id",
                                      None),
-                stop_token_ids=adapter.stop_token_ids, speculative=spec):
+                stop_token_ids=adapter.stop_token_ids, speculative=spec,
+                cuda_graphs=cuda_graphs):
             tokens.extend(int(t) for t in chunk[0])
             text = adapter.tokenizer.decode(tokens,
                                             skip_special_tokens=True)
@@ -213,18 +233,107 @@ def engine_generate_fn(adapter, engine):
 def make_engine(model, engine_slots: int, engine_max_len: int = 2048,
                 speculative: int = 0, engine_pipeline: int = 2,
                 prefix_cache: int = 0, prefill_chunk: int = 0,
-                spec_adaptive: bool = False):
+                spec_adaptive: bool = False, mesh=None,
+                cuda_graphs: bool = True):
     """The DecodeEngine the worker's --engine-slots builds: spec_k =
     --speculative (pipeline depth --engine-pipeline, forced to 1 under
     speculation: drafts need the freshest emitted history),
     --engine-prefix-cache parked rows, --engine-prefill-chunk and
-    --spec-adaptive."""
+    --spec-adaptive; `mesh` for a sharded model."""
     from .engine import DecodeEngine
     return DecodeEngine(model, n_slots=engine_slots, max_len=engine_max_len,
                         prefix_cache_slots=prefix_cache, spec_k=speculative,
                         spec_adaptive=spec_adaptive,
                         pipeline_depth=1 if speculative else engine_pipeline,
-                        prefill_chunk=prefill_chunk)
+                        prefill_chunk=prefill_chunk, mesh=mesh,
+                        cuda_graphs=cuda_graphs)
+
+
+def tp_mesh_from_str(mesh_str: str):
+    """'DxM' -> the ('data', 'model') mesh of this world's D x M ranks."""
+    from ..parallel.mesh import _world, make_tp_mesh
+    d, m = (int(v) for v in mesh_str.lower().split("x"))
+    world, _ = _world()
+    if d * m != world:
+        raise SystemExit(f"mesh {mesh_str} needs {d * m} devices, have "
+                         f"{world}")
+    return make_tp_mesh(n_model=m)
+
+
+def ep_mesh_from(n_shards: int):
+    """The ('data', 'expert') mesh of this world with `n_shards` ranks on
+    the expert axis."""
+    from ..parallel.mesh import _world, make_mesh
+    world, _ = _world()
+    if world % n_shards:
+        raise SystemExit(f"--ep-shards {n_shards} needs a multiple of "
+                         f"{n_shards} devices, have {world}")
+    return make_mesh(n_expert=n_shards)
+
+
+def shard_llava_params(model, mesh_str: str):
+    """Place a loaded LlavaModel on a DxM tensor-parallel mesh ('1x2' ->
+    data=1, model=2): the decoder Megatron-style, the vision tower and
+    projector replicated (`parallel.tensor_parallel.shard_llava`).
+    Returns (model, mesh)."""
+    if getattr(model, "tp_mesh", None) is not None:
+        return model, model.tp_mesh            # placed already
+    mesh = tp_mesh_from_str(mesh_str)
+    return place_model(model, mesh), mesh
+
+
+def graphs_for(mesh, device) -> bool:
+    """Whether the steps may be captured CUDA graphs: not under a mesh
+    over gloo (its collectives cannot be captured), which is said."""
+    import torch.distributed as dist
+    if mesh is None or mesh.size == 1 or str(device) == "cpu":
+        return True
+    if dist.get_backend() == "nccl":
+        return True
+    if mesh.rank == 0:
+        print("cuda graphs off: the ranks' collectives go over gloo, "
+              "which a CUDA graph cannot capture", flush=True)
+    return False
+
+
+def start_ranks(a):
+    """--mesh / --ep-shards: the process group from the scheduler's
+    environment, and this rank's device (its own card under NCCL, the
+    shared one under gloo) in `a.device`."""
+    from ..device import resolve_device
+    from ..parallel.distributed import detect_env, initialize, rank_device
+    ep = getattr(a, "ep_shards", 0)
+    if a.mesh and ep:
+        raise SystemExit("--mesh (tensor parallel) and --ep-shards "
+                         "(expert parallel) are mutually exclusive")
+    if not (a.mesh or ep):
+        return None
+    denv = detect_env()
+    device = resolve_device(a.device)
+    initialize(denv, device)
+    a.device = str(rank_device(denv, device))
+    return denv
+
+
+def serving_mesh(a):
+    """The mesh of --mesh / --ep-shards over this world's ranks (JAX's
+    "needs N devices" when the world does not match), or None."""
+    if a.mesh:
+        return tp_mesh_from_str(a.mesh)
+    if a.ep_shards:
+        return ep_mesh_from(a.ep_shards)
+    return None
+
+
+def place_model(model, mesh):
+    """The model's placement on a serving mesh, in place: tensor parallel
+    on a ('data', 'model') mesh, expert parallel on ('data', 'expert')."""
+    from ..parallel import tensor_parallel as tp
+    if mesh is None:
+        return model
+    if "model" in mesh.shape:
+        return tp.shard_llava(model, mesh)
+    return tp.shard_llava_ep(model, mesh)
 
 
 def make_handler(worker: ModelWorker):
@@ -360,12 +469,9 @@ def load_model(a):
     return model, tokenizer, model_name
 
 
-def main(argv=None):
-    """Worker launch CLI: load the model (`load_model`); optionally
-    register with a controller; serve."""
+def parse_args(argv=None):
+    """The worker's flags."""
     import argparse
-
-    from ..eval.llava_adapter import TorchLlava
 
     ap = argparse.ArgumentParser()
     add_model_args(ap)
@@ -409,25 +515,74 @@ def main(argv=None):
                          "path before serving (DecodeEngine.warmup): "
                          "kernel builds, cuBLAS handles and allocator "
                          "blocks then come before the first request")
-    for flag in ("--mesh", "--ep-shards"):
-        ap.add_argument(flag, default="", help="not ported yet")
+    ap.add_argument("--mesh", default="",
+                    help="DxM tensor-parallel mesh, e.g. 1x2: shard the "
+                         "decoder Megatron-style over M ranks "
+                         "(parallel.tensor_parallel.shard_llava); the "
+                         "world must have D x M ranks")
+    ap.add_argument("--ep-shards", type=int, default=0,
+                    help="expert-parallel serving: shard every MoE expert "
+                         "bank over an ('data', 'expert') mesh with this "
+                         "expert-axis size and dispatch tokens by "
+                         "all-to-all (the tower and projector at "
+                         "prefill; a Mixtral decoder every step). "
+                         "Mutually exclusive with --mesh")
     ap.add_argument("--no-register", action="store_true")
-    a = ap.parse_args(argv)
-    refused = [f for f in ("--mesh", "--ep-shards")
-               if getattr(a, f[2:].replace("-", "_")) not in ("", "0")]
-    if refused:
-        raise SystemExit(f"{', '.join(refused)}: not ported (ROADMAP §1 "
-                         "item 1.7b: parallelism)")
-    model, tokenizer, model_name = load_model(a)
+    return ap.parse_args(argv)
+
+
+class Serving:
+    """What `build_serving` made: on rank 0 the HTTP `worker`; the engine
+    or the solo path's lockstep; `follow()` for the other ranks and
+    `close()` for rank 0 (which releases them)."""
+
+    def __init__(self, worker, engine, lockstep, mesh):
+        self.worker, self.engine, self.lockstep = worker, engine, lockstep
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
+
+    def follow(self) -> None:
+        if self.engine is not None:
+            self.engine.follow()
+        elif self.lockstep is not None:
+            self.lockstep.follow()
+
+    def close(self) -> None:
+        if self.engine is not None:
+            self.engine.shutdown()
+        elif self.lockstep is not None:
+            self.lockstep.stop()
+
+
+def build_serving(a, model=None, tokenizer=None,
+                  model_name: Optional[str] = None) -> Serving:
+    """The ranks (`--mesh` / `--ep-shards`), the model (`load_model`,
+    unless `model` and `tokenizer` are given: the same on every rank) and
+    its placement, the engine or the solo path, and on rank 0 the worker
+    (not yet serving)."""
+    from ..eval.llava_adapter import TorchLlava
+
+    start_ranks(a)
+    mesh = serving_mesh(a)
+    if model is None:
+        model, tokenizer, model_name = load_model(a)
+    place_model(model, mesh)
+    graphs = graphs_for(mesh, a.device)
+    lead = mesh is None or mesh.rank == 0
     adapter = TorchLlava(model, tokenizer, conv_template=a.conv_template,
                          max_new_tokens=a.max_new_tokens,
                          speculative=a.speculative)
+    engine = lockstep = None
     if a.engine_slots > 0:
+        sharded = ({} if mesh is None
+                   else dict(mesh=mesh, cuda_graphs=graphs))
         engine = make_engine(model, a.engine_slots, a.engine_max_len,
                              a.speculative, a.engine_pipeline,
                              prefix_cache=a.engine_prefix_cache,
                              prefill_chunk=a.engine_prefill_chunk,
-                             spec_adaptive=a.spec_adaptive)
+                             spec_adaptive=a.spec_adaptive, **sharded)
+        if not lead:
+            return Serving(None, engine, None, mesh)
         if a.engine_warmup:
             buckets = [int(x) for x in a.engine_warmup.split(",") if x]
             w = engine.warmup(prompt_buckets=buckets)
@@ -440,15 +595,38 @@ def main(argv=None):
         concurrency = max(a.limit_model_concurrency, a.engine_slots)
         extra_status = engine.stats
     else:
-        gen_fn = torch_llava_generate_fn(adapter)
+        if mesh is not None:
+            from functools import partial
+
+            from ..models.llava import stream_generate
+            from ..parallel.lockstep import Lockstep
+            lockstep = Lockstep({"stream_generate": partial(stream_generate,
+                                                            model)})
+            if not lead:
+                return Serving(None, None, lockstep, mesh)
+        gen_fn = torch_llava_generate_fn(adapter, lockstep=lockstep,
+                                         cuda_graphs=graphs)
         concurrency = a.limit_model_concurrency
         extra_status = None
     worker = ModelWorker(
         None if a.no_register else a.controller_address,
-        a.worker_address or f"http://localhost:{a.port}", [model_name],
-        gen_fn, limit_model_concurrency=concurrency,
-        extra_status_fn=extra_status)
-    print(f"worker {worker.worker_id} serving {model_name} on "
+        a.worker_address or f"http://localhost:{a.port}",
+        [model_name or "competesmoe-5.1b"], gen_fn,
+        limit_model_concurrency=concurrency, extra_status_fn=extra_status)
+    return Serving(worker, engine, lockstep, mesh)
+
+
+def main(argv=None):
+    """Worker launch CLI: the ranks, the model and its placement
+    (`build_serving`); rank 0 registers with a controller (unless
+    --no-register) and serves, the other ranks follow it."""
+    a = parse_args(argv)
+    served = build_serving(a)
+    if not served.lead:
+        served.follow()
+        return
+    worker = served.worker
+    print(f"worker {worker.worker_id} serving {worker.model_names[0]} on "
           f"{a.host}:{a.port}", flush=True)
     serve_worker(worker, a.host, a.port)
 

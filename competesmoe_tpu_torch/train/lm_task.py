@@ -54,7 +54,10 @@ only rank 0 logs and writes; the Saver's checkpoint is the gathered full
 state, so it restores at any world size. A preemptible job
 (`SLURM_RESTART_COUNT`) records its checkpoint directory under
 `-job_record_dir`, and a restart resumes from the recorded one.
-`-n_seq_shards > 1` (ring attention) waits for ROADMAP item 1.7b.
+`-n_seq_shards N > 1` adds a 'seq' axis of N ranks (JAX's ('data',
+'expert', 'seq') mesh): the ranks of a row block split its sequence, and
+attention runs as a ring over them (`parallel/ring_attention.py`);
+`-lm.unroll` must divide by N.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ from ..moe.config import MoEArgs
 from ..moe.schedule import (build_flip_schedule, schedule_from_dict,
                             schedule_to_dict)
 from ..utils.argparser import ArgumentParser, DotDict, args
-from ..parallel.mesh import make_mesh, put_batch, shard_params
+from ..parallel.mesh import make_mesh, put_batch, seq_block, shard_params
 from .checkpoint import FullState, Saver
 from .lm_trainer import (OptConfig, TrainState, make_eval_step,
                          make_optimizer, make_train_step)
@@ -267,12 +270,6 @@ def lm_config_from(a: DotDict) -> LMConfig:
     )
 
 
-def _not_ported(a: DotDict) -> None:
-    if a.n_seq_shards > 1:
-        raise NotImplementedError("-n_seq_shards is not ported: ROADMAP "
-                                  "item 1.7b (ring attention)")
-
-
 @task("synthetic_transformer")
 class SyntheticTransformerTask:
     """LM pretraining on the synthetic corpus (the offline stand-in for
@@ -280,7 +277,6 @@ class SyntheticTransformerTask:
     `create_datasets`."""
 
     def __init__(self, a: DotDict):
-        _not_ported(a)
         self.a = a
         from ..parallel.distributed import (detect_env, initialize,
                                             rank_device)
@@ -288,7 +284,12 @@ class SyntheticTransformerTask:
         device = resolve_device(a.device)
         initialize(self.denv, device)
         self.device = rank_device(self.denv, device)
-        self.mesh = make_mesh(n_expert=a.n_expert_shards)
+        self.mesh = make_mesh(n_expert=a.n_expert_shards,
+                              n_seq=a.n_seq_shards)
+        if a.n_seq_shards > 1 and a.lm.unroll % a.n_seq_shards != 0:
+            raise ValueError(
+                f"-lm.unroll {a.lm.unroll} must divide by "
+                f"-n_seq_shards {a.n_seq_shards} (ring attention blocks)")
         if a.batch_size % self.mesh.size != 0:
             raise ValueError(
                 f"-batch_size {a.batch_size} must be divisible by the "
@@ -367,13 +368,20 @@ class SyntheticTransformerTask:
             record.parent.mkdir(parents=True, exist_ok=True)
             record.write_text(str(ckpt_dir))
 
-    def _ep_scope(self):
-        """The expert-parallel context of this task's loops."""
+    def _ep_scope(self, seq: bool = True):
+        """The parallel-dispatch context of this task's loops: expert
+        parallelism (all-to-all MoE dispatch) and/or sequence parallelism
+        (ring attention over the 'seq' axis; `seq=False` for the QA
+        battery, whose sequences every rank runs whole)."""
         import contextlib
-        if not self._use_ep:
-            return contextlib.nullcontext()
-        from ..parallel.ep_context import use_expert_parallel
-        return use_expert_parallel(self.mesh)
+        stack = contextlib.ExitStack()
+        if self._use_ep:
+            from ..parallel.ep_context import use_expert_parallel
+            stack.enter_context(use_expert_parallel(self.mesh))
+        if seq and "seq" in self.mesh.axis_names:
+            from ..parallel.seq_context import use_sequence_parallel
+            stack.enter_context(use_sequence_parallel(self.mesh))
+        return stack
 
     def _rows(self, windows: np.ndarray) -> np.ndarray:
         """This rank's rows of a global batch."""
@@ -457,7 +465,8 @@ class SyntheticTransformerTask:
         the share of experts used and the entropy of the usage, and a
         heatmap of every layer's usage."""
         try:
-            _, aux = self.model(batch[:, :-1], train=False,
+            _, aux = self.model(seq_block(batch[:, :-1], self.mesh),
+                                train=False,
                                 return_id_experts=True)
         except Exception as e:  # noqa: BLE001 - telemetry must not end a run
             # warn once instead of dropping telemetry silently
@@ -613,7 +622,7 @@ class SyntheticTransformerTask:
 
     def test(self) -> Dict[str, float]:
         res = {"valid/perplexity": self.validate()}
-        with self._ep_scope():
+        with self._ep_scope(seq=False):
             res.update(self.run_downstream_evals())
         return res
 

@@ -29,7 +29,11 @@ over its rows, or, where a statistic spans rows, the global value through
 loss. `mesh.reduce_gradients` then sums every gradient over the ranks
 that hold a copy of its parameter (replicated ones over the world, expert
 banks over 'data'); `global_norm` counts each shard once; the reported
-losses are the global ones.
+losses are the global ones. With a 'seq' axis (`-n_seq_shards`) the
+ranks of a row block split its sequence: each takes its block of the
+inputs and of the targets (shifted before the split, so a block's last
+target is the next block's first token), and the batch axis spans every
+rank (`parallel.distributed_ops`, the token statistics over 'seq').
 """
 
 from __future__ import annotations
@@ -248,6 +252,15 @@ class TrainState:
                    step=0)
 
 
+def _seq_scope(mesh):
+    """Sequence parallelism for a mesh with a 'seq' axis."""
+    import contextlib
+    if mesh is None or mesh.shape.get("seq", 1) == 1:
+        return contextlib.nullcontext()
+    from ..parallel.seq_context import use_sequence_parallel
+    return use_sequence_parallel(mesh)
+
+
 def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
                     ignore_index: int = -100, n_microbatch: int = 1,
                     generator: Optional[torch.Generator] = None,
@@ -263,15 +276,26 @@ def make_train_step(model: MoELanguageModel, optimizer: Optimizer,
     from ..parallel import distributed_ops
     from ..parallel.mesh import named_params, reduce_gradients, shard_axes
 
+    from ..parallel.mesh import seq_block
+
     dist_ = mesh is not None and mesh.is_distributed
     world = mesh.axis("world") if dist_ else None
+    seq = mesh.axis("seq") if dist_ and "seq" in mesh.shape else None
     shard_of = {k: a for k, (a, _) in shard_axes(model).items()}
 
     def loss_for(step: int, tokens: torch.Tensor):
-        with distributed_ops.use_batch_axis(world):
-            logits, aux = model(tokens[:, :-1], step=step, train=True,
-                                generator=generator)
-        ce, n_tok = lm_loss_fn(logits, tokens[:, 1:], ignore_index)
+        # the backward's recomputes (remat, the competition step's
+        # checkpoint) run under the forward's contexts too
+        with distributed_ops.use_batch_axis(world, tokens=seq), \
+                _seq_scope(mesh):
+            return _loss_for(step, tokens)
+
+    def _loss_for(step: int, tokens: torch.Tensor):
+        inputs = seq_block(tokens[:, :-1], mesh)
+        targets = seq_block(tokens[:, 1:], mesh)
+        logits, aux = model(inputs, step=step, train=True,
+                            generator=generator)
+        ce, n_tok = lm_loss_fn(logits, targets, ignore_index)
         reg = aux["total_aux_loss"]
         if dist_:
             # this rank's share of the global loss: its tokens' sum over
@@ -351,12 +375,15 @@ def make_eval_step(model: MoELanguageModel,
     `mesh` of several ranks, tokens are this rank's rows and the sums are
     the global ones."""
     from ..parallel import collectives as C
+    from ..parallel.mesh import seq_block
     world = mesh.axis("world") if mesh is not None else None
 
     @torch.no_grad()
     def step_fn(tokens):
-        logits, _ = model(tokens[:, :-1], train=False)
-        ce, n_tok = lm_loss_fn(logits, tokens[:, 1:], ignore_index)
+        with _seq_scope(mesh):
+            logits, _ = model(seq_block(tokens[:, :-1], mesh), train=False)
+        ce, n_tok = lm_loss_fn(logits, seq_block(tokens[:, 1:], mesh),
+                               ignore_index)
         if world is not None and world.size > 1:
             both = C.raw_all_reduce(torch.stack(
                 [ce * n_tok, n_tok.to(ce.dtype)]), world, op="metrics")

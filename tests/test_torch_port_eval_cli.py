@@ -7,8 +7,8 @@ within 1e-4 relative, metrics within 1e-9 relative, telemetry histograms
 identical and entropies within 1e-5). Both CLIs load the checkpoint in
 bf16; here both loaders are wrapped to load it in float32, where the two
 packages' roundings agree that far (in bf16 a router's near tie may
-choose another expert for one token). Also: `--mesh` raises naming
-ROADMAP §1 item 1.7b; without `--device cpu` and with no card the CLI
+choose another expert for one token). Also: `--mesh` needs as many
+ranks as it names; without `--device cpu` and with no card the CLI
 raises; the `--config` loop (bf16 and --load-8bit), `--task-yaml` and the
 results logger.
 """
@@ -162,8 +162,11 @@ def test_cli_writes_the_same_telemetry(cli_runs):
 
 
 def test_cli_mesh_raises_naming_the_roadmap_item(ckpt_dir, tok_dir):
+    """--mesh is ported (tests/test_torch_port_tp_serving.py runs it over
+    2 ranks): one process cannot hold a 1x8 mesh, as JAX's needs 8
+    devices."""
     from competesmoe_tpu_torch.cli.eval_mm import main
-    with pytest.raises(NotImplementedError, match="item 1.7"):
+    with pytest.raises(SystemExit, match="needs 8 devices, have 1"):
         main(["--model-dir", str(ckpt_dir), "--tokenizer", tok_dir,
               "--tasks", "cli_port_gen", "--mesh", "1x8",
               "--device", "cpu"])

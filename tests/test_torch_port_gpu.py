@@ -18,7 +18,8 @@ its solo route, batched against unbatched loglikelihood, and K5 launched
 by generate_until under --load-4bit; and the LM options: a MoA layer on
 the card against the CPU (K2 never launched by a MoA LM), and a
 chunked_transformer task's steps on the card; and two ranks sharing the
-card over gloo through the expert-parallel dispatch with K1.
+card over gloo through the expert-parallel dispatch with K1, the
+tensor-parallel decoder with K3 on each rank's shard, and the ring.
 
 Every test needs a CUDA GPU and skips without one. The file imports no
 JAX, so it also runs where only PyTorch is installed, without the JAX
@@ -1865,3 +1866,39 @@ def test_ep_dispatch_with_k1_on_ranks_sharing_the_card(gen, tmp_path):
         assert float((out - want[rows]).abs().max()) <= tol
         gtol = 2.0 ** -6 * float(gx.abs().max())
         assert float((grad - gx[rows]).abs().max()) <= gtol
+
+
+def test_tp_decode_with_k3_on_ranks_sharing_the_card(gen, tmp_path):
+    """Two ranks on the card over gloo, the bf16 decoder tensor parallel
+    (`--mesh 1x2`'s placement): every decode projection of each rank's
+    shard goes through K3, and the greedy tokens equal one process's on
+    the card."""
+    import torch_parallel_ranks as R
+    want, launches1 = R.card_tp_decode()
+    assert launches1 > 0
+    for toks, launches in R.spawn(R.card_tp_decode, 2, tmp_path, 2):
+        assert torch.equal(toks, want)
+        assert launches == launches1
+
+
+def test_ring_attention_on_ranks_sharing_the_card(gen, tmp_path):
+    """The ring over 2 ranks on the card (bf16 in, float32 inside): the
+    output and dq against one process's plain causal attention in
+    float32, within bf16's rounding (2^-6 of the largest magnitude)."""
+    import torch_parallel_ranks as R
+    ranks = R.spawn(R.card_ring, 2, tmp_path)
+    d = R.ring_inputs(3, B=2, T=256, h=4, p=64)
+    q, k, v = (torch.from_numpy(d[n]).to("cuda", torch.bfloat16).float()
+               .requires_grad_() for n in ("q", "k", "v"))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = (qt @ kt.transpose(-1, -2)) / 8.0
+    s = s.masked_fill(~torch.ones(256, 256, dtype=torch.bool,
+                                  device="cuda").tril(), float("-inf"))
+    want = (torch.softmax(s, -1) @ vt).transpose(1, 2)
+    (want ** 2).sum().backward()
+    got = torch.cat([r[0] for r in ranks], dim=1)
+    dq = torch.cat([r[1] for r in ranks], dim=1)
+    tol = 2.0 ** -6 * float(want.abs().max())
+    assert float((got - want.detach().cpu()).abs().max()) <= tol
+    gtol = 2.0 ** -6 * float(q.grad.abs().max())
+    assert float((dq - q.grad.cpu()).abs().max()) <= gtol

@@ -453,13 +453,14 @@ def test_task_needs_a_card_unless_asked(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             get_task(a.task)(a)
-    # -n_expert_shards and -fsdp are ported (tests/test_torch_port_parallel
-    # *.py): one process cannot hold 2 expert shards, as in JAX's mesh;
-    # ring attention is not ported
+    # -n_expert_shards, -fsdp and -n_seq_shards are ported
+    # (tests/test_torch_port_parallel*.py, test_torch_port_ring.py): one
+    # process cannot hold 2 expert shards or 2 sequence blocks, as in
+    # JAX's mesh
     for flag, err, msg in ((["-n_expert_shards", "2"], ValueError,
                             "not divisible"),
-                           (["-n_seq_shards", "2"], NotImplementedError,
-                            "1.7b")):
+                           (["-n_seq_shards", "2"], ValueError,
+                            "not divisible by expert=1 x seq=2")):
         a = build_parser().parse(_TINY_FLAGS + flag + ["-device", "cpu",
                                                        "-run_dir",
                                                        str(tmp_path)])

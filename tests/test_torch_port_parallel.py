@@ -381,7 +381,9 @@ def test_impl_ep_needs_a_mesh_as_in_jax():
     from competesmoe_tpu_torch.parallel import ep_context
     with ep_context.use_expert_parallel(tmesh.make_mesh()):
         assert ep_context.current_ep_mesh() is None
-    with pytest.raises(NotImplementedError, match="1.7b"):
+    # a seq axis of 2 needs 2 ranks, as JAX's mesh needs 2 devices
+    with pytest.raises(ValueError, match="not divisible by expert=1 x "
+                                         "seq=2"):
         tmesh.make_mesh(n_seq=2)
 
 

@@ -536,19 +536,33 @@ def test_engine_sampling_and_cancellation(tiny_engine_model):
 
 
 def test_unported_engine_options_raise(tiny_engine_model):
-    """Tensor- and expert-parallel engines wait for ROADMAP §1 item 1.7b:
-    the engine refuses a mesh and the worker --mesh and --ep-shards."""
+    """The engine under a one-rank mesh is the one-process engine; the
+    worker's --mesh and --ep-shards need as many ranks as they name, as
+    JAX's need as many devices, and exclude each other; speculation
+    still refuses pipelining."""
     _, _, model = tiny_engine_model
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1.7"):
-        tengine.DecodeEngine(model, n_slots=2, max_len=64,
-                             run_thread=False, mesh=object())
+    from competesmoe_tpu_torch.parallel.mesh import make_tp_mesh
+    plain = tengine.DecodeEngine(model, n_slots=2, max_len=64,
+                                 run_thread=False)
+    meshed = tengine.DecodeEngine(model, n_slots=2, max_len=64,
+                                  run_thread=False, mesh=make_tp_mesh(1))
+    got = []
+    for eng in (plain, meshed):
+        req = eng._make_request(np.arange(3, 9, dtype=np.int32),
+                                max_new_tokens=4)
+        while not req.done:
+            eng._tick()
+        got.append(req.emitted)
+    assert got[0] == got[1] and len(got[0]) == 4
     with pytest.raises(ValueError):
         tengine.DecodeEngine(model, n_slots=2, max_len=64, run_thread=False,
                              spec_k=2, pipeline_depth=2)
     from competesmoe_tpu_torch.serve.model_worker import main
-    for flag in (["--mesh", "1x8"], ["--ep-shards", "2"]):
-        with pytest.raises(SystemExit,
-                           match="not ported .ROADMAP §1 item 1.7"):
+    for flag, msg in ((["--mesh", "1x2"], "needs 2 devices, have 1"),
+                      (["--ep-shards", "2"], "needs a multiple of 2"),
+                      (["--mesh", "1x2", "--ep-shards", "2"],
+                       "mutually exclusive")):
+        with pytest.raises(SystemExit, match=msg):
             main(["--tokenizer", "unused", "--device", "cpu"] + flag)
 
 
