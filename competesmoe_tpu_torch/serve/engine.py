@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import queue
 import threading
 import time
@@ -91,6 +92,7 @@ import torch
 from ..constants import IMAGE_TOKEN_INDEX
 from ..models.decoder import KVCache, layer_parts, take_rows
 from ..models.llava import _prefill, sample_rows, verify_step
+from ..utils import spans
 from ..utils.cuda_graph import Program, capture, copy_from_host
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -126,10 +128,13 @@ class _Request:
     # holds K/V for emitted[:-1])
     base_len: int = -1
     emitted: List[int] = field(default_factory=list)
-    # under a mesh: the request's number, and the cancellation as rank 0
-    # broadcast it (every rank acts on it at the same tick)
+    # the request's number (under a mesh rank 0's, broadcast), and under a
+    # mesh the cancellation as rank 0 broadcast it (every rank acts on it
+    # at the same tick)
     rid: int = -1
     cancel_seen: bool = False
+    # the recorder's record of a request submitted to this engine
+    rec: Optional[spans.RequestRecord] = None
 
 
 class _Discard:
@@ -171,7 +176,7 @@ class DecodeEngine:
                     "cuda_graphs=False")
             self._inbox: List[_Request] = []
             self._known: Dict[int, _Request] = {}
-            self._next_rid = 0
+        self._rids = itertools.count()
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -206,6 +211,8 @@ class DecodeEngine:
                 "one call late")
         # [(host tokens [rows, k], ready event or None, row -> request)]
         self._inflight: List[tuple] = []
+        # launches whose device time is still to be read (`_read`)
+        self._timed: List[spans.Launch] = []
         self._requests: "queue.Queue[_Request]" = queue.Queue()
         self._live: Dict[int, _Request] = {}
         self._free = list(range(n_slots))
@@ -255,8 +262,12 @@ class DecodeEngine:
         self.error: Optional[Exception] = None
         self._stopped = False
         self._tokens_emitted = 0
+        # stats(): decode step launches, admission groups (a prefix-cache
+        # group and a prefill chunk each count), their real rows, and the
+        # requests' summed submit -> admission-group start
+        self._ticks = self._admit_groups = self._prefill_rows = 0
+        self._queue_wait_s = 0.0
         self._hold_admission = False   # warmup(): bursts admit as one group
-        self._started = time.monotonic()
         self._stop = threading.Event()
         self._woken = threading.Event()
         # set each time a tick finds nothing to do (nothing live, nothing
@@ -292,11 +303,37 @@ class DecodeEngine:
         ev.record()
         return host, ev
 
-    @staticmethod
-    def _read(host: torch.Tensor, ev) -> np.ndarray:
+    def _read(self, host: torch.Tensor, ev) -> np.ndarray:
+        """The host copy once its event has passed; then the device time
+        of each launch that has finished by now."""
         if ev is not None:
-            ev.synchronize()
+            with spans.span("engine.wait_device"):
+                ev.synchronize()
+            self._timed = [w for w in self._timed if not w.done()]
         return host.numpy()
+
+    def _launch_step(self) -> spans.Launch:
+        """A decode step's launch beginning now (`utils.spans`)."""
+        self._ticks += 1
+        return spans.launch("step", self.device)
+
+    def _launch_group(self, reqs) -> spans.Launch:
+        """An admission group of `reqs` beginning now (`utils.spans`):
+        each request's record and the counters take its submit -> group
+        start."""
+        work = spans.launch("admit", self.device)
+        self._admit_groups += 1
+        self._prefill_rows += len(reqs)
+        for req in reqs:
+            if req.rec is not None and req.rec.admit is None:
+                req.rec.admit = work.start
+                self._queue_wait_s += work.start - req.rec.submit
+        return work
+
+    def _landed(self, work: spans.Launch) -> None:
+        """The launch's device work is on the stream: mark its end."""
+        if work.end().pending:
+            self._timed.append(work)
 
     # -- admission ----------------------------------------------------------
 
@@ -315,35 +352,40 @@ class DecodeEngine:
         right-pad to `bucket` with mask 0 (padding lands in the cache dump
         slot); the batch pads to a pow-2 row count by repeating row 0,
         whose copies are not spliced."""
-        nb = len(reqs)
-        nbp = _bucket(nb, lo=1)
-        ids = np.zeros((nbp, bucket), np.int64)
-        mask = np.zeros((nbp, bucket), np.int64)
-        for i, req in enumerate(reqs):
-            ids[i, :len(req.ids)] = req.ids
-            mask[i, :len(req.ids)] = 1
-        ids[nb:] = ids[0]
-        mask[nb:] = mask[0]
-        px = None
-        if reqs[0].pixel_values is not None:
-            rows = [np.asarray(r.pixel_values, np.float32) for r in reqs]
-            px = self._dev(np.concatenate(rows + [rows[0]] * (nbp - nb),
-                                          axis=0))
-        last, out = self._run_prefill(bucket, self._dev(ids), px,
-                                      self._dev(mask))
-        slots = [self._free.pop() for _ in reqs]
-        temps = np.asarray([r.temperature for r in reqs], np.float32)
-        topps = np.asarray([r.top_p for r in reqs], np.float32)
-        toks = self._insert(out.cache, slots, last[:nb], temps, topps)
-        p_img = int(getattr(self.cfg, "num_image_tokens", 0) or 0)
-        for req, slot in zip(reqs, slots):
-            req.slot = slot
-            # the spliced length, from the host (the formula of the
-            # capacity check): reading the cache's pos would synchronise
-            n_img = int(np.sum(req.ids == IMAGE_TOKEN_INDEX))
-            req.base_len = len(req.ids) + n_img * max(p_img - 1, 0)
-            self._live[slot] = req
-        self._emit_admission(toks, reqs)
+        image = reqs[0].pixel_values is not None
+        with spans.span("engine.admit_group", rows=len(reqs), bucket=bucket,
+                        image=image, rids=[r.rid for r in reqs]):
+            work = self._launch_group(reqs)
+            nb = len(reqs)
+            nbp = _bucket(nb, lo=1)
+            ids = np.zeros((nbp, bucket), np.int64)
+            mask = np.zeros((nbp, bucket), np.int64)
+            for i, req in enumerate(reqs):
+                ids[i, :len(req.ids)] = req.ids
+                mask[i, :len(req.ids)] = 1
+            ids[nb:] = ids[0]
+            mask[nb:] = mask[0]
+            px = None
+            if image:
+                rows = [np.asarray(r.pixel_values, np.float32) for r in reqs]
+                px = self._dev(np.concatenate(rows + [rows[0]] * (nbp - nb),
+                                              axis=0))
+            last, out = self._run_prefill(bucket, self._dev(ids), px,
+                                          self._dev(mask))
+            slots = [self._free.pop() for _ in reqs]
+            temps = np.asarray([r.temperature for r in reqs], np.float32)
+            topps = np.asarray([r.top_p for r in reqs], np.float32)
+            toks = self._insert(out.cache, slots, last[:nb], temps, topps)
+            self._landed(work)
+            p_img = int(getattr(self.cfg, "num_image_tokens", 0) or 0)
+            for req, slot in zip(reqs, slots):
+                req.slot = slot
+                # the spliced length, from the host (the formula of the
+                # capacity check): reading the cache's pos would synchronise
+                n_img = int(np.sum(req.ids == IMAGE_TOKEN_INDEX))
+                req.base_len = len(req.ids) + n_img * max(p_img - 1, 0)
+                self._live[slot] = req
+            self._emit_admission(toks, reqs)
 
     def _insert(self, rows: KVCache, slots: List[int], last: torch.Tensor,
                 temps: np.ndarray, topps: np.ndarray) -> torch.Tensor:
@@ -459,35 +501,40 @@ class DecodeEngine:
         """Admit prefix-cache hits (same suffix bucket) with one
         `_unpark_admit`; the batch pads to a pow-2 row count by repeating
         row 0, as `_admit_group` does. `hits` is [(req, park_idx), ...]."""
-        nb = len(hits)
-        nbp = _bucket(nb, lo=1)
-        ids = np.zeros((nbp, bucket), np.int64)
-        mask = np.zeros((nbp, bucket), np.int64)
-        pos0 = np.zeros((nbp,), np.int64)
-        pslots = np.zeros((nbp,), np.int64)
-        for i, (req, pidx) in enumerate(hits):
-            meta = self._park_meta[pidx]
-            suffix = req.ids[len(meta["ids"]):]
-            ids[i, :len(suffix)] = suffix
-            mask[i, :len(suffix)] = 1
-            pos0[i] = meta["len"]
-            pslots[i] = pidx
-        ids[nb:] = ids[0]
-        mask[nb:] = mask[0]
-        pos0[nb:] = pos0[0]
-        pslots[nb:] = pslots[0]
-        slots = [self._free.pop() for _ in hits]
-        temps = np.asarray([r.temperature for r, _ in hits], np.float32)
-        topps = np.asarray([r.top_p for r, _ in hits], np.float32)
-        toks = self._unpark_admit(pslots, pos0, ids, mask, slots, temps,
-                                  topps)
-        for (req, pidx), slot in zip(hits, slots):
-            meta = self._park_meta[pidx]
-            req.slot = slot
-            req.base_len = meta["len"] + len(req.ids) - len(meta["ids"])
-            self._live[slot] = req
-            self._prefix_hits += 1
-        self._emit_admission(toks, [req for req, _ in hits])
+        reqs = [req for req, _ in hits]
+        with spans.span("engine.admit_group", rows=len(reqs), bucket=bucket,
+                        image=False, rids=[r.rid for r in reqs]):
+            work = self._launch_group(reqs)
+            nb = len(hits)
+            nbp = _bucket(nb, lo=1)
+            ids = np.zeros((nbp, bucket), np.int64)
+            mask = np.zeros((nbp, bucket), np.int64)
+            pos0 = np.zeros((nbp,), np.int64)
+            pslots = np.zeros((nbp,), np.int64)
+            for i, (req, pidx) in enumerate(hits):
+                meta = self._park_meta[pidx]
+                suffix = req.ids[len(meta["ids"]):]
+                ids[i, :len(suffix)] = suffix
+                mask[i, :len(suffix)] = 1
+                pos0[i] = meta["len"]
+                pslots[i] = pidx
+            ids[nb:] = ids[0]
+            mask[nb:] = mask[0]
+            pos0[nb:] = pos0[0]
+            pslots[nb:] = pslots[0]
+            slots = [self._free.pop() for _ in hits]
+            temps = np.asarray([r.temperature for r in reqs], np.float32)
+            topps = np.asarray([r.top_p for r in reqs], np.float32)
+            toks = self._unpark_admit(pslots, pos0, ids, mask, slots, temps,
+                                      topps)
+            self._landed(work)
+            for (req, pidx), slot in zip(hits, slots):
+                meta = self._park_meta[pidx]
+                req.slot = slot
+                req.base_len = meta["len"] + len(req.ids) - len(meta["ids"])
+                self._live[slot] = req
+                self._prefix_hits += 1
+            self._emit_admission(toks, reqs)
 
     def _park_row(self, req: _Request):
         """Queue a retiring slot's row for prefix reuse; `_flush_parks`
@@ -577,24 +624,29 @@ class DecodeEngine:
             self._pf_state = None
             return
         C = self._pf_chunk_n
-        chunk = req.ids[st["cursor"]: st["cursor"] + C]
-        ids = np.zeros((1, C), np.int64)
-        mask = np.zeros((1, C), np.int64)
-        ids[0, :len(chunk)] = chunk
-        mask[0, :len(chunk)] = 1
-        last = self._chunk_prefill(ids, mask)
-        st["cursor"] += len(chunk)
-        if st["cursor"] < len(req.ids):
-            return
-        slot = st["slot"]
-        toks = self._insert(self._stage, [slot], last,
-                            np.asarray([req.temperature], np.float32),
-                            np.asarray([req.top_p], np.float32))
-        req.slot = slot
-        req.base_len = len(req.ids)
-        self._live[slot] = req
-        self._pf_state = None
-        self._emit_admission(toks, [req])
+        with spans.span("engine.admit_group", rows=1, bucket=C, image=False,
+                        rids=[req.rid]):
+            work = self._launch_group([req])
+            chunk = req.ids[st["cursor"]: st["cursor"] + C]
+            ids = np.zeros((1, C), np.int64)
+            mask = np.zeros((1, C), np.int64)
+            ids[0, :len(chunk)] = chunk
+            mask[0, :len(chunk)] = 1
+            last = self._chunk_prefill(ids, mask)
+            st["cursor"] += len(chunk)
+            if st["cursor"] < len(req.ids):
+                self._landed(work)
+                return
+            slot = st["slot"]
+            toks = self._insert(self._stage, [slot], last,
+                                np.asarray([req.temperature], np.float32),
+                                np.asarray([req.top_p], np.float32))
+            self._landed(work)
+            req.slot = slot
+            req.base_len = len(req.ids)
+            self._live[slot] = req
+            self._pf_state = None
+            self._emit_admission(toks, [req])
 
     def _has_pending(self) -> bool:
         if self._mesh is not None:
@@ -688,6 +740,8 @@ class DecodeEngine:
         req.produced += 1
         self._tokens_emitted += 1
         req.emitted.append(token)
+        if req.produced == 1 and req.rec is not None:
+            req.rec.first = time.perf_counter()
         req.out.put(token)
         if token in req.eos_ids or req.produced >= req.max_new_tokens:
             if self._park_n and req.base_len >= 0:
@@ -756,8 +810,6 @@ class DecodeEngine:
                     except queue.Empty:
                         break
             for req in new:
-                req.rid = self._next_rid
-                self._next_rid += 1
                 self._known[req.rid] = req
             msg = {"new": [(r.rid, r.ids, r.pixel_values, r.max_new_tokens,
                             r.temperature, r.top_p, tuple(r.eos_ids))
@@ -819,16 +871,24 @@ class DecodeEngine:
         admit pending requests, prefill one chunk of a long prompt, then
         one batched step (a verify step when spec_k > 0, the bandit
         allows it and some slot has a draft). Called only from the engine
-        thread, or from tests with run_thread=False."""
+        thread, or from tests with run_thread=False. Its parts are spans
+        (`utils.spans`) under `engine.tick`: `engine.admit` (one
+        `engine.admit_group` per prefill group or chunk), `engine.step`,
+        `engine.drain` (with `engine.wait_device`) and `engine.idle`."""
+        with spans.span("engine.tick"):
+            self._tick_parts()
+
+    def _tick_parts(self):
         if self._mesh is not None and self._sync():
             return
         if self._park_n:
             self._flush_parks()   # before _admit can reuse source slots
-        self._admit()
-        if self._pf_chunk_n:
-            self._pf_start()
-            if self._pf_state is not None:
-                self._pf_step()      # one chunk per tick
+        with spans.span("engine.admit"):
+            self._admit()
+            if self._pf_chunk_n:
+                self._pf_start()
+                if self._pf_state is not None:
+                    self._pf_step()      # one chunk per tick
         if not self._live:
             # pipelined calls issued before the last retirement may still
             # hold undelivered tokens: flush before idling
@@ -836,7 +896,8 @@ class DecodeEngine:
             if self._pf_state is None and not self._pf_queue:
                 self._idle.set()
                 if self._lead:
-                    self._woken.wait(timeout=0.05)
+                    with spans.span("engine.idle"):
+                        self._woken.wait(timeout=0.05)
                     self._woken.clear()
             return
         nucleus = any(self._topps[r.slot] < 1.0 and self._temps[r.slot] > 0
@@ -856,7 +917,10 @@ class DecodeEngine:
                 self._spec_record("verify", self._tokens_emitted - before,
                                   t0)
                 return
-        toks = self._step("step", nucleus)
+        with spans.span("engine.step", kind="step"):
+            work = self._launch_step()
+            toks = self._step("step", nucleus)
+            self._landed(work)
         before = self._tokens_emitted
         self._inflight.append((*self._to_host(toks), dict(self._live)))
         if len(self._inflight) >= self._pipeline_depth:
@@ -925,11 +989,12 @@ class DecodeEngine:
         requests that were live when it was ISSUED (retired-then-reused
         slots must not receive the old sequence's tokens: _emit's done
         guard drops the retirees)."""
-        host, ev, snap = self._inflight.pop(0)
-        toks = self._read(host, ev)               # [rows, k]
-        for k in range(toks.shape[1]):
-            for row, req in snap.items():
-                self._emit(req, int(toks[row, k]))
+        with spans.span("engine.drain"):
+            host, ev, snap = self._inflight.pop(0)
+            toks = self._read(host, ev)               # [rows, k]
+            for k in range(toks.shape[1]):
+                for row, req in snap.items():
+                    self._emit(req, int(toks[row, k]))
 
     def _drain_all(self):
         while self._inflight:
@@ -1000,16 +1065,20 @@ class DecodeEngine:
         over [cur, k drafts] (`_verify`) and emit the accepted run per
         slot."""
         copy_from_host(self._drafts_dev, drafts)
-        toks, n_acc = self._step("spec", nucleus)
-        toks = self._read(*self._to_host(toks))            # [n_slots, 1+k]
-        n_acc = self._read(*self._to_host(n_acc))
-        self._spec_calls += 1
-        before = self._tokens_emitted
-        for slot, req in list(self._live.items()):
-            self._spec_accepted += int(n_acc[slot])
-            for i in range(int(n_acc[slot]) + 1):
-                self._emit(req, int(toks[slot, i]))
-        self._spec_tokens += self._tokens_emitted - before
+        with spans.span("engine.step", kind="spec"):
+            work = self._launch_step()
+            toks, n_acc = self._step("spec", nucleus)
+            self._landed(work)
+        with spans.span("engine.drain"):
+            toks = self._read(*self._to_host(toks))        # [n_slots, 1+k]
+            n_acc = self._read(*self._to_host(n_acc))
+            self._spec_calls += 1
+            before = self._tokens_emitted
+            for slot, req in list(self._live.items()):
+                self._spec_accepted += int(n_acc[slot])
+                for i in range(int(n_acc[slot]) + 1):
+                    self._emit(req, int(toks[slot, i]))
+            self._spec_tokens += self._tokens_emitted - before
 
     # -- public API --------------------------------------------------------
 
@@ -1033,11 +1102,13 @@ class DecodeEngine:
                 f"image(s) x {p_img} tokens) + max_new {max_new_tokens} "
                 f"(+ spec_k {self._spec_k}) exceeds engine max_len "
                 f"{self.max_len}")
+        rid = next(self._rids)
         req = _Request(ids=np.asarray(ids, np.int32),
                        pixel_values=pixel_values,
                        max_new_tokens=max_new_tokens,
                        temperature=temperature, top_p=top_p,
-                       eos_ids=frozenset(eos_ids or []))
+                       eos_ids=frozenset(eos_ids or []), rid=rid,
+                       rec=spans.request(rid))
         self._requests.put(req)
         self._woken.set()
         return req
@@ -1114,7 +1185,8 @@ class DecodeEngine:
           `image_shapes`.
 
         Afterwards draft_fn and spec_adaptive are restored, the park slots
-        cleared and stats() reset, so telemetry counts real traffic only.
+        cleared and stats()'s counters reset, so telemetry counts real
+        traffic only.
         Returns {"programs": [...], "seconds": float, "captured": {...}}:
         the paths under the program names of the JAX engine's warmup, and
         the captured step programs by JAX's names with each capture's
@@ -1265,7 +1337,8 @@ class DecodeEngine:
             self._arm_streak = ("verify", 0)
             self._spec_suppressed_ticks = 0
             self._tokens_emitted = 0
-            self._started = time.monotonic()
+            self._ticks = self._admit_groups = self._prefill_rows = 0
+            self._queue_wait_s = 0.0
         return {"programs": programs,
                 "seconds": round(time.monotonic() - t0, 3),
                 "captured": {name: {"seconds": round(p.seconds, 3),
@@ -1273,17 +1346,21 @@ class DecodeEngine:
                              for name, p in self._programs.items()}}
 
     def stats(self) -> dict:
-        """Slot and throughput telemetry, merged into /worker_get_status
-        (the keys of the JAX engine's stats)."""
-        elapsed = max(time.monotonic() - self._started, 1e-9)
+        """Slot and token telemetry, merged into /worker_get_status: the
+        keys of the JAX engine's stats less its lifetime token rate (a
+        rate comes from two samples of `engine_tokens_emitted`), and the
+        counters of decode step launches, admission groups, their prefill
+        rows and the summed submit -> admission wait of the requests."""
         out = {
             "engine_slots_live": len(self._live),
             "engine_slots_free": len(self._free),
             "engine_queued": self._requests.qsize(),
             "engine_tokens_emitted": self._tokens_emitted,
-            "engine_tokens_per_sec_lifetime": round(
-                self._tokens_emitted / elapsed, 2),
             "engine_prefix_cache_hits": self._prefix_hits,
+            "engine_ticks": self._ticks,
+            "engine_admit_groups": self._admit_groups,
+            "engine_prefill_rows": self._prefill_rows,
+            "engine_queue_wait_s": self._queue_wait_s,
         }
         if self._pf_chunk_n:
             out["engine_chunked_prefill_queued"] = (

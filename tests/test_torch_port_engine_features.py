@@ -118,11 +118,45 @@ def _repetitive_traffic(seed=33):
             for _ in range(3)]
 
 
-def _stats(engine):
-    """stats() without the wall-clock rate."""
-    st = engine.stats()
-    st.pop("engine_tokens_per_sec_lifetime")
-    return st
+# the port's own stats() counters, beside the JAX engine's keys
+COUNTERS = ("engine_ticks", "engine_admit_groups", "engine_prefill_rows",
+            "engine_queue_wait_s")
+
+
+def _same_stats(te, je):
+    """The port's stats() equal the JAX engine's over every key JAX
+    reports but its wall-clock rate, which the port does not report; the
+    port adds only its counters."""
+    want, got = je.stats(), te.stats()
+    want.pop("engine_tokens_per_sec_lifetime")
+    assert "engine_tokens_per_sec_lifetime" not in got
+    assert {k: got[k] for k in want} == want
+    assert set(got) - set(want) == set(COUNTERS)
+
+
+def _counted(engine):
+    """Counts of the port engine's decode steps, admission groups and
+    their rows, taken around the methods that run them (a group, a
+    prefix-cache group, a prefill chunk)."""
+    n = {"engine_ticks": 0, "engine_admit_groups": 0,
+         "engine_prefill_rows": 0}
+
+    def around(name, rows=None):
+        fn = getattr(engine, name)
+
+        def wrapped(*a):
+            if rows is None:
+                n["engine_ticks"] += 1
+            else:
+                n["engine_admit_groups"] += 1
+                n["engine_prefill_rows"] += rows(a)
+            return fn(*a)
+        setattr(engine, name, wrapped)
+    around("_step")
+    around("_admit_group", lambda a: len(a[1]))
+    around("_admit_reused_group", lambda a: len(a[1]))
+    around("_chunk_prefill", lambda a: 1)
+    return n
 
 
 CASES = {
@@ -161,6 +195,7 @@ def test_engine_features_match_jax_tick_by_tick(request, case):
                                         run_thread=False, **opts),
                    tengine.DecodeEngine(model, n_slots=2, max_len=96,
                                         run_thread=False, **opts))
+    counted = _counted(engines[1])
     if traffic == "multiturn":
         want, got = (_multiturn(e) for e in engines)
     else:
@@ -169,8 +204,13 @@ def test_engine_features_match_jax_tick_by_tick(request, case):
         want, got = (_drive(e, reqs) for e in engines)
     je, te = engines
     assert got == want
-    assert _stats(te) == _stats(je)
+    _same_stats(te, je)
     st = te.stats()
+    assert {k: st[k] for k in counted} == counted
+    assert counted["engine_ticks"] > 0
+    assert counted["engine_prefill_rows"] >= counted[
+        "engine_admit_groups"] > 0
+    assert st["engine_queue_wait_s"] >= 0.0
     if traffic == "multiturn":
         assert st["engine_prefix_cache_hits"] == 2
     if opts.get("prefill_chunk"):
@@ -476,8 +516,9 @@ def test_warmup_programs_match_jax(tiny_engine_model):
     assert got["programs"] == want["programs"]
     assert "chunked_prefill[32]" in got["programs"]
     assert "park+unpark x2" in got["programs"]
-    assert _stats(te) == _stats(je)
+    _same_stats(te, je)
     st = te.stats()
+    assert all(st[k] == 0 for k in COUNTERS)
     assert st["engine_tokens_emitted"] == 0
     assert st["engine_prefix_cache_hits"] == 0
     assert st["engine_spec_verify_calls"] == 0
